@@ -1,0 +1,262 @@
+"""Normal-map generation, method "cm": SAMG smoothing-area map + CM normals.
+
+PyTorch counterpart of the JAX package's ops/normals.py (NormalEstimation/
+{SmoothingAreaMapGenerator,NormalMapGenerator} in the reference).  Vertices
+are in METRES here (NormalMapGenerator.cu:505-511 divides the mm point map
+by 1000 on entry).  The documented spec decisions are the JAX package's:
+the gather form of the depth-change map with a clamped x = w-1 read, the
+bounded min-plus chamfer relaxation, per-query-centred direct covariance
+accumulation, the closed-form eigensolver, and the (-1, -1, -1) sentinel.
+
+The chamfer DT runs in ops/cuda_dt.py and the covariance sweep in
+ops/cuda_cov.py (CUDA kernels on the card, their plain versions on the
+CPU).  Methods "sdc" and "bilateral" are not ported yet and raise.
+
+Image tensors carry a leading batch dimension: [B, H, W, ...].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from kinectdepthmapenhancement_tpu_torch.core.config import NormalParams
+from kinectdepthmapenhancement_tpu_torch.ops import cuda_cov, cuda_dt, stencil
+
+BAD = -1.0
+FLT_EPSILON = 1.19209290e-07
+
+# ------------------------------------------------------------------- SAMG
+
+
+def dci_map(vertices_m: torch.Tensor, max_depth_change: float) -> torch.Tensor:
+    """Depth-change indication map: 0 at discontinuities, 255 elsewhere (i32)."""
+    z = vertices_m[..., 2]
+    b, h, w = z.shape
+    z_r = torch.cat([z[:, :, 1:], z[:, :, -1:]], dim=2)
+    z_d = torch.cat([z[:, 1:, :], z[:, -1:, :]], dim=1)
+    thr = max_depth_change * (z.abs() + 1.0) * 2.0
+    horiz = ((z - z_r).abs() > thr) | (z == 0.0) | (z_r == 0.0)
+    vert = ((z - z_d).abs() > thr) | (z == 0.0) | (z_d == 0.0)
+    # the left neighbour's horizontal test also zeroes p; the up neighbour's vertical
+    horiz_from_left = torch.cat(
+        [torch.zeros((b, h, 1), dtype=torch.bool, device=z.device), horiz[:, :, :-1]], dim=2
+    )
+    vert_from_up = torch.cat(
+        [torch.zeros((b, 1, w), dtype=torch.bool, device=z.device), vert[:, :-1, :]], dim=1
+    )
+    zero = horiz | vert | horiz_from_left | vert_from_up
+    return torch.where(zero, 0, 255).to(torch.int32)
+
+
+def distance_transform(dci: torch.Tensor, iterations: int) -> torch.Tensor:
+    """Chamfer (3x3, weights 1/1.4) distance to the nearest dci == 0 pixel,
+    by `iterations` rounds of min-plus relaxation (ops/cuda_dt.py)."""
+    return cuda_dt.distance_transform(dci.contiguous(), iterations)
+
+
+def smoothing_map(vertices_m: torch.Tensor, p: NormalParams) -> torch.Tensor:
+    """Final smoothing-area map = min(DT, size + z/10)  [pixels]."""
+    dci = dci_map(vertices_m, p.max_depth_change_factor)
+    dt = distance_transform(dci, p.dt_iterations)
+    ddsa = p.normal_smoothing_size + vertices_m[..., 2] / 10.0
+    return torch.minimum(dt, ddsa)
+
+
+# -------------------------------------------------------------- eigensolver
+
+
+def _compute_roots(m00, m01, m02, m11, m12, m22):
+    """Eigenvalues of the symmetric 3x3, ascending; computeRoots
+    (NormalMapGenerator.cu:145-191) vectorised.  Returns (r0, r1, r2)."""
+    c0 = (
+        m00 * m11 * m22
+        + 2.0 * m01 * m02 * m12
+        - m00 * m12 * m12
+        - m11 * m02 * m02
+        - m22 * m01 * m01
+    )
+    c1 = m00 * m11 - m01 * m01 + m00 * m22 - m02 * m02 + m11 * m22 - m12 * m12
+    c2 = m00 + m11 + m22
+
+    # quadratic fallback (computeRoots2): roots (0, (c2-sd)/2, (c2+sd)/2)
+    d = torch.clamp_min(c2 * c2 - 4.0 * c1, 0.0)
+    sd = torch.sqrt(d)
+    q0 = torch.zeros_like(c2)
+    q1 = 0.5 * (c2 - sd)
+    q2 = 0.5 * (c2 + sd)
+
+    s_inv3 = 1.0 / 3.0
+    s_sqrt3 = math.sqrt(3.0)
+    c2_over_3 = c2 * s_inv3
+    a_over_3 = torch.clamp_max((c1 - c2 * c2_over_3) * s_inv3, 0.0)
+    half_b = 0.5 * (c0 + c2_over_3 * (2.0 * c2_over_3 * c2_over_3 - c1))
+    q = torch.clamp_max(half_b * half_b + a_over_3 * a_over_3 * a_over_3, 0.0)
+    rho = torch.sqrt(-a_over_3)
+    theta = torch.atan2(torch.sqrt(-q), half_b) * s_inv3
+    cos_t = torch.cos(theta)
+    sin_t = torch.sin(theta)
+    e0 = c2_over_3 + 2.0 * rho * cos_t
+    e1 = c2_over_3 - rho * (cos_t + s_sqrt3 * sin_t)
+    e2 = c2_over_3 - rho * (cos_t - s_sqrt3 * sin_t)
+    # the reference's swap sequence sorts ascending
+    lo = torch.minimum(torch.minimum(e0, e1), e2)
+    hi = torch.maximum(torch.maximum(e0, e1), e2)
+    mid = e0 + e1 + e2 - lo - hi
+
+    use_quad = (c0.abs() < FLT_EPSILON) | (lo <= 0.0)
+    r0 = torch.where(use_quad, q0, lo)
+    r1 = torch.where(use_quad, q1, mid)
+    r2 = torch.where(use_quad, q2, hi)
+    return r0, r1, r2
+
+
+def smallest_eigenvector(cov: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(eigenvalue, eigenvector) of the smallest eigenvalue of symmetric 3x3
+    covariances cov[..., 3, 3]; computeEigenValueAndVector
+    (NormalMapGenerator.cu:193-242): scale by max |entry|, solve the cubic,
+    take the longest cross product of rows of (M - lambda I)."""
+    m00 = cov[..., 0, 0]
+    m01 = cov[..., 0, 1]
+    m02 = cov[..., 0, 2]
+    m11 = cov[..., 1, 1]
+    m12 = cov[..., 1, 2]
+    m22 = cov[..., 2, 2]
+    scale = torch.stack(
+        [m00.abs(), m01.abs(), m02.abs(), m11.abs(), m12.abs(), m22.abs()], dim=-1
+    ).amax(dim=-1)
+    tiny = 1e-300 if scale.dtype == torch.float64 else 1e-37
+    scale = torch.where(scale <= tiny, torch.ones_like(scale), scale)
+    s00, s01, s02 = m00 / scale, m01 / scale, m02 / scale
+    s11, s12, s22 = m11 / scale, m12 / scale, m22 / scale
+
+    r0, _, _ = _compute_roots(s00, s01, s02, s11, s12, s22)
+    eigenvalue = r0 * scale
+
+    a00 = s00 - r0
+    a11 = s11 - r0
+    a22 = s22 - r0
+    # rows of (M - lambda I): (a00, s01, s02), (s01, a11, s12), (s02, s12, a22)
+    v1 = torch.stack(
+        [s01 * s12 - s02 * a11, s02 * s01 - a00 * s12, a00 * a11 - s01 * s01], dim=-1
+    )
+    v2 = torch.stack(
+        [s01 * a22 - s02 * s12, s02 * s02 - a00 * a22, a00 * s12 - s01 * s02], dim=-1
+    )
+    v3 = torch.stack(
+        [a11 * a22 - s12 * s12, s12 * s02 - s01 * a22, s01 * s12 - a11 * s02], dim=-1
+    )
+    l1 = stencil.dot3(v1, v1)
+    l2 = stencil.dot3(v2, v2)
+    l3 = stencil.dot3(v3, v3)
+    use1 = (l1 >= l2) & (l1 >= l3)
+    use2 = (~use1) & (l2 >= l3)
+    vec = torch.where(use1[..., None], v1, torch.where(use2[..., None], v2, v3))
+    ln = torch.sqrt(torch.where(use1, l1, torch.where(use2, l2, l3)))
+    vec = vec / torch.clamp_min(ln, 1e-30)[..., None]
+    return eigenvalue, vec
+
+
+# ------------------------------------------------------------------ normals
+
+
+def _cross_product_normal(vertices_m: torch.Tensor):
+    """Shared 1-pixel cross-product core of computeRestNormal.
+
+    Returns (n [B,H,W,3] normalised by -|n| where |n| > 0, else the raw
+    cross), d_h, d_v.  The +-1 neighbour step is a select between the two
+    edge-clamped shifted images."""
+    _, h, w, _ = vertices_m.shape
+    vpad = stencil.pad_channels_last(vertices_m, 1, "replicate")
+    p_r = vpad[:, 1 : 1 + h, 2 : 2 + w]
+    p_l = vpad[:, 1 : 1 + h, 0:w]
+    p_d = vpad[:, 2 : 2 + h, 1 : 1 + w]
+    p_u = vpad[:, 0:h, 1 : 1 + w]
+    step_neg = (p_r[..., 2] == 0.0)[..., None]
+    ph01 = torch.where(step_neg, p_l, p_r)
+    pv01 = torch.where(step_neg, p_u, p_d)
+    p0 = vertices_m
+    v_h = ph01 - p0
+    v_v = pv01 - p0
+    nx = v_h[..., 2] * v_v[..., 1] - v_h[..., 1] * v_v[..., 2]
+    ny = -(v_h[..., 0] * v_v[..., 2] - v_h[..., 2] * v_v[..., 0])
+    nz = v_h[..., 1] * v_v[..., 0] - v_h[..., 0] * v_v[..., 1]
+    n = torch.stack([nx, ny, nz], dim=-1)
+    norm = torch.sqrt(stencil.dot3(n, n))
+    pos = norm > 0.0
+    n = torch.where(pos[..., None], n / torch.where(pos, -norm, torch.ones_like(norm))[..., None], n)
+    d_h = torch.sqrt(stencil.dot3(v_h, v_h))
+    d_v = torch.sqrt(stencil.dot3(v_v, v_v))
+    return n, d_h, d_v
+
+
+def _final_flip(normal: torch.Tensor) -> torch.Tensor:
+    """(-x, y, -z) for every pixel with any component != -1
+    (computeRestNormal tail, NormalMapGenerator.cu:347-353)."""
+    valid = (normal != BAD).any(dim=-1)
+    sign = torch.tensor([-1.0, 1.0, -1.0], dtype=normal.dtype, device=normal.device)
+    return torch.where(valid[..., None], normal * sign, normal)
+
+
+def _rest_normals(normal: torch.Tensor, vertices_m: torch.Tensor) -> torch.Tensor:
+    """computeRestNormal fill-in for pixels that are exactly (-1,-1,-1),
+    then the final sign flip for all valid pixels."""
+    n, d_h, d_v = _cross_product_normal(vertices_m)
+    z = vertices_m[..., 2]
+    take = (z != 0.0) & (d_h < z * 0.01) & (d_v < z * 0.01)
+    is_bad = (normal == BAD).all(dim=-1)
+    filled = torch.where((is_bad & take)[..., None], n, normal)
+    return _final_flip(filled)
+
+
+def cm_normals(
+    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int
+) -> torch.Tensor:
+    """computeNormalCM_GPU (NormalMapGenerator.cu:244-302): per-pixel
+    covariance at the pixel's own window size (ops/cuda_cov.py), smallest
+    eigenvector, reference sign convention, invalid border."""
+    _, h, w = smoothing.shape
+    dev = smoothing.device
+    v = torch.arange(h, device=dev)[:, None]
+    u = torch.arange(w, device=dev)[None, :]
+    in_border = (u <= border) | (u >= w - border) | (v <= border) | (v >= h - border)
+
+    rect = smoothing.to(torch.int32)
+    cont, ent = cuda_cov.cm_covariances(vertices_m.contiguous(), rect.contiguous())
+    c_xx, c_xy, c_xz = ent[..., 0], ent[..., 1], ent[..., 2]
+    c_yy, c_yz, c_zz = ent[..., 3], ent[..., 4], ent[..., 5]
+    cov = torch.stack(
+        [
+            torch.stack([c_xx, c_xy, c_xz], -1),
+            torch.stack([c_xy, c_yy, c_yz], -1),
+            torch.stack([c_xz, c_yz, c_zz], -1),
+        ],
+        dim=-2,
+    )
+    _, vec = smallest_eigenvector(cov)
+    ez_neg = vec[..., 2] < 0.0
+    flip_y = torch.tensor([1.0, -1.0, 1.0], dtype=vec.dtype, device=dev)
+    stored = torch.where(ez_neg[..., None], vec * flip_y, vec * -flip_y)
+    bad = in_border | (smoothing <= 2.0) | (cont == 0)
+    return torch.where(bad[..., None], torch.full_like(stored, BAD), stored)
+
+
+def generate_normal_map(
+    points_mm: torch.Tensor, p: NormalParams = NormalParams()
+) -> torch.Tensor:
+    """NormalMapGenerator::generateNormalMap (cu:513-524), method "cm":
+    mm -> m, smoothing map, CM normals, fill + flip.
+
+    points_mm: [B, H, W, 3] real-world points in millimetres.
+    Returns normals [B, H, W, 3] with the (-1,-1,-1) invalid sentinel."""
+    if p.method in ("sdc", "bilateral"):
+        raise NotImplementedError(f"normal method {p.method!r} is not ported yet")
+    if p.method != "cm":
+        raise ValueError(f"unknown normal method {p.method!r}")
+    vm = points_mm / 1000.0
+    border = int(p.normal_smoothing_size)
+    smooth = smoothing_map(vm, p)
+    raw = cm_normals(vm, smooth, border)
+    return _rest_normals(raw, vm)
