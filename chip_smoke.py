@@ -12,15 +12,23 @@ Phases (each prints its results; any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the 640x480 KDE path, B=1 and B=4, to its bar (JBF max |d|
      <= 1e-3 mm; chamfer DT, covariance sweep and seed gradient bitwise,
-     the seeds identical); time both with CUDA events;
-  4. drive kde_pipeline at 640x480 (B=1, then B=4) from
+     the seeds identical; NASP assignment labels and distance and the
+     label-cell gather bitwise, the NASP sums with integer-valued features
+     exact and the rest within 1e-5 of the sum of their terms' magnitudes);
+     time kernel, plain version and, where one PyTorch call computes
+     (nearly) the same function, that call, with CUDA events; print each
+     kernel's bound (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
+  4. drive kde_pipeline(KDEConfig()) at 640x480 (B=1, then B=4) from
      make_noisy_scene(480, 640); check finite outputs, that every kernel
-     counter went up, and identical labels on a second run; print the
-     median ms per frame;
+     counter went up, and bitwise-identical outputs on a second run; hold
+     the kernel route (stats_impl="auto") against the plain route ("xla")
+     at B=4; print the median ms per frame of both routes and the
+     profile of the kernel route by stage;
   5. run kde_pipeline at 96x128 (grid 3x4) and hold it against the golden
      oracle fixtures tests/golden/kde_oracle_96x128_seed0{,_refexact}.npz
      with the thresholds of tests/test_oracle_pipeline.py;
-  6. print the kernels JSON line, then {"ok": true, "device": ...} last.
+  6. print the kernels JSON line (one entry per TPU kernel of the repo),
+     then {"ok": true, "device": ...} last.
 
 Kernels are built under build/kernels/ (listed in .gitignore).
 """
@@ -35,8 +43,26 @@ import sys
 import time
 
 
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
+# bandwidth and f32 outside the tensor cores.  The f32 rate counts an FMA
+# as two operations; the kernels are built with -fmad=false and issue
+# separate adds and muls, at half that rate, but the same work could be
+# done with FMAs, so the bound uses the published rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound_ms(nbytes: float, ops: float):
+    """The least time the card could take: each input read and each output
+    written once at the memory rate, or the operations at the f32 rate,
+    whichever is longer.  Returns (ms, "bytes" | "operations")."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> int:
@@ -56,7 +82,7 @@ def main() -> int:
     from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
     from kinectdepthmapenhancement_tpu_torch.ops import (
-        bilateral, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, normals, slic,
+        bilateral, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals, slic,
     )
     from kinectdepthmapenhancement_tpu_torch.utils import golden
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
@@ -86,6 +112,12 @@ def main() -> int:
     h, w = 480, 640
     intr = default_kinect_intrinsics(w, h)
     cfg = KDEConfig()
+    grid, nasp_p = cfg.grid, cfg.nasp
+    cell = dict(rows=grid.rows, cols=grid.cols, r=4)
+    ws_x, ws_y = w // grid.cols, h // grid.rows
+    s_scale = (ws_x + ws_y) / 2.0
+    rp = ws_x * 2 // 16 + 1
+    lo, hi = -8 * rp, 8 * rp - 1  # the NASP update window (slic.segment)
     scenes = [make_noisy_scene(h, w, intr, seed=s) for s in range(4)]
     color4 = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
     depth4 = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
@@ -97,52 +129,195 @@ def main() -> int:
             depth, guide, window=p.window, spatial_sigma=p.spatial_sigma,
             color_sigma=p.color_sigma, depth_sigma=p.depth_sigma,
         )
-        points = projective_to_real(jbf_depth, intr)
+        points = projective_to_real(jbf_depth, intr).contiguous()
         vm = (points / 1000.0).contiguous()
         dci = normals.dci_map(vm, cfg.normals.max_depth_change_factor).contiguous()
         rect = normals.smoothing_map(vm, cfg.normals).to(torch.int32).contiguous()
-        nmap = normals.generate_normal_map(points, cfg.normals)
-        color_f = color.to(torch.float32)
-        csub = slic._subgrid_extract(color_f, cfg.grid, h, w, 8).contiguous()
-        nsub = slic._subgrid_extract(nmap, cfg.grid, h, w, 8).contiguous()
-        return dict(depth=depth.contiguous(), guide=guide, dci=dci, vm=vm, rect=rect,
-                    csub=csub, nsub=nsub)
+        nmap = normals.generate_normal_map(points, cfg.normals).contiguous()
+        color_f = color.to(torch.float32).contiguous()
+        csub = slic._subgrid_extract(color_f, grid, h, w, 8).contiguous()
+        nsub = slic._subgrid_extract(nmap, grid, h, w, 8).contiguous()
+        x = dict(depth=depth.contiguous(), guide=guide, dci=dci, vm=vm, rect=rect,
+                 csub=csub, nsub=nsub, color_f=color_f, points=points, nmap=nmap)
+        # the first NASP iteration's inputs on the plain route: seeds,
+        # candidate fields, labels, the analyze-updated cluster table
+        b = depth.shape[0]
+        seeds = slic._compute_seeds(color_f, nmap, grid, h, w, 8)
+        cl = slic.init_clusters(seeds, color, points, nmap)
+        cand, akw = slic._assign_args(cl, grid, nasp_p, s_scale)
+        labels, _, part = cuda_nasp.nasp_assign_and_analyze_plain(
+            color_f, points, nmap, cand, lo=lo, hi=hi, **akw)
+        idx = slic._CellIndex(labels, grid, 4, h, w, kernel_sums=False)
+        cl = slic._nasp_analyze_post(idx.fold(part), cl, points, h, w)
+        xy = cl.xy.to(torch.float32)
+        x.update(cand=cand, akw=akw, labels=labels,
+                 f_analyze=xy.reshape(b, grid.rows, grid.cols, 2).contiguous(),
+                 f_weighted=torch.cat([xy, cl.rgb, cl.normal], -1)
+                 .reshape(b, grid.rows, grid.cols, 8).contiguous(),
+                 table6=torch.cat([cl.center, cl.normal], -1).contiguous())
+        z = points[..., 2]
+        ok = ((z > 50.0) & (labels >= 0)).to(torch.float32)
+        x["feats2"] = torch.stack([(z * 1e-3) ** 2 * ok, ok], -1).contiguous()
+        # the sums' scales: each sum's terms summed by magnitude
+        tri = (color_f, points, nmap)
+        x["scale_assign"] = cuda_nasp.nasp_cell_sums_plain(
+            labels, *tri, cand[..., 3:5], lo=lo, hi=hi, mode="analyze", abs_terms=True, **cell)
+        for mode in ("analyze", "weighted"):
+            x[f"scale_{mode}"] = cuda_nasp.nasp_cell_sums_plain(
+                labels, *tri, x[f"f_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
+                color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell)
+        x["scale_label"] = cuda_nasp.label_cell_sums_plain(labels, x["feats2"].abs(), **cell)
+        # the library calls' inputs: a flat label index, the batch index
+        bi = torch.arange(b, device=dev)
+        x["bi"] = bi[:, None, None]
+        x["flat_label"] = (bi[:, None, None] * grid.num_clusters
+                           + labels.clamp_min(0).long()).reshape(-1)
+        return x
 
     # ---- phase 3: each kernel against its plain version on the card
     p = cfg.jbf
     jbf_kw = dict(window=p.window, spatial_sigma=p.spatial_sigma,
                   color_sigma=p.color_sigma, depth_sigma=p.depth_sigma)
     its = cfg.normals.dt_iterations
+    sums_kw = dict(lo=lo, hi=hi, color_sigma=nasp_p.color_sigma,
+                   spatial_sigma=nasp_p.spatial_sigma, **cell)
+
+    def cell_sums_args(x, mode):
+        return (x["labels"], x["color_f"], x["points"], x["nmap"], x[f"f_{mode}"])
+
+    def sums_ok(mode, scale):
+        ints = cuda_nasp.INTEGER_FEATURES.get(mode, ())
+        return lambda got, want, x: cuda_nasp.sums_close(got[-1], want[-1], x[scale], ints)
+
+    def npx(t):
+        return t.shape[0] * t.shape[1] * t.shape[2]
+
+    def cov_taps(rect):  # taps the selected window needs: min(rect, 21)^2, none below 2
+        r = rect.clamp(max=21).to(torch.float64)
+        return float(torch.where(rect >= 2, r * r, torch.zeros_like(r)).sum())
+
+    def labeled(x):  # pixels with a label: the ones whose features the NASP sums form
+        return int((x["labels"] >= 0).sum())
+
+    # in-grid candidates of each cell; an out-of-grid one costs one compare
+    n_in = (cuda_nasp.cand_grid(grid.rows, grid.cols, cuda_nasp.candidate_offsets(4), dev)
+            >= 0).sum(-1).to(torch.float64)
+    n_cand = 64
+
+    def assign_ops(x):
+        """Kernel 5: per pixel and in-grid candidate 33 (colour 8, pixel 7,
+        depth 2, weighting 7, normal dot 5, normal term 3, the running
+        argmin's compare 1), per out-of-grid one 1; per pixel 5 (its depth
+        and normal validity, the invalid-depth override); per cell and
+        in-grid candidate 4 (the candidate's depth and normal validity);
+        per labeled pixel the analyze features 16 and their 13 sums."""
+        b = x["color_f"].shape[0]
+        per_cell = ws_x * ws_y * (33 * n_in + (n_cand - n_in)) + 4 * n_in
+        return b * float(per_cell.sum()) + 5 * npx(x["color_f"]) + 29 * labeled(x)
+
+    # operations per call, one per f32 add / mul / sub / div / compare /
+    # min / sqrt / exp, counted from each plain version's loop body
     kernels = {
         "jbf": dict(
             module=cuda_bilateral, bar="max |d| <= 1e-3 mm",
             run=lambda x: cuda_bilateral.jbf(x["depth"], x["guide"], **jbf_kw),
             plain=lambda x: cuda_bilateral.jbf_plain(x["depth"], x["guide"], **jbf_kw),
+            ok=lambda got, want, x: float((got[0] - want[0]).abs().max()) <= 1e-3,
+            inputs=lambda x: [x["depth"], x["guide"]],
+            ops=lambda x: npx(x["depth"]) * 25 * (17 + 25),
             shape=lambda x: tuple(x["depth"].shape)),
         "chamfer_dt": dict(
             module=cuda_dt, bar="bitwise",
             run=lambda x: cuda_dt.distance_transform(x["dci"], its),
             plain=lambda x: cuda_dt.distance_transform_plain(x["dci"], its),
+            inputs=lambda x: [x["dci"]],
+            ops=lambda x: npx(x["dci"]) * its * 8 * 2,
             shape=lambda x: tuple(x["dci"].shape)),
         "cm_covariance": dict(
             module=cuda_cov, bar="count exact, entries bitwise",
             run=lambda x: cuda_cov.cm_covariances(x["vm"], x["rect"]),
             plain=lambda x: cuda_cov.cm_covariances_plain(x["vm"], x["rect"]),
+            inputs=lambda x: [x["vm"], x["rect"]],
+            ops=lambda x: 23 * cov_taps(x["rect"]),
             shape=lambda x: tuple(x["vm"].shape)),
         "seed_gradient_nasp": dict(
-            module=cuda_gradient, bar="bitwise, seeds identical",
+            module=cuda_gradient, bar="bitwise, seeds identical", row="seed_gradient",
             run=lambda x: cuda_gradient.seed_gradient(x["csub"], x["nsub"]),
             plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub"], x["nsub"]),
+            ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(
+                slic._sample_seeds_subgrid(got[0], grid, h, w, 8),
+                slic._sample_seeds_subgrid(want[0], grid, h, w, 8)),
+            inputs=lambda x: [x["csub"], x["nsub"]],
+            ops=lambda x: npx(x["csub"]) * 121 * 20,
             shape=lambda x: tuple(x["csub"].shape)),
         "seed_gradient_color": dict(
-            module=cuda_gradient, bar="bitwise",
+            module=cuda_gradient, bar="bitwise", row="seed_gradient", secondary=True,
             run=lambda x: cuda_gradient.seed_gradient(x["csub"]),
             plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub"]),
+            inputs=lambda x: [x["csub"]],
+            ops=lambda x: npx(x["csub"]) * 121 * 12,
             shape=lambda x: tuple(x["csub"].shape)),
+        "nasp_assign_analyze": dict(
+            module=cuda_nasp, bar="labels, distance bitwise; sums: integer exact, "
+            "rest <= 1e-5 sum|terms|",
+            run=lambda x: cuda_nasp.nasp_assign_and_analyze(
+                x["color_f"], x["points"], x["nmap"], x["cand"], lo=lo, hi=hi, **x["akw"]),
+            plain=lambda x: cuda_nasp.nasp_assign_and_analyze_plain(
+                x["color_f"], x["points"], x["nmap"], x["cand"], lo=lo, hi=hi, **x["akw"]),
+            ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and sums_ok("analyze", "scale_assign")(got, want, x),
+            inputs=lambda x: [x["color_f"], x["points"], x["nmap"], x["cand"]],
+            ops=assign_ops,
+            shape=lambda x: tuple(x["color_f"].shape)),
+        "nasp_cell_sums_weighted": dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="nasp_cell_sums",
+            run=lambda x: cuda_nasp.nasp_cell_sums(
+                *cell_sums_args(x, "weighted"), mode="weighted", **sums_kw),
+            plain=lambda x: cuda_nasp.nasp_cell_sums_plain(
+                *cell_sums_args(x, "weighted"), mode="weighted", **sums_kw),
+            ok=sums_ok("weighted", "scale_weighted"),
+            inputs=lambda x: list(cell_sums_args(x, "weighted")),
+            # per labeled pixel: window 6, normal validity 3, colour
+            # weight 12, pixel weight 7, product 2, normal dot 6, accept 3,
+            # features 12, and the 14 sums
+            ops=lambda x: labeled(x) * (51 + 14),
+            shape=lambda x: tuple(x["color_f"].shape)),
+        "nasp_cell_sums_analyze": dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="nasp_cell_sums", secondary=True,
+            run=lambda x: cuda_nasp.nasp_cell_sums(
+                *cell_sums_args(x, "analyze"), mode="analyze", **sums_kw),
+            plain=lambda x: cuda_nasp.nasp_cell_sums_plain(
+                *cell_sums_args(x, "analyze"), mode="analyze", **sums_kw),
+            ok=sums_ok("analyze", "scale_analyze"),
+            inputs=lambda x: list(cell_sums_args(x, "analyze")),
+            # per labeled pixel: window 6, validity 4, features 6, 13 sums
+            ops=lambda x: labeled(x) * (16 + 13),
+            shape=lambda x: tuple(x["color_f"].shape)),
+        "label_cell_sums": dict(
+            module=cuda_nasp, bar="<= 1e-5 sum|terms|",
+            run=lambda x: cuda_nasp.label_cell_sums(x["labels"], x["feats2"], **cell),
+            plain=lambda x: cuda_nasp.label_cell_sums_plain(x["labels"], x["feats2"], **cell),
+            ok=sums_ok("label", "scale_label"),
+            # per-cluster sums in one call (the candidate fold included)
+            library=lambda x: torch.zeros(
+                (x["bi"].shape[0] * grid.num_clusters, 2), device=dev).index_add_(
+                0, x["flat_label"], x["feats2"].reshape(-1, 2)),
+            inputs=lambda x: [x["labels"], x["feats2"]],
+            ops=lambda x: npx(x["labels"]) * 2,
+            shape=lambda x: tuple(x["feats2"].shape)),
+        "label_cell_gather": dict(
+            module=cuda_nasp, bar="bitwise",
+            run=lambda x: cuda_nasp.label_cell_gather(x["labels"], x["table6"], **cell),
+            plain=lambda x: cuda_nasp.label_cell_gather_plain(x["labels"], x["table6"], **cell),
+            # table[label] by advanced indexing (no zero outside the candidates)
+            library=lambda x: x["table6"][x["bi"], x["labels"].clamp_min(0)],
+            inputs=lambda x: [x["labels"], x["table6"]],
+            ops=lambda x: 0,
+            shape=lambda x: tuple(x["labels"].shape) + (6,)),
     }
     report = {name: {"max_abs_err": 0.0} for name in kernels}
-    # one JSON entry per kernel source: the colour-only seed-gradient form is
-    # the same kernel as the NASP form, checked on the card beside it
     for bsz in (1, 4):
         x = stage_inputs(depth4[:bsz], color4[:bsz])
         torch.cuda.synchronize()
@@ -156,40 +331,45 @@ def main() -> int:
                 for a, b in zip(got, want)
             )
             bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
-            if name == "jbf":
-                ok = err <= 1e-3
-            else:
-                ok = bitwise
-            if name == "seed_gradient_nasp":
-                s_got = slic._sample_seeds_subgrid(got[0], cfg.grid, h, w, 8)
-                s_want = slic._sample_seeds_subgrid(want[0], cfg.grid, h, w, 8)
-                ok = ok and torch.equal(s_got, s_want)
+            ok = k["ok"](got, want, x) if "ok" in k else bitwise
             t_k = cuda_ms(lambda: k["run"](x), warmup=3, iters=20)
             t_p = cuda_ms(lambda: k["plain"](x), warmup=1, iters=5)
-            print(f"kernel {name:20s} shape {str(k['shape'](x)):22s} B={bsz} "
+            t_l = cuda_ms(lambda: k["library"](x), warmup=3, iters=20) if "library" in k else None
+            nbytes = sum(t.numel() * t.element_size() for t in k["inputs"](x) + list(got))
+            t_b, bound_by = bound_ms(nbytes, k["ops"](x))
+            print(f"kernel {name:24s} shape {str(k['shape'](x)):22s} B={bsz} "
                   f"max|d|={err:.3g} bitwise={bitwise} bar: {k['bar']} -> "
-                  f"{'ok' if ok else 'FAIL'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
+                  f"{'ok' if ok else 'FAIL'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+                  f"library {'none' if t_l is None else f'{t_l:.4f} ms'}  "
+                  f"bound {t_b:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{k['ops'](x) / 1e9:.3f} Gop)")
             if not ok:
                 _fail(f"kernel {name} disagrees with its plain version at B={bsz}")
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if bsz == 1:
-                r["ms"], r["plain_ms"] = t_k, t_p
-            r[f"ms_b{bsz}"], r[f"plain_ms_b{bsz}"] = t_k, t_p
+            r[f"ms_b{bsz}"], r[f"plain_ms_b{bsz}"], r[f"library_ms_b{bsz}"] = t_k, t_p, t_l
+            r[f"bound_ms_b{bsz}"], r["bound_by"] = t_b, bound_by
         del x
 
     # ---- phase 4: the main path at 640x480, single-frame and batched
-    counted = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
-    for m in counted:
+    def counts():
+        c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in (
+            cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)}
+        c.update(cuda_nasp.launches)
+        return c
+
+    for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient):
         m.launches = 0
+    for name in cuda_nasp.launches:
+        cuda_nasp.launches[name] = 0
     res1 = kde_pipeline(depth4[0], color4[0], intr, cfg)
     res4 = kde_pipeline(depth4, color4, intr, cfg)
     torch.cuda.synchronize()
-    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counted}
+    launches = counts()
     print(f"main path launches: {launches}")
     if any(n == 0 for n in launches.values()):
         _fail(f"a kernel of the main path was never launched: {launches}")
-    k_count = cfg.grid.num_clusters
+    k_count = grid.num_clusters
     for tag, res in (("B=1", res1), ("B=4", res4)):
         for field in ("optimized_points", "plane_fitted", "jbf_depth", "normals", "merged_variance"):
             if not bool(torch.isfinite(getattr(res, field)).all()):
@@ -205,18 +385,48 @@ def main() -> int:
         _fail("frame 0 labels differ between the B=1 and B=4 runs")
     again = kde_pipeline(depth4, color4, intr, cfg)
     torch.cuda.synchronize()
-    for f in ("nasp_labels", "merged_labels"):
+    for f in res4._fields:
         if not torch.equal(getattr(again, f), getattr(res4, f)):
             _fail(f"second run gave different {f}")
-    same_pts = torch.equal(again.optimized_points, res4.optimized_points)
-    print(f"determinism: labels identical on a second run; optimized points bitwise: {same_pts}")
+    print("determinism: every output bitwise identical on a second run")
+
+    # the stats routes: the kernels ("auto") against the plain route ("xla")
+    cfg_xla = dataclasses.replace(cfg, nasp=dataclasses.replace(nasp_p, stats_impl="xla"))
+    res_x = kde_pipeline(depth4, color4, intr, cfg_xla)
+    pts4 = projective_to_real(res4.jbf_depth, intr)
+    seg = {impl: slic.segment(color4, pts4, res4.normals, grid=grid,
+                              params=dataclasses.replace(nasp_p, stats_impl=impl))
+           for impl in ("auto", "xla")}
+    torch.cuda.synchronize()
+    if not torch.equal(res4.nasp_labels, res_x.nasp_labels):
+        _fail("nasp_labels differ between the kernel and the xla route")
+    if not torch.equal(seg["auto"].labels, seg["xla"].labels):
+        _fail("segment labels differ between the kernel and the xla route")
+    for f in ("size", "xy", "rgb"):
+        d = (getattr(seg["auto"].clusters, f).double()
+             - getattr(seg["xla"].clusters, f).double()).abs()
+        d = d.reshape(d.shape[0], d.shape[1], -1).amax(-1)
+        same = float((d == 0).double().mean())
+        print(f"routes: cluster {f} equal on {same:.4f} of clusters, max |d| {float(d.max()):.3g}")
+        if same < 0.99 or float(d.max()) > 1.0:
+            _fail(f"cluster {f} differs between the routes beyond the bar")
+    part, _ = golden.partition_agreement(res4.merged_labels.cpu().numpy(),
+                                         res_x.merged_labels.cpu().numpy())
+    dmm = (res4.optimized_points - res_x.optimized_points).abs().amax(-1)
+    within = float((dmm < 1.0).double().mean())
+    print(f"routes: merged-partition agreement {part:.6f} (bar > 0.995); optimized points "
+          f"within 1 mm on {within:.6f} of pixels (bar > 0.99)")
+    if not part > 0.995 or not within > 0.99:
+        _fail("the kernel route's outputs differ from the xla route's beyond the bar")
+
     frame_ms = {}
-    for bsz in (1, 4):
-        d, c = depth4[:bsz], color4[:bsz]
-        t = cuda_ms(lambda: kde_pipeline(d, c, intr, cfg), warmup=1, iters=5)
-        frame_ms[bsz] = t / bsz
-        print(f"kde_pipeline 640x480 B={bsz}: {t:.3f} ms per call, "
-              f"{frame_ms[bsz]:.3f} ms per frame (median of 5)")
+    for label, c_run in (("auto", cfg), ("xla", cfg_xla)):
+        for bsz in (1, 4):
+            d, c = depth4[:bsz], color4[:bsz]
+            t = cuda_ms(lambda: kde_pipeline(d, c, intr, c_run), warmup=1, iters=5)
+            frame_ms[(label, bsz)] = t / bsz
+            print(f"kde_pipeline 640x480 stats_impl={label} B={bsz}: {t:.3f} ms per call, "
+                  f"{t / bsz:.3f} ms per frame (median of 5)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"peak device memory: {peak:.2f} GiB")
 
@@ -248,7 +458,7 @@ def main() -> int:
                 acc[0] += ms
                 acc[1] += 1
         busy = sum(by_kernel.values())
-        call_ms = frame_ms[bsz] * bsz
+        call_ms = frame_ms[("auto", bsz)] * bsz
         print(f"profile B={bsz}: {n_kernels} kernels, device busy {busy:.3f} ms of a "
               f"{call_ms:.3f} ms call ({100.0 * busy / call_ms:.1f}% busy)")
         for name, (ms, count) in per.items():
@@ -274,22 +484,31 @@ def main() -> int:
         if golden.failures(gates):
             _fail(f"golden gates failed ({tag}): {golden.failures(gates)}")
 
-    # ---- phase 6: summary lines
+    # ---- phase 6: summary lines, one JSON entry per TPU kernel; a second
+    # form of a kernel (colour-only gradient, analyze-mode sums) is checked
+    # and timed beside its main-path form above
     out = []
     for name, k in kernels.items():
-        if name == "seed_gradient_color":
+        if k.get("secondary"):
             continue
+        row = k.get("row", name)
         r = report[name]
-        if name == "seed_gradient_nasp":
-            r["max_abs_err"] = max(r["max_abs_err"], report["seed_gradient_color"]["max_abs_err"])
+        err = max(report[n]["max_abs_err"] for n, kk in kernels.items()
+                  if kk.get("row", n) == row)
         mod = k["module"]
+        is_nasp = mod is cuda_nasp
         out.append({
-            "name": "seed_gradient" if name == "seed_gradient_nasp" else name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": launches[mod.__name__.rsplit(".", 1)[-1]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "name": row, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES[row] if is_nasp else mod.REPLACES,
+            "launches": launches[row if is_nasp else mod.__name__.rsplit(".", 1)[-1]],
+            "max_abs_err": err, "ms": r["ms_b1"], "plain_ms": r["plain_ms_b1"],
+            "bound_ms": r["bound_ms_b1"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms_b1"],
             "ms_b4": r["ms_b4"], "plain_ms_b4": r["plain_ms_b4"],
+            "bound_ms_b4": r["bound_ms_b4"], "library_ms_b4": r["library_ms_b4"],
         })
-    print(f"kde ms per frame: B=1 {frame_ms[1]:.3f}  B=4 {frame_ms[4]:.3f}")
+    print("kde ms per frame: " + "  ".join(
+        f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))
     print(json.dumps({"kernels": out}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -10,10 +10,13 @@ All dataclasses are hashable/frozen so they can be static jit arguments.
 
 PyTorch port: a field-for-field copy of kinectdepthmapenhancement_tpu's
 core/config.py (same names, same defaults; convert.config_from_jax carries
-an instance across).  The backend selectors (`grad_impl`, `stats_impl`,
-`cov_impl`, `dt_impl`) are kept for that correspondence but the port does
-not read them: each kernel wrapper dispatches on the tensor's device (the
-plain PyTorch version on the CPU, the CUDA kernel on the card).
+an instance across).  `stats_impl` is read, with the JAX package's
+meaning: "auto" and "pallas" route NASP's statistics and the cell index
+through the kernel wrappers of ops/cuda_nasp.py, "xla" through their plain
+versions on every device (ops/slic.py).  `grad_impl`, `cov_impl` and
+`dt_impl` are kept for the correspondence but not read: those wrappers
+always take the kernel on the card.  Every wrapper takes its plain PyTorch
+version for a CPU tensor.
 """
 
 from __future__ import annotations

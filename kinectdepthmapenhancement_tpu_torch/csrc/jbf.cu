@@ -18,8 +18,12 @@
 // the inputs are read once and the output written once.  The spatial
 // weights come from the same f32 table as the plain version
 // (stencil.gaussian_spatial_filter).  Built with -fmad=false, every
-// operation rounds as the plain version's; only expf could differ.
+// operation rounds as the plain version's; only expf could differ.  Each
+// weight factor and product flushes subnormals to 0 explicitly, as XLA does
+// on the CPU and the TPU (the plain version's stencil.flush_subnormal); the
+// build does not use -ftz, which the plain version could not follow.
 
+#include <cfloat>
 #include <cuda_runtime.h>
 
 namespace {
@@ -27,6 +31,8 @@ namespace {
 constexpr int TX = 32;
 constexpr int TY = 8;
 constexpr float VALID_DEPTH_MM = 50.0f;
+
+__device__ __forceinline__ float flush(float x) { return x < FLT_MIN ? 0.0f : x; }
 
 __global__ void __launch_bounds__(TX * TY)
 jbf_kernel(const float* __restrict__ depth, const float* __restrict__ guide,
@@ -74,7 +80,7 @@ jbf_kernel(const float* __restrict__ depth, const float* __restrict__ guide,
         const float e0 = g0 - sg[3 * k], e1 = g1 - sg[3 * k + 1],
                     e2 = g2 - sg[3 * k + 2];
         const float cd = (e0 * e0 + e1 * e1) + e2 * e2;
-        filt = filt * expf(-cd / color_c2);
+        filt = flush(filt * flush(expf(-cd / color_c2)));
       }
       filt = (nd > VALID_DEPTH_MM) ? filt : 0.0f;
       dsum = dsum + nd * filt;
@@ -94,11 +100,11 @@ jbf_kernel(const float* __restrict__ depth, const float* __restrict__ guide,
         const float e0 = g0 - sg[3 * k], e1 = g1 - sg[3 * k + 1],
                     e2 = g2 - sg[3 * k + 2];
         const float cd = (e0 * e0 + e1 * e1) + e2 * e2;
-        filt = filt * expf(-cd / color_c2);
+        filt = flush(filt * flush(expf(-cd / color_c2)));
       }
       if (use_depth) {
         const float e = nd - mean;
-        filt = filt * expf(-(e * e) / depth_c2);
+        filt = flush(filt * flush(expf(-(e * e) / depth_c2)));
       }
       filt = (nd > VALID_DEPTH_MM) ? filt : 0.0f;
       num = num + nd * filt;

@@ -5,9 +5,11 @@ PyTorch counterpart of kde_pipeline in the JAX package's models/pipelines.py
 JBF -> projective-to-real -> CM normals -> NASP -> CCL merge -> plane
 projection with variance_optimization + depth bilateral.
 
-On a CUDA device the four stencil stages run in the port's hand-written
-kernels (JBF, chamfer DT, covariance sweep, seed gradient); everything else
-is plain PyTorch.  On the CPU every stage is plain PyTorch.
+On a CUDA device the stencil stages run in the port's hand-written kernels
+(JBF, chamfer DT, covariance sweep, seed gradient) and, on the default
+stats_impl="auto" route, so do NASP's statistics and every cell-local
+gather and segment sum (ops/cuda_nasp.py); everything else is plain
+PyTorch.  On the CPU every stage is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ def kde_pipeline(
     with record_function("kde.ccl_merge"):
         # single-iteration NASP labels are cell-local, so CCL and the plane
         # stage run on the cell-local index over them
-        nasp_cell = slic.cell_index(nasp.labels, cfg.grid, neighborhood=8)
+        nasp_cell = slic.cell_index(
+            nasp.labels, cfg.grid, neighborhood=8, stats_impl=cfg.nasp.stats_impl
+        )
         merged = ccl.merge_normals(
             nasp.labels, nasp.clusters.normal, nasp.clusters.center, cfg.ccl,
             index=nasp_cell,

@@ -39,12 +39,15 @@ def jbf_plain(
     color_c2 = 2.0 * color_sigma**2
     depth_c2 = 2.0 * depth_sigma**2
 
+    flush = stencil.flush_subnormal
+
     def color_filter(nb_guide):
         e = guide - nb_guide
-        return torch.exp(stencil.div_const(-stencil.dot3(e, e), color_c2))
+        return flush(torch.exp(stencil.div_const(-stencil.dot3(e, e), color_c2)))
 
     # terms are gated on their SIGMA, not their value (JAX ops/bilateral.py
-    # docstring: the reference's value-guards are a computed-or-not proxy)
+    # docstring: the reference's value-guards are a computed-or-not proxy);
+    # each weight factor and product flushes subnormals as XLA does
 
     # pass 1: spatial x colour weighted mean of valid depth
     zero = torch.zeros_like(depth)
@@ -56,7 +59,7 @@ def jbf_plain(
         valid = nd > VALID_DEPTH_MM
         filt = spatial[dy + r, dx + r].expand_as(depth)
         if color_sigma != 0.0:
-            filt = filt * color_filter(ng)
+            filt = flush(filt * color_filter(ng))
         filt = torch.where(valid, filt, zero)
         dsum = dsum + nd * filt
         wsum = wsum + filt
@@ -71,10 +74,10 @@ def jbf_plain(
         valid = nd > VALID_DEPTH_MM
         filt = spatial[dy + r, dx + r].expand_as(depth)
         if color_sigma != 0.0:
-            filt = filt * color_filter(ng)
+            filt = flush(filt * color_filter(ng))
         if depth_sigma != 0.0:
             e = nd - mean
-            filt = filt * torch.exp(stencil.div_const(-(e * e), depth_c2))
+            filt = flush(filt * flush(torch.exp(stencil.div_const(-(e * e), depth_c2))))
         filt = torch.where(valid, filt, zero)
         num = num + nd * filt
         den = den + filt

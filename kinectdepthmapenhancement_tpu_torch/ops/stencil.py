@@ -60,6 +60,20 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+FLT_MIN = 1.17549435e-38  # the least normal f32
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """x with every value below FLT_MIN set to 0, for non-negative weights.
+
+    XLA on the CPU and the TPU flush subnormal results to zero; PyTorch and
+    the port's kernels (built without -ftz) keep them.  The JAX package is
+    the reference, so each factor and product of a bilateral weight (all in
+    [0, 1]) is flushed here and in the kernels at the same places.  A weight
+    sum of subnormals then reads 0 (no support), as it does in XLA."""
+    return torch.where(x < FLT_MIN, torch.zeros_like(x), x)
+
+
 def gaussian_spatial_filter(
     window: int, sigma: float, device: Optional[torch.device] = None
 ) -> torch.Tensor:

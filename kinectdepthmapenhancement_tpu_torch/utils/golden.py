@@ -78,15 +78,21 @@ def kde_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> 
     stable = got_l == want["nasp_labels"]
     inv = float(((got_m < 0) == (want_m < 0))[stable].mean())
     gates["merged_invalid_agreement"] = (inv, 0.995, inv > 0.995)
+    part, total = partition_agreement(got_m[stable], want_m[stable])
+    gates["merged_partition_agreement"] = (part, 0.995, total > 0 and part > 0.995)
+    return gates
+
+
+def partition_agreement(got_m: np.ndarray, want_m: np.ndarray) -> Tuple[float, int]:
+    """Share of pixels labelled in both merged partitions whose got label
+    maps to the want label its first pixel fixed, and that pixel count."""
     pairs: Dict[int, int] = {}
     ok_pairs = total = 0
-    for g, w_ in zip(got_m[stable].ravel(), want_m[stable].ravel()):
+    for g, w_ in zip(got_m.ravel(), want_m.ravel()):
         if g >= 0 and w_ >= 0:
             total += 1
             ok_pairs += pairs.setdefault(int(g), int(w_)) == w_
-    part = ok_pairs / total if total else 0.0
-    gates["merged_partition_agreement"] = (part, 0.995, total > 0 and part > 0.995)
-    return gates
+    return (ok_pairs / total if total else 0.0), total
 
 
 def kde_refexact_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> Gate:

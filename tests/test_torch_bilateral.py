@@ -8,12 +8,12 @@ bitwise equal:
     most 1 elsewhere;
   * JBF on the same guide: within 1e-3 mm on >= 99.9% of pixels and within
     2e-3 mm (8 f32 ulps at 2.3 m) everywhere.
-XLA on the CPU also flushes subnormal results to zero, where PyTorch (and the
-CUDA kernel, built without -ftz) keep them.  Without the colour term, a
-depth-edge pixel can see only subnormal pass-2 weights: the JAX package then
-outputs 0 (no support) and the port the weighted mean.  That case runs with
-PyTorch's CPU flush-denormal mode on, single-threaded (the mode is per
-thread), to compare like with like.
+XLA on the CPU also flushes subnormal results to zero, where PyTorch keeps
+them; the port flushes each weight factor and product explicitly
+(stencil.flush_subnormal, and the kernel at the same places).  Without the
+colour term, a depth-edge pixel can see only subnormal pass-2 weights: the
+JAX package then outputs 0 (no support), and so must the port, with
+PyTorch's flush-denormal mode off.
 """
 
 import numpy as np
@@ -65,19 +65,9 @@ def test_jbf_matches_jax_on_same_guide(params):
     color, noisy = _scene(0)
     guide = np.asarray(jbil.guide_bilateral(jnp.asarray(color), params)).astype(np.float32)
     want = np.asarray(jbil._jbf_core(jnp.asarray(noisy), jnp.asarray(guide), **_jbf_kw(params)))
-    flush = params.color_sigma == 0.0
-    threads = torch.get_num_threads()
-    if flush:
-        torch.set_num_threads(1)
-        torch.set_flush_denormal(True)
-    try:
-        got = tbil._jbf_core(
-            torch.from_numpy(noisy)[None], torch.from_numpy(guide)[None], **_jbf_kw(params)
-        )[0].numpy()
-    finally:
-        if flush:
-            torch.set_flush_denormal(False)
-            torch.set_num_threads(threads)
+    got = tbil._jbf_core(
+        torch.from_numpy(noisy)[None], torch.from_numpy(guide)[None], **_jbf_kw(params)
+    )[0].numpy()
     d = np.abs(got - want)
     assert (d <= 1e-3).mean() >= 0.999
     assert d.max() <= 2e-3

@@ -8,8 +8,12 @@ a fixture, never at import).  Run on the card with
 this file imports only the port.)
 
 Bars: chamfer DT, covariance sweep and seed gradient bitwise; JBF within
-1e-3 mm (bitwise where expf matches).  chip_smoke.py runs the same checks at
-the 640x480 path's shapes.
+1e-3 mm (bitwise where expf matches).  NASP cell kernels (ops/cuda_nasp.py):
+assignment labels and distance bitwise, gathers bitwise, sums with
+integer-valued features exact and the rest within 1e-5 of the sum of the
+terms' magnitudes (cuda_nasp.sums_close), at 96x128 with 32x32 cells (grid
+3x4) and with 24x32 cells (grid 4x4).  chip_smoke.py runs the same checks
+at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -31,6 +35,7 @@ from kinectdepthmapenhancement_tpu_torch.ops import (
     cuda_cov,
     cuda_dt,
     cuda_gradient,
+    cuda_nasp,
     normals,
     slic,
 )
@@ -108,7 +113,157 @@ def test_pipeline_launches_every_kernel(inputs):
     cfg = dataclasses.replace(KDEConfig(), grid=GRID)
     mods = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
     before = [m.launches for m in mods]
+    before_nasp = dict(cuda_nasp.launches)
     res = kde_pipeline(inputs["depth"], inputs["color"], inputs["intr"], cfg)
     torch.cuda.synchronize()
     assert all(m.launches > b for m, b in zip(mods, before))
+    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items())
     assert bool(torch.isfinite(res.optimized_points).all())
+
+
+NASP_GRIDS = [GRID, GridParams(rows=4, cols=4)]
+
+
+@pytest.fixture(scope="module", params=NASP_GRIDS, ids=["cells32x32", "cells24x32"])
+def nasp(request, inputs):
+    """The first NASP iteration's inputs on the card: seeds, candidate
+    fields, labels of the plain assignment and the analyze-updated table."""
+    grid = request.param
+    params = KDEConfig().nasp
+    color = inputs["color"]
+    points = projective_to_real(inputs["depth"], inputs["intr"]).contiguous()
+    nmap = normals.generate_normal_map(points, KDEConfig().normals).contiguous()
+    cf = color.float().contiguous()
+    rng = np.random.default_rng(7)
+    seeds = np.stack(
+        [rng.integers(0, W, (2, grid.num_clusters)), rng.integers(0, H, (2, grid.num_clusters))], -1
+    )
+    cl = slic.init_clusters(torch.tensor(seeds, dtype=torch.int32, device=cf.device),
+                            color, points, nmap)
+    s_scale = (W // grid.cols + H // grid.rows) / 2.0
+    cand, akw = slic._assign_args(cl, grid, params, s_scale)
+    rp = (W // grid.cols) * 2 // 16 + 1
+    lo, hi = -8 * rp, 8 * rp - 1
+    labels, dist, part = cuda_nasp.nasp_assign_and_analyze_plain(
+        cf, points, nmap, cand, lo=lo, hi=hi, **akw
+    )
+    idx = slic._CellIndex(labels, grid, 4, H, W, kernel_sums=False)
+    cl = slic._nasp_analyze_post(idx.fold(part), cl, points, H, W)
+    return dict(grid=grid, params=params, cf=cf, points=points, nmap=nmap, cand=cand,
+                akw=akw, lo=lo, hi=hi, labels=labels, dist=dist, clusters=cl,
+                cell=dict(rows=grid.rows, cols=grid.cols, r=4))
+
+
+def test_nasp_assign_analyze_kernel_matches_plain(nasp):
+    x = nasp
+    args = (x["cf"], x["points"], x["nmap"], x["cand"])
+    labels, dist, part = cuda_nasp.nasp_assign_and_analyze(*args, lo=x["lo"], hi=x["hi"], **x["akw"])
+    torch.cuda.synchronize()
+    assert torch.equal(labels, x["labels"]) and torch.equal(dist, x["dist"])
+    kw = dict(x["cell"], lo=x["lo"], hi=x["hi"], mode="analyze")
+    xy = x["cand"][..., 3:5]
+    want = cuda_nasp.nasp_cell_sums_plain(x["labels"], *args[:3], xy, **kw)
+    scale = cuda_nasp.nasp_cell_sums_plain(x["labels"], *args[:3], xy, abs_terms=True, **kw)
+    assert cuda_nasp.sums_close(part, want, scale, cuda_nasp.INTEGER_FEATURES["analyze"])
+
+
+@pytest.mark.parametrize("mode", ["analyze", "weighted"])
+def test_nasp_cell_sums_kernel_matches_plain(nasp, mode):
+    x, cl = nasp, nasp["clusters"]
+    xy = cl.xy.float()
+    fields = xy if mode == "analyze" else torch.cat([xy, cl.rgb, cl.normal], -1)
+    fields = fields.reshape(2, x["grid"].rows, x["grid"].cols, -1).contiguous()
+    args = (x["labels"], x["cf"], x["points"], x["nmap"], fields)
+    kw = dict(x["cell"], lo=x["lo"], hi=x["hi"], mode=mode,
+              color_sigma=x["params"].color_sigma, spatial_sigma=x["params"].spatial_sigma)
+    got = cuda_nasp.nasp_cell_sums(*args, **kw)
+    want = cuda_nasp.nasp_cell_sums_plain(*args, **kw)
+    scale = cuda_nasp.nasp_cell_sums_plain(*args, abs_terms=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nasp.sums_close(got, want, scale, cuda_nasp.INTEGER_FEATURES[mode])
+
+
+def test_label_cell_sums_kernel_matches_plain(nasp):
+    x = nasp
+    rng = np.random.default_rng(8)
+    feats = torch.tensor(rng.normal(size=(2, H, W, 2)).astype(np.float32), device=x["cf"].device)
+    feats = feats * (x["labels"] >= 0)[..., None]
+    got = cuda_nasp.label_cell_sums(x["labels"], feats, **x["cell"])
+    want = cuda_nasp.label_cell_sums_plain(x["labels"], feats, **x["cell"])
+    scale = cuda_nasp.label_cell_sums_plain(x["labels"], feats.abs(), **x["cell"])
+    torch.cuda.synchronize()
+    assert cuda_nasp.sums_close(got, want, scale)
+
+
+def test_label_cell_gather_kernel_bitwise(nasp):
+    x = nasp
+    k = x["grid"].num_clusters
+    rng = np.random.default_rng(9)
+    table = torch.tensor(rng.normal(size=(2, k, 6)).astype(np.float32) * 1000.0, device=x["cf"].device)
+    got = cuda_nasp.label_cell_gather(x["labels"], table, **x["cell"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nasp.label_cell_gather_plain(x["labels"], table, **x["cell"]))
+
+
+def test_nasp_subnormal_window_weights_keep_the_old_row(dev):
+    """The planted cluster of test_torch_nasp.py on the card: cluster 5's
+    pixels all sit |drgb| = 140 from its colour, so every window weight is
+    exp(-98), subnormal.  The kernel flushes them: its weight sum (feature
+    5) is exactly 0 in every slot of cluster 5, and the weighted update
+    keeps the old row, as the JAX package does."""
+    rng = np.random.default_rng(9)
+    r, k0 = 4, 5  # cluster 5: cell (1, 1) of the 3x4 grid
+    cy = np.arange(H)[:, None] // (H // GRID.rows)
+    cx = np.arange(W)[None, :] // (W // GRID.cols)
+    ny = np.clip(cy + rng.integers(-r, r, (H, W)), 0, GRID.rows - 1)
+    nx = np.clip(cx + rng.integers(-r, r, (H, W)), 0, GRID.cols - 1)
+    labels = (ny * GRID.cols + nx).astype(np.int32)
+    labels[rng.random((H, W)) < 0.07] = -1
+    color_f = rng.integers(0, 255, (H, W, 3)).astype(np.float32)
+    color_f[labels == k0] = (200.0, 60.0, 60.0)
+    points = rng.uniform(100.0, 4000.0, (H, W, 3)).astype(np.float32)
+    nmap = rng.normal(size=(H, W, 3)).astype(np.float32)
+    nmap /= np.linalg.norm(nmap, axis=-1, keepdims=True)
+    k = GRID.num_clusters
+    rgb = rng.integers(0, 255, (k, 3)).astype(np.float32)
+    rgb[k0] = 60.0
+    xy = np.stack([rng.integers(0, W, k), rng.integers(0, H, k)], -1).astype(np.int32)
+    xy[k0] = (48, 48)
+    cl = slic.Clusters(
+        rgb=torch.tensor(rgb[None], device=dev), xy=torch.tensor(xy[None], device=dev),
+        size=torch.zeros((1, k), dtype=torch.int32, device=dev),
+        center=torch.tensor(rng.uniform(100, 4000, (1, k, 3)).astype(np.float32), device=dev),
+        normal=torch.tensor(rng.normal(size=(1, k, 3)).astype(np.float32), device=dev),
+        variance=torch.zeros((1, k), dtype=torch.float32, device=dev),
+    )
+    tl, tc, tp, tn = (torch.tensor(a[None], device=dev) for a in (labels, color_f, points, nmap))
+    params = KDEConfig().nasp
+    window = (-24, 23)
+    fields = torch.cat([cl.xy.float(), cl.rgb, cl.normal], -1).reshape(1, GRID.rows, GRID.cols, 8)
+    part = cuda_nasp.nasp_cell_sums(
+        tl, tc, tp, tn, fields.contiguous(), rows=GRID.rows, cols=GRID.cols, r=r,
+        lo=window[0], hi=window[1], mode="weighted",
+        color_sigma=params.color_sigma, spatial_sigma=params.spatial_sigma,
+    )
+    slots = cuda_nasp.cand_grid(GRID.rows, GRID.cols, cuda_nasp.candidate_offsets(r), dev)
+    mine = slots.reshape(-1) == k0
+    counted = cuda_nasp.nasp_cell_sums(
+        tl, tc, tp, tn, fields[..., :2].contiguous(), rows=GRID.rows, cols=GRID.cols, r=r,
+        lo=window[0], hi=window[1], mode="analyze",
+    )
+    assert float(counted[0, mine, 5].sum()) > 0  # cluster 5 has pixels in its window
+    assert bool((part[0, mine, 5] == 0.0).all())
+    idx = slic.cell_index(tl, GRID, 2 * r, stats_impl="auto")
+    got = slic._update_nasp_weighted(idx, cl, tc, tp, tn, params, window, H, W)
+    torch.cuda.synchronize()
+    for new, old in zip(got, cl):
+        assert torch.equal(new[0, k0], old[0, k0])
+
+
+def test_nasp_wrappers_reject_bad_tensors(nasp):
+    x = nasp
+    table = torch.zeros((2, x["grid"].num_clusters, 3), device=x["cf"].device)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_cell_gather(x["labels"].long(), table, **x["cell"])
+    with pytest.raises(ValueError):  # cells must divide the image
+        cuda_nasp.label_cell_gather(x["labels"], table, rows=5, cols=x["grid"].cols, r=4)

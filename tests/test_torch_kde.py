@@ -21,7 +21,13 @@ from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
 from kinectdepthmapenhancement_tpu.models import pipelines as jpipe
 from kinectdepthmapenhancement_tpu_torch import convert
 from kinectdepthmapenhancement_tpu_torch.models import pipelines as tpipe
-from kinectdepthmapenhancement_tpu_torch.ops import cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient
+from kinectdepthmapenhancement_tpu_torch.ops import (
+    cuda_bilateral,
+    cuda_cov,
+    cuda_dt,
+    cuda_gradient,
+    cuda_nasp,
+)
 from kinectdepthmapenhancement_tpu_torch.utils import golden
 
 torch.set_num_threads(2)
@@ -85,7 +91,11 @@ def test_kde_batched_equals_per_frame():
     d = torch.from_numpy(noisy)
     c2 = torch.stack([c, torch.flip(c, dims=[1])])
     d2 = torch.stack([d, torch.flip(d, dims=[1])])
-    before = [m.launches for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)]
+    def launches():
+        mods = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
+        return [m.launches for m in mods] + list(cuda_nasp.launches.values())
+
+    before = launches()
     both = tpipe.kde_pipeline(d2, c2, ti, cfg)
     for i in range(2):
         one = tpipe.kde_pipeline(d2[i], c2[i], ti, cfg)
@@ -93,7 +103,7 @@ def test_kde_batched_equals_per_frame():
         for a, b in zip(both, one):
             assert torch.equal(a[i], b)
     # on the CPU every stage takes the plain versions: no kernel launches
-    assert before == [m.launches for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)]
+    assert before == launches()
 
 
 def test_kde_unported_options_raise():
