@@ -14,16 +14,21 @@ Phases (each prints its results; any failure exits non-zero):
      <= 1e-3 mm; chamfer DT, covariance sweep and seed gradient bitwise,
      the seeds identical; NASP assignment labels and distance and the
      label-cell gather bitwise, the NASP sums with integer-valued features
-     exact and the rest within 1e-5 of the sum of their terms' magnitudes);
-     time kernel, plain version and, where one PyTorch call computes
-     (nearly) the same function, that call, with CUDA events; print each
-     kernel's bound (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s);
+     exact and the rest within 1e-5 of the sum of their terms' magnitudes;
+     the gather at each width the path uses, F = 6, 1 and 3); time kernel,
+     plain version and, where one PyTorch call computes (nearly) the same
+     function, that call: "call ms" with CUDA events around one Python
+     call (host dispatch included), and for kernel and library call
+     "device ms", the profiler's summed kernel durations per call; print
+     each kernel's bound (bytes at 3.35 TB/s or f32 operations at 67
+     TFLOP/s) and whether it is slower than the library call on device ms;
   4. drive kde_pipeline(KDEConfig()) at 640x480 (B=1, then B=4) from
      make_noisy_scene(480, 640); check finite outputs, that every kernel
      counter went up, and bitwise-identical outputs on a second run; hold
      the kernel route (stats_impl="auto") against the plain route ("xla")
      at B=4; print the median ms per frame of both routes and the
-     profile of the kernel route by stage;
+     profile of the kernel route by stage, with the device ms and
+     launches of each of the port's own kernels in that call;
   5. run kde_pipeline at 96x128 (grid 3x4) and hold it against the golden
      oracle fixtures tests/golden/kde_oracle_96x128_seed0{,_refexact}.npz
      with the thresholds of tests/test_oracle_pipeline.py;
@@ -38,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +56,9 @@ import time
 # done with FMAs, so the bound uses the published rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+
+# a trace's name of a kernel of csrc/*.cu (each lives in an anonymous namespace)
+PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+_kernel)\b")
 
 
 def _fail(msg: str) -> None:
@@ -85,7 +94,7 @@ def main() -> int:
         bilateral, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals, slic,
     )
     from kinectdepthmapenhancement_tpu_torch.utils import golden
-    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms, device_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -155,6 +164,8 @@ def main() -> int:
                  f_weighted=torch.cat([xy, cl.rgb, cl.normal], -1)
                  .reshape(b, grid.rows, grid.cols, 8).contiguous(),
                  table6=torch.cat([cl.center, cl.normal], -1).contiguous())
+        x["table1"] = x["table6"][..., 2:3].contiguous()
+        x["table3"] = x["table6"][..., :3].contiguous()
         z = points[..., 2]
         ok = ((z > 50.0) & (labels >= 0)).to(torch.float32)
         x["feats2"] = torch.stack([(z * 1e-3) ** 2 * ok, ok], -1).contiguous()
@@ -307,16 +318,20 @@ def main() -> int:
             inputs=lambda x: [x["labels"], x["feats2"]],
             ops=lambda x: npx(x["labels"]) * 2,
             shape=lambda x: tuple(x["feats2"].shape)),
-        "label_cell_gather": dict(
-            module=cuda_nasp, bar="bitwise",
-            run=lambda x: cuda_nasp.label_cell_gather(x["labels"], x["table6"], **cell),
-            plain=lambda x: cuda_nasp.label_cell_gather_plain(x["labels"], x["table6"], **cell),
-            # table[label] by advanced indexing (no zero outside the candidates)
-            library=lambda x: x["table6"][x["bi"], x["labels"].clamp_min(0)],
-            inputs=lambda x: [x["labels"], x["table6"]],
-            ops=lambda x: 0,
-            shape=lambda x: tuple(x["labels"].shape) + (6,)),
     }
+    # the gather at the main path's three widths: F=6 (ccl.py, the row's
+    # headline), F=1 and F=3 (plane.py)
+    for nf in (6, 1, 3):
+        tkey = f"table{nf}"
+        kernels["label_cell_gather" if nf == 6 else f"label_cell_gather_f{nf}"] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=nf != 6,
+            run=lambda x, t=tkey: cuda_nasp.label_cell_gather(x["labels"], x[t], **cell),
+            plain=lambda x, t=tkey: cuda_nasp.label_cell_gather_plain(x["labels"], x[t], **cell),
+            # table[label] by advanced indexing (no zero outside the candidates)
+            library=lambda x, t=tkey: x[t][x["bi"], x["labels"].clamp_min(0)],
+            inputs=lambda x, t=tkey: [x["labels"], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, nf=nf: tuple(x["labels"].shape) + (nf,))
     report = {name: {"max_abs_err": 0.0} for name in kernels}
     for bsz in (1, 4):
         x = stage_inputs(depth4[:bsz], color4[:bsz])
@@ -332,22 +347,33 @@ def main() -> int:
             )
             bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
             ok = k["ok"](got, want, x) if "ok" in k else bitwise
-            t_k = cuda_ms(lambda: k["run"](x), warmup=3, iters=20)
-            t_p = cuda_ms(lambda: k["plain"](x), warmup=1, iters=5)
-            t_l = cuda_ms(lambda: k["library"](x), warmup=3, iters=20) if "library" in k else None
-            nbytes = sum(t.numel() * t.element_size() for t in k["inputs"](x) + list(got))
-            t_b, bound_by = bound_ms(nbytes, k["ops"](x))
-            print(f"kernel {name:24s} shape {str(k['shape'](x)):22s} B={bsz} "
-                  f"max|d|={err:.3g} bitwise={bitwise} bar: {k['bar']} -> "
-                  f"{'ok' if ok else 'FAIL'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-                  f"library {'none' if t_l is None else f'{t_l:.4f} ms'}  "
-                  f"bound {t_b:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
-                  f"{k['ops'](x) / 1e9:.3f} Gop)")
             if not ok:
                 _fail(f"kernel {name} disagrees with its plain version at B={bsz}")
+            # call ms: CUDA events around one Python call (host dispatch
+            # included when the device finishes first); device ms: the
+            # profiler's summed kernel durations per call
+            t_k = cuda_ms(lambda: k["run"](x), warmup=3, iters=20)
+            d_k, n_k = device_ms(lambda: k["run"](x), warmup=3, iters=20)
+            t_p = cuda_ms(lambda: k["plain"](x), warmup=1, iters=5)
+            t_l = d_l = None
+            if "library" in k:
+                t_l = cuda_ms(lambda: k["library"](x), warmup=3, iters=20)
+                d_l, n_l = device_ms(lambda: k["library"](x), warmup=3, iters=20)
+            nbytes = sum(t.numel() * t.element_size() for t in k["inputs"](x) + list(got))
+            t_b, bound_by = bound_ms(nbytes, k["ops"](x))
+            lib = "none" if t_l is None else (
+                f"call {t_l:.4f} ms device {d_l:.4f} ms ({n_l:g} kernels/call) -> kernel "
+                f"{'slower' if d_k > d_l else 'not slower'} on device ms")
+            print(f"kernel {name:24s} shape {str(k['shape'](x)):22s} B={bsz} "
+                  f"max|d|={err:.3g} bitwise={bitwise} bar: {k['bar']} -> ok  "
+                  f"call {t_k:.4f} ms  device {d_k:.4f} ms ({n_k:g} kernels/call)  "
+                  f"plain call {t_p:.4f} ms  library {lib}  "
+                  f"bound {t_b:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
+                  f"{k['ops'](x) / 1e9:.3f} Gop)")
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r[f"ms_b{bsz}"], r[f"plain_ms_b{bsz}"], r[f"library_ms_b{bsz}"] = t_k, t_p, t_l
+            r[f"device_ms_b{bsz}"], r[f"library_device_ms_b{bsz}"] = d_k, d_l
             r[f"bound_ms_b{bsz}"], r["bound_by"] = t_b, bound_by
         del x
 
@@ -431,8 +457,13 @@ def main() -> int:
     print(f"peak device memory: {peak:.2f} GiB")
 
     # where the time goes: one profiled call per batch size, device time per
-    # kde.* stage scope and per kernel name; busy share against the
-    # unprofiled median call time above
+    # kde.* stage and per kernel name; busy share against the unprofiled
+    # median call time above.  Every device activity of the trace counts,
+    # the kernels launched through ctypes too, which the profiler attaches to
+    # no CPU op; an activity counts under the stage whose device-side span
+    # holds it, and one outside every span under the stage of the activity
+    # before it (one stream, stages in order).
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scopes = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
@@ -441,30 +472,43 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             kde_pipeline(d, c, intr, cfg)
             torch.cuda.synchronize()
-        per = {name: [0.0, 0] for name in scopes + ("unscoped",)}  # device ms, kernels
+        events = prof.events()
+        on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+        spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                       for ev in on_device if ev.name in scopes)
+        work = sorted((ev for ev in on_device if ev.name not in scopes
+                       and not getattr(ev, "is_user_annotation", False)),
+                      key=lambda ev: ev.time_range.start)
+        attached = sum(len(ev.kernels) for ev in events if ev.device_type == DeviceType.CPU)
+        per = {name: [0.0, 0] for name in scopes + ("unscoped",)}  # device ms, activities
         by_kernel: dict = {}
-        n_kernels = 0
-        for ev in prof.events():
-            if not ev.kernels:
-                continue
-            scope = ev  # each kernel counts once, under the launching op's kde.* scope
-            while scope is not None and scope.name not in scopes:
-                scope = scope.cpu_parent
-            for kinfo in ev.kernels:
-                n_kernels += 1
-                ms = kinfo.duration / 1e3
-                by_kernel[kinfo.name] = by_kernel.get(kinfo.name, 0.0) + ms
-                acc = per[scope.name if scope is not None else "unscoped"]
+        port: dict = {}  # the port's own kernels (csrc/*.cu): device ms, launches
+        scope = "unscoped"
+        for ev in work:
+            t = ev.time_range.start
+            scope = next((name for t0, t1, name in spans if t0 <= t < t1), scope)
+            ms = ev.time_range.elapsed_us() / 1e3
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+            per[scope][0] += ms
+            per[scope][1] += 1
+            own = PORT_KERNEL.match(ev.name)
+            if own:
+                acc = port.setdefault(own.group(1), [0.0, 0])
                 acc[0] += ms
                 acc[1] += 1
         busy = sum(by_kernel.values())
         call_ms = frame_ms[("auto", bsz)] * bsz
-        print(f"profile B={bsz}: {n_kernels} kernels, device busy {busy:.3f} ms of a "
-              f"{call_ms:.3f} ms call ({100.0 * busy / call_ms:.1f}% busy)")
+        print(f"profile B={bsz}: {len(work)} device activities ({attached} attached to a CPU "
+              f"op), device busy {busy:.3f} ms of a {call_ms:.3f} ms call "
+              f"({100.0 * busy / call_ms:.1f}% busy); {len(spans)} stage spans on the device")
         for name, (ms, count) in per.items():
-            print(f"  {name:16s} device {ms:.3f} ms in {count} kernels")
+            print(f"  {name:16s} device {ms:.3f} ms in {count} activities")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  kernel {ms:8.3f} ms  {name[:90]}")
+        print("  port kernels: " + "  ".join(
+            f"{name} {ms:.4f} ms x{count}" for name, (ms, count) in sorted(port.items())))
+        if not port:
+            _fail(f"B={bsz}: the profile shows none of the port's kernels")
 
     # ---- phase 5: the golden oracle fixtures at 96x128
     intr_s, color_s, noisy_s = golden.scene_96x128()
@@ -506,6 +550,9 @@ def main() -> int:
             "library_ms": r["library_ms_b1"],
             "ms_b4": r["ms_b4"], "plain_ms_b4": r["plain_ms_b4"],
             "bound_ms_b4": r["bound_ms_b4"], "library_ms_b4": r["library_ms_b4"],
+            "device_ms": r["device_ms_b1"], "device_ms_b4": r["device_ms_b4"],
+            "library_device_ms": r["library_device_ms_b1"],
+            "library_device_ms_b4": r["library_device_ms_b4"],
         })
     print("kde ms per frame: " + "  ".join(
         f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))

@@ -12,8 +12,8 @@ Layout
 ------
 core/      config dataclasses, camera model, procedural test scene
 ops/       stencils, JBF, CM normals, tables, NASP, CCL merge, plane stage,
-           and the kernel wrappers cuda_{bilateral,dt,cov,gradient}.py
+           and the kernel wrappers cuda_{bilateral,dt,cov,gradient,nasp}.py
 models/    kde_pipeline
-utils/     CUDA-event timing
+utils/     call timing (CUDA events), device timing (profiler), golden gates
 convert.py carries the JAX package's config and intrinsics across
 """

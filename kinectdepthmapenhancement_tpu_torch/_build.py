@@ -30,6 +30,7 @@ NVCC_FLAGS = ARCH + [
 ]
 
 _lib: Optional[ctypes.CDLL] = None  # the loaded library (built once per process)
+_functions: Dict[str, ctypes._CFuncPtr] = {}  # declared entry points, by name
 
 
 def _nvcc() -> str:
@@ -114,10 +115,15 @@ def load() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """A C entry point of the kernel library with its signature declared."""
-    fn = getattr(load(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """A C entry point of the kernel library with its signature declared:
+    looked up and declared once per process, then served from a cache (a
+    wrapper's call is on the host's critical path)."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
 
 

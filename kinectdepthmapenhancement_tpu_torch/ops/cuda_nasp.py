@@ -328,10 +328,14 @@ def nasp_assign_and_analyze_plain(
 
 def _call(name: str, argtypes: list, device, args) -> None:
     """Launch kde_<name> on the current stream of `device`, raise on a CUDA
-    error, count the launch."""
+    error, count the launch.  The device context is entered only when
+    `device` is not already the current one."""
     fn = _build.function("kde_" + name, argtypes + [_build.PTR])
-    with torch.cuda.device(device):
+    if device.index == torch.cuda.current_device():
         code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check_status("kde_" + name, code)
     launches[name] += 1
 
@@ -348,7 +352,9 @@ def label_cell_gather(
 ) -> torch.Tensor:
     """[B, H, W, F] = table[labels] over each cell's candidates, 0 outside
     them: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
-    labels [B, H, W] i32, table [B, rows*cols, F] f32."""
+    labels [B, H, W] i32, table [B, rows*cols, F] f32.  On the card the
+    staged table rows must fit a block's shared memory (csrc/nasp.cu
+    label_gather_smem); the launch raises otherwise."""
     if labels.device.type == "cpu":
         return label_cell_gather_plain(labels, table, rows=rows, cols=cols, r=r)
     b, h, w = labels.shape
@@ -369,7 +375,10 @@ def label_cell_sums(
 ) -> torch.Tensor:
     """[B, rows*cols*n, F] per-(cell, candidate) sums of pre-masked feats
     [B, H, W, F] f32 grouped by labels [B, H, W] i32: the CUDA kernel for
-    CUDA tensors, the plain version for CPU ones."""
+    CUDA tensors, the plain version for CPU ones.  On the card F <= 16 and
+    the warps' partials must fit a block's shared memory (csrc/nasp.cu
+    label_sums_smem, ~205 KB at r = 5, F = 16); the launch raises
+    otherwise."""
     if labels.device.type == "cpu":
         return label_cell_sums_plain(labels, feats, rows=rows, cols=cols, r=r)
     b, h, w = labels.shape

@@ -12,8 +12,11 @@ Bars: chamfer DT, covariance sweep and seed gradient bitwise; JBF within
 assignment labels and distance bitwise, gathers bitwise, sums with
 integer-valued features exact and the rest within 1e-5 of the sum of the
 terms' magnitudes (cuda_nasp.sums_close), at 96x128 with 32x32 cells (grid
-3x4) and with 24x32 cells (grid 4x4).  chip_smoke.py runs the same checks
-at the 640x480 path's shapes.
+3x4) and with 24x32 cells (grid 4x4).  The label-cell sums and gather are
+also held on adversarial label maps over three cell shapes (24x24 cells at
+96x120 among them), r in {2, 4, 5} and F up to 16, and must give bitwise
+identical results on two launches.  chip_smoke.py runs the same checks at
+the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -203,6 +206,113 @@ def test_label_cell_gather_kernel_bitwise(nasp):
     got = cuda_nasp.label_cell_gather(x["labels"], table, **x["cell"])
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_nasp.label_cell_gather_plain(x["labels"], table, **x["cell"]))
+
+
+# (H, W, grid): 32x32 cells, 24x32 cells, and 24x24 cells (a cell width
+# that is not a multiple of 32, 576 pixels a cell: not a multiple of 256)
+LABEL_SHAPES = [(96, 128, GRID), (96, 128, GridParams(rows=4, cols=4)),
+                (96, 120, GridParams(rows=4, cols=5))]
+LABEL_SHAPE_IDS = ["cells32x32", "cells24x32", "cells24x24"]
+
+
+def _adversarial_labels(h, w, grid, r, seed):
+    """[2, H, W] i32 cell-local labels that hit every case of the kernels:
+    every candidate offset (random (dy, dx) per pixel), -1 (7% and where
+    the offset leaves the grid), labels outside the candidates (3%: any id
+    in [-1, K + 5), far cells and ids >= K included), cell (0, 0) all one
+    slot (its own id), the last cell with no label at all."""
+    rng = np.random.default_rng(seed)
+    bs_y, bs_x = h // grid.rows, w // grid.cols
+    k = grid.num_clusters
+    cy = np.arange(h)[None, :, None] // bs_y
+    cx = np.arange(w)[None, None, :] // bs_x
+    ny = cy + rng.integers(-r, r, (2, h, w))
+    nx = cx + rng.integers(-r, r, (2, h, w))
+    inside = (ny >= 0) & (ny < grid.rows) & (nx >= 0) & (nx < grid.cols)
+    labels = np.where(inside, ny * grid.cols + nx, -1)
+    labels[rng.random(labels.shape) < 0.07] = -1
+    stray = rng.random(labels.shape) < 0.03
+    labels[stray] = rng.integers(-1, k + 5, int(stray.sum()))
+    labels[:, :bs_y, :bs_x] = 0
+    labels[:, -bs_y:, -bs_x:] = -1
+    return labels.astype(np.int32)
+
+
+def _label_case(dev, shape, r, seed):
+    h, w, grid = shape
+    labels = torch.tensor(_adversarial_labels(h, w, grid, r, seed), device=dev)
+    return labels, dict(rows=grid.rows, cols=grid.cols, r=r), grid.num_clusters
+
+
+@pytest.mark.parametrize("r", [2, 4, 5])
+@pytest.mark.parametrize("f", [1, 2, 3, 6, 16])
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=LABEL_SHAPE_IDS)
+def test_label_cell_sums_kernel_adversarial(dev, shape, f, r):
+    """Even feature columns integer-valued (exact on both sides), odd ones
+    real (cuda_nasp.sums_close); two launches bitwise identical; one launch
+    counted per call."""
+    labels, cell, _ = _label_case(dev, shape, r, seed=10 + f)
+    rng = np.random.default_rng(f)
+    b, h, w = labels.shape
+    feats = rng.normal(size=(b, h, w, f)) * 100.0
+    feats[..., ::2] = rng.integers(0, 256, (b, h, w, (f + 1) // 2))
+    feats = torch.tensor(feats.astype(np.float32), device=dev)
+    feats = feats * (labels >= 0)[..., None]
+    before = cuda_nasp.launches["label_cell_sums"]
+    got = cuda_nasp.label_cell_sums(labels, feats, **cell)
+    again = cuda_nasp.label_cell_sums(labels, feats, **cell)
+    torch.cuda.synchronize()
+    assert cuda_nasp.launches["label_cell_sums"] == before + 2
+    assert torch.equal(got, again)
+    want = cuda_nasp.label_cell_sums_plain(labels, feats, **cell)
+    scale = cuda_nasp.label_cell_sums_plain(labels, feats.abs(), **cell)
+    assert got.shape == want.shape
+    assert cuda_nasp.sums_close(got, want, scale, integer_cols=range(0, f, 2))
+
+
+@pytest.mark.parametrize("r", [2, 4, 5])
+@pytest.mark.parametrize("f", [1, 3, 6, 7])
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=LABEL_SHAPE_IDS)
+def test_label_cell_gather_kernel_adversarial(dev, shape, f, r):
+    """Bitwise against the plain version and across two launches; one
+    launch counted per call; labels outside the candidates gather 0."""
+    labels, cell, k = _label_case(dev, shape, r, seed=20 + f)
+    rng = np.random.default_rng(30 + f)
+    table = torch.tensor(rng.normal(size=(2, k, f)).astype(np.float32) * 1000.0, device=dev)
+    before = cuda_nasp.launches["label_cell_gather"]
+    got = cuda_nasp.label_cell_gather(labels, table, **cell)
+    again = cuda_nasp.label_cell_gather(labels, table, **cell)
+    torch.cuda.synchronize()
+    assert cuda_nasp.launches["label_cell_gather"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, cuda_nasp.label_cell_gather_plain(labels, table, **cell))
+    assert bool((got[labels < 0] == 0.0).all())
+
+
+def test_label_kernels_reject_what_they_do_not_take(dev):
+    labels, cell, k = _label_case(dev, LABEL_SHAPES[0], 4, seed=1)
+    feats = torch.zeros(labels.shape + (2,), device=dev)
+    table = torch.zeros((2, k, 3), device=dev)
+    with pytest.raises(ValueError):  # more features than a sums block stages
+        cuda_nasp.label_cell_sums(labels, torch.zeros(labels.shape + (17,), device=dev), **cell)
+    # beyond a block's shared memory the C entry point refuses the launch
+    before = dict(cuda_nasp.launches)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # r=8, F=16: partials
+        cuda_nasp.label_cell_sums(
+            labels, torch.zeros(labels.shape + (16,), device=dev), **dict(cell, r=8))
+    with pytest.raises(RuntimeError, match="invalid argument"):  # a staged table
+        cuda_nasp.label_cell_gather(labels, torch.zeros((2, k, 5000), device=dev), **cell)
+    assert cuda_nasp.launches == before
+    with pytest.raises(TypeError):
+        cuda_nasp.label_cell_sums(labels.long(), feats, **cell)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_cell_gather(labels, table.double(), **cell)
+    with pytest.raises(ValueError):  # same shape, not contiguous
+        cuda_nasp.label_cell_sums(labels, feats.transpose(1, 2).contiguous().transpose(1, 2), **cell)
+    with pytest.raises(ValueError):  # the table must have K rows
+        cuda_nasp.label_cell_gather(labels, table[:, :-1].contiguous(), **cell)
+    with pytest.raises(ValueError):  # cells must divide the image
+        cuda_nasp.label_cell_sums(labels, feats, rows=5, cols=cell["cols"], r=4)
 
 
 def test_nasp_subnormal_window_weights_keep_the_old_row(dev):

@@ -56,14 +56,14 @@ def _t(a):
     return torch.tensor(np.asarray(a))[None]
 
 
-def _nasp_state(seed=9):
-    """test_pallas.py::_nasp_state: labels from each pixel's 8x8 cell
+def _nasp_state(seed=9, r=R):
+    """test_pallas.py::_nasp_state: labels from each pixel's (2r)x(2r) cell
     neighbourhood or -1, random colour / points / normals with invalids."""
     rng = np.random.default_rng(seed)
     cy = np.arange(H)[:, None] // (H // GRID.rows)
     cx = np.arange(W)[None, :] // (W // GRID.cols)
-    ny = np.clip(cy + rng.integers(-R, R, (H, W)), 0, GRID.rows - 1)
-    nx = np.clip(cx + rng.integers(-R, R, (H, W)), 0, GRID.cols - 1)
+    ny = np.clip(cy + rng.integers(-r, r, (H, W)), 0, GRID.rows - 1)
+    nx = np.clip(cx + rng.integers(-r, r, (H, W)), 0, GRID.cols - 1)
     labels = (ny * GRID.cols + nx).astype(np.int32)
     labels[rng.random((H, W)) < 0.07] = -1
     color_f = rng.integers(0, 255, (H, W, 3)).astype(np.float32)
@@ -157,21 +157,28 @@ def test_nasp_cell_sums_match_pallas(mode):
     _assert_sums(got[0], want, cuda_nasp.INTEGER_FEATURES[mode], mode)
 
 
-def test_label_cell_sums_match_pallas():
-    labels, *_ = _nasp_state(seed=11)
+@pytest.mark.parametrize("f, r", [(2, 4), (2, 2), (7, 4)])
+def test_label_cell_sums_match_pallas(f, r):
+    labels, *_ = _nasp_state(seed=11, r=r)
     rng = np.random.default_rng(3)
-    feats = rng.normal(size=(H, W, 2)).astype(np.float32)
+    # multiples of 2^-8 below 8 in magnitude: every sum of <= 1024 of them
+    # is exact in f32, so the two summation orders cannot differ by round-off
+    feats = np.round(rng.normal(size=(H, W, f)) * 256.0).astype(np.float32) / 256.0
     feats *= (rng.random((H, W)) < 0.8)[..., None]
-    want = pallas_nasp.label_cell_sums(jnp.asarray(labels), jnp.asarray(feats), interpret=True, **CELL)
-    got = cuda_nasp.label_cell_sums(_t(labels), _t(feats), **CELL)
+    cell = dict(CELL, r=r)
+    want = pallas_nasp.label_cell_sums(jnp.asarray(labels), jnp.asarray(feats), interpret=True, **cell)
+    got = cuda_nasp.label_cell_sums(_t(labels), _t(feats), **cell)
+    assert got.shape == (1, K * (2 * r) ** 2, f)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=2e-5, atol=1e-6)
 
 
-def test_label_cell_gather_matches_pallas():
-    labels, *_ = _nasp_state(seed=12)
-    table = np.random.default_rng(4).normal(size=(K, 6)).astype(np.float32) * 1000.0
-    want = pallas_nasp.label_cell_gather(jnp.asarray(labels), jnp.asarray(table), interpret=True, **CELL)
-    got = cuda_nasp.label_cell_gather(_t(labels), _t(table), **CELL)
+@pytest.mark.parametrize("f, r", [(1, 4), (3, 4), (6, 4), (6, 2)])
+def test_label_cell_gather_matches_pallas(f, r):
+    labels, *_ = _nasp_state(seed=12, r=r)
+    table = np.random.default_rng(4).normal(size=(K, f)).astype(np.float32) * 1000.0
+    cell = dict(CELL, r=r)
+    want = pallas_nasp.label_cell_gather(jnp.asarray(labels), jnp.asarray(table), interpret=True, **cell)
+    got = cuda_nasp.label_cell_gather(_t(labels), _t(table), **cell)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
     assert (got[0].numpy()[labels < 0] == 0.0).all()
 
