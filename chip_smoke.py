@@ -15,7 +15,9 @@ Phases (each prints its results; any failure exits non-zero):
      the seeds identical; NASP assignment labels and distance and the
      label-cell gather bitwise, the NASP sums with integer-valued features
      exact and the rest within 1e-5 of the sum of their terms' magnitudes;
-     the gather at each width the path uses, F = 6, 1 and 3); time kernel,
+     the gather at each width the path uses, F = 6, 1 and 3; the DT also on
+     a lattice depth-change map, zeros 48 px apart, and in one device
+     activity per call); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -178,6 +180,12 @@ def main() -> int:
                 labels, *tri, x[f"f_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
                 color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell)
         x["scale_label"] = cuda_nasp.label_cell_sums_plain(labels, x["feats2"].abs(), **cell)
+        # the DT's worst case: a zero every 48 px puts one in every block's
+        # region, and most pixels settle only after ~24 rounds
+        yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                                indexing="ij")
+        lattice = torch.where((yy % 48 == 24) & (xx % 48 == 24), 0, 255).to(torch.int32)
+        x["dci_lattice"] = lattice.expand(b, h, w).contiguous()
         # the library calls' inputs: a flat label index, the batch index
         bi = torch.arange(b, device=dev)
         x["bi"] = bi[:, None, None]
@@ -202,6 +210,15 @@ def main() -> int:
 
     def npx(t):
         return t.shape[0] * t.shape[1] * t.shape[2]
+
+    def dt_ops(dci):
+        """The least a DT round needs per pixel, 10: as min(a + c, b + c) ==
+        min(a, b) + c exactly, the min of the 4 edge and of the 4 corner
+        neighbours (3 + 3), their costs added (2), and the min of those two
+        and the pixel's own value (2).  Both dci here change somewhere in
+        each of the `its` rounds, so every pixel counts all of them (the
+        kernel stops a block sooner once its own region settles)."""
+        return npx(dci) * its * 10
 
     def cov_taps(rect):  # taps the selected window needs: min(rect, 21)^2, none below 2
         r = rect.clamp(max=21).to(torch.float64)
@@ -238,18 +255,27 @@ def main() -> int:
             ops=lambda x: npx(x["depth"]) * 25 * (17 + 25),
             shape=lambda x: tuple(x["depth"].shape)),
         "chamfer_dt": dict(
-            module=cuda_dt, bar="bitwise",
+            module=cuda_dt, bar="bitwise", activities=1,
             run=lambda x: cuda_dt.distance_transform(x["dci"], its),
             plain=lambda x: cuda_dt.distance_transform_plain(x["dci"], its),
             inputs=lambda x: [x["dci"]],
-            ops=lambda x: npx(x["dci"]) * its * 8 * 2,
+            ops=lambda x: dt_ops(x["dci"]),
             shape=lambda x: tuple(x["dci"].shape)),
+        "chamfer_dt_lattice": dict(
+            module=cuda_dt, bar="bitwise", row="chamfer_dt", secondary=True, activities=1,
+            run=lambda x: cuda_dt.distance_transform(x["dci_lattice"], its),
+            plain=lambda x: cuda_dt.distance_transform_plain(x["dci_lattice"], its),
+            inputs=lambda x: [x["dci_lattice"]],
+            ops=lambda x: dt_ops(x["dci_lattice"]),
+            shape=lambda x: tuple(x["dci_lattice"].shape)),
         "cm_covariance": dict(
             module=cuda_cov, bar="count exact, entries bitwise",
             run=lambda x: cuda_cov.cm_covariances(x["vm"], x["rect"]),
             plain=lambda x: cuda_cov.cm_covariances_plain(x["vm"], x["rect"]),
             inputs=lambda x: [x["vm"], x["rect"]],
-            ops=lambda x: 23 * cov_taps(x["rect"]),
+            # per tap 22: 3 residuals (3 subs, 3 muls by the validity
+            # factor), the count, 3 first and 6 second moments (6 products)
+            ops=lambda x: 22 * cov_taps(x["rect"]),
             shape=lambda x: tuple(x["vm"].shape)),
         "seed_gradient_nasp": dict(
             module=cuda_gradient, bar="bitwise, seeds identical", row="seed_gradient",
@@ -354,6 +380,9 @@ def main() -> int:
             # profiler's summed kernel durations per call
             t_k = cuda_ms(lambda: k["run"](x), warmup=3, iters=20)
             d_k, n_k = device_ms(lambda: k["run"](x), warmup=3, iters=20)
+            if "activities" in k and n_k != k["activities"]:
+                _fail(f"kernel {name} ran {n_k:g} device activities per call, "
+                      f"not {k['activities']}")
             t_p = cuda_ms(lambda: k["plain"](x), warmup=1, iters=5)
             t_l = d_l = None
             if "library" in k:

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -132,6 +134,20 @@ def check_status(name: str, code: int) -> None:
     if code != 0:
         text = load().kde_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({text})")
+
+
+def launch(name: str, argtypes: list, device, args) -> None:
+    """Call the C entry point `name` with `args` and the current stream of
+    `device` (declared by `argtypes`, the stream's PTR appended), and raise
+    on a CUDA error.  The device context is entered only when `device` is
+    not already the current one."""
+    fn = function(name, argtypes + [PTR])
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_status(name, code)
 
 
 def check_tensor(t, what: str, dtype, shape) -> None:

@@ -3,11 +3,12 @@ plain PyTorch version, and a launch counter.
 
 Counterpart of the JAX package's ops/pallas_cov.py (cm_covariances) and of
 the XLA sweep in ops/normals.py::cm_normals (direct_cov_all + _per_size).
-Kernel source: csrc/cov.cu.  Both walk the 441 taps of the nested windows in
-_ring_taps order and keep the snapshot of each pixel's own window size, so
+Kernel source: csrc/cov.cu.  Both walk the taps of the nested windows in
+ring_taps() order and keep the snapshot of each pixel's own window size, so
 with FMA contraction off the kernel is bitwise equal to the plain version.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+The kernel walks each ring as one row and one column (ring_walk spells out
+its order) and stops after the pixel's own size.  A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,6 +40,25 @@ def ring_taps() -> Dict[int, List[Tuple[int, int]]]:
         rings[s] = sorted(taps - prev)
         prev = taps
     return rings
+
+
+def ring_walk(s: int) -> List[Tuple[int, int]]:
+    """The taps csrc/cov.cu adds going from size s - 1 to size s, in its
+    order: with lo = -(s >> 1) and hi = lo + s - 1, for even s the row
+    dy = lo then the column dx = lo below it, for odd s the column dx = hi
+    then the row dy = hi; size 2 adds its centre tap last (its ring is the
+    whole 2x2 window).  Equal to ring_taps()[s].  This is the kernel's
+    specification, not a check of it: what holds csrc/cov.cu to this order
+    is the card tests, which compare it bitwise with the plain version."""
+    lo = -(s >> 1)
+    hi = lo + s - 1
+    row_top = [(lo, dx) for dx in range(lo, hi + 1)]
+    col_left = [(dy, lo) for dy in range(lo + 1, hi + 1)]
+    col_right = [(dy, hi) for dy in range(lo, hi)]
+    row_bottom = [(hi, dx) for dx in range(lo, hi + 1)]
+    if s % 2 == 0:
+        return row_top + col_left + ([(0, 0)] if s == 2 else [])
+    return col_right + row_bottom
 
 
 def cm_covariances_plain(
@@ -93,16 +113,12 @@ def cm_covariances(
     b, h, w, _ = vertices_m.shape
     _build.check_tensor(vertices_m, "cov vertices", torch.float32, (b, h, w, 3))
     _build.check_tensor(rect, "cov rect", torch.int32, (b, h, w))
-    fn = _build.function(
-        "kde_cov", [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR]
+    dev = vertices_m.device
+    cnt = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    cov = torch.empty((b, h, w, 6), dtype=torch.float32, device=dev)
+    _build.launch(
+        "kde_cov", [_build.PTR] * 4 + [_build.INT] * 3, dev,
+        (vertices_m.data_ptr(), rect.data_ptr(), cnt.data_ptr(), cov.data_ptr(), b, h, w),
     )
-    with torch.cuda.device(vertices_m.device):
-        cnt = torch.empty((b, h, w), dtype=torch.float32, device=vertices_m.device)
-        cov = torch.empty((b, h, w, 6), dtype=torch.float32, device=vertices_m.device)
-        code = fn(
-            vertices_m.data_ptr(), rect.data_ptr(), cnt.data_ptr(), cov.data_ptr(),
-            b, h, w, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_status("kde_cov", code)
     launches += 1
     return cnt, cov

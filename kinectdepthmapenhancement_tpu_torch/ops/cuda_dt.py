@@ -4,8 +4,10 @@ version, and a launch counter.
 Counterpart of the JAX package's ops/pallas_dt.py (distance_transform) and of
 the XLA relaxation in ops/normals.py::distance_transform.  Kernel source:
 csrc/dt.cu.  min and + are exact in f32 and min is order-free, so the kernel
-is bitwise equal to the plain version.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+is bitwise equal to the plain version.  The kernel forms the init itself
+from the i32 map, so a call of up to kde_dt_max_rounds() rounds is one
+device activity.  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,30 +53,27 @@ def distance_transform_plain(dci: torch.Tensor, iterations: int) -> torch.Tensor
 
 
 def distance_transform(dci: torch.Tensor, iterations: int) -> torch.Tensor:
-    """Chamfer DT: the CUDA kernel for CUDA tensors (all rounds in one
-    launch, in chunks of at most kde_dt_max_rounds()), the plain version for
-    CPU tensors.  dci: i32 [B, H, W]."""
+    """Chamfer DT: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  dci: i32 [B, H, W].  On the card one launch runs up to
+    kde_dt_max_rounds() rounds: the first forms the init from dci, each
+    later one continues from the launch before; 0 rounds is one launch that
+    writes the init."""
     if dci.device.type == "cpu":
         return distance_transform_plain(dci, iterations)
     global launches
     b, h, w = dci.shape
     _build.check_tensor(dci, "dt dci", torch.int32, (b, h, w))
-    fn = _build.function(
-        "kde_dt", [_build.PTR, _build.PTR] + [_build.INT] * 4 + [_build.PTR]
-    )
     max_rounds = _build.load().kde_dt_max_rounds()
-    with torch.cuda.device(dci.device):
-        cur = _init(dci)
-        done = 0
-        while done < iterations:
-            rounds = min(max_rounds, iterations - done)
-            out = torch.empty_like(cur)
-            code = fn(
-                cur.data_ptr(), out.data_ptr(), b, h, w, rounds,
-                torch.cuda.current_stream().cuda_stream,
-            )
-            _build.check_status("kde_dt", code)
-            launches += 1
-            cur = out
-            done += rounds
-    return cur
+    argtypes = [_build.PTR, _build.INT, _build.PTR] + [_build.INT] * 4
+    src, from_dci, left = dci, 1, max(iterations, 0)
+    while True:
+        rounds = min(max_rounds, left)
+        out = torch.empty((b, h, w), dtype=torch.float32, device=dci.device)
+        _build.launch(
+            "kde_dt", argtypes, dci.device,
+            (src.data_ptr(), from_dci, out.data_ptr(), b, h, w, rounds),
+        )
+        launches += 1
+        src, from_dci, left = out, 0, left - rounds
+        if left == 0:
+            return out

@@ -328,15 +328,8 @@ def nasp_assign_and_analyze_plain(
 
 def _call(name: str, argtypes: list, device, args) -> None:
     """Launch kde_<name> on the current stream of `device`, raise on a CUDA
-    error, count the launch.  The device context is entered only when
-    `device` is not already the current one."""
-    fn = _build.function("kde_" + name, argtypes + [_build.PTR])
-    if device.index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _build.check_status("kde_" + name, code)
+    error, count the launch."""
+    _build.launch("kde_" + name, argtypes, device, args)
     launches[name] += 1
 
 

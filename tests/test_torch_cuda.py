@@ -15,8 +15,14 @@ terms' magnitudes (cuda_nasp.sums_close), at 96x128 with 32x32 cells (grid
 3x4) and with 24x32 cells (grid 4x4).  The label-cell sums and gather are
 also held on adversarial label maps over three cell shapes (24x24 cells at
 96x120 among them), r in {2, 4, 5} and F up to 16, and must give bitwise
-identical results on two launches.  chip_smoke.py runs the same checks at
-the 640x480 path's shapes.
+identical results on two launches.  The covariance sweep and the chamfer
+DT are also held bit for bit (sign of zero included) on adversarial inputs
+at 77x101 (B=3, ragged tiles) and 480x640 (B=1): the covariance with rect
+drawn from -3..25 (below 2, every size, above 21) and 30% invalid
+vertices; the DT at zero densities 0, 0.2%, 5% and 50% and on a lattice of
+zeros 48 px apart, for 0, 1, 25, 26, 27 and 53 rounds (the fused init, one
+launch and the chunks), each launch counted and two launches identical.
+chip_smoke.py runs the same checks at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -25,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.core.camera import (
     default_kinect_intrinsics,
     projective_to_real,
@@ -102,6 +109,63 @@ def test_seed_gradient_kernel_bitwise(inputs, nasp):
     n = inputs["nsub"] if nasp else None
     got = cuda_gradient.seed_gradient(inputs["csub"], n)
     assert torch.equal(got, cuda_gradient.seed_gradient_plain(inputs["csub"], n))
+
+
+# (B, H, W): ragged tiles in both kernels, and the path's frame
+ADV_SHAPES = [(3, 77, 101), (1, 480, 640)]
+ADV_SHAPE_IDS = ["77x101_b3", "480x640_b1"]
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", ADV_SHAPES, ids=ADV_SHAPE_IDS)
+def test_cov_kernel_adversarial(dev, shape):
+    b, h, w = shape
+    rng = np.random.default_rng(40)
+    v = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+    z = rng.uniform(0.4, 6.0, (b, h, w)).astype(np.float32)
+    z[rng.random((b, h, w)) < 0.3] = 0.0
+    v[..., 2] = z
+    rect = rng.integers(-3, 26, (b, h, w)).astype(np.int32)
+    tv, tr = torch.tensor(v, device=dev), torch.tensor(rect, device=dev)
+    before = cuda_cov.launches
+    got = cuda_cov.cm_covariances(tv, tr)
+    again = cuda_cov.cm_covariances(tv, tr)
+    torch.cuda.synchronize()
+    assert cuda_cov.launches == before + 2
+    want = cuda_cov.cm_covariances_plain(tv, tr)
+    for g, a, p in zip(got, again, want):
+        assert _same_bits(g, p) and _same_bits(g, a)
+
+
+def _dci(zeros, shape, seed):
+    """i32 depth-change map: 0 with probability `zeros`, 255 elsewhere, or
+    the lattice (0 where y % 48 == 24 and x % 48 == 24)."""
+    b, h, w = shape
+    if zeros == "lattice":
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        lattice = np.where((yy % 48 == 24) & (xx % 48 == 24), 0, 255)
+        return np.repeat(lattice[None], b, 0).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random(shape) < zeros, 0, 255).astype(np.int32)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 25, 26, 27, 53])
+@pytest.mark.parametrize("zeros", [0.0, 0.002, 0.05, 0.5, "lattice"],
+                         ids=["none", "0.2pct", "5pct", "50pct", "lattice"])
+@pytest.mark.parametrize("shape", ADV_SHAPES, ids=ADV_SHAPE_IDS)
+def test_dt_kernel_adversarial(dev, shape, zeros, iters):
+    dci = torch.tensor(_dci(zeros, shape, seed=50 + iters), device=dev)
+    max_rounds = _build.load().kde_dt_max_rounds()  # rounds one launch runs
+    before = cuda_dt.launches
+    got = cuda_dt.distance_transform(dci, iters)
+    again = cuda_dt.distance_transform(dci, iters)
+    torch.cuda.synchronize()
+    assert cuda_dt.launches == before + 2 * max(1, -(-iters // max_rounds))
+    want = cuda_dt.distance_transform_plain(dci, iters)
+    assert _same_bits(got, want) and _same_bits(got, again)
 
 
 def test_wrappers_reject_bad_tensors(inputs):

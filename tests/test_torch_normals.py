@@ -82,6 +82,77 @@ def test_distance_transform_bitwise(scene, source):
     assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("s", range(2, cuda_cov.MAX_RECT + 1))
+def test_ring_walk_is_ring_order(s):
+    """csrc/cov.cu walks each size's ring as one row and one column (and
+    size 2's centre last): that is the accumulation order of ring_taps()."""
+    assert cuda_cov.ring_walk(s) == cuda_cov.ring_taps()[s]
+
+
+@pytest.mark.parametrize("tile,k", [((16, 32, 20, 44), 1), ((16, 32, 20, 44), 7),
+                                    ((16, 32, 20, 44), 12), ((0, 16, 40, 64), 12)],
+                         ids=["interior_k1", "interior_k7", "interior_k12", "corner_k12"])
+def test_dt_tile_needs_only_a_halo_of_k(tile, k):
+    """csrc/dt.cu's region: after k rounds a tile depends only on the cells
+    within k of it.  The plain DT of the crop tile + k (+inf beyond it, and
+    beyond the image) equals the full image's on the tile, once the crop's
+    init w' + h' is read as the image's w + h (every value after k rounds is
+    either the init or a distance <= 1.4 k, far below both).  The only
+    zeros lie exactly k from the tile, beside each side and corner inside
+    the image, and reach it only in the k-th round: a halo one short fails."""
+    dci = torch.full((1, 48, 64), 255, dtype=torch.int32)
+    y0, y1, x0, x1 = tile
+    for y, x in ((y0 - k, x0 + 3), (y1 - 1 + k, x1 - 4), (y0 + 3, x0 - k),
+                 (y1 - 4, x1 - 1 + k), (y0 - k, x0 - k), (y1 - 1 + k, x1 - 1 + k)):
+        if 0 <= y < 48 and 0 <= x < 64:
+            dci[0, y, x] = 0
+    full = cuda_dt.distance_transform_plain(dci, k)
+    cy0, cx0 = max(y0 - k, 0), max(x0 - k, 0)
+    crop = dci[:, cy0 : y1 + k, cx0 : x1 + k]
+    part = cuda_dt.distance_transform_plain(crop, k)
+    far_crop, far_full = float(crop.shape[1] + crop.shape[2]), float(48 + 64)
+    assert 1.4 * k < min(far_crop, far_full)
+    part = torch.where(part == far_crop, far_full, part)
+    got = part[:, y0 - cy0 : y1 - cy0, x0 - cx0 : x1 - cx0]
+    assert got.numpy().tobytes() == full[:, y0:y1, x0:x1].numpy().tobytes()
+
+
+@pytest.mark.parametrize("case", ["no_zero", "settled"])
+def test_dt_fixed_point_stays(case):
+    """csrc/dt.cu stops a block after a round that changed nothing: such a
+    state is a fixed point of every later round.  A map with no zero never
+    leaves its init; a map that settles stays settled."""
+    if case == "no_zero":
+        dci = torch.full((1, 48, 64), 255, dtype=torch.int32)
+        start = 0
+    else:
+        rng = np.random.default_rng(4)
+        dci = torch.tensor(np.where(rng.random((1, 48, 64)) < 0.01, 0, 255).astype(np.int32))
+        start = next(t for t in range(200) if torch.equal(
+            cuda_dt.distance_transform_plain(dci, t), cuda_dt.distance_transform_plain(dci, t + 1)))
+    fixed = cuda_dt.distance_transform_plain(dci, start)
+    for extra in (1, 26, 27):
+        assert torch.equal(cuda_dt.distance_transform_plain(dci, start + extra), fixed)
+
+
+@pytest.mark.parametrize("kernel", ["cov", "dt"])
+def test_kernel_variants_rewrite_the_sources(kernel):
+    """utils/kernel_variants.py rewrites the tile and unroll constants of
+    csrc/cov.cu and csrc/dt.cu: its first variant of each kernel is the
+    source as committed, and every variant finds each of its constants."""
+    from kinectdepthmapenhancement_tpu_torch import _build
+    from kinectdepthmapenhancement_tpu_torch.utils import kernel_variants as kv
+
+    variants = kv.COV_VARIANTS if kernel == "cov" else kv.DT_VARIANTS
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    values = list(variants.values())
+    assert kv.variant_source(text, values[0]) == text
+    rewritten = {kv.variant_source(text, v) for v in values}
+    assert len(rewritten) == len(values)  # each variant differs from the others
+    with pytest.raises(ValueError):
+        kv.variant_source(text, {"NO_SUCH_CONSTANT": 1})
+
+
 def test_cov_count_exact_entries_close(scene):
     """Against the JAX package's covariance kernel (pallas_cov, interpret
     mode) on a 48x64 crop, which tests/test_pallas.py holds against the XLA
