@@ -17,7 +17,8 @@ Phases (each prints its results; any failure exits non-zero):
      exact and the rest within 1e-5 of the sum of their terms' magnitudes;
      the gather at each width the path uses, F = 6, 1 and 3; the DT also on
      a lattice depth-change map, zeros 48 px apart, and in one device
-     activity per call); time kernel,
+     activity per call; the weighted NASP sums also on labels whose slot
+     changes nearly every pixel); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -58,6 +59,15 @@ import time
 # done with FMAs, so the bound uses the published rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# one H100 SXM issues at most one warp instruction a clock on each of its
+# 132 x 4 schedulers
+SCHEDULERS = 528
+# issued instructions of the fused assignment's candidate loop per pixel and
+# in-grid candidate on its fast path (cuobjdump -sass of csrc/nasp.cu's
+# assign_analyze_kernel: 124 for the loop's unrolled pair, the IEEE sqrt's
+# slow-path call not taken); bitwise equality to the plain version fixes
+# its operations and their order
+ASSIGN_LOOP_INSTRUCTIONS = 62
 
 # a trace's name of a kernel of csrc/*.cu (each lives in an anonymous namespace)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+_kernel)\b")
@@ -109,6 +119,11 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    print(f"max SM clock {sm_mhz:g} MHz")
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
 
@@ -180,6 +195,22 @@ def main() -> int:
                 labels, *tri, x[f"f_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
                 color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell)
         x["scale_label"] = cuda_nasp.label_cell_sums_plain(labels, x["feats2"].abs(), **cell)
+        # labels whose slot changes nearly every pixel: each pixel takes one
+        # of the 3x3 cells around its own (the clusters whose update window
+        # can reach it), -1 where that leaves the grid and on 3%
+        rng = np.random.default_rng(11)
+        cyy = np.arange(h)[None, :, None] // ws_y
+        cxx = np.arange(w)[None, None, :] // ws_x
+        ny = cyy + rng.integers(-1, 2, (b, h, w))
+        nx = cxx + rng.integers(-1, 2, (b, h, w))
+        inside = (ny >= 0) & (ny < grid.rows) & (nx >= 0) & (nx < grid.cols)
+        scattered = np.where(inside, ny * grid.cols + nx, -1)
+        scattered[rng.random(scattered.shape) < 0.03] = -1
+        x["labels_scattered"] = torch.from_numpy(scattered.astype(np.int32)).to(dev)
+        x["scale_weighted_scattered"] = cuda_nasp.nasp_cell_sums_plain(
+            x["labels_scattered"], *tri, x["f_weighted"], lo=lo, hi=hi, mode="weighted",
+            abs_terms=True, color_sigma=nasp_p.color_sigma,
+            spatial_sigma=nasp_p.spatial_sigma, **cell)
         # the DT's worst case: a zero every 48 px puts one in every block's
         # region, and most pixels settle only after ~24 rounds
         yy, xx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
@@ -201,8 +232,8 @@ def main() -> int:
     sums_kw = dict(lo=lo, hi=hi, color_sigma=nasp_p.color_sigma,
                    spatial_sigma=nasp_p.spatial_sigma, **cell)
 
-    def cell_sums_args(x, mode):
-        return (x["labels"], x["color_f"], x["points"], x["nmap"], x[f"f_{mode}"])
+    def cell_sums_args(x, mode, labels="labels"):
+        return (x[labels], x["color_f"], x["points"], x["nmap"], x[f"f_{mode}"])
 
     def sums_ok(mode, scale):
         ints = cuda_nasp.INTEGER_FEATURES.get(mode, ())
@@ -224,8 +255,8 @@ def main() -> int:
         r = rect.clamp(max=21).to(torch.float64)
         return float(torch.where(rect >= 2, r * r, torch.zeros_like(r)).sum())
 
-    def labeled(x):  # pixels with a label: the ones whose features the NASP sums form
-        return int((x["labels"] >= 0).sum())
+    def labeled(x, labels="labels"):  # pixels whose features the NASP sums form
+        return int((x[labels] >= 0).sum())
 
     # in-grid candidates of each cell; an out-of-grid one costs one compare
     n_in = (cuda_nasp.cand_grid(grid.rows, grid.cols, cuda_nasp.candidate_offsets(4), dev)
@@ -242,6 +273,14 @@ def main() -> int:
         b = x["color_f"].shape[0]
         per_cell = ws_x * ws_y * (33 * n_in + (n_cand - n_in)) + 4 * n_in
         return b * float(per_cell.sum()) + 5 * npx(x["color_f"]) + 29 * labeled(x)
+
+    def assign_issue_ms(x):
+        """Kernel 5's issue floor: its candidate loop alone, one warp
+        instruction per 32 pixels, in-grid candidate and loop instruction,
+        at one a clock on every scheduler at the card's top SM clock."""
+        warp_instructions = (x["color_f"].shape[0] * ws_x * ws_y * float(n_in.sum())
+                             * ASSIGN_LOOP_INSTRUCTIONS / 32)
+        return warp_instructions / (SCHEDULERS * sm_mhz * 1e3), warp_instructions
 
     # operations per call, one per f32 add / mul / sub / div / compare /
     # min / sqrt / exp, counted from each plain version's loop body
@@ -304,7 +343,7 @@ def main() -> int:
             ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
             and sums_ok("analyze", "scale_assign")(got, want, x),
             inputs=lambda x: [x["color_f"], x["points"], x["nmap"], x["cand"]],
-            ops=assign_ops,
+            ops=assign_ops, issue=assign_issue_ms,
             shape=lambda x: tuple(x["color_f"].shape)),
         "nasp_cell_sums_weighted": dict(
             module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
@@ -331,6 +370,17 @@ def main() -> int:
             inputs=lambda x: list(cell_sums_args(x, "analyze")),
             # per labeled pixel: window 6, validity 4, features 6, 13 sums
             ops=lambda x: labeled(x) * (16 + 13),
+            shape=lambda x: tuple(x["color_f"].shape)),
+        "nasp_cell_sums_weighted_scattered": dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="nasp_cell_sums", secondary=True,
+            run=lambda x: cuda_nasp.nasp_cell_sums(
+                *cell_sums_args(x, "weighted", "labels_scattered"), mode="weighted", **sums_kw),
+            plain=lambda x: cuda_nasp.nasp_cell_sums_plain(
+                *cell_sums_args(x, "weighted", "labels_scattered"), mode="weighted", **sums_kw),
+            ok=sums_ok("weighted", "scale_weighted_scattered"),
+            inputs=lambda x: list(cell_sums_args(x, "weighted", "labels_scattered")),
+            ops=lambda x: labeled(x, "labels_scattered") * (51 + 14),
             shape=lambda x: tuple(x["color_f"].shape)),
         "label_cell_sums": dict(
             module=cuda_nasp, bar="<= 1e-5 sum|terms|",
@@ -362,6 +412,11 @@ def main() -> int:
     for bsz in (1, 4):
         x = stage_inputs(depth4[:bsz], color4[:bsz])
         torch.cuda.synchronize()
+        for key in ("labels", "labels_scattered"):  # what a sums lane sees a round on
+            lab = x[key]
+            both = (lab[:, 1:] >= 0) & (lab[:, :-1] >= 0)
+            moved = float(((lab[:, 1:] != lab[:, :-1]) & both).sum() / both.sum())
+            print(f"{key} B={bsz}: {moved:.4f} of labeled pixels differ from the one above")
         for name, k in kernels.items():
             got, want = k["run"](x), k["plain"](x)
             torch.cuda.synchronize()
@@ -399,6 +454,10 @@ def main() -> int:
                   f"plain call {t_p:.4f} ms  library {lib}  "
                   f"bound {t_b:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
                   f"{k['ops'](x) / 1e9:.3f} Gop)")
+            if "issue" in k:
+                t_i, n_i = k["issue"](x)
+                print(f"  issue floor {t_i:.4f} ms ({n_i / 1e6:.1f} M warp instructions at one a "
+                      f"clock on {SCHEDULERS} schedulers, {sm_mhz:g} MHz)")
             r = report[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r[f"ms_b{bsz}"], r[f"plain_ms_b{bsz}"], r[f"library_ms_b{bsz}"] = t_k, t_p, t_l

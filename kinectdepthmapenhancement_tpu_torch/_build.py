@@ -77,7 +77,7 @@ def _compile(sources: List[Path], out: Path) -> Dict[str, List[str]]:
         rc = proc.wait()
         log.close()
         text = (work / (src.stem + ".log")).read_text()
-        ptxas[src.name] = [ln for ln in text.splitlines() if "ptxas info" in ln]
+        ptxas[src.name] = [ln for ln in text.splitlines() if "ptxas info" in ln or "spill" in ln]
         if rc != 0:
             failed.append(f"--- {src.name} (rc {rc})\n{text}")
     if failed:

@@ -1,5 +1,6 @@
-// NASP cell kernels: label-cell gather, label-cell sums, NASP update sums
-// and the fused first assignment + analyze sums.
+// NASP cell kernels: label-cell gather, and three per-(cell, candidate)
+// sums kernels on one reduction: label-cell sums, NASP update sums and the
+// fused first assignment + analyze sums.
 //
 // Replace the TPU kernels of kinectdepthmapenhancement_tpu/ops/pallas_nasp.py:
 //   kde_label_cell_gather    label_cell_gather        (:340, body :301)
@@ -11,42 +12,47 @@
 // carries -1 or cluster (cy + dy) * cols + (cx + dx), (dy, dx) in [-r, r)^2.
 // So a label's candidate slot follows arithmetically,
 // j = (dy + r) * 2r + (dx + r); the TPU's 64-way select chains over rolled
-// lane maps become one index.
+// lane maps become one index, read from a per-block table over the
+// candidate rows (no division per pixel).
 //
-// Bound on the H100: memory.  At 640x480 each kernel reads the image planes
-// once (~4-15 MB) and writes a small [B, rows*cols*n, F] partial table; the
-// assignment's 64 candidates x ~35 flops per pixel are ~0.7 GFLOP, a few
-// microseconds of f32 issue.  The plain PyTorch versions are bound instead
-// by launches and by the [P, n] one-hot products.
+// The sums (run_sums): one 256-thread block per (frame, cell), O(P * F)
+// work.  Warp w takes a fixed run of the cell's pixels, 32 a round in row
+// order, and a per-kernel source gives each lane its round's pixel: its
+// candidate slot (-1: it adds nothing) and its F features.  The label-cell
+// sums stage labels and pre-masked features by cp.async, three rounds
+// ahead; the NASP update sums read label, colour, point and normal and form
+// the features in registers (nasp_features).  Each lane keeps a double run
+// sum of its pixels in registers while their slot stays the same and
+// flushes it when the slot changes, all lanes after the last round.  A
+// flush groups the flushing lanes by slot (__match_any_sync) and sums every
+// group at once by a tree over the members' ranks in their group, one
+// shuffle a feature and level for the whole warp; the group's first lane
+// adds the sum into the warp's double partial row in shared memory.  After
+// one barrier thread t owns outputs t + 256k and adds the 8 warps' partials
+// in warp order.  Bound: the bytes, one read of the planes (3.7 MB for the
+// label sums at 640x480, ~13 MB for the NASP sums), 1-4 us; what sets the
+// time is each warp's chain of dependent rounds, the flush trees (more of
+// them where a cell's labels change often) and the block's prologue and
+// epilogue over its partials, NW * n * F doubles: 57,344 B at r = 4, F =
+// 14, so three blocks an SM and all 300 blocks of a 640x480 frame resident
+// at once (__launch_bounds__(NT, 3) holds the registers to that).
 //
-// NASP update sums and the fused assignment (cell_sums): one 256-thread
-// block per (frame, cell).  The cell's pixels are staged in chunks of 256 in
-// shared memory (candidate slot + F features each); thread t owns outputs
-// (slot, feature) o = t + 256k and walks the chunk in pixel order, adding
-// matching features into a double: O(P * n * F) compares per cell.  The
-// assignment keeps the plain version's operation order (built with
-// -fmad=false, IEEE sqrtf and division) and candidates dy-major with a
-// strict <, so labels and distances are bitwise equal to it.  The weighted
-// features flush subnormal weights to 0 as XLA does (stencil.flush_subnormal
-// in the plain version).
+// The fused kernel runs the first assignment (calculateLD_NASP) of the
+// block's pixels, then run_sums over the analyze features of the labels it
+// gave.  Bound: the issue of the candidate sweep, ~60 instructions per
+// pixel and in-grid candidate in the plain version's operation order
+// (built with -fmad=false, IEEE sqrtf and division; candidates dy-major, a
+// strict <), which keeps labels and distances bitwise equal to it; the
+// operation bound of the same 0.5 GFLOP is ~7x lower.  The in-grid
+// candidates are staged once per cell as three 16-byte rows each
+// (broadcast loads), their depth and normal validity formed there; only
+// the first out-of-grid candidate can win (it costs INIT_DISTANCE), so it
+// is compared once.  The loop holds the table's shared address and the
+// pixel's u, v in registers (the compiler would recompute them each
+// candidate under the three-blocks-an-SM register cap).
 //
-// Label-cell sums (label_sums_kernel): one 256-thread block per (frame,
-// cell), O(P * F) work.  Warp w takes a fixed run of the cell's pixels in
-// row order, 32 a round, with three rounds in flight to shared memory by
-// cp.async (labels, and features 16 or 8 bytes a copy where F and the
-// pointer allow); a pixel's slot comes from a per-block table over the
-// candidate rows, with no division per pixel.  Each lane keeps a double
-// run sum of its own pixels while their slot stays the same and flushes it
-// when the slot changes (and after the last round).  A flush groups the
-// flushing lanes by slot (__match_any_sync) and sums each group by a fixed
-// shuffle tree, non-members adding 0, into the warp's double partial row in
-// shared memory.  After one barrier thread t owns outputs t + 256k and adds
-// the 8 warps' partials in warp order.  The order of every sum is fixed by
-// the labels alone.  At 640x480 the 300 blocks are one wave; the bound is
-// the 3.7 MB read, ~1.1 us; what sets the time is each warp's chain of
-// dependent rounds and its flush trees, more of them where a cell's labels
-// change often.  Shared memory grows with n * F (~25 KB at r = 4, F = 2;
-// ~205 KB at r = 5, F = 16, opted in above 48 KB).
+// The weighted features flush subnormal weights to 0 as XLA does
+// (stencil.flush_subnormal in the plain version).
 //
 // Label-cell gather (label_gather_kernel): one block per (frame, image
 // row), so the cell row is the block's.  It stages the table rows its
@@ -57,9 +63,11 @@
 // the output, 7.4 MB at F = 6, B = 1, ~2.2 us.
 //
 // No atomics of any kind: each sum has one owner and an order fixed by the
-// inputs, so runs are bitwise repeatable, and a double sum of f32 terms is
-// exact for integer-valued features (counts, colours, u, v) and within 1
-// ulp of the exact sum for the rest.  The gather only copies.
+// labels alone, so runs are bitwise repeatable, and a double sum of f32
+// terms is exact for integer-valued features (counts, colours, u, v) and
+// within 1 ulp of the exact sum for the rest.  The gather only copies.
+// Dynamic shared memory above 48 KB is allowed once per kernel and device
+// (no kernel here has static shared memory).
 
 #include <algorithm>
 #include <cfloat>
@@ -72,10 +80,7 @@ namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
-constexpr int CH = 256;        // pixels staged per chunk
-constexpr int KO = 4;          // outputs a thread owns per pass
-constexpr int MAXF = 16;       // most features a sums kernel stages per pixel
-constexpr int MAXN = 64;       // most candidates of the fused assignment (r <= 4)
+constexpr int MAXF = 16;       // most features of a label-cell sums call
 constexpr size_t MAX_SMEM = 232448;  // shared memory a block may opt in to (sm_90)
 constexpr int NS = 4;          // rounds a label-sums warp keeps in flight
 constexpr int N_ANALYZE = 13;
@@ -83,20 +88,13 @@ constexpr int N_WEIGHTED = 14;
 constexpr float VALID_DEPTH_MM = 50.0f;
 constexpr float INVALID_NORMAL = -1.0f;
 constexpr float INIT_DISTANCE = 999999.9f;  // the JAX package's slic.INIT_DISTANCE in f32
+constexpr unsigned ALL = 0xffffffffu;
 
 struct Cells {
   int H, W, rows, cols, r, bs_y, bs_x;
 };
 
 __device__ __forceinline__ float flush(float x) { return x < FLT_MIN ? 0.0f : x; }
-
-// candidate slot of `label` in cell (cy, cx), -1 when it is not a candidate
-__device__ __forceinline__ int slot_of(int label, int cy, int cx, const Cells& c) {
-  if (label < 0 || label >= c.rows * c.cols) return -1;
-  const int dy = label / c.cols - cy, dx = label % c.cols - cx;
-  if (dy < -c.r || dy >= c.r || dx < -c.r || dx >= c.r) return -1;
-  return (dy + c.r) * 2 * c.r + (dx + c.r);
-}
 
 __device__ __forceinline__ bool normal_valid(const float* n) {
   return n[0] != INVALID_NORMAL || n[1] != INVALID_NORMAL || n[2] != INVALID_NORMAL;
@@ -143,57 +141,6 @@ __device__ __forceinline__ bool nasp_features(bool weighted, float u, float v,
   return true;
 }
 
-// Per-(cell, candidate) sums of F features for the block's cell.  `load`
-// (a functor) stages pixel p of the cell: writes its F features and returns
-// its candidate slot (-1: the pixel adds nothing).  out: the cell's
-// [n, F] rows of the [B, rows*cols*n, F] partial table.
-template <class Loader>
-__device__ void cell_sums(const Loader& load, const Cells& c, int F, int b, int cy,
-                          int cx, float* out) {
-  __shared__ int s_slot[CH];
-  __shared__ float s_feat[CH * MAXF];
-  const int n = 4 * c.r * c.r;
-  const int nF = n * F;
-  const int P = c.bs_y * c.bs_x;
-  const int tid = threadIdx.x;
-  float* ob = out + (static_cast<size_t>(b * c.rows + cy) * c.cols + cx) * nF;
-  for (int o0 = 0; o0 < nF; o0 += NT * KO) {
-    double acc[KO];
-#pragma unroll
-    for (int k = 0; k < KO; ++k) acc[k] = 0.0;
-    for (int p0 = 0; p0 < P; p0 += CH) {
-      const int np = min(CH, P - p0);
-      for (int q = tid; q < np; q += NT) s_slot[q] = load(b, cy, cx, p0 + q, s_feat + q * F);
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < KO; ++k) {
-        const int o = o0 + k * NT + tid;
-        if (o < nF) {
-          const int j = o / F, f = o % F;
-          double a = acc[k];
-          for (int q = 0; q < np; ++q) {
-            if (s_slot[q] == j) a += static_cast<double>(s_feat[q * F + f]);
-          }
-          acc[k] = a;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < KO; ++k) {
-      const int o = o0 + k * NT + tid;
-      if (o < nF) ob[o] = static_cast<float>(acc[k]);
-    }
-  }
-}
-
-__device__ __forceinline__ size_t pixel_of(const Cells& c, int b, int cy, int cx, int p,
-                                           int* y, int* x) {
-  *y = cy * c.bs_y + p / c.bs_x;
-  *x = cx * c.bs_x + p % c.bs_x;
-  return (static_cast<size_t>(b) * c.H + *y) * c.W + *x;
-}
-
 // The table rows that the candidates of cell row cy can name: cell rows
 // [ly0, ly1) of the grid, labels [ly0 * cols, ly1 * cols).
 __device__ __forceinline__ void cand_rows(const Cells& c, int cy, int* ly0, int* ly1) {
@@ -206,176 +153,139 @@ size_t max_rel(const Cells& c) {
   return static_cast<size_t>(std::min(2 * c.r, c.rows)) * c.cols;
 }
 
-// Dynamic shared memory of label_sums_kernel: the warps' double partials
-// [NW][n*F], the threads' open run sums [F][NT] (read when F > 4), the
-// warps' NS staging buffers of 32 pixels' features [NW][NS][32*F] and
-// labels [NW][NS][32], and the slot table.
-size_t label_sums_smem(const Cells& c, int F) {
-  const size_t n = 4 * static_cast<size_t>(c.r) * c.r;
-  return sizeof(double) * (NW * n + NT) * F + sizeof(float) * NW * NS * 32 * F +
-         sizeof(int) * NW * NS * 32 + sizeof(int) * max_rel(c);
-}
+// The candidate slot of a label in the block's cell (-1: none), from a
+// shared table over the labels [base, base + nrel) of its candidate rows.
+struct SlotTable {
+  int base, nrel;
+  const int* slot;
+  __device__ int operator()(int label) const {
+    const int rel = label - base;
+    return rel >= 0 && rel < nrel ? slot[rel] : -1;
+  }
+};
 
-// Per-(cell, candidate) sums of pre-masked features, one block per
-// (frame, cell).  Warp w walks a fixed run of the cell's pixels, 32 a round
-// in row order, with the next NS - 1 rounds in flight to shared memory
-// (cp.async, 4 * VEC bytes a copy).  Each lane sums its own pixels down the
-// rounds while their slot stays the same (in registers when REG, F <= FC;
-// else in shared memory) and flushes the run when its slot changes; all
-// lanes flush after the last round.  A flush sums each slot's runs by a
-// fixed shuffle tree over the warp (lanes not in the group add 0), FC
-// features' trees interleaved, into the warp's partial row, groups in
-// ascending order of their first lane.
-template <int VEC, int FC, bool REG>
-__global__ void __launch_bounds__(NT)
-label_sums_kernel(const int* __restrict__ labels, const float* __restrict__ feats,
-                  float* __restrict__ out, Cells c, int F) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr unsigned ALL = 0xffffffffu;
-  const int n = 4 * c.r * c.r, nF = n * F;
-  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+// Fill the slot table of cell (cy, cx) into s_slot (max_rel entries); read
+// it after a barrier.
+__device__ SlotTable slot_table(const Cells& c, int cy, int cx, int* s_slot) {
   int ly0, ly1;
   cand_rows(c, cy, &ly0, &ly1);
-  const int base = ly0 * c.cols, nrel = (ly1 - ly0) * c.cols;
-  double* part = reinterpret_cast<double*>(smem);                 // [NW][n*F]
-  double* accs = part + NW * nF;                                   // [F][NT]
-  float* stage = reinterpret_cast<float*>(accs + NT * F);          // [NW][NS][32*F]
-  int* s_lab = reinterpret_cast<int*>(stage + NW * NS * 32 * F);   // [NW][NS][32]
-  int* s_slot = s_lab + NW * NS * 32;                              // [nrel]
-  for (int i = tid; i < NW * nF; i += NT) part[i] = 0.0;
-  // candidate slot of label base + rel in this cell, -1 if none
-  for (int rel = tid; rel < nrel; rel += NT) {
+  const int nrel = (ly1 - ly0) * c.cols;
+  for (int rel = threadIdx.x; rel < nrel; rel += NT) {
     const int dy = ly0 + rel / c.cols - cy, dx = rel % c.cols - cx;
     s_slot[rel] = (dx >= -c.r && dx < c.r) ? (dy + c.r) * 2 * c.r + (dx + c.r) : -1;
   }
+  return {ly0 * c.cols, nrel, s_slot};
+}
 
-  // warp w: pixels [p0, p1) of the cell; the lane's pixel (py, px) in the
-  // cell advances by 32 a round without division
-  const int P = c.bs_y * c.bs_x;
-  const int per = (P + NT - 1) / NT * 32;
-  const int p0 = w * per, p1 = min(p0 + per, P);
-  const int rounds = p1 > p0 ? (p1 - p0 + 31) / 32 : 0;
-  int py = (p0 + lane) / c.bs_x, px = p0 + lane - py * c.bs_x;
-  const int step_y = 32 / c.bs_x, step_x = 32 - step_y * c.bs_x;
-  const float* fimg = feats + static_cast<size_t>(b) * c.H * c.W * F;
-  const int* limg = labels + static_cast<size_t>(b) * c.H * c.W;
-  const int y0 = cy * c.bs_y, x0 = cx * c.bs_x;
-  double* wpart = part + w * nF;
-  float* wstage = stage + w * NS * 32 * F;
-  int* wlab = s_lab + w * NS * 32;
-  // copy round k's label and features of this lane into buffer k % NS;
-  // every call commits one group, empty past the last round
-  auto fetch = [&](int k) {
-    if (k < rounds) {
-      if (p0 + 32 * k + lane < p1) {
-        const size_t pix = static_cast<size_t>(y0 + py) * c.W + (x0 + px);
-        const int buf = k % NS;
-        __pipeline_memcpy_async(wlab + buf * 32 + lane, limg + pix, sizeof(int));
-        float* dst = wstage + (buf * 32 + lane) * F;
-        const float* src = fimg + pix * F;
-        for (int i = 0; i < F; i += VEC) {
-          __pipeline_memcpy_async(dst + i, src + i, sizeof(float) * VEC);
-        }
-      }
-      px += step_x;
-      py += step_y;
-      if (px >= c.bs_x) {
-        px -= c.bs_x;
-        ++py;
-      }
+// Warp w's pixels of the cell: [p0, p1), lane l at p0 + 32k + l in round k.
+struct Walk {
+  int p0, p1, rounds;
+  __device__ Walk(const Cells& c, int w) {
+    const int P = c.bs_y * c.bs_x;
+    const int per = (P + NT - 1) / NT * 32;
+    p0 = w * per;
+    p1 = min(p0 + per, P);
+    rounds = p1 > p0 ? (p1 - p0 + 31) / 32 : 0;
+  }
+  __device__ bool live(int k, int lane) const { return p0 + 32 * k + lane < p1; }
+};
+
+// A lane's pixel (py, px) in its cell, advanced by 32 pixels a step
+// without division.
+struct Cursor {
+  int py, px, sy, sx, bs_x;
+  __device__ Cursor(const Cells& c, int p) : bs_x(c.bs_x) {
+    py = p / bs_x;
+    px = p - py * bs_x;
+    sy = 32 / bs_x;
+    sx = 32 - sy * bs_x;
+  }
+  __device__ void next() {
+    px += sx;
+    py += sy;
+    if (px >= bs_x) {
+      px -= bs_x;
+      ++py;
     }
-    __pipeline_commit();
-  };
-  for (int k = 0; k < NS - 1; ++k) fetch(k);
+  }
+};
 
-  // the lane's open run: its slot (-1: none) and sums
-  int cur = -1;
+__device__ __forceinline__ void zero_partials(double* part, int count) {
+  for (int i = threadIdx.x; i < count; i += NT) part[i] = 0.0;
+}
+
+// The block's cell's [n * F] rows of the [B, rows*cols*n, F] partial table.
+__device__ __forceinline__ float* cell_out(float* out, const Cells& c, int nF) {
+  const size_t cell = (static_cast<size_t>(blockIdx.z) * c.rows + blockIdx.y) * c.cols + blockIdx.x;
+  return out + cell * nF;
+}
+
+// Per-(cell, candidate) sums of F <= FC features for the block's cell, the
+// one reduction of every sums kernel here.  `src.load(k, live, f)` gives
+// the lane's round-k pixel (`live`: the pixel exists): its candidate slot
+// (-1: it adds nothing) and its features f.  Each lane sums its pixels
+// while their slot stays the same and flushes the run when the slot
+// changes; all lanes flush after the last round.  part: the warps' partial
+// rows [NW][n * F], zeroed before the barrier that precedes this call.
+template <int FC, class Source>
+__device__ void run_sums(Source& src, const Walk& walk, int F, int nF, double* part,
+                         float* ob) {
+  const int lane = threadIdx.x & 31;
+  double* wpart = part + (threadIdx.x >> 5) * nF;
+  int cur = -1;  // the lane's open run: its slot (-1: none) and sums
   double racc[FC];
 #pragma unroll
   for (int j = 0; j < FC; ++j) racc[j] = 0.0;
-  double* sacc = accs + tid;  // sacc[f * NT]
-  if constexpr (!REG) {
-    for (int f = 0; f < F; ++f) sacc[f * NT] = 0.0;
-  }
-  __syncthreads();
 
-  // flush the runs of the lanes where `out`; they open empty runs
-  auto flush = [&](bool out) {
-    const int key = out ? cur : -1;
-    const unsigned peers = __match_any_sync(ALL, key);
-    unsigned todo = __ballot_sync(ALL, key >= 0 && lane == __ffs(static_cast<int>(peers)) - 1);
-    while (todo != 0u) {
-      const int first = __ffs(static_cast<int>(todo)) - 1;
-      todo &= todo - 1u;
-      const bool mine = (__shfl_sync(ALL, peers, first) >> lane) & 1u;
-      const int gslot = __shfl_sync(ALL, key, first);
-      for (int f0 = 0; f0 < F; f0 += FC) {
-        double v[FC];
+  // flush the runs of the lanes where `out`, every slot's group at once:
+  // at level s, the member of rank i (i % 2s == 0) adds the partial of rank
+  // i + s; `nxt` is that member's lane (-1: none), found by pointer jumping
+  auto flush_runs = [&](bool out) {
+    const unsigned peers = __match_any_sync(ALL, out ? cur : -1);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int most = static_cast<int>(__reduce_max_sync(ALL, out ? __popc(peers) : 0));
+    const unsigned later = lane == 31 ? 0u : peers & (ALL << (lane + 1));
+    int nxt = later ? __ffs(static_cast<int>(later)) - 1 : -1;
+    for (int s = 1; s < most; s <<= 1) {
+      const int from = nxt >= 0 ? nxt : lane;
+      const bool take = out && nxt >= 0 && (rank & (2 * s - 1)) == 0;
 #pragma unroll
-        for (int j = 0; j < FC; ++j) {
-          double a = 0.0;
-          if constexpr (REG) {
-            a = racc[j];
-          } else if (f0 + j < F) {
-            a = sacc[(f0 + j) * NT];
-          }
-          v[j] = mine ? a : 0.0;
-        }
-#pragma unroll
-        for (int s = 16; s > 0; s >>= 1) {
-#pragma unroll
-          for (int j = 0; j < FC; ++j) v[j] += __shfl_down_sync(ALL, v[j], s);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < FC; ++j) {
-            if (f0 + j < F) wpart[gslot * F + f0 + j] += v[j];
-          }
-        }
+      for (int j = 0; j < FC; ++j) {
+        const double v = __shfl_sync(ALL, racc[j], from);
+        if (take) racc[j] += v;
       }
+      nxt = __shfl_sync(ALL, nxt, from);
     }
     if (out) {
+      if (rank == 0) {
+#pragma unroll
+        for (int j = 0; j < FC; ++j) {
+          if (j < F) wpart[cur * F + j] += racc[j];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < FC; ++j) racc[j] = 0.0;
-      if constexpr (!REG) {
-        for (int f = 0; f < F; ++f) sacc[f * NT] = 0.0;
-      }
     }
   };
 
-  for (int k = 0; k < rounds; ++k) {
-    fetch(k + NS - 1);
-    __pipeline_wait_prior(NS - 1);  // round k has landed
-    __syncwarp();
-    const int buf = k % NS;
-    int slot = -1;
-    if (p0 + 32 * k + lane < p1) {
-      const int rel = wlab[buf * 32 + lane] - base;
-      if (rel >= 0 && rel < nrel) slot = s_slot[rel];
-    }
+  for (int k = 0; k < walk.rounds; ++k) {
+    float f[FC];
+    const int slot = src.load(k, walk.live(k, lane), f);
     const bool change = slot >= 0 && cur >= 0 && slot != cur;
-    if (__any_sync(ALL, change)) flush(change);
+    if (__any_sync(ALL, change)) flush_runs(change);
     if (slot >= 0) {
       cur = slot;
-      const float* fl = wstage + (buf * 32 + lane) * F;
-      if constexpr (REG) {
 #pragma unroll
-        for (int j = 0; j < FC; ++j) {
-          if (j < F) racc[j] += static_cast<double>(fl[j]);
-        }
-      } else {
-        for (int f = 0; f < F; ++f) sacc[f * NT] += static_cast<double>(fl[f]);
+      for (int j = 0; j < FC; ++j) {
+        if (j < F) racc[j] += static_cast<double>(f[j]);
       }
     }
-    __syncwarp();
   }
-  if (__any_sync(ALL, cur >= 0)) flush(cur >= 0);
+  if (__any_sync(ALL, cur >= 0)) flush_runs(cur >= 0);
   __syncthreads();
 
   // one owner per output: the warps' partials in warp order
-  float* ob = out + (static_cast<size_t>(b * c.rows + cy) * c.cols + cx) * nF;
-  for (int o = tid; o < nF; o += NT) {
+  for (int o = threadIdx.x; o < nF; o += NT) {
     double a = 0.0;
 #pragma unroll
     for (int k = 0; k < NW; ++k) a += part[k * nF + o];
@@ -383,117 +293,342 @@ label_sums_kernel(const int* __restrict__ labels, const float* __restrict__ feat
   }
 }
 
-struct NaspSumsLoader {
-  const int* labels;
-  const float *color, *points, *normals;
-  const float* cand;  // [B, rows*cols, nf]: x, y (, rgb 3, normal 3)
-  Cells c;
-  float lo, hi, c2, s2;
-  int weighted;
-  __device__ int operator()(int b, int cy, int cx, int p, float* f) const {
-    int y, x;
-    const size_t pix = pixel_of(c, b, cy, cx, p, &y, &x);
-    const int label = labels[pix];
-    const int slot = slot_of(label, cy, cx, c);
-    if (slot < 0) return -1;
-    const int nf = weighted ? 8 : 2;
-    const float* cl = cand + (static_cast<size_t>(b) * c.rows * c.cols + label) * nf;
-    const bool in = nasp_features(weighted != 0, static_cast<float>(x), static_cast<float>(y),
-                                  color + 3 * pix, points + 3 * pix, normals + 3 * pix, cl,
-                                  lo, hi, c2, s2, f);
-    return in ? slot : -1;
+// Label-cell sums' source: the lane's labels and pre-masked features,
+// staged by cp.async NS - 1 rounds ahead into the warp's NS buffers (4 * VEC
+// bytes a copy).
+template <int VEC, int FC>
+struct StagedSource {
+  const int* labels;    // the frame's [H, W]
+  const float* feats;   // the frame's [H, W, F]
+  int* wlab;            // [NS][32]
+  float* wstage;        // [NS][32 * F]
+  SlotTable slots;
+  Walk walk;
+  Cursor at;            // the pixel of the next fetch
+  int F, W, x0, y0, lane;
+
+  // copy round k's label and features into buffer k % NS; every call
+  // commits one group, empty past the last round
+  __device__ void fetch(int k) {
+    if (k < walk.rounds) {
+      if (walk.live(k, lane)) {
+        const size_t pix = static_cast<size_t>(y0 + at.py) * W + (x0 + at.px);
+        const int buf = k % NS;
+        __pipeline_memcpy_async(wlab + buf * 32 + lane, labels + pix, sizeof(int));
+        float* dst = wstage + (buf * 32 + lane) * F;
+        const float* src = feats + pix * F;
+        for (int i = 0; i < F; i += VEC) {
+          __pipeline_memcpy_async(dst + i, src + i, sizeof(float) * VEC);
+        }
+      }
+      at.next();
+    }
+    __pipeline_commit();
+  }
+
+  __device__ int load(int k, bool live, float (&f)[FC]) {
+    fetch(k + NS - 1);
+    __pipeline_wait_prior(NS - 1);  // round k has landed
+    __syncwarp();
+    const int buf = k % NS;
+    const int slot = live ? slots(wlab[buf * 32 + lane]) : -1;
+    if (slot >= 0) {
+      const float* fl = wstage + (buf * 32 + lane) * F;
+#pragma unroll
+      for (int j = 0; j < FC; ++j) f[j] = j < F ? fl[j] : 0.0f;
+    }
+    __syncwarp();  // buffer k % NS is refilled by the next round's fetch
+    return slot;
   }
 };
 
-// The first NASP assignment of one pixel (calculateLD_NASP, the plain
-// version's band-space sweep), then its analyze features.  The cell's
-// candidate fields are staged in shared memory: s_id[j] (-9 outside the
-// grid) and s_cand[j] = rgb 3, x, y, center z, normal 3.
-struct AssignLoader {
-  const float *color, *points, *normals;
-  int* labels_out;
-  float* dist_out;
-  const int* s_id;
-  const float (*s_cand)[9];
-  Cells c;
-  float lo, hi, w_col, w_spa, w_dep, w_nor, s2scale;
-  int apply_invalid;
-  __device__ int operator()(int b, int cy, int cx, int p, float* f) const {
-    int y, x;
-    const size_t pix = pixel_of(c, b, cy, cx, p, &y, &x);
-    const float* col = color + 3 * pix;
-    const float* pt = points + 3 * pix;
-    const float* nm = normals + 3 * pix;
-    const float u = static_cast<float>(x), v = static_cast<float>(y);
-    const float zc = pt[2];
-    const bool nv_pix = normal_valid(nm);
-    const int own = cy * c.cols + cx;
-    const int n = 4 * c.r * c.r;
+// Dynamic shared memory of label_sums_kernel: the warps' double partials
+// [NW][n*F], the warps' NS staging buffers of 32 pixels' features
+// [NW][NS][32*F] and labels [NW][NS][32], and the slot table.
+size_t label_sums_smem(const Cells& c, int F) {
+  const size_t n = 4 * static_cast<size_t>(c.r) * c.r;
+  return sizeof(double) * NW * n * F + sizeof(float) * NW * NS * 32 * F +
+         sizeof(int) * NW * NS * 32 + sizeof(int) * max_rel(c);
+}
+
+// Per-(cell, candidate) sums of F <= FC pre-masked features, one block per
+// (frame, cell).
+template <int VEC, int FC>
+__global__ void __launch_bounds__(NT)
+label_sums_kernel(const int* __restrict__ labels, const float* __restrict__ feats,
+                  float* __restrict__ out, Cells c, int F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nF = 4 * c.r * c.r * F;
+  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double* part = reinterpret_cast<double*>(smem);                  // [NW][n*F]
+  float* stage = reinterpret_cast<float*>(part + NW * nF);         // [NW][NS][32*F]
+  int* s_lab = reinterpret_cast<int*>(stage + NW * NS * 32 * F);   // [NW][NS][32]
+  int* s_slot = s_lab + NW * NS * 32;                              // [max_rel]
+  zero_partials(part, NW * nF);
+  const size_t frame = static_cast<size_t>(b) * c.H * c.W;
+  const Walk walk(c, w);
+  StagedSource<VEC, FC> src{labels + frame, feats + frame * F, s_lab + w * NS * 32,
+                            stage + w * NS * 32 * F, slot_table(c, cy, cx, s_slot), walk,
+                            Cursor(c, walk.p0 + lane), F, c.W, cx * c.bs_x, cy * c.bs_y,
+                            lane};
+  for (int k = 0; k < NS - 1; ++k) src.fetch(k);
+  __syncthreads();
+  run_sums<FC>(src, walk, F, nF, part, cell_out(out, c, nF));
+}
+
+// A pixel's slot from its label (the NASP update sums).
+struct LabelSlot {
+  const int* labels;  // the frame's [H, W]
+  SlotTable slots;
+  __device__ int operator()(size_t pix, int) const { return slots(labels[pix]); }
+};
+
+// A pixel's slot as the fused kernel's assignment left it, by pixel of the
+// cell.
+struct AssignedSlot {
+  const int* slot;  // [P]
+  __device__ int operator()(size_t, int p) const { return slot[p]; }
+};
+
+// NASP update sums' source: the lane's slot (SlotOf), colour, point and
+// normal read directly (coalesced across the warp), its features formed in
+// registers from its cluster's fields, staged per candidate slot
+// (fld[j * NFLD]).
+template <bool WEIGHTED, class SlotOf>
+struct NaspSource {
+  static constexpr int F = WEIGHTED ? N_WEIGHTED : N_ANALYZE;
+  static constexpr int NFLD = WEIGHTED ? 8 : 2;  // x, y (, rgb 3, normal 3)
+  SlotOf slot_of;
+  const float *color, *points, *normals;  // the frame's [H, W, 3]
+  const float* fld;                       // [n][NFLD]
+  Cursor at;
+  int W, x0, y0;
+  float lo, hi, c2, s2;
+
+  __device__ int load(int, bool live, float (&f)[F]) {
+    int slot = -1;
+    if (live) {
+      const int x = x0 + at.px, y = y0 + at.py;
+      const size_t pix = static_cast<size_t>(y) * W + x;
+      slot = slot_of(pix, at.py * at.bs_x + at.px);
+      const float col[3] = {color[3 * pix], color[3 * pix + 1], color[3 * pix + 2]};
+      const float pt[3] = {points[3 * pix], points[3 * pix + 1], points[3 * pix + 2]};
+      const float nm[3] = {normals[3 * pix], normals[3 * pix + 1], normals[3 * pix + 2]};
+      if (slot >= 0 && !nasp_features(WEIGHTED, static_cast<float>(x), static_cast<float>(y),
+                                       col, pt, nm, fld + slot * NFLD, lo, hi, c2, s2, f)) {
+        slot = -1;
+      }
+    }
+    at.next();
+    return slot;
+  }
+};
+
+// Dynamic shared memory of nasp_sums_kernel: the warps' double partials
+// [NW][n*F], the candidates' fields [n][NFLD] and the slot table.
+size_t nasp_sums_smem(const Cells& c, bool weighted) {
+  const size_t n = 4 * static_cast<size_t>(c.r) * c.r;
+  const size_t F = weighted ? N_WEIGHTED : N_ANALYZE, nfld = weighted ? 8 : 2;
+  return sizeof(double) * NW * n * F + sizeof(float) * n * nfld + sizeof(int) * max_rel(c);
+}
+
+template <bool WEIGHTED>
+__global__ void __launch_bounds__(NT, 3)
+nasp_sums_kernel(const int* __restrict__ labels, const float* __restrict__ color,
+                 const float* __restrict__ points, const float* __restrict__ normals,
+                 const float* __restrict__ cand, float* __restrict__ out, Cells c,
+                 float lo, float hi, float c2, float s2) {
+  using Src = NaspSource<WEIGHTED, LabelSlot>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = 4 * c.r * c.r, nF = n * Src::F;
+  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double* part = reinterpret_cast<double*>(smem);             // [NW][n*F]
+  float* fld = reinterpret_cast<float*>(part + NW * nF);      // [n][NFLD]
+  int* s_slot = reinterpret_cast<int*>(fld + n * Src::NFLD);  // [max_rel]
+  zero_partials(part, NW * nF);
+  // the fields of each in-grid candidate (cand: [B, rows*cols, NFLD])
+  const int two_r = 2 * c.r;
+  for (int i = threadIdx.x; i < n * Src::NFLD; i += NT) {
+    const int j = i / Src::NFLD;
+    const int ny = cy + j / two_r - c.r, nx = cx + j % two_r - c.r;
+    const bool ing = ny >= 0 && ny < c.rows && nx >= 0 && nx < c.cols;
+    const size_t row = static_cast<size_t>(b) * c.rows * c.cols + ny * c.cols + nx;
+    fld[i] = ing ? cand[row * Src::NFLD + i % Src::NFLD] : 0.0f;
+  }
+  const size_t frame = static_cast<size_t>(b) * c.H * c.W;
+  const Walk walk(c, w);
+  Src src{{labels + frame, slot_table(c, cy, cx, s_slot)}, color + 3 * frame,
+          points + 3 * frame, normals + 3 * frame, fld, Cursor(c, walk.p0 + lane), c.W,
+          cx * c.bs_x, cy * c.bs_y, lo, hi, c2, s2};
+  __syncthreads();
+  run_sums<Src::F>(src, walk, Src::F, nF, part, cell_out(out, c, nF));
+}
+
+constexpr int OUT_OF_GRID = -2;  // the winner is an out-of-grid candidate
+
+// A 16-byte load from shared memory at a 32-bit shared-window address.
+__device__ __forceinline__ float4 ld_shared4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(addr));
+  return v;
+}
+
+// The first NASP assignment (calculateLD_NASP, the plain version's
+// band-space sweep) of one pixel over the cell's candidates.  The in-grid
+// candidates are the offsets [dy0, dy1) x [dx0, dx1), staged dy-major as m
+// 16-byte rows of three: float4 (r, g, b, x), float4 (y, center z, n0, n1)
+// and int4 (n2 bits, id, slot, flags: 1 center z valid, 2 also its normal
+// valid).  An out-of-grid candidate costs INIT_DISTANCE and names the
+// pixel's own cell; with a strict < only the first one (dy-major) can win,
+// so it is compared once, after the first m0 in-grid candidates.  Writes
+// the pixel's label and distance, and its slot (-1 for none) to s_slot[p]
+// for the analyze sums.
+struct Assigner {
+  const float *color, *points, *normals;  // the frame's [H, W, 3]
+  int* labels;                            // the frame's [H, W], written
+  float* dist;                            // the frame's [H, W], written
+  const float4* cand;                     // [m][3]
+  int* s_slot;                            // [P], written
+  int m, m0, out_of_grid, own, own_slot, W, x0, y0, apply_invalid;
+  float w_col, w_spa, w_dep, w_nor, s2scale;
+
+  __device__ void pixel(int px, int py, int p) const {
+    const int x = x0 + px, y = y0 + py;
+    const size_t pix = static_cast<size_t>(y) * W + x;
+    const float col[3] = {color[3 * pix], color[3 * pix + 1], color[3 * pix + 2]};
+    const float zc = points[3 * pix + 2];
+    const float nm[3] = {normals[3 * pix], normals[3 * pix + 1], normals[3 * pix + 2]};
+    float u = static_cast<float>(x), v = static_cast<float>(y);
+    // u, v and the table's shared address are held in registers, not
+    // recomputed for every candidate
+    unsigned tab = static_cast<unsigned>(__cvta_generic_to_shared(cand));
+    asm("" : "+f"(u), "+f"(v), "+r"(tab));
+    const bool z_valid = zc > VALID_DEPTH_MM;
+    const bool zn_valid = z_valid && normal_valid(nm);
     float bd = INFINITY;
-    int bl = -1;
-    for (int j = 0; j < n; ++j) {
-      float cand_d = INIT_DISTANCE;
-      int cand_l = own;
-      if (s_id[j] >= 0) {
-        const float* cf = s_cand[j];
-        const float d0 = col[0] - cf[0], d1 = col[1] - cf[1], d2 = col[2] - cf[2];
-        const float cd = (d0 * d0 + d1 * d1) + d2 * d2;
-        const float ex = u - cf[3], ey = v - cf[4];
-        const float pd = sqrtf(ex * ex + ey * ey) * s2scale;
-        const bool zpair = zc > VALID_DEPTH_MM && cf[5] > VALID_DEPTH_MM;
-        const float dd = zpair ? fabsf(zc - cf[5]) : 0.0f;
-        float dist = (cd * w_col + pd * w_spa) + dd * w_dep;
-        const bool npair = zpair && nv_pix && normal_valid(cf + 6);
-        const float dot = (nm[0] * cf[6] + nm[1] * cf[7]) + nm[2] * cf[8];
-        const float nd = npair ? 65025.0f * (1.0f - fmaxf(dot, 0.0f)) : 0.0f;
-        dist = dist + nd * w_nor;
-        cand_d = dist;
-        cand_l = s_id[j];
+    int best = -1;  // the winner's row, OUT_OF_GRID or none
+    const auto consider = [&](int i) {
+      const float4 ca = ld_shared4(tab + 48 * i), cb = ld_shared4(tab + 48 * i + 16);
+      const float4 cf = ld_shared4(tab + 48 * i + 32);
+      const int4 cc = make_int4(__float_as_int(cf.x), __float_as_int(cf.y),
+                                __float_as_int(cf.z), __float_as_int(cf.w));
+      const float d0 = col[0] - ca.x, d1 = col[1] - ca.y, d2 = col[2] - ca.z;
+      const float cd = (d0 * d0 + d1 * d1) + d2 * d2;
+      const float ex = u - ca.w, ey = v - cb.x;
+      const float pd = sqrtf(ex * ex + ey * ey) * s2scale;
+      const bool zpair = z_valid && (cc.w & 1);
+      const float dd = zpair ? fabsf(zc - cb.y) : 0.0f;
+      float d = (cd * w_col + pd * w_spa) + dd * w_dep;
+      const bool npair = zn_valid && (cc.w & 2);  // zpair, both normals valid
+      const float dot = (nm[0] * cb.z + nm[1] * cb.w) + nm[2] * __int_as_float(cc.x);
+      const float nd = npair ? 65025.0f * (1.0f - fmaxf(dot, 0.0f)) : 0.0f;
+      d = d + nd * w_nor;
+      if (d < bd) {
+        bd = d;
+        best = i;
       }
-      if (cand_d < bd) {
-        bd = cand_d;
-        bl = cand_l;
-      }
+    };
+    for (int i = 0; i < m0; ++i) consider(i);
+    if (out_of_grid && INIT_DISTANCE < bd) {
+      bd = INIT_DISTANCE;
+      best = OUT_OF_GRID;
+    }
+    for (int i = m0; i < m; ++i) consider(i);
+    int bl = -1, bj = -1;
+    if (best == OUT_OF_GRID) {
+      bl = own;
+      bj = own_slot;
+    } else if (best >= 0) {
+      const int4 cc = reinterpret_cast<const int4*>(cand)[3 * best + 2];
+      bl = cc.y;
+      bj = cc.z;
     }
     if (apply_invalid && zc < VALID_DEPTH_MM) {  // NormalAdaptiveSuperpixel.cu:346-352
       bl = -1;
       bd = 0.0f;
+      bj = -1;
     }
-    labels_out[pix] = bl;
-    dist_out[pix] = bd;
-    const int slot = slot_of(bl, cy, cx, c);
-    if (slot < 0) return -1;
-    const float cl[2] = {s_cand[slot][3], s_cand[slot][4]};
-    return nasp_features(false, u, v, col, pt, nm, cl, lo, hi, 1.0f, 1.0f, f) ? slot : -1;
+    labels[pix] = bl;
+    dist[pix] = bd;
+    s_slot[p] = bj;
   }
 };
 
-__global__ void __launch_bounds__(NT)
-nasp_sums_kernel(NaspSumsLoader ld, float* out) {
-  cell_sums(ld, ld.c, ld.weighted ? N_WEIGHTED : N_ANALYZE, blockIdx.z, blockIdx.y,
-            blockIdx.x, out);
+// Dynamic shared memory of assign_analyze_kernel: the warps' double
+// partials [NW][n*13], the candidate table [n][3] 16-byte rows, the
+// candidates' x, y [n][2] and the pixels' slots [P].
+size_t assign_smem(const Cells& c) {
+  const size_t n = 4 * static_cast<size_t>(c.r) * c.r;
+  return sizeof(double) * NW * n * N_ANALYZE + sizeof(float4) * 3 * n + sizeof(float) * 2 * n +
+         sizeof(int) * c.bs_y * c.bs_x;
 }
 
-__global__ void __launch_bounds__(NT)
-assign_analyze_kernel(AssignLoader ld, const float* cand, float* out) {
-  __shared__ int s_id[MAXN];
-  __shared__ float s_cand[MAXN][9];
-  const Cells& c = ld.c;
+// The first assignment of the cell's pixels, then the analyze sums of the
+// labels it gave: two phases over the same walk, so the candidate sweep
+// runs without the run sums' registers.
+__global__ void __launch_bounds__(NT, 3)
+assign_analyze_kernel(const float* __restrict__ color, const float* __restrict__ points,
+                      const float* __restrict__ normals, const float* __restrict__ cand,
+                      int* __restrict__ labels, float* __restrict__ dist,
+                      float* __restrict__ out, Cells c, float lo, float hi, float w_col,
+                      float w_spa, float w_dep, float w_nor, float s2scale,
+                      int apply_invalid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = 4 * c.r * c.r, nF = n * N_ANALYZE;
   const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
-  const int n = 4 * c.r * c.r;
-  for (int j = threadIdx.x; j < n; j += NT) {
-    const int ny = cy + j / (2 * c.r) - c.r, nx = cx + j % (2 * c.r) - c.r;
-    const bool ing = ny >= 0 && ny < c.rows && nx >= 0 && nx < c.cols;
-    s_id[j] = ing ? ny * c.cols + nx : -9;
-    const float* src = cand + (static_cast<size_t>(b) * c.rows * c.cols +
-                               (ing ? ny * c.cols + nx : 0)) * 9;
-    for (int i = 0; i < 9; ++i) s_cand[j][i] = ing ? src[i] : 0.0f;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double* part = reinterpret_cast<double*>(smem);              // [NW][n*13]
+  float4* s_cand = reinterpret_cast<float4*>(part + NW * nF);  // [m][3]
+  float* fld = reinterpret_cast<float*>(s_cand + 3 * n);       // [n][2] by slot
+  int* s_slot = reinterpret_cast<int*>(fld + 2 * n);           // [P]
+  zero_partials(part, NW * nF);
+  // the in-grid candidates, dy-major; cand: [B, rows*cols, 9] = rgb 3, x,
+  // y, center z, normal 3
+  const int r = c.r, two_r = 2 * r;
+  const int dy0 = max(-r, -cy), dy1 = min(r, c.rows - cy);
+  const int dx0 = max(-r, -cx), dx1 = min(r, c.cols - cx);
+  const int mw = dx1 - dx0, m = (dy1 - dy0) * mw;
+  for (int i = threadIdx.x; i < m; i += NT) {
+    const int dy = dy0 + i / mw, dx = dx0 + i % mw;
+    const int id = (cy + dy) * c.cols + (cx + dx), slot = (dy + r) * two_r + (dx + r);
+    const float* src = cand + (static_cast<size_t>(b) * c.rows * c.cols + id) * 9;
+    float e[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) e[k] = src[k];
+    const bool z_valid = e[5] > VALID_DEPTH_MM;
+    s_cand[3 * i] = make_float4(e[0], e[1], e[2], e[3]);
+    s_cand[3 * i + 1] = make_float4(e[4], e[5], e[6], e[7]);
+    reinterpret_cast<int4*>(s_cand)[3 * i + 2] =
+        make_int4(__float_as_int(e[8]), id, slot,
+                  (z_valid ? 1 : 0) | (z_valid && normal_valid(e + 6) ? 2 : 0));
+    fld[2 * slot] = e[3];
+    fld[2 * slot + 1] = e[4];
   }
+  // the first out-of-grid candidate comes before every in-grid one unless
+  // the offsets' first row and column are in the grid
+  const bool out_of_grid = m < n;
+  const int m0 = (dy0 > -r || dx0 > -r) ? 0 : dx1 < r ? mw : m;
   __syncthreads();
-  AssignLoader l = ld;
-  l.s_id = s_id;
-  l.s_cand = s_cand;
-  cell_sums(l, c, N_ANALYZE, b, cy, cx, out);
+  const size_t frame = static_cast<size_t>(b) * c.H * c.W;
+  const Walk walk(c, w);
+  const Assigner assign{color + 3 * frame, points + 3 * frame, normals + 3 * frame,
+                        labels + frame, dist + frame, s_cand, s_slot, m, m0, out_of_grid,
+                        cy * c.cols + cx, r * two_r + r, c.W, cx * c.bs_x, cy * c.bs_y,
+                        apply_invalid, w_col, w_spa, w_dep, w_nor, s2scale};
+  Cursor at(c, walk.p0 + lane);
+  for (int k = 0; k < walk.rounds; ++k) {
+    if (walk.live(k, lane)) assign.pixel(at.px, at.py, at.py * c.bs_x + at.px);
+    at.next();
+  }
+  // each lane reads back only the slots of its own pixels
+  NaspSource<false, AssignedSlot> src{{s_slot}, color + 3 * frame, points + 3 * frame,
+                                      normals + 3 * frame, fld, Cursor(c, walk.p0 + lane),
+                                      c.W, cx * c.bs_x, cy * c.bs_y, lo, hi, 1.0f, 1.0f};
+  run_sums<N_ANALYZE>(src, walk, N_ANALYZE, nF, part, cell_out(out, c, nF));
 }
 
 // Dynamic shared memory of label_gather_kernel: each candidate label's
@@ -566,8 +701,12 @@ label_gather_kernel(const int* __restrict__ labels, const float* __restrict__ ta
   }
 }
 
-bool make_cells(int H, int W, int rows, int cols, int r, Cells* c) {
-  if (H <= 0 || W <= 0 || rows <= 0 || cols <= 0 || r < 1) return false;
+// A grid of cells that divides the image; blocks per (frame, cell) need
+// B and rows within a grid dimension's 65535.
+bool make_cells(int B, int H, int W, int rows, int cols, int r, Cells* c) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || rows <= 0 || rows > 65535 || cols <= 0 ||
+      r < 1)
+    return false;
   if (H % rows != 0 || W % cols != 0) return false;
   *c = Cells{H, W, rows, cols, r, H / rows, W / cols};
   return true;
@@ -575,18 +714,61 @@ bool make_cells(int H, int W, int rows, int cols, int r, Cells* c) {
 
 int launched() { return static_cast<int>(cudaGetLastError()); }
 
-// Launch `kernel` with `smem` bytes of dynamic shared memory, opting in
-// above the default 48 KB.
-template <class Kernel, class... Args>
-int launch_dyn(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+constexpr int MAX_DEVICES = 64;
+
+// Dynamic shared memory above 48 KB must be allowed per kernel and device:
+// allow the most a block may use once, at the kernel's first such launch on
+// each device, so later launches make no driver call for it.
+template <auto Kernel>
+cudaError_t allow_smem() {
+  static bool allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool known = dev >= 0 && dev < MAX_DEVICES;
+  if (known && allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(MAX_SMEM));
+  if (e == cudaSuccess && known) allowed[dev] = true;
+  return e;
+}
+
+// Launch Kernel with `smem` bytes of dynamic shared memory (refused above
+// what a block may have).
+template <auto Kernel, class... Args>
+int launch_dyn(dim3 grid, size_t smem, void* stream, Args... args) {
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e = allow_smem<Kernel>();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  Kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return launched();
+}
+
+template <int FT>
+int launch_gather(bool vec4, dim3 grid, size_t smem, void* stream, const int* labels,
+                  const float* table, float* out, Cells c, int F) {
+  return vec4 ? launch_dyn<label_gather_kernel<FT, true>>(grid, smem, stream, labels, table,
+                                                          out, c, F)
+              : launch_dyn<label_gather_kernel<FT, false>>(grid, smem, stream, labels, table,
+                                                           out, c, F);
+}
+
+template <int FC>
+int launch_label_sums(int vec, dim3 grid, size_t smem, void* stream, const int* labels,
+                      const float* feats, float* out, Cells c, int F) {
+  if constexpr (FC >= 4) {
+    if (vec == 4) {
+      return launch_dyn<label_sums_kernel<4, FC>>(grid, smem, stream, labels, feats, out, c, F);
+    }
+  }
+  if constexpr (FC >= 2) {
+    if (vec == 2) {
+      return launch_dyn<label_sums_kernel<2, FC>>(grid, smem, stream, labels, feats, out, c, F);
+    }
+  }
+  return launch_dyn<label_sums_kernel<1, FC>>(grid, smem, stream, labels, feats, out, c, F);
 }
 
 bool aligned(const void* p, size_t bytes) {
@@ -600,73 +782,65 @@ extern "C" int kde_label_cell_gather(const int* labels, const float* table, floa
                                      int B, int H, int W, int rows, int cols, int r, int F,
                                      void* stream) {
   Cells c;
-  if (B <= 0 || F <= 0 || B > 65535 || !make_cells(H, W, rows, cols, r, &c))
+  if (F <= 0 || !make_cells(B, H, W, rows, cols, r, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(H, B);
   const size_t smem = label_gather_smem(c, F);
   const bool vec4 = (W * F) % 4 == 0 && aligned(out, 16);
-  const auto as = [&](auto kernel) {
-    return launch_dyn(kernel, grid, smem, stream, labels, table, out, c, F);
-  };
   switch (F) {
-    case 1: return vec4 ? as(label_gather_kernel<1, true>) : as(label_gather_kernel<1, false>);
-    case 3: return vec4 ? as(label_gather_kernel<3, true>) : as(label_gather_kernel<3, false>);
-    case 6: return vec4 ? as(label_gather_kernel<6, true>) : as(label_gather_kernel<6, false>);
-    default: return vec4 ? as(label_gather_kernel<0, true>) : as(label_gather_kernel<0, false>);
+    case 1: return launch_gather<1>(vec4, grid, smem, stream, labels, table, out, c, F);
+    case 3: return launch_gather<3>(vec4, grid, smem, stream, labels, table, out, c, F);
+    case 6: return launch_gather<6>(vec4, grid, smem, stream, labels, table, out, c, F);
+    default: return launch_gather<0>(vec4, grid, smem, stream, labels, table, out, c, F);
   }
 }
 
-// labels [B, H, W] i32; feats [B, H, W, F] f32 (pre-masked);
+// labels [B, H, W] i32; feats [B, H, W, F] f32 (pre-masked), F <= 16;
 // out [B, rows*cols*(2r)^2, F] f32.
 extern "C" int kde_label_cell_sums(const int* labels, const float* feats, float* out,
                                    int B, int H, int W, int rows, int cols, int r, int F,
                                    void* stream) {
   Cells c;
-  if (B <= 0 || F <= 0 || F > MAXF || B > 65535 || rows > 65535 ||
-      !make_cells(H, W, rows, cols, r, &c))
+  if (F <= 0 || F > MAXF || !make_cells(B, H, W, rows, cols, r, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(cols, rows, B);
   const size_t smem = label_sums_smem(c, F);
   const int vec = F % 4 == 0 && aligned(feats, 16) ? 4 : F % 2 == 0 && aligned(feats, 8) ? 2 : 1;
-  const auto as = [&](auto kernel) {
-    return launch_dyn(kernel, grid, smem, stream, labels, feats, out, c, F);
-  };
-  if (F == 1) return as(label_sums_kernel<1, 1, true>);
-  if (F == 2) {
-    return vec == 2 ? as(label_sums_kernel<2, 2, true>) : as(label_sums_kernel<1, 2, true>);
-  }
-  if (F <= 4) {
-    return vec == 4   ? as(label_sums_kernel<4, 4, true>)
-           : vec == 2 ? as(label_sums_kernel<2, 4, true>)
-                      : as(label_sums_kernel<1, 4, true>);
-  }
-  return vec == 4   ? as(label_sums_kernel<4, 4, false>)
-         : vec == 2 ? as(label_sums_kernel<2, 4, false>)
-                    : as(label_sums_kernel<1, 4, false>);
+  if (F == 1) return launch_label_sums<1>(vec, grid, smem, stream, labels, feats, out, c, F);
+  if (F == 2) return launch_label_sums<2>(vec, grid, smem, stream, labels, feats, out, c, F);
+  if (F <= 4) return launch_label_sums<4>(vec, grid, smem, stream, labels, feats, out, c, F);
+  if (F <= 8) return launch_label_sums<8>(vec, grid, smem, stream, labels, feats, out, c, F);
+  return launch_label_sums<16>(vec, grid, smem, stream, labels, feats, out, c, F);
 }
 
 // labels [B, H, W] i32; color, points, normals [B, H, W, 3] f32; cand
 // [B, rows, cols, 2 | 8] f32 (x, y | x, y, rgb, normal); mode 0 analyze
 // (13 features), 1 weighted (14); c2 = 2 sigma_c^2, s2 = 2 sigma_s^2;
-// out [B, rows*cols*(2r)^2, 13 | 14] f32.
+// out [B, rows*cols*(2r)^2, 13 | 14] f32.  Any r whose partials fit a
+// block's shared memory (nasp_sums_smem).
 extern "C" int kde_nasp_cell_sums(const int* labels, const float* color,
                                   const float* points, const float* normals,
                                   const float* cand, float* out, int B, int H, int W,
                                   int rows, int cols, int r, float lo, float hi, int mode,
                                   float c2, float s2, void* stream) {
   Cells c;
-  if (B <= 0 || (mode != 0 && mode != 1) || !make_cells(H, W, rows, cols, r, &c))
+  if ((mode != 0 && mode != 1) || !make_cells(B, H, W, rows, cols, r, &c))
     return static_cast<int>(cudaErrorInvalidValue);
-  NaspSumsLoader ld{labels, color, points, normals, cand, c, lo, hi, c2, s2, mode};
-  nasp_sums_kernel<<<dim3(cols, rows, B), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      ld, out);
-  return launched();
+  const dim3 grid(cols, rows, B);
+  const size_t smem = nasp_sums_smem(c, mode == 1);
+  return mode == 1 ? launch_dyn<nasp_sums_kernel<true>>(grid, smem, stream, labels, color,
+                                                        points, normals, cand, out, c, lo,
+                                                        hi, c2, s2)
+                   : launch_dyn<nasp_sums_kernel<false>>(grid, smem, stream, labels, color,
+                                                         points, normals, cand, out, c, lo,
+                                                         hi, c2, s2);
 }
 
 // color, points, normals [B, H, W, 3] f32; cand [B, rows, cols, 9] f32 (rgb,
 // x, y, center z, normal); labels [B, H, W] i32, dist [B, H, W] f32 and
 // out [B, rows*cols*(2r)^2, 13] f32 are written.  w_* are the distance
 // weights and s2scale = s_scale^2, each as the plain version rounds them.
+// Any r whose partials fit a block's shared memory (assign_smem).
 extern "C" int kde_nasp_assign_analyze(const float* color, const float* points,
                                        const float* normals, const float* cand,
                                        int* labels, float* dist, float* out, int B, int H,
@@ -674,11 +848,8 @@ extern "C" int kde_nasp_assign_analyze(const float* color, const float* points,
                                        float w_col, float w_spa, float w_dep, float w_nor,
                                        float s2scale, int apply_invalid, void* stream) {
   Cells c;
-  if (B <= 0 || r > 4 || !make_cells(H, W, rows, cols, r, &c))
-    return static_cast<int>(cudaErrorInvalidValue);
-  AssignLoader ld{color, points, normals, labels, dist, nullptr, nullptr, c, lo, hi,
-                  w_col, w_spa, w_dep, w_nor, s2scale, apply_invalid};
-  assign_analyze_kernel<<<dim3(cols, rows, B), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      ld, cand, out);
-  return launched();
+  if (!make_cells(B, H, W, rows, cols, r, &c)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dyn<assign_analyze_kernel>(dim3(cols, rows, B), assign_smem(c), stream, color,
+                                           points, normals, cand, labels, dist, out, c, lo, hi,
+                                           w_col, w_spa, w_dep, w_nor, s2scale, apply_invalid);
 }

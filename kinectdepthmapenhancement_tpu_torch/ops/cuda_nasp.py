@@ -370,7 +370,7 @@ def label_cell_sums(
     [B, H, W, F] f32 grouped by labels [B, H, W] i32: the CUDA kernel for
     CUDA tensors, the plain version for CPU ones.  On the card F <= 16 and
     the warps' partials must fit a block's shared memory (csrc/nasp.cu
-    label_sums_smem, ~205 KB at r = 5, F = 16); the launch raises
+    label_sums_smem, ~173 KB at r = 5, F = 16); the launch raises
     otherwise."""
     if labels.device.type == "cpu":
         return label_cell_sums_plain(labels, feats, rows=rows, cols=cols, r=r)
@@ -402,7 +402,9 @@ def nasp_cell_sums(
     """Per-(cell, candidate) NASP update sums [B, rows*cols*n, 13|14]:
     mode "analyze" (cand_fields [B, rows, cols, 2]: x, y) or "weighted"
     ([B, rows, cols, 8]: x, y, rgb, normal).  The CUDA kernel for CUDA
-    tensors, the plain version for CPU ones."""
+    tensors, the plain version for CPU ones.  On the card the warps'
+    partials must fit a block's shared memory (csrc/nasp.cu nasp_sums_smem,
+    ~94 KB at r = 5 weighted); the launch raises otherwise."""
     if mode not in _MODES:
         raise ValueError(f"nasp_cell_sums mode must be 'analyze' or 'weighted', got {mode!r}")
     kw = dict(rows=rows, cols=cols, r=r, lo=lo, hi=hi, mode=mode,
@@ -438,15 +440,15 @@ def nasp_assign_and_analyze(
     [B, H, W, 3] f32; cand_fields [B, rows, cols, 9] f32 (rgb, x, y,
     center z, normal).  Returns (labels [B, H, W] i32, distance [B, H, W]
     f32, part [B, rows*cols*n, 13]).  The CUDA kernel for CUDA tensors, the
-    plain version for CPU ones."""
+    plain version for CPU ones.  On the card the warps' partials must fit a
+    block's shared memory (csrc/nasp.cu assign_smem, ~93 KB at r = 5); the
+    launch raises otherwise."""
     kw = dict(rows=rows, cols=cols, r=r, lo=lo, hi=hi, w_col=w_col, w_spa=w_spa,
               w_dep=w_dep, w_nor=w_nor, s_scale=s_scale, apply_invalid=apply_invalid)
     if color_f.device.type == "cpu":
         return nasp_assign_and_analyze_plain(color_f, points, normals, cand_fields, **kw)
     b, h, w, _ = color_f.shape
     _check_grid(color_f, rows, cols, r)
-    if r > 4:
-        raise ValueError(f"nasp_assign_and_analyze takes r <= 4, got {r}")
     _check_planes("nasp_assign_and_analyze", color_f, points, normals, b, h, w)
     _build.check_tensor(
         cand_fields, "nasp_assign_and_analyze cand_fields", torch.float32, (b, rows, cols, 9)

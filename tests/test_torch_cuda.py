@@ -15,7 +15,10 @@ terms' magnitudes (cuda_nasp.sums_close), at 96x128 with 32x32 cells (grid
 3x4) and with 24x32 cells (grid 4x4).  The label-cell sums and gather are
 also held on adversarial label maps over three cell shapes (24x24 cells at
 96x120 among them), r in {2, 4, 5} and F up to 16, and must give bitwise
-identical results on two launches.  The covariance sweep and the chamfer
+identical results on two launches; so must the NASP sums (both modes, r in
+{1, 2, 4, 5}, and label maps whose slot changes at every pixel) and the
+fused assignment (r in {1, 2, 4}: ties, an all-invalid-depth cell, invalid
+normals, out-of-grid candidates).  The covariance sweep and the chamfer
 DT are also held bit for bit (sign of zero included) on adversarial inputs
 at 77x101 (B=3, ragged tiles) and 480x640 (B=1): the covariance with rect
 drawn from -3..25 (below 2, every size, above 21) and 30% invalid
@@ -441,3 +444,163 @@ def test_nasp_wrappers_reject_bad_tensors(nasp):
         cuda_nasp.label_cell_gather(x["labels"].long(), table, **x["cell"])
     with pytest.raises(ValueError):  # cells must divide the image
         cuda_nasp.label_cell_gather(x["labels"], table, rows=5, cols=x["grid"].cols, r=4)
+
+
+def _nasp_planes(dev, h, w, grid, seed):
+    """[2, H, W, 3] f32 colour (integers 0..255), points (z < 50 on 10% of
+    pixels and on all of cell (1, 0)) and unit normals ((-1, -1, -1) on
+    15%)."""
+    rng = np.random.default_rng(seed)
+    color = rng.integers(0, 256, (2, h, w, 3)).astype(np.float32)
+    points = rng.uniform(100.0, 4000.0, (2, h, w, 3)).astype(np.float32)
+    low = rng.random((2, h, w)) < 0.1
+    points[..., 2][low] = rng.uniform(0.0, 50.0, int(low.sum()))
+    bs_y, bs_x = h // grid.rows, w // grid.cols
+    points[:, bs_y:2 * bs_y, :bs_x, 2] = 30.0
+    nmap = rng.normal(size=(2, h, w, 3))
+    nmap /= np.linalg.norm(nmap, axis=-1, keepdims=True)
+    nmap[rng.random((2, h, w)) < 0.15] = -1.0
+    return tuple(torch.tensor(a.astype(np.float32), device=dev) for a in (color, points, nmap))
+
+
+def _nasp_cand(dev, h, w, grid, seed):
+    """[2, rows, cols, 9] f32 cluster fields (rgb, x, y, centre z, normal):
+    each cluster within 8 px of its cell's centre, centre z < 50 on 20% and
+    normal (-1, -1, -1) on 20% of clusters; cell column 1 repeats column 0
+    (equal fields: ties, which the first candidate dy-major must win)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = grid.rows, grid.cols
+    bs_y, bs_x = h // rows, w // cols
+    cand = np.zeros((2, rows, cols, 9), np.float32)
+    cand[..., :3] = rng.integers(0, 256, (2, rows, cols, 3))
+    cand[..., 3] = (np.arange(cols) * bs_x + bs_x // 2)[None, None, :] + rng.integers(-8, 9, (2, rows, cols))
+    cand[..., 4] = (np.arange(rows) * bs_y + bs_y // 2)[None, :, None] + rng.integers(-8, 9, (2, rows, cols))
+    cand[..., 5] = np.where(rng.random((2, rows, cols)) < 0.2, 20.0, rng.uniform(100, 4000, (2, rows, cols)))
+    nrm = rng.normal(size=(2, rows, cols, 3))
+    cand[..., 6:] = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    cand[..., 6:][rng.random((2, rows, cols)) < 0.2] = -1.0
+    cand[:, :, 1] = cand[:, :, 0]
+    return torch.tensor(cand, device=dev)
+
+
+def _slot_labels(h, w, grid, r, pattern):
+    """[2, H, W] i32 labels whose candidate slot is y % n ("rows") or
+    (y + x) % n ("diagonal"), n = (2r)^2, -1 where the slot's cell leaves
+    the grid: a lane's next pixel (32 on, the row below at 32-wide cells)
+    always has another slot, so every lane flushes every round."""
+    n, bs_y, bs_x = (2 * r) ** 2, h // grid.rows, w // grid.cols
+    y = np.arange(h)[:, None]
+    x = np.arange(w)[None, :]
+    slot = y % n + 0 * x if pattern == "rows" else (y + x) % n
+    ny = y // bs_y + slot // (2 * r) - r
+    nx = x // bs_x + slot % (2 * r) - r
+    inside = (ny >= 0) & (ny < grid.rows) & (nx >= 0) & (nx < grid.cols)
+    labels = np.where(inside, ny * grid.cols + nx, -1).astype(np.int32)
+    return np.repeat(labels[None], 2, 0)
+
+
+def _check_nasp_cell_sums(dev, labels, grid, r, mode, window, seed):
+    """Two launches bitwise identical and counted; the sums at the bar of
+    cuda_nasp.sums_close (integer-valued features exact) and not all 0."""
+    b, h, w = labels.shape
+    color, points, nmap = _nasp_planes(dev, h, w, grid, seed)
+    cand = _nasp_cand(dev, h, w, grid, seed + 1)
+    fields = cand[..., 3:5] if mode == "analyze" else cand[..., [3, 4, 0, 1, 2, 6, 7, 8]]
+    params = KDEConfig().nasp
+    args = (labels, color, points, nmap, fields.contiguous())
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r, lo=window[0], hi=window[1], mode=mode,
+              color_sigma=params.color_sigma, spatial_sigma=params.spatial_sigma)
+    before = cuda_nasp.launches["nasp_cell_sums"]
+    got = cuda_nasp.nasp_cell_sums(*args, **kw)
+    again = cuda_nasp.nasp_cell_sums(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nasp.launches["nasp_cell_sums"] == before + 2
+    assert torch.equal(got, again)
+    want = cuda_nasp.nasp_cell_sums_plain(*args, **kw)
+    scale = cuda_nasp.nasp_cell_sums_plain(*args, abs_terms=True, **kw)
+    assert got.shape == want.shape and float(scale.sum()) > 0
+    assert cuda_nasp.sums_close(got, want, scale, cuda_nasp.INTEGER_FEATURES[mode])
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 5])
+@pytest.mark.parametrize("mode", ["analyze", "weighted"])
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=LABEL_SHAPE_IDS)
+def test_nasp_cell_sums_kernel_adversarial(dev, shape, mode, r):
+    """The adversarial label maps (every offset, -1, ids outside the
+    candidates, a one-slot cell, an empty cell) with the path's update
+    window (+-40 px)."""
+    labels, cell, _ = _label_case(dev, shape, r, seed=40 + r)
+    _check_nasp_cell_sums(dev, labels, shape[2], r, mode, (-40, 39), seed=r)
+
+
+@pytest.mark.parametrize("pattern", ["rows", "diagonal"])
+@pytest.mark.parametrize("mode", ["analyze", "weighted"])
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=LABEL_SHAPE_IDS)
+def test_nasp_cell_sums_kernel_slot_changes_every_pixel(dev, shape, mode, pattern):
+    """The flush's worst case: every lane's slot changes every round, in one
+    group a round ("rows" at 32-wide cells: a full 5-level tree) or in as
+    many groups as lanes ("diagonal"); a window wide enough that every
+    labeled pixel counts."""
+    h, w, grid = shape
+    labels = torch.tensor(_slot_labels(h, w, grid, 4, pattern), device=dev)
+    _check_nasp_cell_sums(dev, labels, grid, 4, mode, (-4096, 4095), seed=7)
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("shape", LABEL_SHAPES, ids=LABEL_SHAPE_IDS)
+def test_nasp_assign_analyze_kernel_adversarial(dev, shape, r):
+    """Duplicate candidate fields (ties), a cell whose depth is all < 50,
+    invalid normals on pixels and candidates, candidate centres below 50 mm
+    and out-of-grid candidates (every r here reaches past the grid); the
+    invalid-depth override off at r = 2.  Labels and distances bitwise,
+    two launches identical and counted, the sums at the bar."""
+    h, w, grid = shape
+    color, points, nmap = _nasp_planes(dev, h, w, grid, seed=60 + r)
+    cand = _nasp_cand(dev, h, w, grid, seed=70 + r)
+    p = KDEConfig().nasp
+    total = p.spatial_sigma + p.color_sigma + p.depth_sigma + p.normal_sigma
+    bs_y, bs_x = h // grid.rows, w // grid.cols
+    rp = bs_x * 2 // 16 + 1
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r, lo=-8 * rp, hi=8 * rp - 1,
+              w_col=(p.color_sigma / total) ** 2, w_spa=(p.spatial_sigma / total) ** 2,
+              w_dep=(p.depth_sigma / total) ** 2, w_nor=(p.normal_sigma / total) ** 2,
+              s_scale=(bs_x + bs_y) / 2.0, apply_invalid=r != 2)
+    args = (color, points, nmap, cand)
+    before = cuda_nasp.launches["nasp_assign_analyze"]
+    got = cuda_nasp.nasp_assign_and_analyze(*args, **kw)
+    again = cuda_nasp.nasp_assign_and_analyze(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nasp.launches["nasp_assign_analyze"] == before + 2
+    assert all(_same_bits(g, a) for g, a in zip(got, again))
+    akw = {k: v for k, v in kw.items() if k not in ("lo", "hi")}
+    labels, dist = cuda_nasp.assign_plain(*args, **akw)
+    assert torch.equal(got[0], labels) and _same_bits(got[1], dist)
+    if kw["apply_invalid"]:
+        assert bool((labels[:, bs_y:2 * bs_y, :bs_x] == -1).all())
+    skw = dict(rows=grid.rows, cols=grid.cols, r=r, lo=kw["lo"], hi=kw["hi"], mode="analyze")
+    xy = cand[..., 3:5].contiguous()
+    want = cuda_nasp.nasp_cell_sums_plain(labels, color, points, nmap, xy, **skw)
+    scale = cuda_nasp.nasp_cell_sums_plain(labels, color, points, nmap, xy, abs_terms=True, **skw)
+    assert cuda_nasp.sums_close(got[2], want, scale, cuda_nasp.INTEGER_FEATURES["analyze"])
+
+
+def test_nasp_kernels_reject_partials_beyond_shared_memory(dev):
+    """r = 9: the warps' partials (8 x 324 x 13 doubles, 270 KB) exceed a
+    block's shared memory, so both C entry points refuse the launch, the
+    wrappers raise and no counter moves."""
+    labels, cell, _ = _label_case(dev, LABEL_SHAPES[0], 4, seed=3)
+    b, h, w = labels.shape
+    plane = torch.zeros((b, h, w, 3), device=dev)
+    cell = dict(cell, r=9)
+    before = dict(cuda_nasp.launches)
+    for mode, nf in (("analyze", 2), ("weighted", 8)):
+        fields = torch.zeros((b, cell["rows"], cell["cols"], nf), device=dev)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            cuda_nasp.nasp_cell_sums(labels, plane, plane, plane, fields, lo=-40, hi=39,
+                                     mode=mode, **cell)
+    cand = torch.zeros((b, cell["rows"], cell["cols"], 9), device=dev)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cuda_nasp.nasp_assign_and_analyze(plane, plane, plane, cand, lo=-40, hi=39, w_col=0.1,
+                                          w_spa=0.1, w_dep=0.1, w_nor=0.1, s_scale=32.0,
+                                          apply_invalid=True, **cell)
+    assert cuda_nasp.launches == before

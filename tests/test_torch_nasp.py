@@ -4,7 +4,9 @@ tests/test_pallas.py runs it, and the port's stats_impl routes.
 
 Inputs come from numpy seeds: make_noisy_scene(96, 128, seed=5) and the
 adversarial cell-local labels of test_pallas.py::_nasp_state (invalid
-labels, window misses, every candidate offset), grid 3x4, r=4.
+labels, window misses, every candidate offset), grid 3x4, r=4 and r=2; the
+NASP sums also with stray ids outside the candidates (ids >= K, far cells),
+as the card tests' label maps have them.
 
 Tolerances, and why:
   * assignment labels EXACT; distance rtol 1e-6, atol 1e-2 (XLA on the CPU
@@ -110,7 +112,8 @@ def scene():
     return dict(color=color, points=np.asarray(pts), normals=np.asarray(nmap), seeds=seeds)
 
 
-def test_assign_and_analyze_matches_pallas(scene):
+@pytest.mark.parametrize("r", [4, 2])
+def test_assign_and_analyze_matches_pallas(scene, r):
     color_f = scene["color"].astype(np.float32)
     pts, nmap = scene["points"], scene["normals"]
     cl = js.init_clusters(jnp.asarray(scene["seeds"]), jnp.asarray(scene["color"]),
@@ -121,7 +124,7 @@ def test_assign_and_analyze_matches_pallas(scene):
     ).reshape(GRID.rows, GRID.cols, 9)
     total = PARAMS.spatial_sigma + PARAMS.color_sigma + PARAMS.depth_sigma + PARAMS.normal_sigma
     kw = dict(
-        CELL, lo=-40, hi=39, s_scale=32.0, apply_invalid=True,
+        CELL, r=r, lo=-40, hi=39, s_scale=32.0, apply_invalid=True,
         w_col=(PARAMS.color_sigma / total) ** 2, w_spa=(PARAMS.spatial_sigma / total) ** 2,
         w_dep=(PARAMS.depth_sigma / total) ** 2, w_nor=(PARAMS.normal_sigma / total) ** 2,
     )
@@ -140,14 +143,23 @@ def test_assign_and_analyze_matches_pallas(scene):
     assert (np.asarray(wl) == -1).any() and (np.asarray(wp)[:, 5] > 0).sum() > K
 
 
+@pytest.mark.parametrize("label_map", ["clipped", "stray"])
+@pytest.mark.parametrize("r", [4, 2])
 @pytest.mark.parametrize("mode", ["analyze", "weighted"])
-def test_nasp_cell_sums_match_pallas(mode):
-    labels, color_f, points, normals = _nasp_state()
+def test_nasp_cell_sums_match_pallas(mode, r, label_map):
+    """"stray": 3% of the labels any id in [-1, K + 5), as the card tests'
+    adversarial maps have them: ids >= K, and at r = 2 cells outside the
+    candidates, which both sides must leave out."""
+    labels, color_f, points, normals = _nasp_state(r=r)
+    if label_map == "stray":
+        rng = np.random.default_rng(13)
+        stray = rng.random(labels.shape) < 0.03
+        labels[stray] = rng.integers(-1, K + 5, int(stray.sum()))
     cl = _random_clusters()
     xy = cl["xy"].astype(np.float32)
     fields = xy if mode == "analyze" else np.concatenate([xy, cl["rgb"], cl["normal"]], -1)
     fields = fields.reshape(GRID.rows, GRID.cols, -1)
-    kw = dict(CELL, lo=-24, hi=23, mode=mode, color_sigma=PARAMS.color_sigma,
+    kw = dict(CELL, r=r, lo=-24, hi=23, mode=mode, color_sigma=PARAMS.color_sigma,
               spatial_sigma=PARAMS.spatial_sigma)
     want = pallas_nasp.nasp_cell_sums(
         *(jnp.asarray(a) for a in (labels, color_f, points, normals, fields)),
