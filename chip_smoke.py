@@ -8,23 +8,29 @@ Phases (each prints its results; any failure exits non-zero):
      (nvidia-smi), torch and CUDA versions;
   2. build the kernels from kinectdepthmapenhancement_tpu_torch/csrc
      (one nvcc per source, in parallel) and print the build time and
-     ptxas register / shared-memory use;
+     ptxas register / shared-memory use (of the JBF, its R = 2
+     instantiations, the path's radius), and the issued instructions a tap
+     of the JBF and seed-gradient kernels (cuobjdump -sass of the build);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the 640x480 KDE path, B=1 and B=4, to its bar (JBF max |d|
-     <= 1e-3 mm; chamfer DT, covariance sweep and seed gradient bitwise,
-     the seeds identical; NASP assignment labels and distance and the
+     shapes of the 640x480 KDE path, B=1 and B=4, to its bar (JBF, chamfer
+     DT, covariance sweep and seed gradient bitwise, the seeds identical;
+     NASP assignment labels and distance and the
      label-cell gather bitwise, the NASP sums with integer-valued features
      exact and the rest within 1e-5 of the sum of their terms' magnitudes;
      the gather at each width the path uses, F = 6, 1 and 3; the DT also on
-     a lattice depth-change map, zeros 48 px apart, and in one device
-     activity per call; the weighted NASP sums also on labels whose slot
-     changes nearly every pixel); time kernel,
+     a lattice depth-change map, zeros 48 px apart; the JBF and the DT in
+     one device activity per call; the weighted NASP sums also on labels
+     whose slot changes nearly every pixel); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
-     "device ms", the profiler's summed kernel durations per call; print
+     "device ms", the profiler's summed kernel durations per call ("not
+     measured" if three tries of utils/timing.device_ms all fail); print
      each kernel's bound (bytes at 3.35 TB/s or f32 operations at 67
-     TFLOP/s) and whether it is slower than the library call on device ms;
+     TFLOP/s), for the JBF, the seed gradient and the fused NASP
+     assignment also their issue floor (issued instructions at one warp
+     instruction a clock on every scheduler), and whether it is slower
+     than the library call on device ms;
   4. drive kde_pipeline(KDEConfig()) at 640x480 (B=1, then B=4) from
      make_noisy_scene(480, 640); check finite outputs, that every kernel
      counter went up, and bitwise-identical outputs on a second run; hold
@@ -105,7 +111,7 @@ def main() -> int:
     from kinectdepthmapenhancement_tpu_torch.ops import (
         bilateral, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals, slic,
     )
-    from kinectdepthmapenhancement_tpu_torch.utils import golden
+    from kinectdepthmapenhancement_tpu_torch.utils import golden, kernel_variants
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms, device_ms
 
     t_start = time.perf_counter()
@@ -131,8 +137,19 @@ def main() -> int:
     info = _build.load().build_info
     print(f"build: {info['seconds']:.2f} s, compiled {info['built']} ({info['path']})")
     for src, lines in info["ptxas"].items():
+        entry = ""
         for ln in lines:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            entry = m.group(1) if m else entry
+            if src == "jbf.cu" and entry and "jbf_kernelILi2E" not in entry:
+                continue  # the radii the path does not run
             print(f"  {src}: {ln.strip()}")
+    # issued instructions a tap of the JBF's and the gradient's path
+    # instantiations on their fast path (the JBF's two passes together)
+    tap_instr = {k: kernel_variants.tap_instructions(info["path"], k)
+                 for k in kernel_variants.TAP_KERNELS}
+    print("sass instructions a tap: " + "  ".join(
+        f"{k} {n:.2f}" for k, n in tap_instr.items()))
 
     # ---- inputs at the 640x480 KDE path's shapes, B=1 and B=4
     h, w = 480, 640
@@ -274,6 +291,17 @@ def main() -> int:
         per_cell = ws_x * ws_y * (33 * n_in + (n_cand - n_in)) + 4 * n_in
         return b * float(per_cell.sum()) + 5 * npx(x["color_f"]) + 29 * labeled(x)
 
+    def tap_issue(kernel, key):
+        """The issue floor of the JBF or the gradient: its issued
+        instructions a tap (tap_instr) for every tap of every pixel, one
+        warp instruction per 32 pixels, at one a clock on every scheduler
+        at the card's top SM clock."""
+        def issue(x):
+            taps = kernel_variants.TAP_KERNELS[kernel][1]
+            warp_instructions = npx(x[key]) * taps * tap_instr[kernel] / 32
+            return warp_instructions / (SCHEDULERS * sm_mhz * 1e3), warp_instructions
+        return issue
+
     def assign_issue_ms(x):
         """Kernel 5's issue floor: its candidate loop alone, one warp
         instruction per 32 pixels, in-grid candidate and loop instruction,
@@ -286,12 +314,14 @@ def main() -> int:
     # min / sqrt / exp, counted from each plain version's loop body
     kernels = {
         "jbf": dict(
-            module=cuda_bilateral, bar="max |d| <= 1e-3 mm",
+            module=cuda_bilateral, bar="bitwise", activities=1,
             run=lambda x: cuda_bilateral.jbf(x["depth"], x["guide"], **jbf_kw),
             plain=lambda x: cuda_bilateral.jbf_plain(x["depth"], x["guide"], **jbf_kw),
-            ok=lambda got, want, x: float((got[0] - want[0]).abs().max()) <= 1e-3,
             inputs=lambda x: [x["depth"], x["guide"]],
+            # an expf or a division counted as one operation (it issues
+            # ~10 instructions): the issue floor beside it counts them
             ops=lambda x: npx(x["depth"]) * 25 * (17 + 25),
+            issue=tap_issue("jbf", "depth"),
             shape=lambda x: tuple(x["depth"].shape)),
         "chamfer_dt": dict(
             module=cuda_dt, bar="bitwise", activities=1,
@@ -324,7 +354,8 @@ def main() -> int:
                 slic._sample_seeds_subgrid(got[0], grid, h, w, 8),
                 slic._sample_seeds_subgrid(want[0], grid, h, w, 8)),
             inputs=lambda x: [x["csub"], x["nsub"]],
-            ops=lambda x: npx(x["csub"]) * 121 * 20,
+            ops=lambda x: npx(x["csub"]) * 121 * 20,  # a sqrt counted as one
+            issue=tap_issue("seed_gradient_nasp", "csub"),
             shape=lambda x: tuple(x["csub"].shape)),
         "seed_gradient_color": dict(
             module=cuda_gradient, bar="bitwise", row="seed_gradient", secondary=True,
@@ -332,6 +363,7 @@ def main() -> int:
             plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub"]),
             inputs=lambda x: [x["csub"]],
             ops=lambda x: npx(x["csub"]) * 121 * 12,
+            issue=tap_issue("seed_gradient_color", "csub"),
             shape=lambda x: tuple(x["csub"].shape)),
         "nasp_assign_analyze": dict(
             module=cuda_nasp, bar="labels, distance bitwise; sums: integer exact, "
@@ -408,6 +440,27 @@ def main() -> int:
             inputs=lambda x, t=tkey: [x["labels"], x[t]],
             ops=lambda x: 0,
             shape=lambda x, nf=nf: tuple(x["labels"].shape) + (nf,))
+    def device_time(fn):
+        """utils/timing.device_ms of fn: (device ms, activities) per call.
+        The profiler's trace now and then comes back without its device
+        records, every attempt of a call alike; the call is made again
+        after a pause, three times in all, and reads (None, None) if none
+        succeeded: "not measured" below, and a failed check where the
+        kernel's activities are checked."""
+        for _ in range(3):
+            try:
+                return device_ms(fn, warmup=3, iters=20)
+            except RuntimeError as e:
+                print(f"  {e}; measured again")
+                time.sleep(2.0)
+        return None, None
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    def per_call(n):
+        return "?" if n is None else f"{n:g}"
+
     report = {name: {"max_abs_err": 0.0} for name in kernels}
     for bsz in (1, 4):
         x = stage_inputs(depth4[:bsz], color4[:bsz])
@@ -434,23 +487,24 @@ def main() -> int:
             # included when the device finishes first); device ms: the
             # profiler's summed kernel durations per call
             t_k = cuda_ms(lambda: k["run"](x), warmup=3, iters=20)
-            d_k, n_k = device_ms(lambda: k["run"](x), warmup=3, iters=20)
+            d_k, n_k = device_time(lambda: k["run"](x))
             if "activities" in k and n_k != k["activities"]:
-                _fail(f"kernel {name} ran {n_k:g} device activities per call, "
+                _fail(f"kernel {name} ran {per_call(n_k)} device activities per call, "
                       f"not {k['activities']}")
             t_p = cuda_ms(lambda: k["plain"](x), warmup=1, iters=5)
             t_l = d_l = None
             if "library" in k:
                 t_l = cuda_ms(lambda: k["library"](x), warmup=3, iters=20)
-                d_l, n_l = device_ms(lambda: k["library"](x), warmup=3, iters=20)
+                d_l, n_l = device_time(lambda: k["library"](x))
             nbytes = sum(t.numel() * t.element_size() for t in k["inputs"](x) + list(got))
             t_b, bound_by = bound_ms(nbytes, k["ops"](x))
             lib = "none" if t_l is None else (
-                f"call {t_l:.4f} ms device {d_l:.4f} ms ({n_l:g} kernels/call) -> kernel "
-                f"{'slower' if d_k > d_l else 'not slower'} on device ms")
+                f"call {t_l:.4f} ms device {ms(d_l)} ({per_call(n_l)} kernels/call) -> kernel "
+                + ("not compared" if None in (d_k, d_l) else
+                   f"{'slower' if d_k > d_l else 'not slower'} on device ms"))
             print(f"kernel {name:24s} shape {str(k['shape'](x)):22s} B={bsz} "
                   f"max|d|={err:.3g} bitwise={bitwise} bar: {k['bar']} -> ok  "
-                  f"call {t_k:.4f} ms  device {d_k:.4f} ms ({n_k:g} kernels/call)  "
+                  f"call {t_k:.4f} ms  device {ms(d_k)} ({per_call(n_k)} kernels/call)  "
                   f"plain call {t_p:.4f} ms  library {lib}  "
                   f"bound {t_b:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
                   f"{k['ops'](x) / 1e9:.3f} Gop)")

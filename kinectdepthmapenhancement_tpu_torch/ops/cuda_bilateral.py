@@ -3,11 +3,16 @@ PyTorch version, and a launch counter.
 
 Counterpart of the JAX package's ops/pallas_bilateral.py (jbf_pallas), which
 is bit-identical to the XLA _jbf_core the JAX kde_pipeline runs.  Kernel
-source: csrc/jbf.cu.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+source: csrc/jbf.cu.  The kernel takes its spatial weights by value, from
+a table built once per (window, sigma, device) (spatial_table), so a call
+is one device activity.  A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,6 +23,28 @@ from kinectdepthmapenhancement_tpu_torch.ops import stencil
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/jbf.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_bilateral.py:108"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+
+_ARGTYPES = (
+    [_build.PTR] * 4 + [_build.INT] * 4 + [_build.FLOAT] * 2 + [_build.INT] * 2
+)
+# (window, spatial_sigma, device) -> the spatial table, flat, on the host
+_spatial_tables: Dict[Tuple[int, float, torch.device], ctypes.Array] = {}
+
+
+def spatial_table(window: int, spatial_sigma: float, device) -> ctypes.Array:
+    """The kernel's spatial weights: stencil.gaussian_spatial_filter's
+    [window, window] f32 table, built once per (window, sigma, device) on
+    `device` (so with the bits the plain version uses there) and kept on the
+    host, flat, since the kernel takes it by value.  Later calls build
+    nothing and launch nothing on the device."""
+    key = (window, float(spatial_sigma), torch.device(device))
+    table = _spatial_tables.get(key)
+    if table is None:
+        flat = stencil.gaussian_spatial_filter(window, spatial_sigma, key[2]).reshape(-1).cpu()
+        table = (ctypes.c_float * flat.numel())()
+        ctypes.memmove(table, flat.data_ptr(), flat.numel() * flat.element_size())
+        _spatial_tables[key] = table
+    return table
 
 
 def jbf_plain(
@@ -107,21 +134,13 @@ def jbf(
     b, h, w = depth.shape
     _build.check_tensor(depth, "jbf depth", torch.float32, (b, h, w))
     _build.check_tensor(guide, "jbf guide", torch.float32, (b, h, w, 3))
-    fn = _build.function(
-        "kde_jbf",
-        [_build.PTR] * 4 + [_build.INT] * 4 + [_build.FLOAT] * 2
-        + [_build.INT] * 2 + [_build.PTR],
+    table = spatial_table(window, spatial_sigma, depth.device)
+    out = torch.empty_like(depth)
+    _build.launch(
+        "kde_jbf", _ARGTYPES, depth.device,
+        (depth.data_ptr(), guide.data_ptr(), table, out.data_ptr(), b, h, w, window // 2,
+         2.0 * color_sigma**2, 2.0 * depth_sigma**2,
+         int(color_sigma != 0.0), int(depth_sigma != 0.0)),
     )
-    with torch.cuda.device(depth.device):
-        spatial = stencil.gaussian_spatial_filter(window, spatial_sigma, depth.device)
-        out = torch.empty_like(depth)
-        code = fn(
-            depth.data_ptr(), guide.data_ptr(), spatial.contiguous().data_ptr(),
-            out.data_ptr(), b, h, w, window // 2,
-            2.0 * color_sigma**2, 2.0 * depth_sigma**2,
-            int(color_sigma != 0.0), int(depth_sigma != 0.0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_status("kde_jbf", code)
     launches += 1
     return out

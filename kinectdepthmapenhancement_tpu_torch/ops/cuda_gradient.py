@@ -81,16 +81,11 @@ def seed_gradient(
     _build.check_tensor(color_f, "gradient color", torch.float32, (b, h, w, 3))
     if normals is not None:
         _build.check_tensor(normals, "gradient normals", torch.float32, (b, h, w, 3))
-    fn = _build.function(
-        "kde_seed_gradient", [_build.PTR] * 3 + [_build.INT] * 4 + [_build.PTR]
+    out = torch.empty((b, h, w), dtype=torch.float32, device=color_f.device)
+    _build.launch(
+        "kde_seed_gradient", [_build.PTR] * 3 + [_build.INT] * 4, color_f.device,
+        (color_f.data_ptr(), normals.data_ptr() if normals is not None else None,
+         out.data_ptr(), b, h, w, int(normals is not None)),
     )
-    with torch.cuda.device(color_f.device):
-        out = torch.empty((b, h, w), dtype=torch.float32, device=color_f.device)
-        code = fn(
-            color_f.data_ptr(), normals.data_ptr() if normals is not None else None,
-            out.data_ptr(), b, h, w, int(normals is not None),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check_status("kde_seed_gradient", code)
     launches += 1
     return out

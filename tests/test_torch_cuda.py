@@ -7,8 +7,8 @@ a fixture, never at import).  Run on the card with
 (tests/conftest.py configures JAX, which the card's machine need not have;
 this file imports only the port.)
 
-Bars: chamfer DT, covariance sweep and seed gradient bitwise; JBF within
-1e-3 mm (bitwise where expf matches).  NASP cell kernels (ops/cuda_nasp.py):
+Bars: chamfer DT, covariance sweep, seed gradient and JBF bitwise.  NASP
+cell kernels (ops/cuda_nasp.py):
 assignment labels and distance bitwise, gathers bitwise, sums with
 integer-valued features exact and the rest within 1e-5 of the sum of the
 terms' magnitudes (cuda_nasp.sums_close), at 96x128 with 32x32 cells (grid
@@ -25,7 +25,15 @@ drawn from -3..25 (below 2, every size, above 21) and 30% invalid
 vertices; the DT at zero densities 0, 0.2%, 5% and 50% and on a lattice of
 zeros 48 px apart, for 0, 1, 25, 26, 27 and 53 rounds (the fused init, one
 launch and the chunks), each launch counted and two launches identical.
-chip_smoke.py runs the same checks at the 640x480 path's shapes.
+So are the JBF (windows 1, 3, 5, 7 and 17: the radii whose pass-1
+weights stay in registers and one that recomputes them; each sigma gate
+off; weights driven into the subnormal range by guide steps of 255 and a
+depth step; regions with no valid depth, 50.0 mm exactly among them) and
+the seed gradient (both forms; normals invalid on one, two and three
+channels, on the edge rows and columns too; a constant colour patch, +inf
+inside) at 77x101 (B=3) and at the path's shapes, 480x640 and the
+270x360 seed sub-grid.  chip_smoke.py runs the same checks at the 640x480
+path's shapes.
 """
 
 import dataclasses
@@ -92,7 +100,7 @@ def test_jbf_kernel_matches_plain(inputs):
               color_sigma=p.color_sigma, depth_sigma=p.depth_sigma)
     got = cuda_bilateral.jbf(inputs["depth"], inputs["guide"], **kw)
     want = cuda_bilateral.jbf_plain(inputs["depth"], inputs["guide"], **kw)
-    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("iters", [26, 40])
@@ -169,6 +177,124 @@ def test_dt_kernel_adversarial(dev, shape, zeros, iters):
     assert cuda_dt.launches == before + 2 * max(1, -(-iters // max_rounds))
     want = cuda_dt.distance_transform_plain(dci, iters)
     assert _same_bits(got, want) and _same_bits(got, again)
+
+
+# window 1, 3, 5, 7: pass 1's weights kept in registers; 17: recomputed
+JBF_WINDOWS = [1, 3, 5, 7, 17]
+JBF_CASES = ["default", "no_color", "no_depth", "subnormal", "no_support"]
+
+
+def _jbf_case(case, shape, seed):
+    """(depth [B, H, W] mm, guide [B, H, W, 3], sigmas) for one case.
+    "default": a wavy surface with noise and 30% holes, a guide of random
+    8x8 blocks with noise, the default sigmas; "no_color" / "no_depth": the
+    same with that sigma 0 (its term gated off); "subnormal": guide steps of
+    ~255 on every channel and depth steps of ~300 mm between random 4x4
+    blocks, with sigmas (spatial 1, colour 32, depth 22) that put the
+    colour and depth factors across a step, and their products with the
+    spatial weights, around FLT_MIN, where they flush to 0; "no_support":
+    the default depth with its left third at 0..50 mm and its middle third
+    at exactly 50.0 mm (both invalid: the test is depth > 50)."""
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    p = KDEConfig().jbf
+    sig = dict(spatial_sigma=p.spatial_sigma, color_sigma=p.color_sigma,
+               depth_sigma=p.depth_sigma)
+    if case == "subnormal":
+        gbit = rng.random((b, h // 4 + 1, w // 4 + 1)) < 0.5
+        gbit = gbit[:, yy // 4, xx // 4][..., None]
+        u = rng.uniform(0.0, 12.0, (b, h, w, 3))
+        guide = np.where(gbit, 255.0 - u, u)
+        dbit = rng.random((b, h // 4 + 1, w // 4 + 1)) < 0.5
+        depth = 1000.0 + 300.0 * dbit[:, yy // 4, xx // 4] + rng.uniform(-5.0, 5.0, (b, h, w))
+        depth[rng.random((b, h, w)) < 0.05] = 0.0
+        sig = dict(spatial_sigma=1.0, color_sigma=32.0, depth_sigma=22.0)
+    else:
+        blocks = rng.integers(0, 256, (b, h // 8 + 1, w // 8 + 1, 3))
+        guide = np.clip(blocks[:, yy // 8, xx // 8] + rng.integers(-6, 7, (b, h, w, 3)), 0, 255)
+        depth = (2000.0 + 400.0 * np.sin(xx / 13.0) * np.cos(yy / 17.0)
+                 + rng.normal(0.0, 15.0, (b, h, w)))
+        depth[rng.random((b, h, w)) < 0.3] = 0.0
+        if case == "no_color":
+            sig["color_sigma"] = 0.0
+        elif case == "no_depth":
+            sig["depth_sigma"] = 0.0
+        elif case == "no_support":
+            depth[:, :, : w // 3] = rng.uniform(0.0, 50.0, (b, h, w // 3))
+            depth[:, :, w // 3 : 2 * w // 3] = 50.0
+    return depth.astype(np.float32), guide.astype(np.float32), sig
+
+
+@pytest.mark.parametrize("case", JBF_CASES)
+@pytest.mark.parametrize("window", JBF_WINDOWS)
+@pytest.mark.parametrize("shape", ADV_SHAPES, ids=ADV_SHAPE_IDS)
+def test_jbf_kernel_adversarial(dev, shape, window, case):
+    depth, guide, sig = _jbf_case(case, shape, seed=60 + window)
+    td, tg = torch.tensor(depth, device=dev), torch.tensor(guide, device=dev)
+    kw = dict(window=window, **sig)
+    before = cuda_bilateral.launches
+    got = cuda_bilateral.jbf(td, tg, **kw)
+    again = cuda_bilateral.jbf(td, tg, **kw)
+    torch.cuda.synchronize()
+    assert cuda_bilateral.launches == before + 2
+    want = cuda_bilateral.jbf_plain(td, tg, **kw)
+    assert _same_bits(got, want) and _same_bits(got, again)
+    if case == "no_support":
+        assert not bool(got[:, :, : shape[2] // 3 - window].any())
+
+
+# the gradient's own path shape: the 270x360 seed sub-grid of a 640x480 frame
+GRAD_SHAPES = [(3, 77, 101), (1, 270, 360)]
+GRAD_SHAPE_IDS = ["77x101_b3", "270x360_b1"]
+
+
+def _gradient_case(case, shape, seed):
+    """(colour [B, H, W, 3] integer-valued f32, unit normals [B, H, W, 3]).
+    Colours come in random 3x3 blocks with noise on a quarter of the pixels,
+    so many taps see equal colours (g = 0).  "invalid_normals": 30% of the
+    normals have one, two or all three channels at -1, and so do runs of
+    the first and last rows and columns; "constant_patch": one colour over
+    a 24x24 patch (every tap of its inner 14x14 has g = 0: +inf there)."""
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    color = rng.integers(0, 256, (b, h // 3 + 1, w // 3 + 1, 3))[:, yy // 3, xx // 3]
+    noisy = rng.random((b, h, w)) < 0.25
+    color = np.where(noisy[..., None], rng.integers(0, 256, (b, h, w, 3)), color)
+    n = rng.normal(size=(b, h, w, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    if case == "invalid_normals":
+        # each of the 7 non-empty sets of channels at -1
+        chans = rng.integers(1, 8, (b, h, w))
+        hit = rng.random((b, h, w)) < 0.3
+        hit[:, [0, -1], :] |= (np.arange(w) % 7 < 4)[None, None, :]
+        hit[:, :, [0, -1]] |= (np.arange(h) % 5 < 3)[None, :, None]
+        for c in range(3):
+            n[..., c] = np.where(hit & ((chans >> c) & 1 == 1), -1.0, n[..., c])
+    elif case == "constant_patch":
+        y0, x0 = h // 3, w // 3
+        color[:, y0 : y0 + 24, x0 : x0 + 24] = (120, 60, 200)
+    return color.astype(np.float32), n.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "invalid_normals", "constant_patch"])
+@pytest.mark.parametrize("nasp", [True, False], ids=["nasp", "color_only"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=GRAD_SHAPE_IDS)
+def test_seed_gradient_kernel_adversarial(dev, shape, nasp, case):
+    color, nrm = _gradient_case(case, shape, seed=70)
+    tc = torch.tensor(color, device=dev)
+    tn = torch.tensor(nrm, device=dev) if nasp else None
+    before = cuda_gradient.launches
+    got = cuda_gradient.seed_gradient(tc, tn)
+    again = cuda_gradient.seed_gradient(tc, tn)
+    torch.cuda.synchronize()
+    assert cuda_gradient.launches == before + 2
+    want = cuda_gradient.seed_gradient_plain(tc, tn)
+    assert _same_bits(got, want) and _same_bits(got, again)
+    if case == "constant_patch":
+        y0, x0 = shape[1] // 3, shape[2] // 3
+        assert bool(torch.isinf(got[:, y0 + 5 : y0 + 19, x0 + 5 : x0 + 19]).all())
 
 
 def test_wrappers_reject_bad_tensors(inputs):

@@ -135,15 +135,16 @@ def test_dt_fixed_point_stays(case):
         assert torch.equal(cuda_dt.distance_transform_plain(dci, start + extra), fixed)
 
 
-@pytest.mark.parametrize("kernel", ["cov", "dt"])
+@pytest.mark.parametrize("kernel", ["cov", "dt", "jbf", "seed_gradient"])
 def test_kernel_variants_rewrite_the_sources(kernel):
     """utils/kernel_variants.py rewrites the tile and unroll constants of
-    csrc/cov.cu and csrc/dt.cu: its first variant of each kernel is the
-    source as committed, and every variant finds each of its constants."""
+    csrc/cov.cu, dt.cu, jbf.cu and seed_gradient.cu: its first variant of
+    each kernel is the source as committed, and every variant finds each of
+    its constants."""
     from kinectdepthmapenhancement_tpu_torch import _build
     from kinectdepthmapenhancement_tpu_torch.utils import kernel_variants as kv
 
-    variants = kv.COV_VARIANTS if kernel == "cov" else kv.DT_VARIANTS
+    variants = kv.VARIANTS[kernel]
     text = (_build.CSRC / f"{kernel}.cu").read_text()
     values = list(variants.values())
     assert kv.variant_source(text, values[0]) == text
