@@ -20,7 +20,10 @@ Phases (each prints its results; any failure exits non-zero):
      the gather at each width the path uses, F = 6, 1 and 3; the DT also on
      a lattice depth-change map, zeros 48 px apart; the JBF and the DT in
      one device activity per call; the weighted NASP sums also on labels
-     whose slot changes nearly every pixel); time kernel,
+     whose slot changes nearly every pixel), and at the shapes phase 6's
+     paths add: the NASP sums at r = 5 on three-iteration labels, the label
+     sums at F = 4 and 6 (merge_planes) and at r = 5, the gather at F = 2
+     (the trust table) and at r = 5; time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -34,15 +37,32 @@ Phases (each prints its results; any failure exits non-zero):
   4. drive kde_pipeline(KDEConfig()) at 640x480 (B=1, then B=4) from
      make_noisy_scene(480, 640); check finite outputs, that every kernel
      counter went up, and bitwise-identical outputs on a second run; hold
-     the kernel route (stats_impl="auto") against the plain route ("xla")
-     at B=4; print the median ms per frame of both routes and the
+     the B=1 output against the JAX package's run of the same frame
+     (tests/golden/kde_jax_640x480_seed0.npz, golden.kde_gates; the seed
+     and partition agreements printed) and against ground truth (> 200000
+     valid points, mean 3-D error below the input's, depth RMSE < 10 mm);
+     hold the kernel route (stats_impl="auto") against the plain route
+     ("xla") at B=4; print the median ms per frame of both routes and the
      profile of the kernel route by stage, with the device ms and
      launches of each of the port's own kernels in that call;
   5. run kde_pipeline at 96x128 (grid 3x4) and hold it against the golden
      oracle fixtures tests/golden/kde_oracle_96x128_seed0{,_refexact}.npz
      with the thresholds of tests/test_oracle_pipeline.py;
-  6. print the kernels JSON line (one entry per TPU kernel of the repo),
-     then {"ok": true, "device": ...} last.
+  6. drive the slice's paths at full width, each from launch counts at 0
+     (every kernel and cuda_nasp form it runs must count), each timed and
+     profiled by stage: (a) the far-range gate of
+     tests/test_oracle_pipeline.py:230-287 on make_banded_scene (JBF,
+     KDE, KDE with plane_merge); (b) plane_merge with fill_holes=4 at B=1
+     and B=4 (labels of B=1 equal to frame 0 of B=4, bitwise on a second
+     run); (c) three NASP iterations, the capped route ("auto") against
+     locality="global" (one iteration from the same state: labels and
+     distances bitwise equal, cluster tables to tolerance; end to end at
+     most 8 labels a batch apart) with the assignment timed alone; (d) a
+     424x512 Kinect v2 frame, whose grid does not divide it (the global
+     route);
+  7. print the kernels JSON line (one entry per TPU kernel of the repo,
+     each with its forms and their launches by path), then
+     {"ok": true, "device": ...} last.
 
 Kernels are built under build/kernels/ (listed in .gitignore).
 """
@@ -109,9 +129,10 @@ def main() -> int:
     from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
     from kinectdepthmapenhancement_tpu_torch.ops import (
-        bilateral, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals, slic,
+        bilateral, ccl, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals,
+        slic,
     )
-    from kinectdepthmapenhancement_tpu_torch.utils import golden, kernel_variants
+    from kinectdepthmapenhancement_tpu_torch.utils import golden, kernel_variants, metrics
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms, device_ms
 
     t_start = time.perf_counter()
@@ -157,6 +178,7 @@ def main() -> int:
     cfg = KDEConfig()
     grid, nasp_p = cfg.grid, cfg.nasp
     cell = dict(rows=grid.rows, cols=grid.cols, r=4)
+    cell5 = dict(cell, r=5)  # the capped iterations' cells
     ws_x, ws_y = w // grid.cols, h // grid.rows
     s_scale = (ws_x + ws_y) / 2.0
     rp = ws_x * 2 // 16 + 1
@@ -212,6 +234,39 @@ def main() -> int:
                 labels, *tri, x[f"f_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
                 color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell)
         x["scale_label"] = cuda_nasp.label_cell_sums_plain(labels, x["feats2"].abs(), **cell)
+        # the capped iterations' state: three NASP iterations on the plain
+        # route, every label within the cap of 5 (the r = 5 sums and gathers)
+        three = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
+            nasp_p, iterations=3, stats_impl="xla"))
+        if not bool(slic.labels_within_cap(three.labels, grid, 5, h, w).all()):
+            _fail("three-iteration labels left the cap of 5")
+        labels5, cl5 = three.labels, three.clusters
+        xy5 = cl5.xy.to(torch.float32)
+        ok5 = ((z > 50.0) & (labels5 >= 0)).to(torch.float32)
+        x.update(labels5=labels5,
+                 f5_analyze=xy5.reshape(b, grid.rows, grid.cols, 2).contiguous(),
+                 f5_weighted=torch.cat([xy5, cl5.rgb, cl5.normal], -1)
+                 .reshape(b, grid.rows, grid.cols, 8).contiguous(),
+                 feats2_r5=torch.stack([(z * 1e-3) ** 2 * ok5, ok5], -1).contiguous())
+        for mode in ("analyze", "weighted"):
+            x[f"scale5_{mode}"] = cuda_nasp.nasp_cell_sums_plain(
+                labels5, *tri, x[f"f5_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
+                color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell5)
+        # merge_planes' moments over the single-iteration labels: (points, 1)
+        # and the centred scatter (ops/ccl.py); the trust table without the
+        # residual (variance, size)
+        valid = (labels >= 0) & (z > 50.0)
+        x["feats4"] = (torch.cat([points, torch.ones_like(z)[..., None]], -1)
+                       * valid[..., None]).contiguous()
+        s4 = idx.segment_sum(x["feats4"], valid)
+        mean = s4[..., :3] / s4[..., 3:4].clamp_min(1.0)
+        x["feats6"] = ccl._outer6(
+            torch.where(valid[..., None], points - idx.gather(mean), 0.0)).contiguous()
+        x["table2"] = torch.stack([cl.variance, cl.size.to(torch.float32)], -1).contiguous()
+        x["scale_feats4"] = cuda_nasp.label_cell_sums_plain(labels, x["feats4"].abs(), **cell)
+        x["scale_feats6"] = cuda_nasp.label_cell_sums_plain(labels, x["feats6"].abs(), **cell)
+        x["scale_feats2_r5"] = cuda_nasp.label_cell_sums_plain(
+            labels5, x["feats2_r5"].abs(), **cell5)
         # labels whose slot changes nearly every pixel: each pixel takes one
         # of the 3x3 cells around its own (the clusters whose update window
         # can reach it), -1 where that leaves the grid and on 3%
@@ -239,6 +294,8 @@ def main() -> int:
         x["bi"] = bi[:, None, None]
         x["flat_label"] = (bi[:, None, None] * grid.num_clusters
                            + labels.clamp_min(0).long()).reshape(-1)
+        x["flat_label5"] = (bi[:, None, None] * grid.num_clusters
+                            + labels5.clamp_min(0).long()).reshape(-1)
         return x
 
     # ---- phase 3: each kernel against its plain version on the card
@@ -248,9 +305,10 @@ def main() -> int:
     its = cfg.normals.dt_iterations
     sums_kw = dict(lo=lo, hi=hi, color_sigma=nasp_p.color_sigma,
                    spatial_sigma=nasp_p.spatial_sigma, **cell)
+    sums_kw5 = dict(sums_kw, r=5)
 
-    def cell_sums_args(x, mode, labels="labels"):
-        return (x[labels], x["color_f"], x["points"], x["nmap"], x[f"f_{mode}"])
+    def cell_sums_args(x, mode, labels="labels", fields="f"):
+        return (x[labels], x["color_f"], x["points"], x["nmap"], x[f"{fields}_{mode}"])
 
     def sums_ok(mode, scale):
         ints = cuda_nasp.INTEGER_FEATURES.get(mode, ())
@@ -440,6 +498,61 @@ def main() -> int:
             inputs=lambda x, t=tkey: [x["labels"], x[t]],
             ops=lambda x: 0,
             shape=lambda x, nf=nf: tuple(x["labels"].shape) + (nf,))
+    # the shapes the slice's paths add: the NASP sums at r = 5 (capped
+    # iterations), the label sums at merge_planes' F = 4 and 6 and at r = 5
+    # (the residual over capped labels), the gather of the trust table
+    # (F = 2) and at r = 5 (CCL and the plane stage over capped labels)
+    for mode, per_px in (("analyze", 16 + 13), ("weighted", 51 + 14)):
+        kernels[f"nasp_cell_sums_{mode}_r5"] = dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="nasp_cell_sums", secondary=True, form=f"r5:{mode}",
+            run=lambda x, m=mode: cuda_nasp.nasp_cell_sums(
+                *cell_sums_args(x, m, "labels5", "f5"), mode=m, **sums_kw5),
+            plain=lambda x, m=mode: cuda_nasp.nasp_cell_sums_plain(
+                *cell_sums_args(x, m, "labels5", "f5"), mode=m, **sums_kw5),
+            ok=sums_ok(mode, f"scale5_{mode}"),
+            inputs=lambda x, m=mode: list(cell_sums_args(x, m, "labels5", "f5")),
+            ops=lambda x, n=per_px: labeled(x, "labels5") * n,
+            shape=lambda x: tuple(x["color_f"].shape))
+    for key, nf, r, feats in (("label_cell_sums_f4", 4, 4, "feats4"),
+                              ("label_cell_sums_f6", 6, 4, "feats6"),
+                              ("label_cell_sums_r5", 2, 5, "feats2_r5")):
+        lab, flat, kw = ("labels", "flat_label", cell) if r == 4 else (
+            "labels5", "flat_label5", cell5)
+        kernels[key] = dict(
+            module=cuda_nasp, bar="<= 1e-5 sum|terms|", row="label_cell_sums",
+            secondary=True, form=f"r{r}:F{nf}",
+            run=lambda x, l=lab, f=feats, kw=kw: cuda_nasp.label_cell_sums(x[l], x[f], **kw),
+            plain=lambda x, l=lab, f=feats, kw=kw: cuda_nasp.label_cell_sums_plain(
+                x[l], x[f], **kw),
+            ok=sums_ok("label", f"scale_{feats}"),
+            library=lambda x, f=feats, fl=flat, nf=nf: torch.zeros(
+                (x["bi"].shape[0] * grid.num_clusters, nf), device=dev).index_add_(
+                0, x[fl], x[f].reshape(-1, nf)),
+            inputs=lambda x, l=lab, f=feats: [x[l], x[f]],
+            ops=lambda x, f=feats: npx(x[f]) * x[f].shape[-1],
+            shape=lambda x, f=feats: tuple(x[f].shape))
+    for key, nf, r in (("label_cell_gather_f2", 2, 4), ("label_cell_gather_r5", 6, 5),
+                       ("label_cell_gather_r5_f3", 3, 5)):
+        lab, kw, tkey = ("labels", cell, f"table{nf}") if r == 4 else (
+            "labels5", cell5, f"table{nf}")
+        kernels[key] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=True,
+            form=f"r{r}:F{nf}",
+            run=lambda x, l=lab, t=tkey, kw=kw: cuda_nasp.label_cell_gather(x[l], x[t], **kw),
+            plain=lambda x, l=lab, t=tkey, kw=kw: cuda_nasp.label_cell_gather_plain(
+                x[l], x[t], **kw),
+            library=lambda x, l=lab, t=tkey: x[t][x["bi"], x[l].clamp_min(0)],
+            inputs=lambda x, l=lab, t=tkey: [x[l], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, l=lab, nf=nf: tuple(x[l].shape) + (nf,))
+    # the main path's forms, as cuda_nasp.launch_forms names them
+    for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
+                       ("nasp_cell_sums_analyze", "r4:analyze"),
+                       ("nasp_cell_sums_weighted_scattered", "r4:weighted"),
+                       ("label_cell_sums", "r4:F2"), ("label_cell_gather", "r4:F6"),
+                       ("label_cell_gather_f1", "r4:F1"), ("label_cell_gather_f3", "r4:F3")):
+        kernels[name]["form"] = form
     def device_time(fn):
         """utils/timing.device_ms of fn: (device ms, activities) per call.
         The profiler's trace now and then comes back without its device
@@ -526,14 +639,20 @@ def main() -> int:
         c.update(cuda_nasp.launches)
         return c
 
-    for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient):
-        m.launches = 0
-    for name in cuda_nasp.launches:
-        cuda_nasp.launches[name] = 0
+    def reset_counts():
+        for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient):
+            m.launches = 0
+        for name in cuda_nasp.launches:
+            cuda_nasp.launches[name] = 0
+        cuda_nasp.launch_forms.clear()
+
+    path_forms = {}  # path -> cuda_nasp.launch_forms of its driven run
+    reset_counts()
     res1 = kde_pipeline(depth4[0], color4[0], intr, cfg)
     res4 = kde_pipeline(depth4, color4, intr, cfg)
     torch.cuda.synchronize()
     launches = counts()
+    path_forms["main"] = dict(cuda_nasp.launch_forms)
     print(f"main path launches: {launches}")
     if any(n == 0 for n in launches.values()):
         _fail(f"a kernel of the main path was never launched: {launches}")
@@ -557,6 +676,36 @@ def main() -> int:
         if not torch.equal(getattr(again, f), getattr(res4, f)):
             _fail(f"second run gave different {f}")
     print("determinism: every output bitwise identical on a second run")
+
+    # the B=1 output against the JAX package's run of the same frame
+    # (tests/golden/kde_jax_640x480_seed0.npz); the seeds near gradient
+    # ties can differ (XLA on the CPU contracts FMAs, the port does not)
+    want = golden.load_jax_640x480()
+    got1 = {f: getattr(res1, f).cpu().numpy() for f in res1._fields}
+    jgates = golden.kde_gates(got1, want)
+    for gname, (val, lim, ok) in jgates.items():
+        print(f"jax 640x480 {gname:28s} {val:.6g} (limit {lim}) {'ok' if ok else 'FAIL'}")
+    seeds1 = slic._compute_seeds(color4[:1].to(torch.float32), res1.normals[None].contiguous(),
+                                 grid, h, w, 8)[0].cpu().numpy()
+    seed_same = (seeds1 == want["seeds"]).all(-1)
+    part, total = golden.partition_agreement(got1["merged_labels"], want["merged_labels"])
+    print(f"jax 640x480: seeds equal on {seed_same.mean():.4f} ({int((~seed_same).sum())} of "
+          f"{len(seed_same)} differ); NASP labels equal on "
+          f"{(got1['nasp_labels'] == want['nasp_labels']).mean():.6f} of pixels; merged "
+          f"partition agreement {part:.6f} over {total} labelled pixels")
+    if golden.failures(jgates):
+        _fail(f"640x480 output against the JAX package: {golden.failures(jgates)}")
+    # quality against ground truth (tests/test_pipelines.py:31-51)
+    gt0 = torch.from_numpy(scenes[0][2]).to(dev)
+    gt_pts = projective_to_real(gt0, intr)
+    err_in, _ = metrics.mean_3d_error(projective_to_real(depth4[0], intr), gt_pts)
+    err_out, n_valid = metrics.mean_3d_error(res1.optimized_points, gt_pts)
+    rmse = float(metrics.depth_rmse(res1.optimized_points[..., 2], gt0))
+    print(f"quality 640x480: {int(n_valid)} valid points (bar > 200000), mean 3-D error "
+          f"{float(err_out):.4f} mm against the input's {float(err_in):.4f}, depth RMSE "
+          f"{rmse:.4f} mm (bar < 10)")
+    if not (int(n_valid) > 200000 and float(err_out) < float(err_in) and rmse < 10.0):
+        _fail("the 640x480 quality gate")
 
     # the stats routes: the kernels ("auto") against the plain route ("xla")
     cfg_xla = dataclasses.replace(cfg, nasp=dataclasses.replace(nasp_p, stats_impl="xla"))
@@ -609,10 +758,13 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     scopes = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
-    for bsz in (1, 4):
-        d, c = depth4[:bsz], color4[:bsz]
+
+    def stage_profile(tag, fn, call_ms, port_kernels=True):
+        """One profiled call of fn: device ms and activities by kde.* stage,
+        the top kernels, the port's own kernels; the busy share against
+        call_ms (an unprofiled median)."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            kde_pipeline(d, c, intr, cfg)
+            fn()
             torch.cuda.synchronize()
         events = prof.events()
         on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
@@ -639,8 +791,7 @@ def main() -> int:
                 acc[0] += ms
                 acc[1] += 1
         busy = sum(by_kernel.values())
-        call_ms = frame_ms[("auto", bsz)] * bsz
-        print(f"profile B={bsz}: {len(work)} device activities ({attached} attached to a CPU "
+        print(f"profile {tag}: {len(work)} device activities ({attached} attached to a CPU "
               f"op), device busy {busy:.3f} ms of a {call_ms:.3f} ms call "
               f"({100.0 * busy / call_ms:.1f}% busy); {len(spans)} stage spans on the device")
         for name, (ms, count) in per.items():
@@ -649,8 +800,13 @@ def main() -> int:
             print(f"  kernel {ms:8.3f} ms  {name[:90]}")
         print("  port kernels: " + "  ".join(
             f"{name} {ms:.4f} ms x{count}" for name, (ms, count) in sorted(port.items())))
-        if not port:
-            _fail(f"B={bsz}: the profile shows none of the port's kernels")
+        if port_kernels and not port:
+            _fail(f"{tag}: the profile shows none of the port's kernels")
+
+    for bsz in (1, 4):
+        d, c = depth4[:bsz], color4[:bsz]
+        stage_profile(f"B={bsz}", lambda: kde_pipeline(d, c, intr, cfg),
+                      frame_ms[("auto", bsz)] * bsz)
 
     # ---- phase 5: the golden oracle fixtures at 96x128
     intr_s, color_s, noisy_s = golden.scene_96x128()
@@ -670,9 +826,209 @@ def main() -> int:
         if golden.failures(gates):
             _fail(f"golden gates failed ({tag}): {golden.failures(gates)}")
 
-    # ---- phase 6: summary lines, one JSON entry per TPU kernel; a second
-    # form of a kernel (colour-only gradient, analyze-mode sums) is checked
-    # and timed beside its main-path form above
+    # ---- phase 6: the slice's paths at full width: each driven once with
+    # the counts at 0 (every kernel it runs must count), checked, timed
+    # (CUDA events, median of 5) and profiled by stage
+    stencil_kernels = ("cuda_bilateral", "cuda_dt", "cuda_cov", "cuda_gradient")
+
+    def drive(path, fn, expect, expect_forms=()):
+        """Run fn once from counts at 0; fail unless every kernel in
+        `expect` and every cuda_nasp form in `expect_forms` launched."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, forms = counts(), dict(cuda_nasp.launch_forms)
+        path_forms[path] = forms
+        print(f"{path} launches: {got}; forms {forms}")
+        missing = [k for k in expect if got[k] == 0] + [f for f in expect_forms if f not in forms]
+        if missing:
+            _fail(f"{path}: a kernel of the path was never launched: {missing}")
+        return out
+
+    def time_path(path, fn, bsz):
+        t = cuda_ms(fn, warmup=1, iters=5)
+        print(f"{path}: {t:.3f} ms per call, {t / bsz:.3f} ms per frame (median of 5)")
+        stage_profile(path, fn, t)
+        return t
+
+    def check_outputs(tag, res, k_count):
+        for field in ("optimized_points", "plane_fitted", "jbf_depth", "normals",
+                      "merged_variance"):
+            if not bool(torch.isfinite(getattr(res, field)).all()):
+                _fail(f"{tag}: non-finite values in {field}")
+        for field in ("nasp_labels", "merged_labels"):
+            lab = getattr(res, field)
+            if int(lab.min()) < -1 or int(lab.max()) >= k_count:
+                _fail(f"{tag}: {field} out of range")
+
+    def check_again(tag, fn, first):
+        again = fn()
+        torch.cuda.synchronize()
+        for f in first._fields:
+            if not torch.equal(getattr(again, f), getattr(first, f)):
+                _fail(f"{tag}: second run gave different {f}")
+        print(f"{tag}: every output bitwise identical on a second run")
+
+    all_kernels = tuple(launches)
+    path_ms = {}
+
+    # (a) the far-range gate (tests/test_oracle_pipeline.py:230-287)
+    from kinectdepthmapenhancement_tpu_torch.core.testdata import make_banded_scene
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import jbf_pipeline
+
+    fcolor, fsensor, fgt = make_banded_scene(h, w, intr, seed=0)
+    fd, fc = torch.from_numpy(fsensor).to(dev), torch.from_numpy(fcolor).to(dev)
+    cfg_pm = dataclasses.replace(cfg, plane_merge=True)
+    z_jbf = drive("far.jbf", lambda: jbf_pipeline(fd, fc), ("cuda_bilateral",))
+    res_fk = drive("far.kde", lambda: kde_pipeline(fd, fc, intr, cfg), all_kernels)
+    res_fp = drive("far.plane_merge", lambda: kde_pipeline(fd, fc, intr, cfg_pm), all_kernels,
+                   ("label_cell_sums:r4:F4", "label_cell_sums:r4:F6"))
+    fgates, frmse = golden.far_range_gates(
+        z_jbf.cpu().numpy(), res_fk.optimized_points[..., 2].cpu().numpy(),
+        res_fp.optimized_points[..., 2].cpu().numpy(), res_fp.merged_labels.cpu().numpy(),
+        fgt, k_count)
+    for gname, (val, lim, ok) in fgates.items():
+        print(f"far-range {gname:28s} {val:.6g} (limit {lim}) {'ok' if ok else 'FAIL'}")
+    print("far-range depth RMSE: " + "  ".join(f"{k} {v:.4f} mm" for k, v in frmse.items()))
+    if golden.failures(fgates):
+        _fail(f"far-range gate: {golden.failures(fgates)}")
+    path_ms["far.jbf B=1"] = cuda_ms(lambda: jbf_pipeline(fd, fc), warmup=1, iters=5)
+    print(f"far.jbf: {path_ms['far.jbf B=1']:.3f} ms per call (median of 5)")
+    path_ms["far.plane_merge B=1"] = time_path(
+        "far.plane_merge B=1", lambda: kde_pipeline(fd, fc, intr, cfg_pm), 1)
+
+    # (b) plane_merge with the hole fill, B=1 and B=4
+    cfg_b = dataclasses.replace(cfg, plane_merge=True, fill_holes=4)
+    res_b1 = drive("pm_fill B=1", lambda: kde_pipeline(depth4[0], color4[0], intr, cfg_b),
+                   all_kernels, ("label_cell_sums:r4:F4", "label_cell_sums:r4:F6"))
+    res_b4 = drive("pm_fill B=4", lambda: kde_pipeline(depth4, color4, intr, cfg_b),
+                   all_kernels)
+    for tag, res in (("pm_fill B=1", res_b1), ("pm_fill B=4", res_b4)):
+        check_outputs(tag, res, k_count)
+    for f in ("nasp_labels", "merged_labels", "merged_sizes"):
+        if not torch.equal(getattr(res_b1, f), getattr(res_b4, f)[0]):
+            _fail(f"pm_fill: {f} of B=1 differs from frame 0 of B=4")
+    dmm = (res_b1.optimized_points - res_b4.optimized_points[0]).abs().amax(-1)
+    print(f"pm_fill: B=1 labels and sizes equal to frame 0 of B=4; optimized points max "
+          f"|d| {float(dmm.max()):.3g} mm, within 1e-3 mm on "
+          f"{float((dmm <= 1e-3).double().mean()):.6f} of pixels")
+    filled = int(((res_b4.optimized_points[..., 2] > 50.0) & (depth4 <= 50.0)).sum())
+    print(f"pm_fill B=4: {filled} input holes with depth in the output")
+    check_again("pm_fill B=4", lambda: kde_pipeline(depth4, color4, intr, cfg_b), res_b4)
+    for bsz in (1, 4):
+        d, c = depth4[:bsz], color4[:bsz]
+        path_ms[f"pm_fill B={bsz}"] = time_path(
+            f"pm_fill B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_b), bsz)
+
+    # (c) three NASP iterations: the "auto" locality (the capped route's
+    # r = 5 cell-local updates) against "global" (one-hot updates); both
+    # assign by the global sweep
+    r5_forms = ("nasp_cell_sums:r5:analyze", "nasp_cell_sums:r5:weighted",
+                "label_cell_sums:r5:F2", "label_cell_gather:r5:F6")
+    cfg_c = {loc: dataclasses.replace(cfg, nasp=dataclasses.replace(
+        nasp_p, iterations=3, locality=loc)) for loc in ("auto", "global")}
+    res_c = {}
+    for bsz in (1, 4):
+        d, c = depth4[:bsz], color4[:bsz]
+        res_c[bsz] = drive(f"iter3 B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_c["auto"]),
+                           all_kernels, r5_forms)
+        res_g = drive(f"iter3.global B={bsz}",
+                      lambda: kde_pipeline(d, c, intr, cfg_c["global"]),
+                      stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums"))
+        check_outputs(f"iter3 B={bsz}", res_c[bsz], k_count)
+        if any(f.split(":")[1] == "r5" for f in path_forms[f"iter3.global B={bsz}"]):
+            _fail("the global route launched an r = 5 cell kernel")
+        # one later iteration on each route from the same state (two
+        # iterations on the capped route): one sweep, so labels and
+        # distances bitwise equal; the updates sum in different orders, so
+        # the cluster tables are held to the stats routes' bar
+        pts = projective_to_real(res_c[bsz].jbf_depth, intr)
+        two = slic.segment(c, pts, res_c[bsz].normals, grid=grid,
+                           params=dataclasses.replace(cfg_c["auto"].nasp, iterations=2))
+        state = (two.labels, two.distance, two.clusters, c.to(torch.float32), pts,
+                 res_c[bsz].normals)
+        step = {loc: slic.later_iteration(*state, grid=grid, params=cfg_c[loc].nasp)
+                for loc in ("auto", "global")}
+        same_step = (torch.equal(step["auto"][0], step["global"][0])
+                     and torch.equal(step["auto"][1], step["global"][1]))
+        print(f"iter3 B={bsz} step: labels and distances of the routes bitwise equal: "
+              f"{same_step}")
+        if not same_step:
+            _fail(f"iter3 B={bsz}: one iteration from the same state gave other labels")
+        a, g = step["auto"][2], step["global"][2]
+        for f in ("size", "xy", "rgb"):
+            dc = (getattr(a, f).double() - getattr(g, f).double()).abs()
+            dc = dc.reshape(dc.shape[0], dc.shape[1], -1).amax(-1)
+            eq = float((dc == 0).double().mean())
+            print(f"iter3 B={bsz} step: cluster {f} equal on {eq:.4f} of clusters, "
+                  f"max |d| {float(dc.max()):.3g}")
+            if eq < 0.99 or float(dc.max()) > 1.0:
+                _fail(f"iter3 B={bsz}: cluster {f} differs between the routes beyond the bar")
+        close = (torch.allclose(a.center, g.center, rtol=1e-5, atol=1e-3)
+                 and torch.allclose(a.normal, g.normal, rtol=1e-5, atol=1e-5))
+        print(f"iter3 B={bsz} step: centres and normals within tests/test_slic.py:179's "
+              f"tolerances: {close}")
+        if not close:
+            _fail(f"iter3 B={bsz}: cluster tables differ between the routes beyond the bar")
+        # end to end, an ulp of a cluster table can move a pixel at a
+        # distance near-tie in the third sweep: at most 8 pixels a batch
+        # (1 of 1228800 seen at B=4, ROADMAP Queue C)
+        ndiff = int((res_c[bsz].nasp_labels != res_g.nasp_labels).sum())
+        part = min(golden.partition_agreement(a_, g_)[0] for a_, g_ in zip(
+            res_c[bsz].merged_labels.cpu().numpy(), res_g.merged_labels.cpu().numpy()))
+        dmm = (res_c[bsz].optimized_points - res_g.optimized_points).abs().amax(-1)
+        within = float((dmm < 1.0).double().mean())
+        print(f"iter3 B={bsz}: NASP labels differ on {ndiff} pixels (bar <= 8), "
+              f"merged-partition agreement {part:.6f} (bar > 0.9999); optimized points "
+              f"within 1 mm on {within:.6f} of pixels (bar > 0.9999), max |d| "
+              f"{float(dmm.max()):.3g} mm")
+        if not (ndiff <= 8 and part > 0.9999 and within > 0.9999):
+            _fail(f"iter3 B={bsz}: the capped and the global route differ beyond the bar")
+        moved = float((res_c[bsz].nasp_labels != res1.nasp_labels if bsz == 1 else
+                       res_c[bsz].nasp_labels != res4.nasp_labels).double().mean())
+        print(f"iter3 B={bsz}: iterations 2-3 moved {moved:.4f} of the labels")
+        # the later iterations' assignment alone (plain PyTorch, 64 offsets)
+        args = state + (grid, nasp_p, (w // grid.cols + h // grid.rows) / 2.0)
+        t_glob = cuda_ms(lambda: slic._assign_global(*args), warmup=1, iters=5)
+        path_ms[f"assign_global B={bsz}"] = t_glob
+        print(f"iter3 B={bsz}: later iterations' assignment {t_glob:.3f} ms per call "
+              f"(median of 5)")
+        check_again(f"iter3 B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_c["auto"]),
+                    res_c[bsz])
+        path_ms[f"iter3 B={bsz}"] = time_path(
+            f"iter3 B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_c["auto"]), bsz)
+        path_ms[f"iter3.global B={bsz}"] = time_path(
+            f"iter3.global B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_c["global"]), bsz)
+
+    # (d) a Kinect v2 frame, 424x512: the default 15x20 grid does not divide
+    # it, so the NASP and downstream stages take the global route
+    intr_v2 = default_kinect_intrinsics(512, 424)
+    vcolor, vnoisy, _ = make_noisy_scene(424, 512, intr_v2, seed=0)
+    vd, vc = torch.from_numpy(vnoisy).to(dev), torch.from_numpy(vcolor).to(dev)
+    res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
+                  stencil_kernels)
+    check_outputs("kinect_v2 424x512", res_d, k_count)
+    check_again("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg), res_d)
+    path_ms["kinect_v2 B=1"] = time_path(
+        "kinect_v2 424x512 B=1", lambda: kde_pipeline(vd, vc, intr_v2, cfg), 1)
+    print("slice paths ms per call: " + "  ".join(f"{k} {v:.3f}" for k, v in path_ms.items()))
+
+    # ---- phase 7: summary lines, one JSON entry per TPU kernel; a second
+    # form of a kernel (colour-only gradient, analyze-mode sums, the shapes
+    # of phase 6's paths) is checked and timed beside its main-path form
+    # above, and listed under the row's "forms" with its launches by path
+    def form_entry(name, k):
+        """A kernel's form: its shape, B=1 / B=4 numbers, and its launches
+        per driven path (cuda_nasp.launch_forms)."""
+        r = report[name]
+        key = f"{k.get('row', name)}:{k['form']}"
+        return {"form": name, "launch_form": key, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms_b1"], "device_ms": r["device_ms_b1"], "plain_ms": r["plain_ms_b1"],
+                "bound_ms": r["bound_ms_b1"], "library_ms": r["library_ms_b1"],
+                "ms_b4": r["ms_b4"], "device_ms_b4": r["device_ms_b4"],
+                "bound_ms_b4": r["bound_ms_b4"],
+                "launches_by_path": {p: f[key] for p, f in path_forms.items() if key in f}}
+
     out = []
     for name, k in kernels.items():
         if k.get("secondary"):
@@ -695,6 +1051,8 @@ def main() -> int:
             "device_ms": r["device_ms_b1"], "device_ms_b4": r["device_ms_b4"],
             "library_device_ms": r["library_device_ms_b1"],
             "library_device_ms_b4": r["library_device_ms_b4"],
+            "forms": [form_entry(n, kk) for n, kk in kernels.items()
+                      if "form" in kk and kk.get("row", n) == row],
         })
     print("kde ms per frame: " + "  ".join(
         f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))

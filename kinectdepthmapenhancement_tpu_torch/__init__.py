@@ -10,10 +10,13 @@ kernel or raises.
 
 Layout
 ------
-core/      config dataclasses, camera model, procedural test scene
-ops/       stencils, JBF, CM normals, tables, NASP, CCL merge, plane stage,
+core/      config dataclasses, camera model, procedural test scenes, the
+           Kinect v1 sensor model
+ops/       stencils, JBF, CM normals, tables, NASP (cell, capped and global
+           routes), CCL normal and plane merges, plane stage and hole fill,
            and the kernel wrappers cuda_{bilateral,dt,cov,gradient,nasp}.py
-models/    kde_pipeline
-utils/     call timing (CUDA events), device timing (profiler), golden gates
+models/    kde_pipeline, jbf_pipeline
+utils/     call timing (CUDA events), device timing (profiler), golden and
+           far-range gates, depth metrics
 convert.py carries the JAX package's config and intrinsics across
 """

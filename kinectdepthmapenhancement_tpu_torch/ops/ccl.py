@@ -1,7 +1,8 @@
 """Superpixel merging via connected components over the cluster graph.
 
-PyTorch counterpart of the normal-merge part of the JAX package's ops/ccl.py
-(LabelEquivalenceSeg in the reference).  The merge predicate depends only on
+PyTorch counterpart of the normal merge (LabelEquivalenceSeg in the
+reference) and the plane-consistency merge (merge_planes, a spec extension
+with no reference equivalent) of the JAX package's ops/ccl.py.  The merge predicate depends only on
 the two pixels' ORIGINAL cluster ids, so the reference's pixel-level
 label-equivalence fixpoint equals connected components over the ~300-node
 cluster adjacency graph:
@@ -11,6 +12,9 @@ cluster adjacency graph:
   3. min-label components by boolean matrix squaring (exact in f32: counts
      stay below 2^24),
   4. merged stats by K-side segment sums and one per-pixel gather.
+Pixel sums and gathers go through a label index (slic.label_index): the
+cell-local one (slic._CellIndex) over single-iteration or capped labels,
+else the global one (slic._GlobalIndex).
 Fidelity notes are the JAX package's (ccl.py:19-31): run to convergence, two
 clusters with exactly equal normals do not merge (acos(1) > 0 fails),
 border clamps fixed, label -1 stays -1.
@@ -25,9 +29,10 @@ from typing import NamedTuple
 
 import torch
 
+from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.config import CCLParams
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
-from kinectdepthmapenhancement_tpu_torch.ops.slic import _CellIndex
+from kinectdepthmapenhancement_tpu_torch.ops.slic import LabelIndex
 
 INVALID_ND = 5.0
 
@@ -41,7 +46,7 @@ class MergeResult(NamedTuple):
     rep: torch.Tensor          # [B, K] i32: component representative per ORIGINAL id
 
 
-def _adjacency(idx: _CellIndex) -> torch.Tensor:
+def _adjacency(idx) -> torch.Tensor:
     """[B, K, K] bool: cluster pairs adjacent via a 4-neighbour pixel pair."""
     labels = idx.labels
     b, h, w = labels.shape
@@ -74,14 +79,13 @@ def _merge(
     cluster_valid: torch.Tensor,    # [B, K] bool
     cluster_centers: torch.Tensor,  # [B, K, 3]
     predicate,
-    index: _CellIndex,
+    idx: LabelIndex,
 ) -> MergeResult:
-    """Merge through the cell-local label index over `labels`.  Every
-    per-pixel quantity of the reference's count/calc_nd kernels is a
-    function of the pixel's ORIGINAL cluster id, so the stats collapse to
-    K-side table algebra plus ONE final per-pixel gather."""
+    """Merge through a label index over `labels`.  Every per-pixel
+    quantity of the reference's count/calc_nd kernels is a function of the
+    pixel's ORIGINAL cluster id, so the stats collapse to K-side table
+    algebra plus ONE final per-pixel gather."""
     k = cluster_nd.shape[1]
-    idx = index
     adj = _adjacency(idx)
     na = cluster_nd[:, :, None, :3]
     nb = cluster_nd[:, None, :, :3]
@@ -134,13 +138,13 @@ def merge_normals(
     cluster_centers: torch.Tensor,  # [B, K, 3]
     p: CCLParams = CCLParams(),
     *,
-    index: _CellIndex,
+    index: LabelIndex,
 ) -> MergeResult:
     """LabelEquivalenceSeg::labelImage (LabelEquivalenceSeg.cu:228-282).
 
     Per-cluster plane: n = cluster normal, d = |n . center| (initLabel,
     cu:8-35); merge when 0 < acos(n1.n2) < pi/8 and |d1-d2| < offset max.
-    `index` is the cell-local index over `labels` (slic.cell_index)."""
+    `index`: the label index over `labels` (slic.label_index)."""
     valid = (cluster_normals != -1.0).any(dim=-1)
     d = stencil.dot3(cluster_normals, cluster_centers).abs()
     nd = torch.cat([cluster_normals, d[..., None]], dim=-1)
@@ -153,3 +157,122 @@ def merge_normals(
         return (dot < 1.0) & (dot > cos_max) & (dd < p.plane_offset_max)
 
     return _merge(labels, nd, valid, cluster_centers, predicate, index)
+
+
+def _cov3(scat6: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """[B, K, 3, 3] covariance from the centred scatter [B, K, 6]
+    (xx, xy, xz, yy, yz, zz) over n points."""
+    xx, xy, xz, yy, yz, zz = scat6.unbind(-1)
+    rows = [torch.stack(r, dim=-1) for r in ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))]
+    return torch.stack(rows, dim=-2) / torch.clamp_min(n, 1.0)[..., None, None]
+
+
+def _regress(scat6: torch.Tensor, mean: torch.Tensor, n: torch.Tensor):
+    """z-regression plane z = a x + b y + c from centred moments (a 2x2
+    solve; JAX ccl.py:323-343 says why not the total-LSQ eigenproblem).
+    Returns (unit normal [B, K, 3] with d >= 0, d [B, K], solvable & n >= 3)."""
+    sxx, sxy, sxz, syy, syz = (scat6[..., i] for i in range(5))
+    det = sxx * syy - sxy * sxy
+    solvable = det > 1e-6
+    det_s = torch.where(solvable, det, 1.0)
+    a = (sxz * syy - syz * sxy) / det_s
+    b = (sxx * syz - sxy * sxz) / det_s
+    nv = torch.stack([-a, -b, torch.ones_like(a)], dim=-1)
+    nv = nv / torch.sqrt(stencil.dot3(nv, nv))[..., None]
+    dv = stencil.dot3(nv, mean)
+    sgn = torch.where(dv < 0.0, -1.0, 1.0)
+    return nv * sgn[..., None], dv * sgn, solvable & (n >= 3.0)
+
+
+def _outer6(e: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 6] products (xx, xy, xz, yy, yz, zz)."""
+    x, y, z = e.unbind(-1)
+    return torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], dim=-1)
+
+
+def merge_planes(
+    points: torch.Tensor,
+    labels: torch.Tensor,
+    k: int,
+    *,
+    index: LabelIndex,
+    tau: float = 0.0035,
+    min_points: int = 100,
+) -> MergeResult:
+    """Plane-consistency CCL merge (JAX ccl.py:251-410; a spec extension
+    with no reference equivalent, KDEConfig.plane_merge).  Fits a
+    z-regression plane per ORIGINAL superpixel over its valid-depth
+    members, and merges adjacent clusters whose planes explain each other's
+    members: with w = n / d and each cluster's member mean and covariance,
+
+        cross^2(p -> q) = (1 - w_p . mean_q)^2 + w_p^T C_q w_p  <  tau^2
+
+    both ways.  Components are refit from recombined moments (the
+    parallel-axis correction on cluster-mean deltas), so each component's
+    plane is the fit of all its members; variance is the size-weighted
+    coherence |n_member . n_component|.  `sizes` counts valid-depth member
+    pixels only (JAX ccl.py:405, kept as it is).
+
+    points [B, H, W, 3] mm; labels [B, H, W] i32.  `index`: the label
+    index over `labels` (slic.label_index).
+    The two [K, K] products run in f32 with TF32 off (tables.exact_matmul):
+    (1 - a) must resolve ~1e-3 where a ~ 1."""
+    b = labels.shape[0]
+    z = points[..., 2]
+    mask = (labels >= 0) & (z > VALID_DEPTH_MM)
+
+    sums = index.segment_sum(torch.cat([points, torch.ones_like(z)[..., None]], dim=-1), mask)
+    cnt = sums[..., 3]
+    mean = sums[..., :3] / torch.clamp_min(cnt, 1.0)[..., None]
+    centered = torch.where(mask[..., None], points - index.gather(mean), 0.0)
+    scat = index.segment_sum(_outer6(centered), mask)  # [B, K, 6] centred scatter
+
+    cov = _cov3(scat, cnt)
+    nvec, d, fit_ok = _regress(scat, mean, cnt)
+    valid_c = fit_ok & (cnt >= float(min_points)) & (d > 1e-3)
+
+    w_vec = nvec / torch.clamp_min(d, 1e-6)[..., None]  # [B, K, 3]
+    a = tables.exact_matmul(w_vec, mean.transpose(1, 2))  # [B, p, q]
+    ww = (w_vec[..., :, None] * w_vec[..., None, :]).reshape(b, k, 9)
+    quad = tables.exact_matmul(ww, cov.reshape(b, k, 9).transpose(1, 2))  # w_p^T C_q w_p
+    one_minus = 1.0 - a
+    cross2 = one_minus * one_minus + quad
+    ok = cross2 < tau * tau
+    mergeable = (
+        _adjacency(index) & ok & ok.transpose(1, 2)
+        & valid_c[:, :, None] & valid_c[:, None, :]
+    )
+    rep = _components(mergeable)
+
+    # component refit from recombined moments (parallel-axis, f32-safe: the
+    # corrections are cluster-mean deltas, not raw coordinate moments)
+    sums_c = tables.segment_sum(sums, rep, k)  # [B, K, 4] keyed by rep id
+    cnt_c = sums_c[..., 3]
+    mean_c = sums_c[..., :3] / torch.clamp_min(cnt_c, 1.0)[..., None]
+    delta = mean - tables.gather(mean_c, rep)
+    corr = _outer6(delta) * cnt[..., None]
+    scat_c = tables.segment_sum(scat + corr, rep, k)
+    nc, dc, _ = _regress(scat_c, mean_c, cnt_c)
+    cluster_nd = torch.cat([nc, dc[..., None]], dim=-1)  # keyed by rep
+
+    coh = stencil.dot3(nvec, tables.gather(nc, rep)).abs()
+    var_sum = tables.segment_sum(
+        (coh * cnt * valid_c.to(torch.float32))[..., None], rep, k)[..., 0]
+    variance = var_sum / torch.clamp_min(cnt_c, 1.0)
+
+    # per-pixel maps: K-side composition + ONE gather (as in _merge)
+    by_k = tables.gather(cluster_nd, rep)
+    tbl = torch.cat(
+        [rep.to(torch.float32)[..., None], valid_c.to(torch.float32)[..., None], by_k], dim=-1)
+    g = index.gather(tbl)
+    pix_valid = (labels >= 0) & (g[..., 1] > 0.0)
+    merged = torch.where(pix_valid, g[..., 0].to(torch.int32), -1)
+    nd_map = torch.where((merged >= 0)[..., None], g[..., 2:6], 0.0)
+    return MergeResult(
+        labels=merged,
+        nd_map=nd_map,
+        variance=variance,
+        sizes=cnt_c.to(torch.int32),
+        cluster_nd=cluster_nd,
+        rep=rep,
+    )

@@ -27,7 +27,7 @@ source: csrc/nasp.cu.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,8 +43,11 @@ REPLACES = {
     "label_cell_sums": f"{_PALLAS_NASP}:224",
     "label_cell_gather": f"{_PALLAS_NASP}:340",
 }
-# kernel launches since the last reset, by kernel (chip_smoke.py reads them)
+# kernel launches since the last reset, by kernel (chip_smoke.py reads them),
+# and by form: "<kernel>:r<r>" with ":<mode>" or ":F<features>" (the shapes
+# a path runs; chip_smoke.py clears it with launches)
 launches = {name: 0 for name in REPLACES}
+launch_forms: Dict[str, int] = {}
 
 INIT_DISTANCE = 999999.9  # the out-of-grid candidate cost (JAX slic.INIT_DISTANCE)
 INVALID_NORMAL = -1.0
@@ -147,7 +150,7 @@ def label_cell_sums_plain(
     return part.reshape(b, -1, f)
 
 
-def _nasp_features(
+def nasp_features(
     mode: str, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma
 ) -> torch.Tensor:
     """Per-pixel features [B, H, W, 13|14] of the NASP updates, zero outside
@@ -208,7 +211,7 @@ def nasp_cell_sums_plain(
     kw = dict(rows=rows, cols=cols, r=r, oh=oh)
     table = cand_fields.reshape(b, rows * cols, cand_fields.shape[-1])
     sel = label_cell_gather_plain(labels, table, **kw)
-    feats = _nasp_features(
+    feats = nasp_features(
         mode, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma
     )
     return label_cell_sums_plain(labels, feats.abs() if abs_terms else feats, **kw)
@@ -326,11 +329,13 @@ def nasp_assign_and_analyze_plain(
 # ----------------------------------------------------------------- kernels
 
 
-def _call(name: str, argtypes: list, device, args) -> None:
+def _call(name: str, form: str, argtypes: list, device, args) -> None:
     """Launch kde_<name> on the current stream of `device`, raise on a CUDA
-    error, count the launch."""
+    error, count the launch by kernel and by form."""
     _build.launch("kde_" + name, argtypes, device, args)
     launches[name] += 1
+    key = f"{name}:{form}"
+    launch_forms[key] = launch_forms.get(key, 0) + 1
 
 
 def _check_grid(labels_or_image: torch.Tensor, rows: int, cols: int, r: int) -> None:
@@ -357,7 +362,7 @@ def label_cell_gather(
     _build.check_tensor(table, "label_cell_gather table", torch.float32, (b, rows * cols, f))
     out = torch.empty((b, h, w, f), dtype=torch.float32, device=labels.device)
     _call(
-        "label_cell_gather", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
+        "label_cell_gather", f"r{r}:F{f}", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
         (labels.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, f),
     )
     return out
@@ -384,7 +389,7 @@ def label_cell_sums(
     n = (2 * r) ** 2
     out = torch.empty((b, rows * cols * n, f), dtype=torch.float32, device=labels.device)
     _call(
-        "label_cell_sums", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
+        "label_cell_sums", f"r{r}:F{f}", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
         (labels.data_ptr(), feats.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, f),
     )
     return out
@@ -421,7 +426,7 @@ def nasp_cell_sums(
     n = (2 * r) ** 2
     out = torch.empty((b, rows * cols * n, nfeat), dtype=torch.float32, device=labels.device)
     _call(
-        "nasp_cell_sums",
+        "nasp_cell_sums", f"r{r}:{mode}",
         [_build.PTR] * 6 + [_build.INT] * 6 + [_build.FLOAT] * 2 + [_build.INT]
         + [_build.FLOAT] * 2,
         labels.device,
@@ -460,7 +465,7 @@ def nasp_assign_and_analyze(
     part = torch.empty((b, rows * cols * n, N_ANALYZE), dtype=torch.float32, device=dev)
     # the weights as PyTorch rounds a Python scalar operand: to f32
     _call(
-        "nasp_assign_analyze",
+        "nasp_assign_analyze", f"r{r}",
         [_build.PTR] * 7 + [_build.INT] * 6 + [_build.FLOAT] * 7 + [_build.INT],
         dev,
         (color_f.data_ptr(), points.data_ptr(), normals.data_ptr(), cand_fields.data_ptr(),

@@ -7,11 +7,15 @@ PyTorch counterpart of the KDE part of the JAX package's ops/plane.py
   * plane_fit_residual — the plane-confidence gate (spec extension);
   * variance_optimization — blend toward the plane for big coherent
     clusters (Projection_GPU.cu:174-196);
+  * plane_hole_fill — label-consistent plane fill of sensor dropouts
+    (spec extension, KDEConfig.fill_holes);
   * depth_bilateral — 7x7 depth-Gaussian cleanup (Projection_GPU.cu:198-227).
 
 Per-merged-cluster tables are gathered as (table[rep])[original label]
-through the cell-local index over the ORIGINAL superpixel labels.  Depths
-are in millimetres.  Tensors carry a leading batch dimension.
+through the label index over the ORIGINAL superpixel labels
+(slic.label_index: cell-local, or global where the labels have no
+locality).  Depths are in millimetres.  Tensors
+carry a leading batch dimension.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.config import ProjectionParams
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
-from kinectdepthmapenhancement_tpu_torch.ops.slic import _CellIndex
+from kinectdepthmapenhancement_tpu_torch.ops.slic import LabelIndex
 
 PI_8 = 3.141592653 / 8.0
 COS_PI_8 = math.cos(PI_8)
@@ -38,9 +42,11 @@ def _project(nd: torch.Tensor, rays: torch.Tensor) -> torch.Tensor:
     return rays * z[..., None]
 
 
-def _by_rep(index: _CellIndex, table: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
-    """Per-pixel rows of a per-merged-cluster table [B, K, F]:
-    (table[rep])[original label] through the cell-local index."""
+def by_merged_label(table: torch.Tensor, index: LabelIndex, rep: torch.Tensor) -> torch.Tensor:
+    """Per-pixel rows [B, H, W, F] of a per-merged-cluster table [B, K, F]:
+    (table[rep])[original label] through the label index over the original
+    labels, 0 for -1.  That is table[merged label] on every pixel with a
+    merged label; callers gate the rest on merged labels > -1."""
     return index.gather(tables.gather(table, rep))
 
 
@@ -51,14 +57,14 @@ def set_pseudo_depth_map(
     labels: torch.Tensor,
     variance: torch.Tensor,
     *,
-    index: _CellIndex,
+    index: LabelIndex,
     rep: torch.Tensor,
 ) -> torch.Tensor:
     """Per-pixel nd map + variance gate (Projection_GPU.cu:20-48):
     plane-project where label > -1 and acos(variance) < pi/8, else pass the
     input points through.  variance > 1 is clamped to 1 (documented fix in
     the JAX package: a fully coherent cluster is accepted)."""
-    var_map = _by_rep(index, variance[..., None], rep)[..., 0]
+    var_map = by_merged_label(variance[..., None], index, rep)[..., 0]
     var = torch.clamp_max(var_map, 1.0)
     gate = (labels > -1) & (var > COS_PI_8)
     proj = _project(nd_map, rays)
@@ -68,25 +74,25 @@ def set_pseudo_depth_map(
 def plane_fit_residual(
     points: torch.Tensor,
     plane_fitted: torch.Tensor,
-    labels: torch.Tensor,
-    k: int,
     *,
-    index: _CellIndex,
+    index: LabelIndex,
     rep: torch.Tensor,
 ) -> torch.Tensor:
     """Per-cluster relative RMS plane-fit residual [B, K]: sqrt(mean over
     member pixels with valid depth of ((z_plane - z)/z)^2).  Pixel sums are
-    keyed by the original labels (`index`) and folded K-side by `rep`; the
-    merged `labels` are rep[original] of the same frame."""
-    del labels  # keyed through index.labels and rep
+    keyed by the original labels and folded K-side by `rep` (the merged
+    labels are rep[original] of the same frame): the merged clusters'
+    residuals, summed in another order than the JAX package's sums over
+    the merged labels."""
     z = points[..., 2]
     zp = plane_fitted[..., 2]
-    ok = (z > VALID_DEPTH_MM) & (index.labels >= 0)
+    member = index.labels >= 0
+    ok = (z > VALID_DEPTH_MM) & member
     e = (zp - z) / torch.clamp_min(z, 1.0)
     rel2 = torch.where(ok, e * e, torch.zeros_like(e))
     feats = torch.stack([rel2, ok.to(torch.float32)], dim=-1)
-    s_orig = index.segment_sum(feats, index.labels >= 0)   # [B, K, 2]
-    sums = tables.segment_sum(s_orig, rep, k)              # tiny fold
+    s_orig = index.segment_sum(feats, member)                  # [B, K, 2]
+    sums = tables.segment_sum(s_orig, rep, rep.shape[-1])      # tiny fold
     return torch.sqrt(sums[..., 0] / torch.clamp_min(sums[..., 1], 1.0))
 
 
@@ -102,7 +108,7 @@ def variance_optimization(
     agree_loose: float = 0.03,
     fit_residual: Optional[torch.Tensor] = None,
     max_fit_residual: float = 0.0,
-    index: _CellIndex,
+    index: LabelIndex,
     rep: torch.Tensor,
 ) -> torch.Tensor:
     """variance_optimization (Projection_GPU.cu:174-196): where the plane
@@ -117,7 +123,7 @@ def variance_optimization(
     cols = [variance[..., None], sizes.to(torch.float32)[..., None]]
     if fit_residual is not None:
         cols.append(fit_residual[..., None])
-    g = _by_rep(index, torch.cat(cols, dim=-1), rep)
+    g = by_merged_label(torch.cat(cols, dim=-1), index, rep)
     var, size = torch.clamp_max(g[..., 0], 1.0), g[..., 1]
     gate = (
         (zp > VALID_DEPTH_MM)
@@ -134,6 +140,51 @@ def variance_optimization(
     out = optimized.clone()
     out[..., 2] = new_z
     return out
+
+
+def plane_hole_fill(
+    optimized: torch.Tensor,
+    rays: torch.Tensor,
+    labels: torch.Tensor,
+    nd_map: torch.Tensor,
+    trust: torch.Tensor,
+    invalid: torch.Tensor,
+    steps: int,
+) -> torch.Tensor:
+    """Label-consistent plane hole-fill (JAX plane.py:302-361; a spec
+    extension, KDEConfig.fill_holes).  Dilates (label, plane) from TRUSTED
+    pixels (their cluster passed variance_optimization's gates) into
+    `invalid` ones, `steps` rounds: a pixel fills only while its labelled
+    4-neighbours agree on one cluster, the first of (up, down, left, right)
+    giving the plane; filled pixels are projected onto it along their ray.
+    labels [B, H, W] i32, nd_map [B, H, W, 4], trust / invalid [B, H, W]
+    bool."""
+    lab = torch.where(trust, labels, -1)
+    nd = torch.where(trust[..., None], nd_map, 0.0)
+    lab0 = lab
+    h, w = labels.shape[-2:]
+
+    def shifted(x, dy, dx, fill):  # out[y, x] = x[y + dy, x + dx], `fill` outside
+        tail = (0, 0) if x.dim() == 4 else ()
+        pad = torch.nn.functional.pad(x, tail + (1, 1, 1, 1), value=fill)
+        return pad[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    for _ in range(steps):
+        cand_l = torch.full_like(lab, -1)
+        cand_nd = torch.zeros_like(nd)
+        consistent = torch.ones_like(trust)
+        for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+            l2 = shifted(lab, dy, dx, -1)
+            n2 = shifted(nd, dy, dx, 0.0)
+            take = (cand_l < 0) & (l2 >= 0)
+            cand_l = torch.where(take, l2, cand_l)
+            cand_nd = torch.where(take[..., None], n2, cand_nd)
+            consistent = consistent & ((l2 < 0) | (l2 == cand_l))
+        fill = (lab < 0) & invalid & (cand_l >= 0) & consistent
+        lab = torch.where(fill, cand_l, lab)
+        nd = torch.where(fill[..., None], cand_nd, nd)
+    filled = (lab >= 0) & (lab0 < 0) & invalid
+    return torch.where(filled[..., None], _project(nd, rays), optimized)
 
 
 def depth_bilateral(

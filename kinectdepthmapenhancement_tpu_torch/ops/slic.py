@@ -1,24 +1,38 @@
-"""Normal-adaptive superpixels (NASP), single-iteration cell route.
+"""Normal-adaptive superpixels (NASP).
 
 PyTorch counterpart of the NASP subset of the JAX package's ops/slic.py
 (NormalAdaptiveSuperpixel.cu in the reference):
 
-  * seeds: the 11x11 seed gradient on the per-cell seed sub-grid
-    (ops/cuda_gradient.py: the CUDA kernel on the card, its plain version on
-    the CPU), then a first-minimum argmin per cell;
-  * assignment: the first-iteration `cell_fast` branch of _assign — labels
-    are the grid init, so a pixel's 64 candidate clusters are a function of
-    its grid cell; strict-< running argmin (first candidate wins ties);
-  * cluster update: per-(cell, candidate) sums over the cell-local labels
-    (_CellIndex), then a tiny candidate -> cluster fold.  No float atomics,
-    so every sum is deterministic.
+  * seeds: the 11x11 seed gradient (ops/cuda_gradient.py: the CUDA kernel
+    on the card, its plain version on the CPU) on the per-cell seed
+    sub-grid, or on the whole frame when the grid does not divide it, then
+    a first-minimum argmin per cell;
+  * first assignment: the `cell_fast` branch of _assign when the grid
+    divides the frame — labels are the grid init, so a pixel's 64 candidate
+    clusters are a function of its grid cell; else the global route, whose
+    candidates are the cells around each pixel's current label;
+    strict-< running argmin (first candidate wins ties) on every route;
+  * later iterations (SLICParams.iterations > 1): the global route's
+    assignment, then the update on the capped route (cell-local at r = 5)
+    when every label lies in its pixel's [-5, 4]^2 cell neighbourhood
+    (labels_within_cap, checked on the device, branched on the host), on
+    the global index otherwise or with locality="global".  The JAX
+    package's capped assignment (a band-space sweep over 289 enlarged
+    offsets) gives the global sweep's labels; on an H100 it took 1.8x
+    the global sweep's time, so the port sweeps the global way;
+  * cluster update: per-(cell, candidate) sums over cell-local labels
+    (_CellIndex) or one-hot products over the whole [K] id space
+    (_GlobalIndex), then the analyze and weighted post-processing.  No
+    float atomics, so every sum is deterministic.
 
 SLICParams.stats_impl picks the route, with the JAX package's meaning:
-"auto" / "pallas" run the first iteration through ops/cuda_nasp.py's fused
-assignment + analyze kernel and its weighted-sums kernel, and the cell
-index's gathers and sums through its label-cell kernels (each wrapper takes
-its plain version for CPU tensors); "xla" runs the plain route (band-space
-assignment, one-hot products) on every device.
+"auto" / "pallas" run the cell-local sums and gathers through
+ops/cuda_nasp.py (the first iteration's fused assignment + analyze kernel,
+the NASP sums kernel at r = 4 and, on the capped route, r = 5, and the
+label-cell kernels; each wrapper takes its plain version for CPU tensors);
+"xla" runs their plain versions on every device.  The global route and the
+later iterations' assignments are plain PyTorch on every route: the JAX
+package has no Pallas kernel there.
 
 NASP distance (NormalAdaptiveSuperpixel.cu:223-258):
     cd*(sc/T)^2 + pd*(ss/T)^2 + |dz|*(sd/T)^2 + 255^2*(1-max(0,n.nc))*(sn/T)^2
@@ -27,15 +41,14 @@ package's (slic.py:39-49): (a) clamped gradient neighbours, (b) the real
 blue channel, (c) the 2-D centroid as pixel centre, (d) normal distance 0
 when either normal is invalid.
 
-Not ported yet (they raise): later iterations and their global-index route,
-the SP / DASP variants, and grids that do not divide the image.
+Not ported yet (they raise): the SP / DASP variants.
 
 Tensors carry a leading batch dimension; cluster tables are [B, K, ...].
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -44,8 +57,13 @@ from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, SLICPara
 from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, stencil, tables
 
 INVALID_NORMAL = -1.0
+INIT_DISTANCE = cuda_nasp.INIT_DISTANCE
 
 _GRAD_MARGIN = 5  # the seed gradient's 11x11 window half-width
+_NEIGHBORHOOD = 8  # NASP's candidate window: (2r)^2 cells, r = 4
+_CAP = _NEIGHBORHOOD // 2 + 1  # later iterations' locality cap (JAX slic.py:1418)
+# elements of one [B, offsets, H, W] map an assignment chunk may hold
+_CHUNK_ELEMENTS = 2**23
 
 
 class Clusters(NamedTuple):
@@ -185,16 +203,85 @@ class _CellIndex:
         return tables.exact_matmul(oh_ak.transpose(0, 1), t)
 
 
+class _GlobalIndex:
+    """Per-pixel gathers and segment sums keyed by the whole [K] cluster id
+    space (the JAX package's slic._GlobalIndex), for labels with no
+    locality guarantee: grids that do not divide the frame, and later
+    iterations whose labels left the cap.  Gathers are exact index ops;
+    segment sums, counts and pair counts are products with the [B, H*W, K]
+    f32 one-hot through tables.exact_matmul (TF32 off, no float atomics:
+    deterministic on every device).  The one-hot is built on first use:
+    0.37 GB a 640x480 frame at K = 300."""
+
+    def __init__(self, labels: torch.Tensor, k: int):
+        self.labels = labels.contiguous()
+        self.k = k
+        self.b = labels.shape[0]
+        self._oh: Optional[torch.Tensor] = None
+
+    @property
+    def oh(self) -> torch.Tensor:
+        if self._oh is None:
+            self._oh = tables.one_hot(self.labels.reshape(self.b, -1), self.k)
+        return self._oh
+
+    def gather(self, table: torch.Tensor) -> torch.Tensor:
+        """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for -1."""
+        return tables.gather(table.to(torch.float32), self.labels)
+
+    def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
+        f = feats.shape[-1]
+        fm = torch.where(mask[..., None], feats.to(torch.float32), 0.0)
+        return tables.exact_matmul(self.oh.transpose(1, 2), fm.reshape(self.b, -1, f))
+
+    def counts(self) -> torch.Tensor:
+        """Pixels per label [B, K] f32 (labels < 0 dropped)."""
+        return self.oh.sum(dim=1)
+
+    def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
+        """[B, K, K] f32: occurrences of (own label, labels_b) pixel pairs;
+        pairs with either side < 0 are dropped.  Integer counts < 2^24,
+        exact in f32."""
+        ohb = tables.one_hot(labels_b.reshape(self.b, -1), self.k)
+        return tables.exact_matmul(self.oh.transpose(1, 2), ohb)
+
+
 def _cell_ok(grid: GridParams, h: int, w: int) -> bool:
     return h % grid.rows == 0 and w % grid.cols == 0
 
 
-def _require_cell_ok(grid: GridParams, h: int, w: int) -> None:
-    if not _cell_ok(grid, h, w):
-        raise NotImplementedError(
-            f"grid {grid.rows}x{grid.cols} does not divide {h}x{w}: the "
-            "global-index route is not ported yet"
-        )
+def init_labels(grid: GridParams, height: int, width: int, device=None) -> torch.Tensor:
+    """Grid initialisation [H, W] i32 (initLD, SuperpixelSegmentation.cu:3-14).
+    Where the grid does not divide the frame, the last rows / columns carry
+    ids past the grid: the first assignment replaces them."""
+    ws_x, ws_y = _grid_geometry(grid, height, width)
+    v = torch.arange(height, dtype=torch.int32, device=device)[:, None]
+    u = torch.arange(width, dtype=torch.int32, device=device)[None, :]
+    return (v // ws_y) * grid.cols + (u // ws_x)
+
+
+def labels_within_cap(
+    labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int
+) -> torch.Tensor:
+    """[B] bool, on the labels' device: every label >= 0 of the frame lies in
+    its pixel's [-cap, cap-1]^2 cell-grid neighbourhood — the invariant that
+    lets later iterations and downstream gathers run cell-local (JAX
+    slic.py:371-391, per frame here).  One reduction; the caller reads it
+    on the host to pick a route."""
+    ws_x, ws_y = _grid_geometry(grid, h, w)
+    dev = labels.device
+    lab0 = labels.clamp_min(0)
+    dyl = lab0 // grid.cols - (torch.arange(h, dtype=labels.dtype, device=dev) // ws_y)[:, None]
+    dxl = lab0 % grid.cols - (torch.arange(w, dtype=labels.dtype, device=dev) // ws_x)[None, :]
+    ok = (labels < 0) | ((dyl >= -cap) & (dyl <= cap - 1) & (dxl >= -cap) & (dxl <= cap - 1))
+    return ok.reshape(labels.shape[0], -1).all(dim=1)
+
+
+def _within_cap(labels: torch.Tensor, grid: GridParams, h: int, w: int) -> bool:
+    """Host branch on labels_within_cap at the NASP cap: True only when
+    every frame of the batch holds the invariant (a host sync)."""
+    return bool(labels_within_cap(labels, grid, _CAP, h, w).all())
 
 
 def _stats_impl_on(stats_impl: str) -> bool:
@@ -209,18 +296,42 @@ def _stats_impl_on(stats_impl: str) -> bool:
     raise ValueError(f"stats_impl must be 'auto', 'pallas' or 'xla', got {stats_impl!r}")
 
 
+LabelIndex = Union[_CellIndex, _GlobalIndex]
+
+
 def cell_index(
     labels: torch.Tensor, grid: GridParams, neighborhood: int, stats_impl: str = "auto"
-) -> _CellIndex:
-    """Cell-local index for downstream ops (CCL, plane) over single-iteration
-    SLIC labels [B, H, W]; `stats_impl` picks the route of its gathers and
-    segment sums (_stats_impl_on).  The global-index route for grids that
-    do not divide the image is not ported yet."""
+) -> LabelIndex:
+    """Index for downstream ops (CCL, plane) over single-iteration SLIC
+    labels [B, H, W]: cell-local, or the global one when the grid does not
+    divide the frame (the JAX package's cell_index gives None there and its
+    callers take the global route); `stats_impl` picks the route of the
+    cell-local gathers and segment sums (_stats_impl_on)."""
     h, w = labels.shape[-2:]
-    _require_cell_ok(grid, h, w)
-    return _CellIndex(
-        labels, grid, neighborhood // 2, h, w, kernel_sums=_stats_impl_on(stats_impl)
-    )
+    kernel_sums = _stats_impl_on(stats_impl)
+    if not _cell_ok(grid, h, w):
+        return _GlobalIndex(labels, grid.num_clusters)
+    return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums)
+
+
+def label_index(labels: torch.Tensor, grid: GridParams, params: SLICParams) -> LabelIndex:
+    """The index CCL and the plane stage take over NASP labels of `params`:
+    after one iteration cell_index's at r = 4; after later iterations the
+    capped one at r = 5 when every label lies within the cap (checked on
+    the device, read on the host; unchecked with locality="cell"), as the
+    JAX package's pipelines._with_local_index does for its multi-iteration
+    pipelines; the global one when the grid does not divide the frame,
+    with locality="global", or when a label left the cap.  Labels agree
+    exactly on either route; sums differ in order only."""
+    if params.iterations == 1:
+        return cell_index(labels, grid, _NEIGHBORHOOD, params.stats_impl)
+    h, w = labels.shape[-2:]
+    kernel_sums = _stats_impl_on(params.stats_impl)
+    if _cell_ok(grid, h, w) and params.locality != "global" and (
+        params.locality == "cell" or _within_cap(labels, grid, h, w)
+    ):
+        return _CellIndex(labels, grid, _CAP, h, w, kernel_sums=kernel_sums)
+    return _GlobalIndex(labels, grid.num_clusters)
 
 
 # ----------------------------------------------------------------- seeding
@@ -373,38 +484,156 @@ def init_clusters(
 # -------------------------------------------------------------- assignment
 
 
+def _weights(params: SLICParams):
+    """The NASP distance weights (w_col, w_spa, w_dep, w_nor): each sigma
+    over their sum, squared."""
+    total = params.spatial_sigma + params.color_sigma + params.depth_sigma + params.normal_sigma
+    return tuple(
+        (sigma / total) ** 2
+        for sigma in (params.color_sigma, params.spatial_sigma, params.depth_sigma,
+                      params.normal_sigma)
+    )
+
+
+def _cluster_fields(clusters: Clusters) -> torch.Tensor:
+    """[B, K, 9] candidate fields: rgb, x, y, center z, normal."""
+    return torch.cat(
+        [clusters.rgb, clusters.xy.to(torch.float32), clusters.center[..., 2:3], clusters.normal],
+        dim=-1,
+    )
+
+
 def _assign_args(clusters: Clusters, grid: GridParams, params: SLICParams, s_scale: float):
     """The candidate fields [B, rows, cols, 9] (rgb, x, y, center z,
     normal) and the distance constants of the first NASP assignment."""
     b = clusters.rgb.shape[0]
-    total = params.spatial_sigma + params.color_sigma + params.depth_sigma + params.normal_sigma
-    cand_fields = torch.cat(
-        [clusters.rgb, clusters.xy.to(torch.float32), clusters.center[..., 2:3], clusters.normal],
-        dim=-1,
-    ).reshape(b, grid.rows, grid.cols, 9)
+    cand_fields = _cluster_fields(clusters).reshape(b, grid.rows, grid.cols, 9)
+    w_col, w_spa, w_dep, w_nor = _weights(params)
     kw = dict(
-        rows=grid.rows, cols=grid.cols, r=4,
-        w_col=(params.color_sigma / total) ** 2,
-        w_spa=(params.spatial_sigma / total) ** 2,
-        w_dep=(params.depth_sigma / total) ** 2,
-        w_nor=(params.normal_sigma / total) ** 2,
+        rows=grid.rows, cols=grid.cols, r=_NEIGHBORHOOD // 2,
+        w_col=w_col, w_spa=w_spa, w_dep=w_dep, w_nor=w_nor,
         s_scale=s_scale,
         apply_invalid=params.depth_sigma != 0.0 or params.normal_sigma != 0.0,
     )
     return cand_fields.contiguous(), kw
 
 
+def _nasp_distance(pix, cand: torch.Tensor, weights, s_scale: float) -> torch.Tensor:
+    """NASP distance of pixels to candidates (NormalAdaptiveSuperpixel.cu:
+    223-258), in the operation order of cuda_nasp.assign_plain.  pix: the
+    pixel planes (colour 3, u, v, z, normal 3, normal validity), each
+    broadcastable against cand [..., 9] (rgb, x, y, center z, normal)."""
+    cf, u, v, z, nm, nv_pix = pix
+    w_col, w_spa, w_dep, w_nor = weights
+    d = [cf[i] - cand[..., i] for i in range(3)]
+    cd = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    ex, ey = u - cand[..., 3], v - cand[..., 4]
+    pd = torch.sqrt(ex * ex + ey * ey) * (s_scale**2)
+    c_cz = cand[..., 5]
+    zpair = (z > VALID_DEPTH_MM) & (c_cz > VALID_DEPTH_MM)
+    dd = torch.where(zpair, (z - c_cz).abs(), 0.0)
+    dist = cd * w_col + pd * w_spa + dd * w_dep
+    c_n = [cand[..., 6 + i] for i in range(3)]
+    nv_cand = (c_n[0] != INVALID_NORMAL) | (c_n[1] != INVALID_NORMAL) | (c_n[2] != INVALID_NORMAL)
+    npair = zpair & nv_pix & nv_cand
+    dot = (nm[0] * c_n[0] + nm[1] * c_n[1]) + nm[2] * c_n[2]
+    nd = torch.where(npair, 255.0**2 * (1.0 - torch.clamp_min(dot, 0.0)), 0.0)
+    return dist + nd * w_nor
+
+
+def _pixel_planes(color_f, points, normals, shape):
+    """The per-pixel operands of _nasp_distance, each reshaped to `shape`
+    (an offsets axis of 1 where the caller broadcasts candidates)."""
+    cf = [color_f[..., i].reshape(shape) for i in range(3)]
+    nm = [normals[..., i].reshape(shape) for i in range(3)]
+    nv_pix = (nm[0] != INVALID_NORMAL) | (nm[1] != INVALID_NORMAL) | (nm[2] != INVALID_NORMAL)
+    return cf, points[..., 2].reshape(shape), nm, nv_pix
+
+
+def _chunks(offs, per_offset: int):
+    """Offsets in dy-major order, cut into chunks of at most
+    _CHUNK_ELEMENTS / per_offset."""
+    n = max(1, _CHUNK_ELEMENTS // per_offset)
+    return [offs[i : i + n] for i in range(0, len(offs), n)]
+
+
+def _take_first_min(cand_d, cand_l, bd, bl):
+    """Fold a chunk [B, C, ...] of candidates (in sweep order along dim 1)
+    into the running best (bd, bl): the first minimum of the chunk (torch's
+    min returns the first index of a tie) replaces the best where strictly
+    smaller — the strict-< running argmin over the whole sweep."""
+    m, i = cand_d.min(dim=1)
+    take = m < bd
+    return torch.where(take, m, bd), torch.where(take, cand_l.gather(1, i[:, None])[:, 0], bl)
+
+
+def _invalid_override(labels, dist, points, params):
+    """Invalid-depth override (NormalAdaptiveSuperpixel.cu:346-352)."""
+    if params.depth_sigma != 0.0 or params.normal_sigma != 0.0:
+        invalid = points[..., 2] < VALID_DEPTH_MM
+        labels = torch.where(invalid, -1, labels)
+        dist = torch.where(invalid, 0.0, dist)
+    return labels, dist
+
+
+def _assign_global(
+    labels, distance, clusters, color_f, points, normals, grid, params, s_scale
+):
+    """NASP assignment sweep on the global route (JAX slic.py:_assign with
+    cell_fast=False, cell_capped=0): a pixel's candidates are the (2r)^2
+    cells around its CURRENT label's cell, dy-major; an out-of-grid one
+    keeps the pixel's (label, distance).  Label -1 (invalid depth) is taken
+    as cluster 0's cell, and the override marks it -1 again.  Offsets run
+    in chunks, each one gather of the cluster fields and the distance over
+    [B, C, H, W]."""
+    b, h, w = labels.shape
+    dev = labels.device
+    r = _NEIGHBORHOOD // 2
+    lab0 = labels.clamp_min(0)
+    cur_cx = (lab0 % grid.cols)[:, None]
+    cur_cy = (lab0 // grid.cols)[:, None]
+    u = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
+    v = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, 1, h, 1)
+    cf, z, nm, nv_pix = _pixel_planes(color_f, points, normals, (b, 1, h, w))
+    pix = (cf, u, v, z, nm, nv_pix)
+    weights = _weights(params)
+    fields = _cluster_fields(clusters)
+    bi = torch.arange(b, device=dev).reshape(b, 1, 1, 1)
+    bd = torch.full((b, h, w), float("inf"), dtype=torch.float32, device=dev)
+    bl = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
+    for chunk in _chunks(cuda_nasp.candidate_offsets(r), b * h * w):
+        dy = torch.tensor([o[0] for o in chunk], dtype=torch.int32, device=dev).reshape(1, -1, 1, 1)
+        dx = torch.tensor([o[1] for o in chunk], dtype=torch.int32, device=dev).reshape(1, -1, 1, 1)
+        rcx, rcy = cur_cx + dx, cur_cy + dy
+        in_grid = (rcx >= 0) & (rcx < grid.cols) & (rcy >= 0) & (rcy < grid.rows)
+        rid = torch.where(in_grid, rcy * grid.cols + rcx, 0)
+        dist = _nasp_distance(pix, fields[bi, rid.long()], weights, s_scale)
+        cand_d = torch.where(in_grid, dist, distance[:, None])
+        cand_l = torch.where(in_grid, rid, labels[:, None])
+        bd, bl = _take_first_min(cand_d, cand_l, bd, bl)
+    return _invalid_override(bl, bd, points, params)
+
+
 # ----------------------------------------------------------- cluster stats
 
 
-def _nasp_sums(idx: _CellIndex, clusters, color_f, points, normals, window_range, params, mode):
-    """[B, K, 13|14] cluster sums of the NASP update `mode` over idx.labels:
-    per-(cell, candidate) partials from cuda_nasp.nasp_cell_sums (when
-    idx.kernel_sums, the "auto"/"pallas" route) or its plain version (the
-    "xla" route), folded to clusters by the same candidate one-hot."""
+def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mode):
+    """[B, K, 13|14] cluster sums of the NASP update `mode` over idx.labels.
+    On a _CellIndex: per-(cell, candidate) partials from
+    cuda_nasp.nasp_cell_sums (when idx.kernel_sums, the "auto"/"pallas"
+    route) or its plain version (the "xla" route), folded to clusters by the
+    candidate one-hot.  On a _GlobalIndex: the same features
+    (cuda_nasp.nasp_features) from a per-pixel gather of the cluster
+    fields, summed by the [K] one-hot."""
     lo, hi = window_range
     xy = clusters.xy.to(torch.float32)
     fields = xy if mode == "analyze" else torch.cat([xy, clusters.rgb, clusters.normal], dim=-1)
+    if isinstance(idx, _GlobalIndex):
+        feats = cuda_nasp.nasp_features(
+            mode, idx.labels, idx.gather(fields), color_f, points, normals, lo, hi,
+            params.color_sigma, params.spatial_sigma,
+        )
+        return idx.segment_sum(feats, idx.labels >= 0)
     fields = fields.reshape(idx.b, idx.rows, idx.cols, -1).contiguous()
     kw = dict(
         rows=idx.rows, cols=idx.cols, r=idx.r, lo=lo, hi=hi, mode=mode,
@@ -478,6 +707,14 @@ def _nasp_analyze_post(sums, clusters: Clusters, points, h, w) -> Clusters:
     )
 
 
+def _update_nasp_analyze(idx, clusters, color_f, points, normals, params, window_range, h, w) -> Clusters:
+    """NASP plain stats (analyzeClusters_NASP, NormalAdaptiveSuperpixel.cu:
+    356-685) on any index: the capped iterations' _CellIndex (r = 5) or the
+    _GlobalIndex (JAX slic.py:1159-1228)."""
+    sums = _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, "analyze")
+    return _nasp_analyze_post(sums, clusters, points, h, w)
+
+
 def _update_nasp_weighted(idx, clusters, color_f, points, normals, params, window_range, h, w) -> Clusters:
     """NASP bilateral-weighted stats (calculateWeightedAverage,
     NormalAdaptiveSuperpixel.cu:687-1068), on the analyze-updated table.
@@ -534,7 +771,20 @@ def segment(
     seeds: Optional[torch.Tensor] = None,
 ) -> SLICResult:
     """NASP segmentation (NormalAdaptiveSuperpixel::Segmentation): seed +
-    one (assign, analyze update, weighted update) iteration.
+    `params.iterations` x (assign, analyze update, weighted update).
+
+    The first iteration runs the fused cell route when the grid divides the
+    frame (JAX slic.py:1377-1393), the global route otherwise.  Each later
+    one (JAX slic.py:1395-1488) assigns by the global route's sweep, which
+    gives the JAX capped sweep's labels wherever that one applies, and
+    updates on the capped route (cell-local sums at r = 5) while every
+    label lies in its pixel's [-5, 4]^2 cell neighbourhood, on the global
+    index otherwise: the JAX lax.cond becomes labels_within_cap on the
+    device and a host branch (label_index), for the whole batch (one frame
+    off the cap sends the batch to the global route).  The two updates sum
+    in another order, so a later sweep can move a pixel at a distance
+    near-tie.  locality="cell" skips the check, "global" takes the global
+    index.  The single-iteration path makes no host sync.
 
     color u8 [B, H, W, 3]; points f32 [B, H, W, 3] mm; normals f32
     [B, H, W, 3].  seeds: optional [K, 2] or [B, K, 2] (x, y) override of the
@@ -543,10 +793,11 @@ def segment(
     everything downstream exactly."""
     if variant != "nasp":
         raise NotImplementedError(f"SLIC variant {variant!r} is not ported yet")
-    if params.iterations != 1:
-        raise NotImplementedError("only single-iteration NASP is ported yet")
+    if params.locality not in ("auto", "cell", "global"):
+        raise ValueError(f"locality must be 'auto', 'cell' or 'global', got {params.locality!r}")
+    kernel = _stats_impl_on(params.stats_impl)
     b, h, w = color.shape[:3]
-    _require_cell_ok(grid, h, w)
+    k = grid.num_clusters
     ws_x, ws_y = _grid_geometry(grid, h, w)
     s_scale = (ws_x + ws_y) / 2.0
     color_f = color.to(torch.float32).contiguous()
@@ -554,6 +805,7 @@ def segment(
     seed_window = 8
     rp = ws_x * 2 // 16 + 1
     window_range = (-8 * rp, 8 * rp - 1)
+    frame = (color_f, points, normals)
 
     if seeds is None:
         seeds = _compute_seeds(color_f, normals, grid, h, w, seed_window)
@@ -562,13 +814,45 @@ def segment(
         if seeds.dim() == 2:
             seeds = seeds.expand(b, -1, -1)
     clusters = init_clusters(seeds, color, points, normals)
-    # assignment + analyze sums in one call, weighted sums in a second
-    # (JAX slic.py:1377-1393)
-    labels, distance, clusters, idx = _nasp_fused_first_iteration(
-        clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w,
-        kernel=_stats_impl_on(params.stats_impl),
-    )
-    clusters = _update_nasp_weighted(
-        idx, clusters, color_f, points, normals, params, window_range, h, w
-    )
+    cell_ok = _cell_ok(grid, h, w)
+    if cell_ok:
+        # assignment + analyze sums in one call, weighted sums in a second
+        labels, distance, clusters, idx = _nasp_fused_first_iteration(
+            clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w,
+            kernel=kernel,
+        )
+    else:
+        labels = init_labels(grid, h, w, color.device).expand(b, h, w)
+        distance = torch.full((b, h, w), INIT_DISTANCE, dtype=torch.float32, device=color.device)
+        labels, distance = _assign_global(
+            labels, distance, clusters, *frame, grid, params, s_scale)
+        idx = _GlobalIndex(labels, k)
+        clusters = _update_nasp_analyze(idx, clusters, *frame, params, window_range, h, w)
+    clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
+
+    for _ in range(1, params.iterations):
+        labels, distance, clusters = later_iteration(
+            labels, distance, clusters, *frame, grid=grid, params=params)
     return SLICResult(labels=labels, distance=distance, clusters=clusters)
+
+
+def later_iteration(
+    labels, distance, clusters, color_f, points, normals, *, grid: GridParams,
+    params: SLICParams,
+):
+    """One later NASP iteration (assign, analyze update, weighted update)
+    from the state (labels, distance, clusters): the global route's sweep,
+    then the update on label_index's index (see segment).  color_f f32
+    [B, H, W, 3]."""
+    b, h, w = labels.shape
+    ws_x, ws_y = _grid_geometry(grid, h, w)
+    s_scale = (ws_x + ws_y) / 2.0
+    rp = ws_x * 2 // 16 + 1
+    window_range = (-8 * rp, 8 * rp - 1)
+    frame = (color_f, points, normals)
+    labels, distance = _assign_global(
+        labels, distance, clusters, *frame, grid, params, s_scale)
+    idx = label_index(labels, grid, params)
+    clusters = _update_nasp_analyze(idx, clusters, *frame, params, window_range, h, w)
+    clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
+    return labels, distance, clusters

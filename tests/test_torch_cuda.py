@@ -32,8 +32,14 @@ depth step; regions with no valid depth, 50.0 mm exactly among them) and
 the seed gradient (both forms; normals invalid on one, two and three
 channels, on the edge rows and columns too; a constant colour patch, +inf
 inside) at 77x101 (B=3) and at the path's shapes, 480x640 and the
-270x360 seed sub-grid.  chip_smoke.py runs the same checks at the 640x480
-path's shapes.
+270x360 seed sub-grid.  At the 640x480 frame the NASP sums also run at
+r = 5 on three-iteration labels, the label sums at F = 4 and 6
+(merge_planes) and at r = 5, the gather at F = 2 (the trust table) and at
+r = 5.  The 640x480 main path is held against the JAX package's output
+(tests/golden/kde_jax_640x480_seed0.npz, golden.kde_gates) and against
+ground truth (tests/test_pipelines.py:31-51), and the far-range gate of
+tests/test_oracle_pipeline.py:230-287 runs on make_banded_scene.
+chip_smoke.py runs the same checks at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -730,3 +736,143 @@ def test_nasp_kernels_reject_partials_beyond_shared_memory(dev):
                                           w_spa=0.1, w_dep=0.1, w_nor=0.1, s_scale=32.0,
                                           apply_invalid=True, **cell)
     assert cuda_nasp.launches == before
+
+
+# ---- the shapes the multi-iteration, plane-merge and hole-fill paths add,
+# at the 640x480 path's frame, and the 640x480 gates of the main path
+
+FULL = dict(h=480, w=640)
+
+
+@pytest.fixture(scope="module")
+def frame640(dev):
+    """make_noisy_scene(480, 640, seed=0) on the card: the frame, its JBF
+    points and normals, and the NASP labels after one iteration (r = 4
+    cell-local) and after three (within the cap of 5), on the plain route."""
+    from kinectdepthmapenhancement_tpu_torch.ops import slic as ts
+
+    h, w = FULL["h"], FULL["w"]
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, gt = make_noisy_scene(h, w, intr, seed=0)
+    cfg = KDEConfig()
+    c = torch.from_numpy(color).to(dev)[None]
+    d = torch.from_numpy(noisy).to(dev)[None]
+    points = projective_to_real(bilateral.joint_bilateral_filter(d, c, cfg.jbf), intr)
+    nmap = normals.generate_normal_map(points, cfg.normals)
+    plain = dataclasses.replace(cfg.nasp, stats_impl="xla")
+    one = ts.segment(c, points, nmap, grid=cfg.grid, params=plain)
+    three = ts.segment(c, points, nmap, grid=cfg.grid,
+                       params=dataclasses.replace(plain, iterations=3))
+    assert bool(ts.labels_within_cap(three.labels, cfg.grid, 5, h, w).all())
+    return dict(intr=intr, color=c, depth=d, gt=gt, noisy=noisy, points=points.contiguous(),
+                nmap=nmap.contiguous(), cf=c.float().contiguous(), cfg=cfg,
+                labels={4: one.labels, 5: three.labels}, clusters={4: one.clusters,
+                                                                   5: three.clusters})
+
+
+@pytest.mark.parametrize("mode", ["analyze", "weighted"])
+def test_nasp_cell_sums_r5_at_the_path_frame(frame640, mode):
+    """nasp_cell_sums at r = 5 (the capped iterations) on three-iteration
+    labels at 640x480: integer features exact, the rest within 1e-5 of the
+    sum of the terms' magnitudes."""
+    x, grid = frame640, frame640["cfg"].grid
+    cl = x["clusters"][5]
+    xy = cl.xy.float()
+    fields = xy if mode == "analyze" else torch.cat([xy, cl.rgb, cl.normal], -1)
+    fields = fields.reshape(1, grid.rows, grid.cols, -1).contiguous()
+    p = x["cfg"].nasp
+    kw = dict(rows=grid.rows, cols=grid.cols, r=5, lo=-40, hi=39, mode=mode,
+              color_sigma=p.color_sigma, spatial_sigma=p.spatial_sigma)
+    args = (x["labels"][5], x["cf"], x["points"], x["nmap"], fields)
+    got = cuda_nasp.nasp_cell_sums(*args, **kw)
+    want = cuda_nasp.nasp_cell_sums_plain(*args, **kw)
+    scale = cuda_nasp.nasp_cell_sums_plain(*args, abs_terms=True, **kw)
+    assert cuda_nasp.sums_close(got, want, scale, cuda_nasp.INTEGER_FEATURES[mode])
+    assert torch.equal(got, cuda_nasp.nasp_cell_sums(*args, **kw))
+
+
+@pytest.mark.parametrize("r, f", [(4, 4), (4, 6), (5, 2), (5, 4), (5, 6)])
+def test_label_cell_sums_new_shapes_at_the_path_frame(frame640, r, f):
+    """label_cell_sums at merge_planes' feature counts (4: points and a
+    count; 6: the centred scatter) and at r = 5, within 1e-5 of the sum
+    of the terms' magnitudes; two launches identical."""
+    x, grid = frame640, frame640["cfg"].grid
+    labels = x["labels"][r]
+    g = torch.Generator(device=labels.device).manual_seed(f)
+    feats = torch.randn((1, FULL["h"], FULL["w"], f), device=labels.device, generator=g)
+    feats = (feats * (x["points"][..., 2:3] > 50.0)).contiguous()
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+    got = cuda_nasp.label_cell_sums(labels, feats, **kw)
+    want = cuda_nasp.label_cell_sums_plain(labels, feats, **kw)
+    scale = cuda_nasp.label_cell_sums_plain(labels, feats.abs(), **kw)
+    assert cuda_nasp.sums_close(got, want, scale)
+    assert torch.equal(got, cuda_nasp.label_cell_sums(labels, feats, **kw))
+
+
+@pytest.mark.parametrize("r, f", [(4, 2), (5, 1), (5, 2), (5, 3), (5, 6)])
+def test_label_cell_gather_new_shapes_at_the_path_frame(frame640, r, f):
+    """label_cell_gather of the trust table (F = 2 without the residual) and
+    at r = 5, bitwise."""
+    x, grid = frame640, frame640["cfg"].grid
+    labels = x["labels"][r]
+    g = torch.Generator(device=labels.device).manual_seed(10 + f)
+    table = torch.randn((1, grid.num_clusters, f), device=labels.device, generator=g) * 1e3
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+    got = cuda_nasp.label_cell_gather(labels, table, **kw)
+    assert torch.equal(got, cuda_nasp.label_cell_gather_plain(labels, table, **kw))
+
+
+def _kde640(x, cfg=None):
+    return kde_pipeline(x["depth"][0], x["color"][0], x["intr"], cfg or x["cfg"])
+
+
+def test_kde_640x480_matches_jax_fixture(frame640):
+    """kde_pipeline(KDEConfig()) on the card at 640x480 against the JAX
+    package's run of the same frame (tests/golden/kde_jax_640x480_seed0.npz)
+    at golden.kde_gates."""
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+    res = _kde640(frame640)
+    got = {f: getattr(res, f).cpu().numpy() for f in res._fields}
+    gates = golden.kde_gates(got, golden.load_jax_640x480())
+    assert not golden.failures(gates), gates
+
+
+def test_kde_640x480_quality(frame640):
+    """tests/test_pipelines.py:31-51 on the card: > 200000 valid points, the
+    mean 3-D error below the input's, depth RMSE under 10 mm."""
+    from kinectdepthmapenhancement_tpu_torch.utils import metrics
+
+    x = frame640
+    res = _kde640(x)
+    gt = torch.from_numpy(x["gt"]).to(res.optimized_points.device)
+    gt_pts = projective_to_real(gt, x["intr"])
+    in_pts = projective_to_real(torch.from_numpy(x["noisy"]).to(gt.device), x["intr"])
+    err_in, _ = metrics.mean_3d_error(in_pts, gt_pts)
+    err_out, n = metrics.mean_3d_error(res.optimized_points, gt_pts)
+    assert int(n) > 200000
+    assert float(err_out) < float(err_in)
+    assert float(metrics.depth_rmse(res.optimized_points[..., 2], gt)) < 10.0
+
+
+def test_far_range_gate(dev):
+    """tests/test_oracle_pipeline.py:230-287 on the card, on
+    make_banded_scene(480, 640, seed=0): KDE RMSE < 0.9 x the JBF's; with
+    plane_merge < 0.98 x the KDE's; the dominant merged component > 100000
+    px with an interior RMSE < 1.5 mm (golden.far_range_gates)."""
+    from kinectdepthmapenhancement_tpu_torch.core.testdata import make_banded_scene
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import jbf_pipeline
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+    h, w = FULL["h"], FULL["w"]
+    intr = default_kinect_intrinsics(w, h)
+    color, sensor, gt = make_banded_scene(h, w, intr, seed=0)
+    d, c = torch.from_numpy(sensor).to(dev), torch.from_numpy(color).to(dev)
+    cfg = KDEConfig()
+    pm = kde_pipeline(d, c, intr, dataclasses.replace(cfg, plane_merge=True))
+    gates, _ = golden.far_range_gates(
+        jbf_pipeline(d, c).cpu().numpy(),
+        kde_pipeline(d, c, intr, cfg).optimized_points[..., 2].cpu().numpy(),
+        pm.optimized_points[..., 2].cpu().numpy(), pm.merged_labels.cpu().numpy(), gt,
+        cfg.grid.num_clusters)
+    assert not golden.failures(gates), gates

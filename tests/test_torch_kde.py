@@ -107,12 +107,14 @@ def test_kde_batched_equals_per_frame():
 
 
 def test_kde_unported_options_raise():
+    """The non-"cm" normal methods are the KDE options left unported
+    (plane_merge, fill_holes, later iterations and non-dividing grids run:
+    tests/test_torch_kde_ext.py)."""
     intr, color, noisy, grid = _scene()
     ti = convert.intrinsics_from_jax(intr)
-    for cfg in (
-        dataclasses.replace(KDEConfig(), grid=grid, plane_merge=True),
-        dataclasses.replace(KDEConfig(), grid=grid, fill_holes=2),
-    ):
+    for method in ("bilateral", "sdc"):
+        cfg = dataclasses.replace(KDEConfig(), grid=grid)
+        cfg = dataclasses.replace(cfg, normals=dataclasses.replace(cfg.normals, method=method))
         with pytest.raises(NotImplementedError):
             tpipe.kde_pipeline(
                 torch.from_numpy(noisy), torch.from_numpy(color), ti, convert.config_from_jax(cfg)

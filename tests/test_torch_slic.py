@@ -176,10 +176,13 @@ def test_cell_index_gather_and_segment_sum():
 
 
 def test_unported_routes_raise(nasp_inputs):
+    """The SP / DASP variants are the unported routes left; an unknown
+    locality raises.  Later iterations and grids that do not divide the
+    frame run (tests/test_torch_slic_routes.py)."""
     c, p, n = (_t(nasp_inputs[k]) for k in ("color", "points", "normals"))
-    with pytest.raises(NotImplementedError):
-        ts.segment(c, p, n, grid=GRID, params=dataclasses.replace(KDEConfig().nasp, iterations=2))
-    with pytest.raises(NotImplementedError):
-        ts.segment(c, p, n, grid=GridParams(rows=5, cols=4), params=KDEConfig().nasp)
-    with pytest.raises(NotImplementedError):
-        ts.segment(c, p, n, grid=GRID, params=KDEConfig().nasp, variant="dasp")
+    for variant in ("dasp", "sp"):
+        with pytest.raises(NotImplementedError):
+            ts.segment(c, p, n, grid=GRID, params=KDEConfig().nasp, variant=variant)
+    with pytest.raises(ValueError):
+        ts.segment(c, p, n, grid=GRID,
+                   params=dataclasses.replace(KDEConfig().nasp, locality="bogus"))
