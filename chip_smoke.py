@@ -23,7 +23,11 @@ Phases (each prints its results; any failure exits non-zero):
      whose slot changes nearly every pixel), and at the shapes phase 6's
      paths add: the NASP sums at r = 5 on three-iteration labels, the label
      sums at F = 4 and 6 (merge_planes) and at r = 5, the gather at F = 2
-     (the trust table) and at r = 5; time kernel,
+     (the trust table) and at r = 5; and at the shapes phase 7's DASP / ERS
+     paths add: the colour seed gradient on DASP's window-4 sub-grid, the
+     label sums at F = 10 (the DASP update) at r = 2 and 3, the gather at
+     F = 2 (the DASP window's centres) at r = 2 and 3 and at F = 4 and 7
+     (the PCA planes, the PCA merge's table) at r = 4; time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -60,7 +64,16 @@ Phases (each prints its results; any failure exits non-zero):
      most 8 labels a batch apart) with the assignment timed alone; (d) a
      424x512 Kinect v2 frame, whose grid does not divide it (the global
      route);
-  7. print the kernels JSON line (one entry per TPU kernel of the repo,
+  7. drive rgbf_pipeline, spdsp_pipeline and tof_pipeline (default configs)
+     at 640x480, B=1 and B=4, each from launch counts at 0 (the colour
+     seed gradient, the label-cell sums and the gather must each launch,
+     in the forms named there), with its host cap reads counted; hold the
+     B=1 outputs against the JAX package's (tests/golden/
+     dasp_jax_640x480_seed0.npz, golden.dasp_jax_gates) and ground truth
+     (tests/test_pipelines.py:68-80, :108-157), B=4 bitwise on a second
+     run; time each (CUDA events) and profile it by stage, and time the
+     DASP sweep alone;
+  8. print the kernels JSON line (one entry per TPU kernel of the repo,
      each with its forms and their launches by path), then
      {"ok": true, "device": ...} last.
 
@@ -125,12 +138,14 @@ def main() -> int:
     from kinectdepthmapenhancement_tpu_torch.core.camera import (
         default_kinect_intrinsics, projective_to_real,
     )
-    from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
+    from kinectdepthmapenhancement_tpu_torch.core.config import (
+        GridParams, KDEConfig, SPDSPConfig,
+    )
     from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
     from kinectdepthmapenhancement_tpu_torch.ops import (
-        bilateral, ccl, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, normals,
-        slic,
+        bilateral, ccl, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, ers,
+        normals, plane, slic,
     )
     from kinectdepthmapenhancement_tpu_torch.utils import golden, kernel_variants, metrics
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms, device_ms
@@ -267,6 +282,43 @@ def main() -> int:
         x["scale_feats6"] = cuda_nasp.label_cell_sums_plain(labels, x["feats6"].abs(), **cell)
         x["scale_feats2_r5"] = cuda_nasp.label_cell_sums_plain(
             labels5, x["feats2_r5"].abs(), **cell5)
+        # the DASP / ERS paths' inputs (SPDSPConfig() on the plain route): the
+        # raw frame's points, the depth SLIC's labels after one iteration
+        # (r = 2) and after five (r = 3, within the cap of 3), the ERS labels
+        # (r = 4, within the cap of 4); the DASP update's 10 features, the
+        # centre tables (F = 2), the PCA planes (F = 4) and a merge-table
+        # width (F = 7)
+        sp_cfg = SPDSPConfig()
+        raw = projective_to_real(depth, intr).contiguous()
+        xla = dict(stats_impl="xla")
+        d1 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
+            sp_cfg.depth_slic, iterations=1, **xla))
+        d5 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
+            sp_cfg.depth_slic, **xla))
+        c5 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
+            sp_cfg.color_slic, **xla))
+        ers_labels = ers.edge_refine(c5.labels, d5.labels, depth, sp_cfg.ers).labels
+        for lab, cap in ((d5.labels, 3), (ers_labels, 4)):
+            if not bool(slic.labels_within_cap(lab, grid, cap, h, w).all()):
+                _fail(f"DASP / ERS labels left the cap of {cap}")
+        uv1 = slic._pixel_uv1(b, h, w, dev)
+        validz = (raw[..., 2:3] > 50.0).to(torch.float32)
+        for r_, seg in ((2, d1), (3, d5)):
+            lab = seg.labels
+            x[f"dlabels{r_}"] = lab
+            x[f"dfeats{r_}"] = (torch.cat([color_f, uv1, raw, validz], -1)
+                                * (lab >= 0)[..., None]).contiguous()
+            x[f"dtable{r_}"] = seg.clusters.xy.to(torch.float32).contiguous()
+            x[f"scale_dfeats{r_}"] = cuda_nasp.label_cell_sums_plain(
+                lab, x[f"dfeats{r_}"].abs(), rows=grid.rows, cols=grid.cols, r=r_)
+            x[f"flat_dlabel{r_}"] = (torch.arange(b, device=dev)[:, None, None]
+                                     * grid.num_clusters + lab.clamp_min(0).long()).reshape(-1)
+        x["elabels"] = ers_labels
+        eidx = slic._CellIndex(ers_labels, grid, 4, h, w, kernel_sums=False)
+        planes = plane.pca_planes(raw, ers_labels, grid.num_clusters, index=eidx)
+        x["etable4"] = planes.nd.contiguous()
+        x["etable7"] = torch.cat([planes.nd, planes.centers], -1).contiguous()
+        x["csub4"] = slic._subgrid_extract(color_f, grid, h, w, 4).contiguous()
         # labels whose slot changes nearly every pixel: each pixel takes one
         # of the 3x3 cells around its own (the clusters whose update window
         # can reach it), -1 where that leaves the grid and on 3%
@@ -310,8 +362,8 @@ def main() -> int:
     def cell_sums_args(x, mode, labels="labels", fields="f"):
         return (x[labels], x["color_f"], x["points"], x["nmap"], x[f"{fields}_{mode}"])
 
-    def sums_ok(mode, scale):
-        ints = cuda_nasp.INTEGER_FEATURES.get(mode, ())
+    def sums_ok(mode, scale, ints=None):
+        ints = cuda_nasp.INTEGER_FEATURES.get(mode, ()) if ints is None else ints
         return lambda got, want, x: cuda_nasp.sums_close(got[-1], want[-1], x[scale], ints)
 
     def npx(t):
@@ -546,6 +598,56 @@ def main() -> int:
             inputs=lambda x, l=lab, t=tkey: [x[l], x[t]],
             ops=lambda x: 0,
             shape=lambda x, l=lab, nf=nf: tuple(x[l].shape) + (nf,))
+    # the forms phase 7's DASP / ERS paths add: the colour gradient on
+    # DASP's window-4 sub-grid; the DASP update's sums (10 features: colour,
+    # u, v, 1 and the valid-depth count integer-valued) and its centre
+    # gather at r = 2 (first iteration) and r = 3 (capped later ones); the
+    # PCA planes' gather (F = 4) and the PCA merge's (F = 7) at r = 4 over
+    # ERS labels
+    kernels["seed_gradient_color_w4"] = dict(
+        module=cuda_gradient, bar="bitwise, seeds identical", row="seed_gradient",
+        secondary=True, form="color",
+        run=lambda x: cuda_gradient.seed_gradient(x["csub4"]),
+        plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub4"]),
+        ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(
+            slic._sample_seeds_subgrid(got[0], grid, h, w, 4),
+            slic._sample_seeds_subgrid(want[0], grid, h, w, 4)),
+        inputs=lambda x: [x["csub4"]],
+        ops=lambda x: npx(x["csub4"]) * 121 * 12,
+        issue=tap_issue("seed_gradient_color", "csub4"),
+        shape=lambda x: tuple(x["csub4"].shape))
+    for r_ in (2, 3):
+        kw_r = dict(rows=grid.rows, cols=grid.cols, r=r_)
+        kernels[f"label_cell_sums_r{r_}_f10"] = dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="label_cell_sums", secondary=True, form=f"r{r_}:F10",
+            run=lambda x, r_=r_, kw=kw_r: cuda_nasp.label_cell_sums(
+                x[f"dlabels{r_}"], x[f"dfeats{r_}"], **kw),
+            plain=lambda x, r_=r_, kw=kw_r: cuda_nasp.label_cell_sums_plain(
+                x[f"dlabels{r_}"], x[f"dfeats{r_}"], **kw),
+            ok=sums_ok("dasp", f"scale_dfeats{r_}", (0, 1, 2, 3, 4, 5, 9)),
+            library=lambda x, r_=r_: torch.zeros(
+                (x["bi"].shape[0] * grid.num_clusters, 10), device=dev).index_add_(
+                0, x[f"flat_dlabel{r_}"], x[f"dfeats{r_}"].reshape(-1, 10)),
+            inputs=lambda x, r_=r_: [x[f"dlabels{r_}"], x[f"dfeats{r_}"]],
+            ops=lambda x, r_=r_: npx(x[f"dfeats{r_}"]) * 10,
+            shape=lambda x, r_=r_: tuple(x[f"dfeats{r_}"].shape))
+    for key, lab, tkey, r_ in (("label_cell_gather_r2_f2", "dlabels2", "dtable2", 2),
+                               ("label_cell_gather_r3_f2", "dlabels3", "dtable3", 3),
+                               ("label_cell_gather_r4_f4", "elabels", "etable4", 4),
+                               ("label_cell_gather_r4_f7", "elabels", "etable7", 4)):
+        kw_r = dict(rows=grid.rows, cols=grid.cols, r=r_)
+        kernels[key] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=True,
+            form=f"r{r_}:F{key[-1]}",
+            run=lambda x, l=lab, t=tkey, kw=kw_r: cuda_nasp.label_cell_gather(x[l], x[t], **kw),
+            plain=lambda x, l=lab, t=tkey, kw=kw_r: cuda_nasp.label_cell_gather_plain(
+                x[l], x[t], **kw),
+            library=lambda x, l=lab, t=tkey: x[t][x["bi"], x[l].clamp_min(0)],
+            inputs=lambda x, l=lab, t=tkey: [x[l], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, l=lab, t=tkey: tuple(x[l].shape) + (x[t].shape[-1],))
+    kernels["seed_gradient_color"]["form"] = "color"
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -645,6 +747,10 @@ def main() -> int:
         for name in cuda_nasp.launches:
             cuda_nasp.launches[name] = 0
         cuda_nasp.launch_forms.clear()
+        cuda_gradient.launch_forms.clear()
+
+    def forms_now():
+        return {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms}
 
     path_forms = {}  # path -> cuda_nasp.launch_forms of its driven run
     reset_counts()
@@ -652,7 +758,7 @@ def main() -> int:
     res4 = kde_pipeline(depth4, color4, intr, cfg)
     torch.cuda.synchronize()
     launches = counts()
-    path_forms["main"] = dict(cuda_nasp.launch_forms)
+    path_forms["main"] = forms_now()
     print(f"main path launches: {launches}")
     if any(n == 0 for n in launches.values()):
         _fail(f"a kernel of the main path was never launched: {launches}")
@@ -757,9 +863,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    scopes = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
+    kde_scopes = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
 
-    def stage_profile(tag, fn, call_ms, port_kernels=True):
+    def stage_profile(tag, fn, call_ms, port_kernels=True, scopes=kde_scopes):
         """One profiled call of fn: device ms and activities by kde.* stage,
         the top kernels, the port's own kernels; the busy share against
         call_ms (an unprofiled median)."""
@@ -837,7 +943,7 @@ def main() -> int:
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        got, forms = counts(), dict(cuda_nasp.launch_forms)
+        got, forms = counts(), forms_now()
         path_forms[path] = forms
         print(f"{path} launches: {got}; forms {forms}")
         missing = [k for k in expect if got[k] == 0] + [f for f in expect_forms if f not in forms]
@@ -845,10 +951,10 @@ def main() -> int:
             _fail(f"{path}: a kernel of the path was never launched: {missing}")
         return out
 
-    def time_path(path, fn, bsz):
+    def time_path(path, fn, bsz, scopes=kde_scopes):
         t = cuda_ms(fn, warmup=1, iters=5)
         print(f"{path}: {t:.3f} ms per call, {t / bsz:.3f} ms per frame (median of 5)")
-        stage_profile(path, fn, t)
+        stage_profile(path, fn, t, scopes=scopes)
         return t
 
     def check_outputs(tag, res, k_count):
@@ -1011,9 +1117,107 @@ def main() -> int:
     check_again("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg), res_d)
     path_ms["kinect_v2 B=1"] = time_path(
         "kinect_v2 424x512 B=1", lambda: kde_pipeline(vd, vc, intr_v2, cfg), 1)
+    # ---- phase 7: the DASP / ERS pipelines at 640x480, B=1 and B=4, each
+    # driven from counts at 0 (the colour gradient, the label sums and the
+    # gather must launch, in the forms named), with its host cap reads
+    # counted (labels_within_cap read on the host: one a later SLIC
+    # iteration, one for the ERS labels' index); checked, timed, profiled
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import (
+        rgbf_pipeline, spdsp_pipeline, tof_pipeline,
+    )
+
+    dasp_want = golden.load_dasp("640x480")
+    raw4 = projective_to_real(depth4, intr)
+    front = ("rgbf.color_slic", "rgbf.depth_slic", "rgbf.ers")
+    r2 = ("seed_gradient:color", "label_cell_sums:r2:F10", "label_cell_gather:r2:F2")
+    capped = ("label_cell_sums:r3:F10", "label_cell_gather:r3:F2")
+    pca = ("label_cell_sums:r4:F4", "label_cell_sums:r4:F6", "label_cell_gather:r4:F3",
+           "label_cell_gather:r4:F4")
+    dasp_paths = {
+        "rgbf": (lambda d, p, c: rgbf_pipeline(d, p, c), front, r2),
+        "spdsp": (lambda d, p, c: spdsp_pipeline(d, p, c, intr), front
+                  + ("spdsp.planes", "spdsp.mrf"), r2 + capped + pca + ("label_cell_gather:r4:F1",)),
+        "tof": (lambda d, p, c: tof_pipeline(d, p, c, intr), front + ("tof.planes",),
+                r2 + capped + pca + ("label_cell_gather:r4:F7",)),
+    }
+    cap_reads = []
+    within_cap = slic._within_cap
+
+    def counted_within_cap(*args):
+        cap_reads.append(args[2])
+        return within_cap(*args)
+
+    slic._within_cap = counted_within_cap
+    gt0_np = scenes[0][2]
+    gt0_pts = projective_to_real(torch.from_numpy(gt0_np).to(dev), intr)
+    for name, (run, stage_scopes, forms) in dasp_paths.items():
+        res = {}
+        for bsz in (1, 4):
+            d, p_, c = depth4[:bsz], raw4[:bsz], color4[:bsz]
+            if bsz == 1:
+                d, p_, c = d[0], p_[0], c[0]
+            cap_reads.clear()
+            res[bsz] = drive(f"{name} B={bsz}", lambda: run(d, p_, c),
+                             ("cuda_gradient", "label_cell_sums", "label_cell_gather"), forms)
+            print(f"{name} B={bsz}: {len(cap_reads)} host cap reads a call (caps {cap_reads})")
+            for f in res[bsz]._fields:
+                t = getattr(res[bsz], f)
+                if t.dtype == torch.int32:
+                    if int(t.min()) < -1 or int(t.max()) >= k_count:
+                        _fail(f"{name} B={bsz}: {f} out of range")
+                elif not bool(torch.isfinite(t).all()):
+                    _fail(f"{name} B={bsz}: non-finite values in {f}")
+        got1 = {f: getattr(res[1], f).cpu().numpy() for f in res[1]._fields}
+        for f in got1:
+            if got1[f].dtype == np.int32:
+                same = float((got1[f] == getattr(res[4], f)[0].cpu().numpy()).mean())
+                print(f"{name}: {f} of B=1 equal to frame 0 of B=4 on {same:.6f} of pixels "
+                      "(bar > 0.9999)")
+                if not same > 0.9999:
+                    _fail(f"{name}: {f} of B=1 differs from frame 0 of B=4")
+        if name == "spdsp":  # its SLIC labels, as the fixture stores them
+            sp_cfg = SPDSPConfig()
+            for f, prm in (("color_labels", sp_cfg.color_slic), ("depth_labels", sp_cfg.depth_slic)):
+                got1[f] = slic.segment(color4[:1], raw4[:1], grid=grid, params=prm,
+                                       variant="dasp").labels[0].cpu().numpy()
+        gates = golden.dasp_jax_gates(name, got1, dasp_want)
+        if name == "rgbf":
+            gates.update(golden.rgbf_quality_gates(got1["refined_depth"], gt0_np))
+        elif name == "spdsp":
+            err_in, _ = metrics.mean_3d_error(raw4[0], gt0_pts)
+            err_ers, n = metrics.mean_3d_error(projective_to_real(res[1].refined_depth, intr),
+                                               gt0_pts)
+            err_out, _ = metrics.mean_3d_error(res[1].optimized_points, gt0_pts)
+            gates.update(golden.spdsp_quality_gates(float(err_in), float(err_ers),
+                                                    float(err_out), int(n)))
+        else:
+            gates.update(golden.tof_quality_gates(got1["plane_fitted"][..., 2], gt0_np))
+        for gname, (val, lim, ok) in gates.items():
+            print(f"{name} 640x480 {gname:28s} {val:.6g} (limit {lim}) {'ok' if ok else 'FAIL'}")
+        if golden.failures(gates):
+            _fail(f"{name} 640x480 against the JAX package and ground truth: "
+                  f"{golden.failures(gates)}")
+        check_again(f"{name} B=4", lambda: run(depth4, raw4, color4), res[4])
+        for bsz in (1, 4):
+            d, p_, c = depth4[:bsz], raw4[:bsz], color4[:bsz]
+            path_ms[f"{name} B={bsz}"] = time_path(
+                f"{name} B={bsz}", lambda: run(d, p_, c), bsz, scopes=stage_scopes)
+    slic._within_cap = within_cap
+    # the DASP sweep alone (plain PyTorch, 16 candidates), from the depth
+    # SLIC's state after one iteration: SPDSP and TOF run ten a call
+    sp_cfg = SPDSPConfig()
+    s_scale_d, _ = slic._update_geometry(grid, h, w, "dasp")
+    for bsz in (1, 4):
+        one = slic.segment(color4[:bsz], raw4[:bsz], grid=grid, variant="dasp",
+                           params=dataclasses.replace(sp_cfg.depth_slic, iterations=1))
+        args = (one.labels, one.distance, one.clusters, color4[:bsz].to(torch.float32),
+                raw4[:bsz], None, grid, sp_cfg.depth_slic, s_scale_d, "dasp")
+        t_sw = cuda_ms(lambda: slic._assign_global(*args), warmup=1, iters=5)
+        path_ms[f"dasp_sweep B={bsz}"] = t_sw
+        print(f"dasp sweep B={bsz}: {t_sw:.3f} ms per call (median of 5)")
     print("slice paths ms per call: " + "  ".join(f"{k} {v:.3f}" for k, v in path_ms.items()))
 
-    # ---- phase 7: summary lines, one JSON entry per TPU kernel; a second
+    # ---- phase 8: summary lines, one JSON entry per TPU kernel; a second
     # form of a kernel (colour-only gradient, analyze-mode sums, the shapes
     # of phase 6's paths) is checked and timed beside its main-path form
     # above, and listed under the row's "forms" with its launches by path

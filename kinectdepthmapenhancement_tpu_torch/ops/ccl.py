@@ -1,9 +1,10 @@
 """Superpixel merging via connected components over the cluster graph.
 
-PyTorch counterpart of the normal merge (LabelEquivalenceSeg in the
-reference) and the plane-consistency merge (merge_planes, a spec extension
-with no reference equivalent) of the JAX package's ops/ccl.py.  The merge predicate depends only on
-the two pixels' ORIGINAL cluster ids, so the reference's pixel-level
+PyTorch counterpart of the JAX package's ops/ccl.py: the normal merge
+(LabelEquivalenceSeg in the reference), the PCA merge of TOF
+(LabelEquivalenceSegPCA) and the plane-consistency merge (merge_planes, a
+spec extension with no reference equivalent).  The merge predicate depends
+only on the two pixels' ORIGINAL cluster ids, so the reference's pixel-level
 label-equivalence fixpoint equals connected components over the ~300-node
 cluster adjacency graph:
   1. cluster adjacency from 4-neighbour pixel pairs (cell-local pair
@@ -16,8 +17,8 @@ Pixel sums and gathers go through a label index (slic.label_index): the
 cell-local one (slic._CellIndex) over single-iteration or capped labels,
 else the global one (slic._GlobalIndex).
 Fidelity notes are the JAX package's (ccl.py:19-31): run to convergence, two
-clusters with exactly equal normals do not merge (acos(1) > 0 fails),
-border clamps fixed, label -1 stays -1.
+clusters with exactly equal normals do not merge under the normal merge
+(acos(1) > 0 fails) and do under the PCA merge, border clamps fixed, label -1 stays -1.
 
 Tensors carry a leading batch dimension; tables are [B, K, ...].
 """
@@ -25,12 +26,12 @@ Tensors carry a leading batch dimension; tables are [B, K, ...].
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
-from kinectdepthmapenhancement_tpu_torch.core.config import CCLParams
+from kinectdepthmapenhancement_tpu_torch.core.config import CCLParams, CCLPCAParams
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
 from kinectdepthmapenhancement_tpu_torch.ops.slic import LabelIndex
 
@@ -43,6 +44,8 @@ class MergeResult(NamedTuple):
     variance: torch.Tensor     # [B, K] f32: per merged-cluster normal coherence
     sizes: torch.Tensor        # [B, K] i32: per merged-cluster pixel count
     cluster_nd: torch.Tensor   # [B, K, 4] f32: per merged-cluster plane
+    eigenvalues: torch.Tensor  # [B, K] f32 (PCA merge; zeros otherwise)
+    eigen_map: torch.Tensor    # [B, H, W] f32 (PCA merge; zeros otherwise)
     rep: torch.Tensor          # [B, K] i32: component representative per ORIGINAL id
 
 
@@ -79,12 +82,14 @@ def _merge(
     cluster_valid: torch.Tensor,    # [B, K] bool
     cluster_centers: torch.Tensor,  # [B, K, 3]
     predicate,
+    eigenvalues: Optional[torch.Tensor],
     idx: LabelIndex,
 ) -> MergeResult:
     """Merge through a label index over `labels`.  Every per-pixel
     quantity of the reference's count/calc_nd kernels is a function of the
     pixel's ORIGINAL cluster id, so the stats collapse to K-side table
-    algebra plus ONE final per-pixel gather."""
+    algebra plus ONE final per-pixel gather (6 features, 7 with the PCA
+    merge's eigenvalue column)."""
     k = cluster_nd.shape[1]
     adj = _adjacency(idx)
     na = cluster_nd[:, :, None, :3]
@@ -100,11 +105,11 @@ def _merge(
     counts = idx.counts()                        # [B, K] pixels per original id
     valid_f = cluster_valid.to(torch.float32)
     cnt_v = counts * valid_f
-    feats_k = torch.cat(
-        [cluster_nd[..., :3] * cnt_v[..., None], cluster_centers * cnt_v[..., None], cnt_v[..., None]],
-        dim=-1,
-    )
-    sums = tables.segment_sum(feats_k, rep, k)   # [B, K(merged), 7]
+    cols = [cluster_nd[..., :3] * cnt_v[..., None], cluster_centers * cnt_v[..., None],
+            cnt_v[..., None]]
+    if eigenvalues is not None:
+        cols.append(eigenvalues[..., None] * cnt_v[..., None])
+    sums = tables.segment_sum(torch.cat(cols, dim=-1), rep, k)  # [B, K(merged), 7|8]
     sizes = sums[..., 6]
     safe = torch.clamp_min(sizes, 1.0)
     mean_n = sums[..., 0:3] / safe[..., None]
@@ -114,20 +119,27 @@ def _merge(
 
     # variance: mean over member pixels of dot(original nd, merged mean normal)
     var_sum = stencil.dot3(sums[..., 0:3], mean_n) / safe
+    eig_k = sums[..., 7] / safe if eigenvalues is not None else torch.zeros_like(safe)
 
     # ---- per-pixel maps: K-side composition + ONE gather by original labels
-    by_k = tables.gather(merged_nd_k, rep)       # [B, K, 4]
+    by_rep = merged_nd_k if eigenvalues is None else torch.cat(
+        [merged_nd_k, eig_k[..., None]], dim=-1)
+    by_k = tables.gather(by_rep, rep)            # [B, K, 4|5]
     tbl = torch.cat([rep.to(torch.float32)[..., None], valid_f[..., None], by_k], dim=-1)
     g = idx.gather(tbl)
     pix_valid = (labels >= 0) & (g[..., 1] > 0.0)
     merged = torch.where(pix_valid, g[..., 0].to(torch.int32), torch.full_like(labels, -1))
     nd_map = torch.where((merged >= 0)[..., None], g[..., 2:6], torch.zeros_like(g[..., 2:6]))
+    eig_map = (torch.where(merged >= 0, g[..., 6], 0.0) if eigenvalues is not None
+               else torch.zeros_like(g[..., 0]))
     return MergeResult(
         labels=merged,
         nd_map=nd_map,
         variance=var_sum,
         sizes=sizes.to(torch.int32),
         cluster_nd=merged_nd_k,
+        eigenvalues=eig_k,
+        eigen_map=eig_map,
         rep=rep,
     )
 
@@ -156,7 +168,31 @@ def merge_normals(
         # dot > 1 -> acos is NaN -> both comparisons false in the reference.
         return (dot < 1.0) & (dot > cos_max) & (dd < p.plane_offset_max)
 
-    return _merge(labels, nd, valid, cluster_centers, predicate, index)
+    return _merge(labels, nd, valid, cluster_centers, predicate, None, index)
+
+
+def merge_pca(
+    labels: torch.Tensor,
+    cluster_nd: torch.Tensor,       # [B, K, 4] PCA planes; invalid = 5.0s
+    cluster_centers: torch.Tensor,  # [B, K, 3]
+    eigenvalues: torch.Tensor,      # [B, K]
+    p: CCLPCAParams = CCLPCAParams(),
+    *,
+    index: LabelIndex,
+) -> MergeResult:
+    """LabelEquivalenceSegPCA::labelImage (LabelEquivalenceSegPCA.cu:
+    219-299).  Validity |nd.x| < 1.1 (invalid sentinel 5.0); merge when
+    |acos(n1.n2)| < pi/8 (equal normals DO merge) and |d1-d2| < 700.  The
+    merged clusters' mean smallest eigenvalues come back in `eigenvalues`
+    and, per pixel, in `eigen_map`.  `index`: the label index over
+    `labels`."""
+    valid = cluster_nd[..., 0].abs() < 1.1
+    cos_max = math.cos(p.normal_angle_max)
+
+    def predicate(dot, dd):
+        return (dot <= 1.0) & (dot > cos_max) & (dd < p.plane_offset_max)
+
+    return _merge(labels, cluster_nd, valid, cluster_centers, predicate, eigenvalues, index)
 
 
 def _cov3(scat6: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -274,5 +310,7 @@ def merge_planes(
         variance=variance,
         sizes=cnt_c.to(torch.int32),
         cluster_nd=cluster_nd,
+        eigenvalues=torch.zeros_like(cnt_c),
+        eigen_map=torch.zeros_like(z),
         rep=rep,
     )

@@ -11,7 +11,7 @@ raises.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -21,6 +21,9 @@ from kinectdepthmapenhancement_tpu_torch.ops import stencil
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/seed_gradient.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_gradient.py:89"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# the same launches by form, "seed_gradient:nasp" or "seed_gradient:color"
+# (chip_smoke.py clears it with launches)
+launch_forms: Dict[str, int] = {}
 
 R = 5  # the 11x11 gradient window half-width
 INVALID_NORMAL = -1.0
@@ -88,4 +91,6 @@ def seed_gradient(
          out.data_ptr(), b, h, w, int(normals is not None)),
     )
     launches += 1
+    key = "seed_gradient:" + ("nasp" if normals is not None else "color")
+    launch_forms[key] = launch_forms.get(key, 0) + 1
     return out

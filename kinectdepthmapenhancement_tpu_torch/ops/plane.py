@@ -1,9 +1,18 @@
-"""Plane projection and optimisation of the KDE path.
+"""Plane fitting, projection and optimisation.
 
-PyTorch counterpart of the KDE part of the JAX package's ops/plane.py
-(Projection_GPU in the reference):
+PyTorch counterpart of the JAX package's ops/plane.py (Projection_GPU,
+Projection_PCA and the host PCA stage in the reference):
   * set_pseudo_depth_map — project each pixel onto its merged cluster's
     plane along the unit ray (setPsuedoDepth, Projection_GPU.cu:20-48);
+  * set_pseudo_depth_cluster / set_pseudo_depth_normals — the per-cluster
+    nd and the normals + centres overloads (Projection_GPU.cu:50-115,
+    Projection_PCA.cu:20-48; SPDSP and TOF);
+  * pca_planes — the per-cluster plane fit that replaces the reference's
+    host cv::PCA stage (SPDepthSuperResolution.cpp:82-142);
+  * mrf_optimization — 20 Jacobi sweeps of the 5x5 plane-anchored
+    smoother (Projection_GPU.cu:139-172; SPDSP);
+  * eigenvalue_optimization — the PCA variant's blend (present but
+    disabled in the reference, Projection_PCA.cu:76-108);
   * plane_fit_residual — the plane-confidence gate (spec extension);
   * variance_optimization — blend toward the plane for big coherent
     clusters (Projection_GPU.cu:174-196);
@@ -14,20 +23,22 @@ PyTorch counterpart of the KDE part of the JAX package's ops/plane.py
 Per-merged-cluster tables are gathered as (table[rep])[original label]
 through the label index over the ORIGINAL superpixel labels
 (slic.label_index: cell-local, or global where the labels have no
-locality).  Depths are in millimetres.  Tensors
-carry a leading batch dimension.
+locality); per-cluster ones through the index over the labels they key.
+Every product runs in f32 with TF32 off (tables.exact_matmul).  Depths are
+in millimetres.  Tensors carry a leading batch dimension.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.config import ProjectionParams
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
+from kinectdepthmapenhancement_tpu_torch.ops.normals import smallest_eigenvector
 from kinectdepthmapenhancement_tpu_torch.ops.slic import LabelIndex
 
 PI_8 = 3.141592653 / 8.0
@@ -69,6 +80,48 @@ def set_pseudo_depth_map(
     gate = (labels > -1) & (var > COS_PI_8)
     proj = _project(nd_map, rays)
     return torch.where(gate[..., None], proj, points)
+
+
+def set_pseudo_depth_cluster(
+    points: torch.Tensor,
+    rays: torch.Tensor,
+    cluster_nd: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    strict: bool = False,
+    index: LabelIndex,
+) -> torch.Tensor:
+    """Per-cluster nd table [B, K, 4] (second overload, Projection_GPU.cu:
+    50-77; SPDSP): project where label > -1 and |nd.x| < 1 (invalid
+    sentinel 5.0); strict=True takes <= 1.0 (the PCA variant,
+    Projection_PCA.cu:20-48).  `index`: the label index over `labels`
+    (its gather gives 0 for -1, which the label gate masks)."""
+    nd = index.gather(cluster_nd)
+    ok = nd[..., 0].abs() <= 1.0 if strict else nd[..., 0].abs() < 1.0
+    gate = (labels > -1) & ok
+    return torch.where(gate[..., None], _project(nd, rays), points)
+
+
+def set_pseudo_depth_normals(
+    points: torch.Tensor,
+    rays: torch.Tensor,
+    cluster_normals: torch.Tensor,
+    cluster_centers: torch.Tensor,
+    labels: torch.Tensor,
+    variance: torch.Tensor,
+    *,
+    index: LabelIndex,
+) -> torch.Tensor:
+    """Normals + centres overload (Projection_GPU.cu:79-115): d = |n.c|,
+    gated on acos(variance[label]) < pi/8 (variance > 1 clamped to 1, as
+    in set_pseudo_depth_map).  Tables [B, K, 3], [B, K, 3], [B, K]; one
+    gather of 7 features through `index`."""
+    g = index.gather(torch.cat([cluster_normals, cluster_centers, variance[..., None]], dim=-1))
+    n, c, var = g[..., 0:3], g[..., 3:6], torch.clamp_max(g[..., 6], 1.0)
+    d = stencil.dot3(n, c).abs()
+    nd = torch.cat([n, d[..., None]], dim=-1)
+    gate = (labels > -1) & (var > COS_PI_8)
+    return torch.where(gate[..., None], _project(nd, rays), points)
 
 
 def plane_fit_residual(
@@ -142,6 +195,71 @@ def variance_optimization(
     return out
 
 
+def mrf_optimization(
+    optimized: torch.Tensor,
+    plane_fitted: torch.Tensor,
+    rays: torch.Tensor,
+    p: ProjectionParams = ProjectionParams(),
+    *,
+    gate_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """mrf_optimization x p.mrf_iterations (Projection_GPU.cu:139-172, call
+    sites cu:296-301): Jacobi sweeps of z' = (z_plane + sum w z_n) /
+    (1 + sum w), w = smooth_sigma * K / (1 + dz^2) over the valid taps of
+    the 5x5 window, applied only where the plane fit is valid and agrees
+    with the current depth within 1%.  gate_mask ([B, H, W] bool,
+    optional): the plane-confidence gate, pixels outside it are never
+    pulled toward their plane (spec extension; None is the reference).
+    Plain PyTorch: the JAX package has no kernel here."""
+    h, w = optimized.shape[1:3]
+    r = p.mrf_window // 2
+    zp = plane_fitted[..., 2]
+    k = torch.full((), p.mrf_k, dtype=torch.float32, device=optimized.device)
+    base_gate = zp > VALID_DEPTH_MM
+    if gate_mask is not None:
+        base_gate = base_gate & gate_mask
+    opt = optimized
+    for _ in range(p.mrf_iterations):
+        z = opt[..., 2]
+        gate = base_gate & ((z - zp).abs() < z * 0.01)
+        zpad = stencil.pad2d(z, r, 0.0)
+        zero = torch.zeros_like(z)
+        num = zp
+        den = torch.ones_like(z)
+        for dy, dx in stencil.offsets(p.mrf_window):
+            nz = stencil.shift(zpad, dy, dx, r, (h, w))
+            e = (z - nz).abs()
+            dfil = k / (1.0 + e * e)
+            filt = torch.where(nz > VALID_DEPTH_MM, p.mrf_smooth_sigma * dfil, zero)
+            num = num + nz * filt
+            den = den + filt
+        upd = gate & (den != 0.0)
+        new_z = torch.where(upd, num / den, z)
+        opt = torch.where(upd[..., None], rays * new_z[..., None], opt)
+    return opt
+
+
+def eigenvalue_optimization(
+    optimized: torch.Tensor,
+    plane_fitted: torch.Tensor,
+    rays: torch.Tensor,
+    eigen_map: torch.Tensor,
+    labels: torch.Tensor,
+    eigenvalue_sigma: float,
+) -> torch.Tensor:
+    """eigenvalues_optimizationPCA (Projection_PCA.cu:76-108): blend toward
+    the plane by exp(-sigma / (2 eigen^2)) where the fit agrees within 1%.
+    Present as in the JAX package; the reference's call site is commented
+    out (cu:118-125), so no pipeline runs it."""
+    zo = optimized[..., 2]
+    zp = plane_fitted[..., 2]
+    gate = (zp > VALID_DEPTH_MM) & ((zo - zp).abs() < zo * 0.01) & (labels > -1)
+    sig = torch.full((), -eigenvalue_sigma, dtype=torch.float32, device=zo.device)
+    wgt = torch.exp(sig / (2.0 * torch.square(torch.clamp_min(eigen_map, 1e-30))))
+    new_z = wgt * zo + (1.0 - wgt) * zp
+    return torch.where(gate[..., None], rays * new_z[..., None], optimized)
+
+
 def plane_hole_fill(
     optimized: torch.Tensor,
     rays: torch.Tensor,
@@ -212,3 +330,55 @@ def depth_bilateral(
     empty = den == 0.0
     new_z = torch.where(empty, zero, num / torch.where(empty, torch.ones_like(den), den))
     return rays * new_z[..., None]
+
+
+# ---------------------------------------------------------------- PCA planes
+
+
+class PCAPlanes(NamedTuple):
+    nd: torch.Tensor           # [B, K, 4] plane (n, d); invalid (5, 5, 5, 0)
+    centers: torch.Tensor      # [B, K, 3] cluster centroids
+    eigenvalues: torch.Tensor  # [B, K] smallest eigenvalue
+    count: torch.Tensor        # [B, K] i32 point count
+
+
+def pca_planes(
+    points: torch.Tensor, labels: torch.Tensor, k: int, *, index: LabelIndex
+) -> PCAPlanes:
+    """Per-cluster plane fit on the device (replaces the host loop and
+    cv::PCA of SPDepthSuperResolution.cpp:66-142 /
+    TOFDepthInterpolation.cpp:69-146; JAX plane.py:400-476).
+
+    Every pixel with a label contributes, valid depth or not (as the
+    reference pushes every labelled point).  The covariance comes from
+    centred second moments: the sums (4 features), then the gathered mean
+    (3) and the squared residuals about it (6), all through `index` (the
+    label-cell kernels on the cell route) — two passes keep f32 where the
+    reference needed f64.  The normal is the smallest eigenvalue's
+    eigenvector, flipped so that d = n . centroid >= 0; clusters with
+    < 3 points get the sentinel (5, 5, 5, 0)."""
+    mask = labels >= 0
+    ones = torch.ones_like(points[..., :1])
+    sums = index.segment_sum(torch.cat([points, ones], dim=-1), mask)
+    count = sums[..., 3]
+    mean = sums[..., 0:3] / torch.clamp_min(count, 1.0)[..., None]
+    centered = torch.where(mask[..., None], points - index.gather(mean), 0.0)
+    cx, cy, cz = centered.unbind(-1)
+    m = index.segment_sum(
+        torch.stack([cx * cx, cx * cy, cx * cz, cy * cy, cy * cz, cz * cz], dim=-1), mask)
+    # cv::PCA scales the scatter matrix by 1/N (CV_COVAR_SCALE with rows)
+    rows = [torch.stack([m[..., i] for i in r], dim=-1) for r in ((0, 1, 2), (1, 3, 4), (2, 4, 5))]
+    cov = torch.stack(rows, dim=-2) / torch.clamp_min(count, 1.0)[..., None, None]
+
+    eigval, vec = smallest_eigenvector(cov)
+    d_signed = stencil.dot3(vec, mean)
+    vec = torch.where((d_signed < 0)[..., None], -vec, vec)
+    valid = count >= 3
+    nd = torch.cat([vec, d_signed.abs()[..., None]], dim=-1)
+    sentinel = torch.tensor([5.0, 5.0, 5.0, 0.0], dtype=nd.dtype, device=nd.device)
+    return PCAPlanes(
+        nd=torch.where(valid[..., None], nd, sentinel),
+        centers=torch.where(valid[..., None], mean, 0.0),
+        eigenvalues=torch.where(valid, eigval, 0.0),
+        count=count.to(torch.int32),
+    )

@@ -1,4 +1,5 @@
-"""The composed-oracle gates for a KDE result, and the JAX fixtures.
+"""The composed-oracle gates for a KDE result, the gates of the DASP / ERS
+pipelines (RGBF, SPDSP, TOF), and the JAX fixtures.
 
 The JAX package's tests/test_oracle_pipeline.py holds its kde_pipeline
 against the NumPy oracle's outputs, committed as tests/golden/
@@ -8,7 +9,9 @@ result, so the CPU tests and chip_smoke.py hold the port to the same bar.
 The same gates hold the port against the JAX package's own kde_pipeline
 outputs, written by tests/gen_torch_fixtures.py: at 640x480 with
 KDEConfig() (kde_jax_640x480_seed0.npz) and at 96x128 under four more
-configs (kde_jax_96x128_ext_seed0.npz).  The fixtures are only read
+configs (kde_jax_96x128_ext_seed0.npz); and the JAX package's
+rgbf_pipeline, spdsp_pipeline and tof_pipeline at 96x128 and 640x480
+(dasp_jax_{96x128,640x480}_seed0.npz).  The fixtures are only read
 (np.load): tests/golden.py rewrites a fixture whose key differs, so nothing
 here goes through it.
 
@@ -179,3 +182,102 @@ def far_range_gates(
 
 def failures(gates: Gate) -> Dict[str, Tuple[float, float, bool]]:
     return {k: v for k, v in gates.items() if not v[2]}
+
+
+# ------------------------------------------------ RGBF, SPDSP and TOF
+
+
+def load_dasp(size: str) -> Dict[str, np.ndarray]:
+    """tests/gen_torch_fixtures.py's dasp fixture, "96x128" or "640x480":
+    {"seeds", "<pipeline>__<field>"} with labels as i32."""
+    with np.load(os.path.join(FIXTURES, f"dasp_jax_{size}_seed0.npz")) as z:
+        return {k: z[k].astype(np.int32) if z[k].dtype == np.int16 else z[k] for k in z.files}
+
+
+def load_rgbf_oracle() -> Dict[str, np.ndarray]:
+    """The NumPy oracle's RGBF outputs on scene_96x128(), grid 3x4."""
+    with np.load(os.path.join(FIXTURES, "rgbf_oracle_96x128_seed0.npz")) as z:
+        return {k: z[k] for k in z.files if k != "__key__"}
+
+
+def rgbf_oracle_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> Gate:
+    """test_oracle_pipeline.py:195-228: the colour SLIC exact (its inputs are
+    bit-identical), the depth SLIC on > 99.5% and the refined labels on
+    > 99% of pixels (f32 against f64 points), the refined depth within
+    0.5 mm on > 99% of pixels and its 99.9% quantile below 400 mm
+    (zeroing-command flips)."""
+    gates: Gate = {}
+    same = float((got["color_labels"] == want["color_labels"]).mean())
+    gates["color_labels_equal"] = (same, 1.0, same == 1.0)
+    for f, lim in (("depth_labels", 0.995), ("refined_labels", 0.99)):
+        agree = float((got[f] == want[f]).mean())
+        gates[f"{f}_agreement"] = (agree, lim, agree > lim)
+    dd = np.abs(got["refined_depth"] - want["refined_depth"])
+    within = float((dd < 0.5).mean())
+    gates["refined_within_0.5mm"] = (within, 0.99, within > 0.99)
+    q = float(np.quantile(dd, 0.999))
+    gates["refined_q999_mm"] = (q, 400.0, q < 400.0)
+    return gates
+
+
+def dasp_jax_gates(name: str, got: Mapping[str, np.ndarray],
+                   want: Mapping[str, np.ndarray]) -> Gate:
+    """One pipeline's output (name "rgbf", "spdsp" or "tof"; got keyed by
+    its result fields, [H, W] numpy) against the JAX package's run of the
+    same frame in a dasp fixture: every stored label map on > 99.5% of
+    pixels (colour seeds can fall the other way at gradient near-ties), and
+    each stored depth map (SPDSP's optimized z, TOF's plane-fitted z, and
+    RGBF's refined depth where stored) within 1 mm on > 99% of pixels with
+    its 99.9% quantile below 120 mm, kde_gates' bars."""
+    gates: Gate = {}
+    pre = name + "__"
+    for key in sorted(k for k in want if k.startswith(pre)):
+        field = key[len(pre):]
+        if field.endswith("labels") and field in got:
+            agree = float((got[field] == want[key]).mean())
+            gates[f"{field}_agreement"] = (agree, 0.995, agree > 0.995)
+    maps = {"refined_depth": "refined_depth", "optimized_z": "optimized_points",
+            "plane_fitted_z": "plane_fitted"}
+    for field, src in maps.items():
+        if pre + field not in want or src not in got:
+            continue
+        z = got[src] if got[src].ndim == 2 else got[src][..., 2]
+        dd = np.abs(z - want[pre + field])
+        within = float((dd < 1.0).mean())
+        gates[f"{field}_within_1mm"] = (within, 0.99, within > 0.99)
+        q = float(np.quantile(dd, 0.999))
+        gates[f"{field}_q999_mm"] = (q, 120.0, q < 120.0)
+    return gates
+
+
+def rgbf_quality_gates(refined_depth: np.ndarray, gt: np.ndarray) -> Gate:
+    """tests/test_pipelines.py:68-80: more than half the refined pixels
+    valid, their median within 200 mm of the ground truth's."""
+    valid = refined_depth > 50.0
+    share = float(valid.mean())
+    med = abs(float(np.median(refined_depth[valid])) - float(np.median(gt[gt > 0])))
+    return {"valid_share": (share, 0.5, share > 0.5),
+            "median_offset_mm": (med, 200.0, med < 200.0)}
+
+
+def spdsp_quality_gates(err_in: float, err_ers: float, err_out: float, n: int) -> Gate:
+    """tests/test_pipelines.py:108-134 at 640x480: mean 3-D errors (mm) of
+    the input, the ERS-refined and the optimized points against ground
+    truth, over n valid refined points."""
+    return {
+        "valid_points": (float(n), 200000.0, n > 200000),
+        "ers_over_input": (err_ers / err_in, 1.0, err_ers < err_in),
+        "ers_error_mm": (err_ers, 1.2, err_ers < 1.2),
+        "output_error_mm": (err_out, 3.0, err_out < 3.0),
+    }
+
+
+def tof_quality_gates(plane_fitted_z: np.ndarray, gt: np.ndarray) -> Gate:
+    """tests/test_pipelines.py:137-157 at 640x480: the plane-fitted depth
+    on ground-truth-flat pixels (> 80000 of them) within a 12 mm RMSE."""
+    gy, gx = np.gradient(gt)
+    flat = (np.abs(gy) + np.abs(gx)) < 0.5
+    m = flat & (plane_fitted_z > 50.0) & (plane_fitted_z < 15000.0) & (gt > 50.0)
+    rmse = float(np.sqrt(np.mean((plane_fitted_z - gt)[m] ** 2))) if m.any() else float("inf")
+    return {"flat_pixels": (float(m.sum()), 80000.0, int(m.sum()) > 80000),
+            "plane_rmse_mm": (rmse, 12.0, rmse < 12.0)}

@@ -1,6 +1,6 @@
 """Generate the JAX-package fixtures the PyTorch port is held against.
 
-    python tests/gen_torch_fixtures.py [full] [ext] [stages]
+    python tests/gen_torch_fixtures.py [full] [ext] [stages] [dasp]
 
 Not a test module (pytest collects test_*.py only).  Runs the JAX package
 on the CPU and writes, with np.savez_compressed, under tests/golden/:
@@ -24,6 +24,23 @@ on the CPU and writes, with np.savez_compressed, under tests/golden/:
           kernel's inputs and outputs (pallas_cov in interpret mode) on a
           48x64 crop for tests/test_torch_normals.py.
 
+  dasp    dasp_jax_96x128_seed0.npz — rgbf_pipeline, spdsp_pipeline and
+          tof_pipeline at 96x128 (the oracle scene, grid 3x4) from the raw
+          depth's points: the seeds both DASP segmentations sample
+          ("seeds"), and for RGBF and SPDSP "<name>__color_labels",
+          "__depth_labels" (the two SLICs'), "__refined_labels" (int16)
+          and "__refined_depth" (TOF's front end is SPDSP's);
+          SPDSP's "__planes_nd", "__plane_fitted_z" and "__optimized_z";
+          TOF's "__plane_fitted_z", "__merged_labels" (int16) and
+          "__merged_eigenvalues" (TOF's optimized points are its refined
+          points; every point map is rays * z, so z is stored).
+          dasp_jax_640x480_seed0.npz — the same three pipelines with their
+          default configs on make_noisy_scene(480, 640, seed=0): the seeds,
+          the int16 label maps, TOF's merged labels, and the two f32 maps
+          chip_smoke.py holds the card's output against, SPDSP's optimized
+          z and TOF's plane-fitted z (RGBF's refined depth would take the
+          two files past 2 MB together: RGBF is held by its labels there).
+
 The fixtures are read with np.load only (tests/golden.py::cached would
 rewrite a fixture whose key differs).  Rerun a part after a change to the
 JAX package's code it runs; the port's tests then read the new arrays.
@@ -42,6 +59,8 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 FULL = os.path.join(GOLDEN, "kde_jax_640x480_seed0.npz")
 EXT = os.path.join(GOLDEN, "kde_jax_96x128_ext_seed0.npz")
 STAGES = os.path.join(GOLDEN, "torch_stages_96x128_seed0.npz")
+DASP_SMALL = os.path.join(GOLDEN, "dasp_jax_96x128_seed0.npz")
+DASP_FULL = os.path.join(GOLDEN, "dasp_jax_640x480_seed0.npz")
 FULL_MAX_BYTES = 3 * 2**20
 
 
@@ -183,7 +202,83 @@ def gen_stages():
     ))
 
 
+def dasp_configs(grid=None):
+    """The three pipelines' JAX configs, by name, on `grid` (default: each
+    config's own, 15x20)."""
+    from kinectdepthmapenhancement_tpu.core.config import RGBFConfig, SPDSPConfig, TOFConfig
+
+    cfgs = {"rgbf": RGBFConfig(), "spdsp": SPDSPConfig(), "tof": TOFConfig()}
+    if grid is not None:
+        cfgs = {k: dataclasses.replace(c, grid=grid) for k, c in cfgs.items()}
+    return cfgs
+
+
+def _dasp_run(h, w, grid, small):
+    """Run the three JAX pipelines on make_noisy_scene(h, w, seed=0) and
+    return the fixture's arrays (see the module docstring)."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.camera import (
+        default_kinect_intrinsics, projective_to_real,
+    )
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu.models import pipelines
+    from kinectdepthmapenhancement_tpu.ops import slic
+
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
+    d, c = jnp.asarray(noisy), jnp.asarray(color)
+    pts = projective_to_real(d, intr)
+    cfgs = dasp_configs(grid)
+    seeds = jax.jit(lambda cf: slic._compute_seeds(
+        cf, None, cfgs["rgbf"].grid, h, w, 4, "dasp"))(jnp.asarray(color, jnp.float32))
+    arrays = {"seeds": np.asarray(seeds).astype(np.int16)}
+    runs = {
+        "rgbf": lambda d, p, c, cfg: pipelines.rgbf_pipeline(d, p, c, cfg),
+        "spdsp": lambda d, p, c, cfg: pipelines.spdsp_pipeline(d, p, c, intr, cfg),
+        "tof": lambda d, p, c, cfg: pipelines.tof_pipeline(d, p, c, intr, cfg),
+    }
+    for name, cfg in cfgs.items():
+        t0 = time.time()
+        fn = jax.jit(lambda d, p, c, run=runs[name], cfg=cfg: run(d, p, c, cfg))
+        res = jax.tree_util.tree_map(np.asarray, fn(d, pts, c))
+        print(f"{name} {h}x{w}: {time.time() - t0:.1f} s")
+        out = {}
+        if name == "spdsp":  # its SLIC labels (SPDSPResult does not return them)
+            for f, params in (("color_labels", cfg.color_slic), ("depth_labels", cfg.depth_slic)):
+                seg = jax.jit(lambda c, p, params=params, cfg=cfg: slic.segment(
+                    c, p, grid=cfg.grid, params=params, variant="dasp").labels)
+                out[f] = np.asarray(seg(c, pts)).astype(np.int16)
+        for f in ("color_labels", "depth_labels", "refined_labels", "merged_labels"):
+            if hasattr(res, f):
+                out[f] = getattr(res, f).astype(np.int16)
+        if name == "rgbf":
+            if small:
+                out["refined_depth"] = res.refined_depth
+        elif name == "spdsp":
+            out["optimized_z"] = res.optimized_points[..., 2]
+            if small:
+                out.update(refined_depth=res.refined_depth, planes_nd=res.planes_nd,
+                           plane_fitted_z=res.plane_fitted[..., 2])
+        else:
+            out["plane_fitted_z"] = res.plane_fitted[..., 2]
+            out.pop("refined_labels")  # TOF's front end is SPDSP's
+            if small:
+                out["merged_eigenvalues"] = res.merged_eigenvalues
+        arrays.update({f"{name}__{k}": v for k, v in out.items()})
+    return arrays
+
+
+def gen_dasp():
+    _jax()
+    from kinectdepthmapenhancement_tpu.core.config import GridParams
+
+    _save(DASP_SMALL, _dasp_run(96, 128, GridParams(rows=3, cols=4), small=True))
+    _save(DASP_FULL, _dasp_run(480, 640, None, small=False))
+
+
 if __name__ == "__main__":
-    parts = sys.argv[1:] or ["full", "ext", "stages"]
+    parts = sys.argv[1:] or ["full", "ext", "stages", "dasp"]
     for part in parts:
-        {"full": gen_full, "ext": gen_ext, "stages": gen_stages}[part]()
+        {"full": gen_full, "ext": gen_ext, "stages": gen_stages, "dasp": gen_dasp}[part]()

@@ -35,7 +35,12 @@ inside) at 77x101 (B=3) and at the path's shapes, 480x640 and the
 270x360 seed sub-grid.  At the 640x480 frame the NASP sums also run at
 r = 5 on three-iteration labels, the label sums at F = 4 and 6
 (merge_planes) and at r = 5, the gather at F = 2 (the trust table) and at
-r = 5.  The 640x480 main path is held against the JAX package's output
+r = 5; and the DASP / ERS paths' forms: the colour gradient on DASP's
+window-4 sub-grid, the label sums at F = 10 at r = 2 and 3, the gather at
+F = 2 at r = 2 and 3 and at F = 1, 4 and 7 over ERS labels at r = 4.
+rgbf_pipeline, spdsp_pipeline and tof_pipeline run at 640x480 against the
+JAX package's output (tests/golden/dasp_jax_640x480_seed0.npz) and ground
+truth.  The 640x480 main path is held against the JAX package's output
 (tests/golden/kde_jax_640x480_seed0.npz, golden.kde_gates) and against
 ground truth (tests/test_pipelines.py:31-51), and the far-range gate of
 tests/test_oracle_pipeline.py:230-287 runs on make_banded_scene.
@@ -875,4 +880,124 @@ def test_far_range_gate(dev):
         kde_pipeline(d, c, intr, cfg).optimized_points[..., 2].cpu().numpy(),
         pm.optimized_points[..., 2].cpu().numpy(), pm.merged_labels.cpu().numpy(), gt,
         cfg.grid.num_clusters)
+    assert not golden.failures(gates), gates
+
+
+# ---- the DASP / ERS pipelines (RGBF, SPDSP, TOF) at the 640x480 frame:
+# the forms of the colour gradient and the label-cell kernels they add, and
+# the pipelines against the JAX package's output and ground truth
+
+
+@pytest.fixture(scope="module")
+def dasp640(dev):
+    """make_noisy_scene(480, 640, seed=0) on the card with its raw points,
+    and on the plain route (SPDSPConfig()): the depth SLIC's labels after
+    one iteration (r = 2) and after five (within the cap of 3) with their
+    clusters, and the ERS labels (within the cap of 4)."""
+    from kinectdepthmapenhancement_tpu_torch.core.config import SPDSPConfig
+    from kinectdepthmapenhancement_tpu_torch.ops import ers
+
+    h, w = FULL["h"], FULL["w"]
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, gt = make_noisy_scene(h, w, intr, seed=0)
+    cfg = SPDSPConfig()
+    c = torch.from_numpy(color).to(dev)[None]
+    d = torch.from_numpy(noisy).to(dev)[None]
+    raw = projective_to_real(d, intr).contiguous()
+    seg = {}
+    for it in (1, 5):
+        p = dataclasses.replace(cfg.depth_slic, iterations=it, stats_impl="xla")
+        seg[it] = slic.segment(c, raw, grid=cfg.grid, params=p, variant="dasp")
+    colour = slic.segment(c, raw, grid=cfg.grid, variant="dasp",
+                          params=dataclasses.replace(cfg.color_slic, stats_impl="xla"))
+    refined = ers.edge_refine(colour.labels, seg[5].labels, d, cfg.ers).labels
+    assert bool(slic.labels_within_cap(seg[5].labels, cfg.grid, 3, h, w).all())
+    assert bool(slic.labels_within_cap(refined, cfg.grid, 4, h, w).all())
+    return dict(intr=intr, color=c, depth=d, raw=raw, gt=gt, noisy=noisy, cfg=cfg,
+                labels={2: seg[1].labels, 3: seg[5].labels, 4: refined},
+                clusters={2: seg[1].clusters, 3: seg[5].clusters})
+
+
+def test_seed_gradient_color_at_the_dasp_subgrid(dasp640):
+    """The colour seed gradient on DASP's window-4 seed sub-grid (210x280
+    at 640x480): bitwise, the seeds identical."""
+    x, grid = dasp640, dasp640["cfg"].grid
+    csub = slic._subgrid_extract(x["color"].float(), grid, FULL["h"], FULL["w"], 4).contiguous()
+    assert tuple(csub.shape) == (1, 210, 280, 3)
+    got = cuda_gradient.seed_gradient(csub)
+    want = cuda_gradient.seed_gradient_plain(csub)
+    assert torch.equal(got, want)
+    assert torch.equal(slic._sample_seeds_subgrid(got, grid, FULL["h"], FULL["w"], 4),
+                       slic._sample_seeds_subgrid(want, grid, FULL["h"], FULL["w"], 4))
+
+
+@pytest.mark.parametrize("r", [2, 3])
+def test_label_cell_sums_dasp_update_at_the_path_frame(dasp640, r):
+    """label_cell_sums at F = 10 (the DASP update: colour, u, v, 1, point,
+    valid depth) at r = 2 and 3 on DASP labels: the integer-valued features
+    exact, the rest within 1e-5 of the sum of the terms' magnitudes; two
+    launches identical."""
+    x, grid = dasp640, dasp640["cfg"].grid
+    labels = x["labels"][r]
+    uv1 = slic._pixel_uv1(1, FULL["h"], FULL["w"], labels.device)
+    validz = (x["raw"][..., 2:3] > 50.0).float()
+    feats = (torch.cat([x["color"].float(), uv1, x["raw"], validz], -1)
+             * (labels >= 0)[..., None]).contiguous()
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+    got = cuda_nasp.label_cell_sums(labels, feats, **kw)
+    want = cuda_nasp.label_cell_sums_plain(labels, feats, **kw)
+    scale = cuda_nasp.label_cell_sums_plain(labels, feats.abs(), **kw)
+    assert cuda_nasp.sums_close(got, want, scale, (0, 1, 2, 3, 4, 5, 9))
+    assert torch.equal(got, cuda_nasp.label_cell_sums(labels, feats, **kw))
+
+
+@pytest.mark.parametrize("r, f", [(2, 2), (3, 2), (4, 1), (4, 4), (4, 7)])
+def test_label_cell_gather_dasp_shapes_at_the_path_frame(dasp640, r, f):
+    """label_cell_gather of the DASP window's centres (F = 2) at r = 2 and
+    3, and over ERS labels at r = 4 of the SPDSP gate (F = 1), the PCA
+    planes (F = 4) and the PCA merge's table (F = 7), bitwise."""
+    x, grid = dasp640, dasp640["cfg"].grid
+    labels = x["labels"][r]
+    g = torch.Generator(device=labels.device).manual_seed(40 + f)
+    table = torch.randn((1, grid.num_clusters, f), device=labels.device, generator=g) * 1e3
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+    got = cuda_nasp.label_cell_gather(labels, table, **kw)
+    assert torch.equal(got, cuda_nasp.label_cell_gather_plain(labels, table, **kw))
+
+
+@pytest.mark.parametrize("name", ["rgbf", "spdsp", "tof"])
+def test_dasp_pipelines_640x480(dasp640, name):
+    """rgbf_pipeline, spdsp_pipeline and tof_pipeline (default configs) on
+    the card at 640x480: each launches the colour gradient, the label sums
+    and the gather; the output against the JAX package's run of the frame
+    (tests/golden/dasp_jax_640x480_seed0.npz, golden.dasp_jax_gates) and
+    ground truth (tests/test_pipelines.py:68-80, :108-157)."""
+    from kinectdepthmapenhancement_tpu_torch.models import pipelines
+    from kinectdepthmapenhancement_tpu_torch.utils import golden, metrics
+
+    x = dasp640
+    d, p, c = x["depth"][0], x["raw"][0], x["color"][0]
+    before = (cuda_gradient.launch_forms.get("seed_gradient:color", 0),
+              cuda_nasp.launches["label_cell_sums"], cuda_nasp.launches["label_cell_gather"])
+    res = (pipelines.rgbf_pipeline(d, p, c) if name == "rgbf"
+           else getattr(pipelines, f"{name}_pipeline")(d, p, c, x["intr"]))
+    torch.cuda.synchronize()
+    after = (cuda_gradient.launch_forms.get("seed_gradient:color", 0),
+             cuda_nasp.launches["label_cell_sums"], cuda_nasp.launches["label_cell_gather"])
+    assert all(a > b for a, b in zip(after, before))
+    got = {f: getattr(res, f).cpu().numpy() for f in res._fields}
+    gates = golden.dasp_jax_gates(name, got, golden.load_dasp("640x480"))
+    gt = x["gt"]
+    if name == "rgbf":
+        gates.update(golden.rgbf_quality_gates(got["refined_depth"], gt))
+    elif name == "spdsp":
+        gt_pts = projective_to_real(torch.from_numpy(gt).to(p.device), x["intr"])
+        err_in, _ = metrics.mean_3d_error(p, gt_pts)
+        err_ers, n = metrics.mean_3d_error(projective_to_real(res.refined_depth, x["intr"]),
+                                           gt_pts)
+        err_out, _ = metrics.mean_3d_error(res.optimized_points, gt_pts)
+        gates.update(golden.spdsp_quality_gates(float(err_in), float(err_ers), float(err_out),
+                                                int(n)))
+    else:
+        gates.update(golden.tof_quality_gates(got["plane_fitted"][..., 2], gt))
     assert not golden.failures(gates), gates

@@ -84,7 +84,7 @@ def test_full_image_seed_path_equals_subgrid(nasp_inputs):
     sub-grid fast path (the gradient support never leaves a cell)."""
     cf = _t(nasp_inputs["color"].astype(np.float32))
     nm = _t(nasp_inputs["normals"])
-    full = ts.sample_seeds(ts._nasp_gradient(cf, nm), GRID, H, W, 8)
+    full = ts.sample_seeds(ts._gradient(cf, nm), GRID, H, W, 8)
     assert torch.equal(full, ts._compute_seeds(cf, nm, GRID, H, W, 8))
 
 
@@ -176,12 +176,13 @@ def test_cell_index_gather_and_segment_sum():
 
 
 def test_unported_routes_raise(nasp_inputs):
-    """The SP / DASP variants are the unported routes left; an unknown
-    locality raises.  Later iterations and grids that do not divide the
-    frame run (tests/test_torch_slic_routes.py)."""
+    """Every SLIC variant of the JAX package is ported (SP and DASP:
+    tests/test_torch_dasp.py); an unknown variant or locality raises.
+    Later iterations and grids that do not divide the frame run
+    (tests/test_torch_slic_routes.py)."""
     c, p, n = (_t(nasp_inputs[k]) for k in ("color", "points", "normals"))
-    for variant in ("dasp", "sp"):
-        with pytest.raises(NotImplementedError):
+    for variant in ("bogus", "NASP"):
+        with pytest.raises(ValueError):
             ts.segment(c, p, n, grid=GRID, params=KDEConfig().nasp, variant=variant)
     with pytest.raises(ValueError):
         ts.segment(c, p, n, grid=GRID,

@@ -107,10 +107,10 @@ def test_capped_fallback_on_drifted_labels(frame):
     seg = _segment(frame, grid=grid)
     far = seg.labels.clone()
     far[0, -4:, -4:] = 0
-    assert ts._within_cap(seg.labels, grid, H, W) and not ts._within_cap(far, grid, H, W)
+    assert ts._within_cap(seg.labels, grid, 5, H, W) and not ts._within_cap(far, grid, 5, H, W)
     args = (seg.clusters, frame[0].float(), *frame[1:], grid, NASP, 8.0)
     lab_g, _ = ts._assign_global(far, seg.distance, *args)
-    assert not ts._within_cap(lab_g, grid, H, W)
+    assert not ts._within_cap(lab_g, grid, 5, H, W)
     # off the cap the r = 5 cell index drops labels outside its candidates
     cell = ts._CellIndex(lab_g, grid, 5, H, W)
     assert not torch.equal(cell.counts(), ts._GlobalIndex(lab_g, grid.num_clusters).counts())
