@@ -73,19 +73,37 @@ Phases (each prints its results; any failure exits non-zero):
      (tests/test_pipelines.py:68-80, :108-157), B=4 bitwise on a second
      run; time each (CUDA events) and profile it by stage, and time the
      DASP sweep alone;
-  8. print the kernels JSON line (one entry per TPU kernel of the repo,
+  8. drive this slice's paths at 640x480, each from launch counts at 0:
+     kde_pipeline with normals.method "sdc" and "bilateral" at B=1 and B=4
+     (bilateral launches neither the DT nor the covariance kernel, SDC no
+     covariance kernel), held against the JAX package's output
+     (tests/golden/kde_jax_640x480_normals_seed0.npz,
+     golden.normal_method_gates), the normals against the port's CPU run of
+     the same points, B=4 bitwise on a second run; mrf_pipeline against the
+     JAX package's and the CPU's output (rtol 1e-6); run_stream over 32
+     frames at batch 1, 4 and 8, capture and kde_only, each chunk's points
+     bitwise equal to kde_pipeline on the same batch, frames per second and
+     the device busy share, and a run stopped at 16 frames and resumed from
+     its checkpoint equal to the uninterrupted one; the enhance command for
+     the six pipelines through files, each refined depth equal to the
+     pipeline's output, kde with --ply, --png and --debug-dir; each timed (CUDA
+     events, or the host clock around a whole stream) and profiled;
+  9. print the kernels JSON line (one entry per TPU kernel of the repo,
      each with its forms and their launches by path), then
      {"ok": true, "device": ...} last.
 
-Kernels are built under build/kernels/ (listed in .gitignore).
+Kernels are built under build/kernels/ and phase 8 writes its files under
+build/chip_smoke/ (build/ is listed in .gitignore).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -136,7 +154,7 @@ def main() -> int:
 
     from kinectdepthmapenhancement_tpu_torch import _build
     from kinectdepthmapenhancement_tpu_torch.core.camera import (
-        default_kinect_intrinsics, projective_to_real,
+        default_kinect_intrinsics, normalized_rays, projective_to_real,
     )
     from kinectdepthmapenhancement_tpu_torch.core.config import (
         GridParams, KDEConfig, SPDSPConfig,
@@ -753,6 +771,7 @@ def main() -> int:
         return {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms}
 
     path_forms = {}  # path -> cuda_nasp.launch_forms of its driven run
+    path_counts = {}  # path -> launches of each kernel in its driven run
     reset_counts()
     res1 = kde_pipeline(depth4[0], color4[0], intr, cfg)
     res4 = kde_pipeline(depth4, color4, intr, cfg)
@@ -876,6 +895,7 @@ def main() -> int:
         on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
         spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
                        for ev in on_device if ev.name in scopes)
+        starts = [t0 for t0, _, _ in spans]  # the spans follow one another
         work = sorted((ev for ev in on_device if ev.name not in scopes
                        and not getattr(ev, "is_user_annotation", False)),
                       key=lambda ev: ev.time_range.start)
@@ -886,7 +906,9 @@ def main() -> int:
         scope = "unscoped"
         for ev in work:
             t = ev.time_range.start
-            scope = next((name for t0, t1, name in spans if t0 <= t < t1), scope)
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < spans[i][1]:
+                scope = spans[i][2]
             ms = ev.time_range.elapsed_us() / 1e3
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
             per[scope][0] += ms
@@ -908,6 +930,8 @@ def main() -> int:
             f"{name} {ms:.4f} ms x{count}" for name, (ms, count) in sorted(port.items())))
         if port_kernels and not port:
             _fail(f"{tag}: the profile shows none of the port's kernels")
+        return {"activities": len(work), "busy_ms": busy,
+                **{name: {"device_ms": ms, "activities": n} for name, (ms, n) in per.items()}}
 
     for bsz in (1, 4):
         d, c = depth4[:bsz], color4[:bsz]
@@ -944,17 +968,20 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         got, forms = counts(), forms_now()
-        path_forms[path] = forms
+        path_forms[path], path_counts[path] = forms, got
         print(f"{path} launches: {got}; forms {forms}")
         missing = [k for k in expect if got[k] == 0] + [f for f in expect_forms if f not in forms]
         if missing:
             _fail(f"{path}: a kernel of the path was never launched: {missing}")
         return out
 
-    def time_path(path, fn, bsz, scopes=kde_scopes):
+    def time_path(path, fn, bsz, scopes=kde_scopes, profiles=None, port_kernels=True):
+        """Median ms of 5 calls; the profile by stage goes to profiles[path]."""
         t = cuda_ms(fn, warmup=1, iters=5)
         print(f"{path}: {t:.3f} ms per call, {t / bsz:.3f} ms per frame (median of 5)")
-        stage_profile(path, fn, t, scopes=scopes)
+        prof = stage_profile(path, fn, t, scopes=scopes, port_kernels=port_kernels)
+        if profiles is not None:
+            profiles[path] = prof
         return t
 
     def check_outputs(tag, res, k_count):
@@ -1217,7 +1244,301 @@ def main() -> int:
         print(f"dasp sweep B={bsz}: {t_sw:.3f} ms per call (median of 5)")
     print("slice paths ms per call: " + "  ".join(f"{k} {v:.3f}" for k, v in path_ms.items()))
 
-    # ---- phase 8: summary lines, one JSON entry per TPU kernel; a second
+    # ---- phase 8: this slice's paths at 640x480, each driven from counts at
+    # 0: KDE with the SDC and the bilateral normals (P1, P2), the MRF
+    # baseline (P3), run_stream (P4) and the enhance command over the six
+    # pipelines (P5); checked against the JAX package, the port's CPU run
+    # and direct calls, timed and profiled
+    from kinectdepthmapenhancement_tpu_torch import cli
+    from kinectdepthmapenhancement_tpu_torch.core import io as kio
+    from kinectdepthmapenhancement_tpu_torch.models import streaming
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import mrf_pipeline
+
+    t_phase8 = time.perf_counter()
+    slice_ms, slice_prof, slice_out = {}, {}, {}
+
+    # (a) P1, P2: the normal methods; bilateral skips the smoothing map (no
+    # DT, no covariance sweep), SDC runs the DT but no covariance sweep.
+    # What the 640x480 end point can tell apart: the pixels where the plane
+    # stage moved the output (against the final depth bilateral of the JBF
+    # points alone), with the merged clusters that pass each of
+    # variance_optimization's gates in turn; and each method's bars read
+    # against the main path's cm outputs in the method's place, which they
+    # must reject
+    rays0 = normalized_rays(intr, h, w, dev)
+    got_cm = {f: getattr(res1, f).cpu().numpy() for f in res1._fields}
+
+    def plane_stage(tag, res):
+        base = plane.depth_bilateral(projective_to_real(res.jbf_depth[None], intr), rays0,
+                                     cfg.projection)[0]
+        z, lab = res.jbf_depth, res.merged_labels.long()
+        ok = (lab >= 0) & (z > plane.VALID_DEPTH_MM)
+        e2 = ((res.plane_fitted[..., 2] - z) / z.clamp_min(1.0)).double().square()
+        k = res.merged_sizes.shape[-1]
+        resid = torch.sqrt(torch.bincount(lab[ok], weights=e2[ok], minlength=k)
+                           / torch.bincount(lab[ok], minlength=k).clamp_min(1))
+        present = torch.bincount(lab[lab >= 0], minlength=k) > 0
+        big = present & (res.merged_sizes > cfg.min_cluster_size)
+        coherent = big & (res.merged_variance.clamp(max=1.0) > plane.COS_PI_8)
+        fit = coherent & (resid < cfg.max_plane_residual)
+        census = {"moved_px": int((base != res.optimized_points).any(-1).sum()),
+                  "clusters": int(present.sum()), "big": int(big.sum()),
+                  "big_coherent": int(coherent.sum()), "big_coherent_fit": int(fit.sum())}
+        print(f"{tag} B=1: the plane stage moved {census['moved_px']} pixels; of "
+              f"{census['clusters']} merged clusters {census['big']} have > "
+              f"{cfg.min_cluster_size} px, {census['big_coherent']} of those a normal variance "
+              f"> cos(pi/8), {census['big_coherent_fit']} of those a plane residual < "
+              f"{cfg.max_plane_residual}")
+        slice_out[f"{tag}_plane_stage"] = census
+
+    plane_stage("cm", res1)
+    for method in golden.NORMAL_METHODS:
+        cfg_m = dataclasses.replace(cfg, normals=dataclasses.replace(cfg.normals, method=method))
+        unused = ("cuda_cov",) + (("cuda_dt",) if method == "bilateral" else ())
+        res_m = {}
+        for bsz in (1, 4):
+            d, c = (depth4[0], color4[0]) if bsz == 1 else (depth4, color4)
+            res_m[bsz] = drive(f"{method} B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_m),
+                               tuple(k for k in all_kernels if k not in unused))
+            ran = [k for k in unused if path_counts[f"{method} B={bsz}"][k]]
+            if ran:
+                _fail(f"{method} B={bsz}: launched {ran}, which the method does not run")
+            check_outputs(f"{method} B={bsz}", res_m[bsz], k_count)
+        for f in ("nasp_labels", "merged_labels"):
+            if not torch.equal(getattr(res_m[1], f), getattr(res_m[4], f)[0]):
+                _fail(f"{method}: {f} of B=1 differs from frame 0 of B=4")
+        got1 = {f: getattr(res_m[1], f).cpu().numpy() for f in res_m[1]._fields}
+        want_m = golden.load_jax_normals("640x480", method)
+        gates = golden.normal_method_gates(method, got1, want_m)
+        for gname, (val, lim, ok) in gates.items():
+            print(f"{method} 640x480 {gname:28s} {val:.6g} (limit {lim}) {'ok' if ok else 'FAIL'}")
+        if golden.failures(gates):
+            _fail(f"{method} 640x480 against the JAX package: {golden.failures(gates)}")
+        wrong = golden.normal_method_gates(method, got_cm, want_m)
+        rejected = {g: wrong[g][0] for g in ("normal_direction_agreement", "nasp_label_agreement")}
+        print(f"{method} 640x480 bars against the cm outputs in {method}'s place: " + ", ".join(
+            f"{g} {v:.6g} (limit {wrong[g][1]})" for g, v in rejected.items()))
+        if any(wrong[g][2] for g in rejected):
+            _fail(f"{method} 640x480: the bars do not reject the cm outputs: {rejected}")
+        slice_out[f"{method}_bars_on_cm_outputs"] = rejected
+        plane_stage(method, res_m[1])
+        # the card's normals against the port's CPU run on the same points
+        pts_m = projective_to_real(res_m[4].jbf_depth, intr)
+        n_card = normals.generate_normal_map(pts_m, cfg_m.normals).cpu()
+        n_cpu = normals.generate_normal_map(pts_m.cpu(), cfg_m.normals)
+        v_card, v_cpu = (n_card != -1.0).any(-1), (n_cpu != -1.0).any(-1)
+        dn = (n_card - n_cpu).abs().amax(-1)[v_card & v_cpu]
+        agree = float((v_card == v_cpu).double().mean())
+        same, within = float((dn == 0).double().mean()), float((dn <= 1e-3).double().mean())
+        print(f"{method} B=4 normals, card against CPU on the same points: validity agrees on "
+              f"{agree:.6f} (bar > 0.999), equal on {same:.6f}, within 1e-3 on {within:.6f} "
+              f"(bar > 0.99) of the pixels valid in both, max |d| {float(dn.max()):.3g}")
+        if not (agree > 0.999 and within > 0.99):
+            _fail(f"{method}: the card's normals differ from the CPU's beyond the bar")
+        slice_out[f"{method}_normals_card_vs_cpu"] = {"valid_agree": agree, "equal": same,
+                                                      "within_1e-3": within}
+        check_again(f"{method} B=4", lambda: kde_pipeline(depth4, color4, intr, cfg_m), res_m[4])
+        for bsz in (1, 4):
+            d, c = depth4[:bsz], color4[:bsz]
+            slice_ms[f"{method} B={bsz}"] = time_path(
+                f"{method} B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_m), bsz,
+                profiles=slice_prof)
+
+    print(f"phase 8 (a) P1, P2: {time.perf_counter() - t_phase8:.1f} s")
+    # (b) P3: the MRF baseline (plain PyTorch; no kernel of the port)
+    reset_counts()
+    mrf1, mrf4 = mrf_pipeline(depth4[0], color4[0]), mrf_pipeline(depth4, color4)
+    torch.cuda.synchronize()
+    path_counts["mrf"] = counts()
+    if not torch.equal(mrf1, mrf4[0]) or not bool(torch.isfinite(mrf4).all()):
+        _fail("mrf: B=1 differs from frame 0 of B=4, or non-finite output")
+    mrf_want = golden.load_jax_mrf_640x480()
+    mrf_got = mrf1.cpu().numpy()
+    rel_jax = float((np.abs(mrf_got - mrf_want) / np.maximum(np.abs(mrf_want), 1e-30)).max())
+    mrf_cpu = mrf_pipeline(depth4.cpu(), color4.cpu())
+    rel_cpu = float(((mrf4.cpu() - mrf_cpu).abs() / mrf_cpu.abs().clamp_min(1e-30)).max())
+    same_cpu = float((mrf4.cpu() == mrf_cpu).double().mean())
+    print(f"mrf 640x480: max relative difference {rel_jax:.3g} from the JAX package (bar 1e-6), "
+          f"{rel_cpu:.3g} from the port's CPU run (bar 1e-6; equal on {same_cpu:.6f}); "
+          f"launches {path_counts['mrf']}")
+    if not (rel_jax <= 1e-6 and rel_cpu <= 1e-6):
+        _fail("mrf: the output differs from the JAX package or the CPU beyond rtol 1e-6")
+    slice_out["mrf"] = {"rel_jax": rel_jax, "rel_cpu": rel_cpu, "equal_cpu": same_cpu}
+    for bsz in (1, 4):
+        d, c = depth4[:bsz], color4[:bsz]
+        slice_ms[f"mrf B={bsz}"] = time_path(f"mrf B={bsz}", lambda: mrf_pipeline(d, c), bsz,
+                                             scopes=(), profiles=slice_prof, port_kernels=False)
+
+    print(f"phase 8 (b) P3: {time.perf_counter() - t_phase8:.1f} s")
+    # (c) P4: run_stream over 32 frames (the noise of tests/test_streaming.py:
+    # 13-17 on frame 0's true depth, seed 0), batch 1, 4 and 8, capture mode
+    # and kde_only; each chunk's points bitwise against kde_pipeline on the
+    # same batch, frames per second, the device busy share of a profiled run
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    gt0_s, color0 = scenes[0][2], scenes[0][0]
+    rng = np.random.default_rng(0)
+    var = 0.45 * 2.85 * np.square(gt0_s / 10.0) / 1.0e4
+    frames32 = [(gt0_s + rng.uniform(-1, 1, gt0_s.shape) * var).astype(np.float32)
+                for _ in range(32)]
+    frames_dev = torch.from_numpy(np.stack(frames32)).to(dev)
+    stream_states = {}
+
+    def stream(bsz, kde_only, **kw):
+        st = streaming.run_stream(iter(frames32), color0, intr, cfg=cfg, batch=bsz,
+                                  kde_only=kde_only, **kw)
+        torch.cuda.synchronize()
+        return st
+
+    def stream_busy(tag, fn):
+        """Device busy share of one profiled fn(): the union of its device
+        activities' intervals (a copy that overlaps a kernel counts once)
+        over the profiled run's own wall time.  Traced on the device alone
+        and read from the raw trace: for a whole stream the host-side
+        events, or the profiler's event list, take seconds to tens of
+        seconds to read."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = [ev for ev in prof.profiler.kineto_results.events()
+                if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()]
+        if not acts:
+            _fail(f"{tag}: the device trace holds no activity")
+        busy_ns, end = 0, None
+        for a, b in sorted((ev.start_ns(), ev.end_ns()) for ev in acts):
+            if end is None or a >= end:
+                busy_ns, end = busy_ns + b - a, b
+            elif b > end:
+                busy_ns, end = busy_ns + b - end, b
+        busy = busy_ns / 1e6
+        summed = sum(ev.duration_ns() for ev in acts) / 1e6
+        print(f"profile {tag}: {len(acts)} device activities ({summed:.3f} ms summed), device "
+              f"busy {busy:.3f} ms of the profiled run's {wall_ms:.3f} ms "
+              f"({100.0 * busy / wall_ms:.1f}% busy)")
+        return {"activities": len(acts), "busy_ms": busy, "summed_ms": summed,
+                "wall_ms": wall_ms}
+
+    for kde_only in (False, True):
+        for bsz in (1, 4, 8):
+            tag = f"stream {'kde_only' if kde_only else 'capture'} batch={bsz}"
+            seen = []
+            first = drive(tag, lambda: stream(bsz, kde_only, on_outputs=lambda s0, p: seen.append(
+                (s0, p))), all_kernels)
+            for s0, pts in seen:
+                k = pts.shape[0]
+                want = kde_pipeline(frames_dev[s0:s0 + k], color4[0].expand(k, -1, -1, -1)
+                                    .contiguous(), intr, cfg).optimized_points
+                if not torch.equal(pts, want):
+                    _fail(f"{tag}: the points of the chunk at frame {s0} differ from kde_pipeline")
+            t0 = time.perf_counter()
+            st = stream(bsz, kde_only)
+            wall = time.perf_counter() - t0
+            for f in ("frame_index", "metric_sums", "metric_counts"):
+                if getattr(st, f) != getattr(first, f):
+                    _fail(f"{tag}: a second run gave another {f}")
+            stream_states[tag] = st
+            metric = "kde_checksum" if kde_only else "kde_error_mm"
+            print(f"{tag}: {len(seen)} chunks bitwise equal to kde_pipeline; 32 frames in "
+                  f"{wall * 1e3:.1f} ms, {32 / wall:.2f} frames/s; {metric} "
+                  f"{streaming.mean_metric(st, metric):.6g}")
+            slice_ms[tag] = wall * 1e3
+            slice_prof[tag] = stream_busy(tag, lambda: stream(bsz, kde_only))
+    cap = [stream_states[f"stream capture batch={b}"] for b in (1, 4, 8)]
+    for st in cap[1:]:
+        if st.metric_counts != cap[0].metric_counts or not torch.equal(
+                st.buffer.weight, cap[0].buffer.weight):
+            _fail("stream: the batch sizes give other counts or buffer weights")
+        dz = float((st.buffer.depth - cap[0].buffer.depth).abs().max())
+        ds = abs(st.metric_sums["kde_error_mm"] / cap[0].metric_sums["kde_error_mm"] - 1.0)
+        print(f"stream batch invariance: buffer depth max |d| {dz:.3g} mm, error sum relative "
+              f"difference {ds:.3g} (bar 1e-5)")
+        if ds > 1e-5:
+            _fail("stream: the error sums of the batch sizes differ beyond rtol 1e-5")
+    # stopped after 16 frames and resumed from the checkpoint: equal to the
+    # uninterrupted run
+    ckpt = os.path.join(work, "stream.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    part = stream(8, False, checkpoint_path=ckpt, checkpoint_every=8, max_frames=16)
+    resumed = stream(8, False, checkpoint_path=ckpt, checkpoint_every=8)
+    whole = stream_states["stream capture batch=8"]
+    same = (part.frame_index == 16 and resumed.frame_index == whole.frame_index == 32
+            and resumed.metric_sums == whole.metric_sums
+            and resumed.metric_counts == whole.metric_counts
+            and torch.equal(resumed.buffer.depth, whole.buffer.depth)
+            and torch.equal(resumed.buffer.weight, whole.buffer.weight))
+    print(f"stream resume: stopped at frame {part.frame_index}, resumed to "
+          f"{resumed.frame_index}; buffer and metric sums equal to the uninterrupted run: {same}")
+    if not same:
+        _fail("stream: the resumed run differs from the uninterrupted one")
+
+    print(f"phase 8 (c) P4: {time.perf_counter() - t_phase8:.1f} s")
+    # (d) P5: enhance for the six pipelines through files (the XML holds each
+    # f32 as %.9g, which round-trips exactly): the refined depth equal to the
+    # pipeline's output on the same arrays; kde with --ply, --png, --debug-dir
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import (
+        rgbf_pipeline, spdsp_pipeline, tof_pipeline,
+    )
+
+    d0, c0 = depth4[0], color4[0]
+    raw0 = projective_to_real(d0, intr)
+    direct = {
+        "jbf": lambda: jbf_pipeline(d0, c0),
+        "mrf": lambda: mrf_pipeline(d0, c0),
+        "rgbf": lambda: rgbf_pipeline(d0, raw0, c0).refined_depth,
+        "kde": lambda: kde_pipeline(d0, c0, intr, cfg).optimized_points[..., 2],
+        "spdsp": lambda: spdsp_pipeline(d0, raw0, c0, intr).optimized_points[..., 2],
+        "tof": lambda: tof_pipeline(d0, raw0, c0, intr).plane_fitted[..., 2],
+    }
+    depth_xml = os.path.join(work, "depth.xml")
+    kio.write_filestorage_xml(depth_xml, {"depth": scenes[0][1]})
+    from PIL import Image
+
+    color_png = os.path.join(work, "color.png")
+    Image.fromarray(scenes[0][0]).save(color_png)
+    ply, png, dbg = (os.path.join(work, f) for f in ("cloud.ply", "depth.png", "debug"))
+    shutil.rmtree(dbg, ignore_errors=True)
+    reset_counts()
+    for name in cli.PIPELINES:
+        out_xml = os.path.join(work, f"refined_{name}.xml")
+        t0 = time.perf_counter()
+        extra = ["--ply", ply, "--png", png, "--debug-dir", dbg] if name == "kde" else []
+        rc = cli.main(["enhance", "--depth", depth_xml, "--color", color_png,
+                       "--pipeline", name, "--out", out_xml] + extra)
+        if rc != 0:
+            _fail(f"enhance --pipeline {name} returned {rc}")
+        torch.cuda.synchronize()
+        slice_ms[f"enhance {name}"] = (time.perf_counter() - t0) * 1e3
+        got = kio.read_filestorage_xml(out_xml)["depth"]
+        want = direct[name]().cpu().numpy()
+        if not np.array_equal(got, want):
+            _fail(f"enhance --pipeline {name}: the refined depth differs from the pipeline's")
+        print(f"enhance --pipeline {name}: refined depth equal to the pipeline's output "
+              f"({slice_ms[f'enhance {name}']:.1f} ms through the files)")
+    path_counts["enhance"] = counts()
+    if any(path_counts["enhance"][k] == 0 for k in all_kernels):
+        _fail(f"enhance: a kernel was never launched: {path_counts['enhance']}")
+    renders = sorted(os.listdir(dbg))
+    if len(renders) != 4:
+        _fail(f"enhance --debug-dir wrote {renders}")
+    with open(ply) as f:
+        head = [f.readline() for _ in range(3)]
+    with Image.open(png) as im:
+        size = im.size
+    print(f"enhance kde: {head[2].strip()} in {ply}, {png} {size}, renders {renders}")
+    if head[0].strip() != "ply" or size != (w, h):
+        _fail("enhance kde: the PLY or PNG output is malformed")
+    print(f"phase 8: {time.perf_counter() - t_phase8:.1f} s")
+    print("slice paths: " + json.dumps({"ms": slice_ms, "checks": slice_out, "profiles": {
+        k: {"activities": v["activities"], "busy_ms": v["busy_ms"],
+            "wall_ms": v.get("wall_ms"),
+            "kde.normals_ms": v.get("kde.normals", {}).get("device_ms")}
+        for k, v in slice_prof.items()}, "launches": {
+        k: path_counts[k] for k in path_counts if k.split()[0] in (
+            "sdc", "bilateral", "stream", "mrf", "enhance")}}))
+
+    # ---- phase 9: summary lines, one JSON entry per TPU kernel; a second
     # form of a kernel (colour-only gradient, analyze-mode sums, the shapes
     # of phase 6's paths) is checked and timed beside its main-path form
     # above, and listed under the row's "forms" with its launches by path

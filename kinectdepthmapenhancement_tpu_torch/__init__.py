@@ -11,12 +11,18 @@ kernel or raises.
 Layout
 ------
 core/      config dataclasses, camera model, procedural test scenes, the
-           Kinect v1 sensor model
-ops/       stencils, JBF, CM normals, tables, NASP (cell, capped and global
-           routes), CCL normal and plane merges, plane stage and hole fill,
-           and the kernel wrappers cuda_{bilateral,dt,cov,gradient,nasp}.py
-models/    kde_pipeline, jbf_pipeline
+           Kinect v1 sensor model, the temporal depth buffer (buffer2d),
+           FileStorage XML and image IO, the entry points' device
+ops/       stencils, JBF and MRF, integral images, CM / SDC / bilateral
+           normals, tables, SLIC (NASP, SP, DASP; cell, capped and global
+           routes), ERS, CCL normal, plane and PCA merges, plane stage,
+           PCA planes, MRF sweeps and hole fill, and the kernel wrappers
+           cuda_{bilateral,dt,cov,gradient,nasp}.py
+models/    pipelines (kde, jbf, mrf, rgbf, spdsp, tof), streaming (run_stream)
 utils/     call timing (CUDA events), device timing (profiler), golden and
-           far-range gates, depth metrics
-convert.py carries the JAX package's config and intrinsics across
+           far-range gates, depth metrics, checkpoints, debug renders,
+           kernel variants
+cli.py     `python -m kinectdepthmapenhancement_tpu_torch enhance ...`
+convert.py carries the JAX package's config, intrinsics and streaming
+           state across
 """

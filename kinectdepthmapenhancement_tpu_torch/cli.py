@@ -1,0 +1,148 @@
+"""Command-line interface: the reference's file-replay entry point
+(main.cpp:139-201), the PyTorch counterpart of the JAX package's cli.py.
+
+  python -m kinectdepthmapenhancement_tpu_torch enhance \\
+      --depth experiment/depth.xml --color experiment/color.jpg \\
+      --pipeline kde --out refined.xml [--ply cloud.ply] [--png depth.png] \\
+      [--debug-dir dbg/] [--device cuda]
+
+`enhance` reads a cv::FileStorage XML depth ("depth" node, mm) and a colour
+image, runs one pipeline on the device (the card unless --device says
+otherwise; without a card "cuda" raises), writes the refined depth back as
+FileStorage XML and optional PLY / PNG renders.  The work after the file
+reads is `enhance`, a function of arrays.  `evaluate` (the timing and
+accuracy harness) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from kinectdepthmapenhancement_tpu_torch.core import io
+from kinectdepthmapenhancement_tpu_torch.core.camera import (
+    default_kinect_intrinsics,
+    projective_to_real,
+)
+from kinectdepthmapenhancement_tpu_torch.core.config import (
+    KDEConfig,
+    RGBFConfig,
+    SPDSPConfig,
+    TOFConfig,
+)
+from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
+from kinectdepthmapenhancement_tpu_torch.models import pipelines
+from kinectdepthmapenhancement_tpu_torch.utils import visualize
+
+PIPELINES = ("jbf", "mrf", "rgbf", "kde", "spdsp", "tof")
+
+
+class Enhanced(NamedTuple):
+    refined: np.ndarray   # f32 [H, W] mm
+    points: torch.Tensor  # [H, W, 3] mm, on the device
+    color: torch.Tensor   # u8 [H, W, 3], on the device
+
+
+def enhance(depth: np.ndarray, color: np.ndarray, pipeline: str = "kde", *, device="cuda",
+            debug_dir: Optional[str] = None) -> Enhanced:
+    """Run `pipeline` on one frame: depth f32 [H, W] mm and color u8
+    [H, W, 3] NumPy arrays.  Returns the refined depth (NumPy), the point
+    map and colour on the device; debug_dir (kde only) receives the
+    segmentation, label, normal and depth renders."""
+    dev = resolve_device(device)
+    h, w = depth.shape
+    if color.shape[:2] != (h, w):
+        raise ValueError(f"color {color.shape[:2]} != depth {(h, w)}")
+    intr = default_kinect_intrinsics(w, h)
+    d = torch.from_numpy(np.array(depth, dtype=np.float32)).to(dev)
+    c = torch.from_numpy(np.array(color, dtype=np.uint8)).to(dev)
+    if pipeline in ("jbf", "mrf"):
+        fn = pipelines.jbf_pipeline if pipeline == "jbf" else pipelines.mrf_pipeline
+        refined = fn(d, c)
+        points = projective_to_real(refined, intr)
+    elif pipeline == "rgbf":
+        refined = pipelines.rgbf_pipeline(d, projective_to_real(d, intr), c,
+                                          RGBFConfig()).refined_depth
+        points = projective_to_real(refined, intr)
+    elif pipeline == "kde":
+        cfg = KDEConfig()
+        res = pipelines.kde_pipeline(d, c, intr, cfg)
+        points = res.optimized_points
+        refined = points[..., 2]
+        if debug_dir:
+            written = visualize.dump_kde_debug(debug_dir, res, c, cfg.grid.num_clusters)
+            print(f"wrote {len(written)} debug renders to {debug_dir}")
+    elif pipeline == "spdsp":
+        points = pipelines.spdsp_pipeline(d, projective_to_real(d, intr), c, intr,
+                                          SPDSPConfig()).optimized_points
+        refined = points[..., 2]
+    elif pipeline == "tof":
+        points = pipelines.tof_pipeline(d, projective_to_real(d, intr), c, intr,
+                                        TOFConfig()).plane_fitted
+        refined = points[..., 2]
+    else:
+        raise ValueError(f"unknown pipeline {pipeline!r}")
+    return Enhanced(refined=refined.cpu().numpy(), points=points, color=c)
+
+
+def _cmd_enhance(args: argparse.Namespace) -> int:
+    color = io.imread_rgb(args.color)
+    mats = io.read_filestorage_xml(args.depth)
+    if args.depth_node not in mats:
+        raise SystemExit(f"node {args.depth_node!r} not in {args.depth} (has {list(mats)})")
+    depth = mats[args.depth_node].astype(np.float32)
+    if color.shape[:2] != depth.shape:
+        raise SystemExit(f"color {color.shape[:2]} != depth {depth.shape}")
+    out = enhance(depth, color, args.pipeline, device=args.device, debug_dir=args.debug_dir)
+    io.write_filestorage_xml(args.out, {"depth": out.refined})
+    print(f"wrote {args.out}")
+    if args.ply:
+        cloud = visualize.point_cloud(out.points, out.color)
+        visualize.save_ply(args.ply, cloud)
+        print(f"wrote {args.ply} ({cloud.shape[0]} points)")
+    if args.png:
+        visualize.save_png(args.png, visualize.depth_rgb(torch.from_numpy(out.refined)))
+        print(f"wrote {args.png}")
+    return 0
+
+
+def _cmd_evaluate(args: argparse.Namespace) -> int:
+    raise NotImplementedError(
+        "evaluate is not ported yet (ROADMAP Queue A9b: utils/evaluate.py, "
+        "core/datasets.py, the evaluate command)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="kinectdepthmapenhancement_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    en = sub.add_parser("enhance", help="run one pipeline on a depth+color frame")
+    en.add_argument("--depth", required=True, help="cv::FileStorage XML depth file")
+    en.add_argument("--depth-node", default="depth", help="matrix node name")
+    en.add_argument("--color", required=True, help="color image (jpg/png)")
+    en.add_argument("--pipeline", default="kde", choices=PIPELINES)
+    en.add_argument("--out", required=True, help="output FileStorage XML path")
+    en.add_argument("--ply", help="optional point-cloud PLY output")
+    en.add_argument("--png", help="optional depth render PNG output")
+    en.add_argument(
+        "--debug-dir",
+        help="write the segmentation/labelImage/normals/depth renders (KDE only; "
+        "the reference's always-on imwrite hooks, KinectDepthEnhancement.cpp:69,77)",
+    )
+    en.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    en.set_defaults(fn=_cmd_enhance)
+
+    ev = sub.add_parser("evaluate", help="timing + accuracy harness (not ported yet)")
+    ev.add_argument("out", help="output text file")
+    ev.set_defaults(fn=_cmd_evaluate)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

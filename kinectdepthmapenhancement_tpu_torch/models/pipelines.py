@@ -1,10 +1,11 @@
-"""The enhancement pipelines: JBF, RGBF, KDE ("PROPOSED"), SPDSP, TOF.
+"""The enhancement pipelines: JBF, MRF, RGBF, KDE ("PROPOSED"), SPDSP, TOF.
 
 PyTorch counterpart of the JAX package's models/pipelines.py:
   * kde_pipeline (KinectDepthEnhancement::Process,
     KinectDepthEnhancement.cpp:56-81): JBF -> projective-to-real -> CM
-    normals -> NASP -> CCL merge (normal merge, or the plane-consistency
-    merge) -> plane projection with variance_optimization, the optional
+    normals (or SDC / bilateral) -> NASP -> CCL merge (normal merge, or
+    the plane-consistency merge) -> plane projection with
+    variance_optimization, the optional
     plane hole fill, and the depth bilateral;
   * rgbf_pipeline (RegionGrowingBilateralFilter::Process): colour SLIC and
     depth SLIC (both the DASP variant) -> edge-refined superpixels;
@@ -12,14 +13,15 @@ PyTorch counterpart of the JAX package's models/pipelines.py:
     TOFDepthInterpolation::Process): RGBF's front end at 5 iterations ->
     per-cluster PCA planes -> projection (SPDSP: 20 MRF sweeps; TOF: the
     PCA merge, no optimisation);
-  * jbf_pipeline, the JBF baseline.
+  * jbf_pipeline and mrf_pipeline, the JBF and MRF baselines.
 
 On a CUDA device the stencil stages run in the port's hand-written kernels
 (JBF, chamfer DT, covariance sweep, seed gradient in its NASP and colour
 forms) and, on the default stats_impl="auto" route, so do NASP's
 statistics and every cell-local gather and segment sum (ops/cuda_nasp.py);
-everything else is plain PyTorch (ERS, the MRF sweeps and the assignment
-sweeps of SP / DASP have no TPU kernel).  On the CPU every stage is plain
+everything else is plain PyTorch (ERS, the MRF baseline and sweeps, the
+SDC and bilateral normals and the assignment sweeps of SP / DASP have no
+TPU kernel).  On the CPU every stage is plain
 PyTorch.  Every pipeline takes [H, W] or [B, H, W] frames and returns its
 input's batching.
 """
@@ -101,6 +103,14 @@ def jbf_pipeline(depth: torch.Tensor, color: torch.Tensor, cfg: KDEConfig = KDEC
     return out if batched else out[0]
 
 
+def mrf_pipeline(depth: torch.Tensor, color: torch.Tensor, cfg: KDEConfig = KDEConfig()):
+    """Standalone MRF baseline (main.cpp:186): depth f32 [(B,) H, W] mm,
+    color u8 [(B,) H, W, 3] -> one MRF sweep, of the input's batching."""
+    batched, (depth, color) = _batch(depth, color)
+    out = bilateral.markov_random_field(depth, color, cfg.mrf)
+    return out if batched else out[0]
+
+
 def kde_pipeline(
     depth: torch.Tensor,
     color: torch.Tensor,
@@ -111,8 +121,9 @@ def kde_pipeline(
 
     depth: f32 [H, W] or [B, H, W] mm; color: u8 [H, W, 3] or [B, H, W, 3].
     The result keeps the input's batching.  Every KDEConfig of the JAX
-    package runs but the non-"cm" normal methods, which raise: both plane
-    gate modes (max_plane_residual 0.0025 or inf), plane_merge, fill_holes,
+    package runs: the three normal methods (the bilateral method skips the
+    smoothing map, so it runs neither the DT nor the covariance kernel),
+    both plane gate modes (max_plane_residual 0.0025 or inf), plane_merge, fill_holes,
     any number of NASP iterations and grids that do not divide the frame.
     CCL and the plane stage take slic.label_index's index (cell-local, or
     global); the single-iteration path makes no host sync."""

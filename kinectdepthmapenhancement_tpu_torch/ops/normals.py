@@ -1,4 +1,5 @@
-"""Normal-map generation, method "cm": SAMG smoothing-area map + CM normals.
+"""Normal-map generation: SAMG smoothing-area map, then CM, SDC or
+bilateral normals.
 
 PyTorch counterpart of the JAX package's ops/normals.py (NormalEstimation/
 {SmoothingAreaMapGenerator,NormalMapGenerator} in the reference).  Vertices
@@ -10,7 +11,10 @@ accumulation, the closed-form eigensolver, and the (-1, -1, -1) sentinel.
 
 The chamfer DT runs in ops/cuda_dt.py and the covariance sweep in
 ops/cuda_cov.py (CUDA kernels on the card, their plain versions on the
-CPU).  Methods "sdc" and "bilateral" are not ported yet and raise.
+CPU).  The SDC normals read f32 summed-area tables (ops/integral.py, summed
+in float64: see there) at each pixel's own window size, by gathers; the
+bilateral normals are the one-pixel cross product.  Neither has a TPU
+kernel behind it: both are plain PyTorch on every device.
 
 Image tensors carry a leading batch dimension: [B, H, W, ...].
 """
@@ -23,7 +27,7 @@ from typing import Tuple
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.config import NormalParams
-from kinectdepthmapenhancement_tpu_torch.ops import cuda_cov, cuda_dt, stencil
+from kinectdepthmapenhancement_tpu_torch.ops import cuda_cov, cuda_dt, integral, stencil
 
 BAD = -1.0
 FLT_EPSILON = 1.19209290e-07
@@ -211,6 +215,108 @@ def _rest_normals(normal: torch.Tensor, vertices_m: torch.Tensor) -> torch.Tenso
     return _final_flip(filled)
 
 
+def bilateral_normals(vertices_m: torch.Tensor) -> torch.Tensor:
+    """computeNormalBilateralGPU (NormalMapGenerator.cu:355-395): the
+    one-pixel cross product, sign-flipped, (-1,-1,-1) where z == 0."""
+    n, _, _ = _cross_product_normal(vertices_m)
+    flip = n * torch.tensor([-1.0, 1.0, -1.0], dtype=n.dtype, device=n.device)
+    bad = vertices_m[..., 2] == 0.0
+    return torch.where(bad[..., None], torch.full_like(flip, BAD), flip)
+
+
+def _box_channels(vertices_m: torch.Tensor) -> integral.CenteredIntegral:
+    """SDC's tables: z (0 where invalid) and the valid count.  (The JAX
+    package's nine-moment form for method "cm" has no caller: the CM
+    covariances are accumulated directly.)"""
+    return integral.build(vertices_m[..., 2:3], vertices_m[..., 2] != 0.0)
+
+
+MAX_RECT = 21  # ddsa = 20 + z/10 with z <= ~15 m caps the window at 21 px
+
+
+def _edge_shift(vertices_m: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """out[b, y, x] = vertices_m[b, y + dy, x + dx] with the indices clamped
+    to the image (the JAX package's slice of the edge-padded image), for
+    per-pixel offsets dy, dx [B, H, W]."""
+    b, h, w, _ = vertices_m.shape
+    dev = vertices_m.device
+    y = torch.clamp(torch.arange(h, device=dev)[:, None] + dy, 0, h - 1)
+    x = torch.clamp(torch.arange(w, device=dev)[None, :] + dx, 0, w - 1)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    return vertices_m[bi, y, x]
+
+
+def sdc_normals(
+    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int
+) -> torch.Tensor:
+    """computeNormalSDC_GPU (NormalMapGenerator.cu:29-120), stale-flip FIXED,
+    with the JAX package's quirks: pU one row up and one column left (the
+    reference's -r4*width - 1), the window size truncated to int, sizes
+    from 21 up clamped to 21, and a strict `>` in the border test.
+
+    The JAX package loops over the 20 window sizes with fixed-offset slices
+    and selects per pixel; here each pixel reads the four corners of each
+    box at its own size's offsets (integral's gather form): the same table
+    values and the same additions.  A pixel whose size is below 2 has
+    smoothing < 2 and is invalid either way."""
+    _, h, w = smoothing.shape
+    dev = smoothing.device
+    ci = _box_channels(vertices_m)
+    pi = integral.pad_tables(ci, MAX_RECT + 3, h, w)
+    v = torch.arange(h, device=dev)[:, None]
+    u = torch.arange(w, device=dev)[None, :]
+    in_border = (u < border) | (u > w - border) | (v < border) | (v > h - border)
+
+    s = torch.clamp(smoothing.to(torch.int32), 2, MAX_RECT).to(torch.int64)
+    r2, r4 = s >> 1, s >> 2
+    cont = integral.fixed_box_count(pi, -r2 - 1, -r2 - 1, s, s)
+    cL = integral.fixed_box_count(pi, -r2 - 1, -r4 - 1, r2, r2)
+    cR = integral.fixed_box_count(pi, 0, -r4 - 1, r2, r2)
+    cU = integral.fixed_box_count(pi, -r4 - 1, -r2 - 1, r2, r2)
+    cD = integral.fixed_box_count(pi, -r4 - 1, 0, r2, r2)
+    sL = integral.fixed_box_sum(pi, 0, -r2 - 1, -r4 - 1, r2, r2)
+    sR = integral.fixed_box_sum(pi, 0, 0, -r4 - 1, r2, r2)
+    sU = integral.fixed_box_sum(pi, 0, -r4 - 1, -r2 - 1, r2, r2)
+    sD = integral.fixed_box_sum(pi, 0, -r4 - 1, 0, r2, r2)
+    zero = torch.zeros_like(s)
+    pL = _edge_shift(vertices_m, zero, -r4 - 1)
+    pR = _edge_shift(vertices_m, zero, r4 + 1)
+    pU = _edge_shift(vertices_m, -r4, zero - 1)  # reference: -r4*width - 1
+    pD = _edge_shift(vertices_m, r4, zero + 1)
+
+    mL = sL / torch.clamp_min(cL, 1.0)
+    mR = sR / torch.clamp_min(cR, 1.0)
+    mU = sU / torch.clamp_min(cU, 1.0)
+    mD = sD / torch.clamp_min(cD, 1.0)
+
+    mean_x_z = mR - mL
+    mean_y_z = mD - mU
+    mean_x_x = pR[..., 0] - pL[..., 0]
+    mean_x_y = pR[..., 1] - pL[..., 1]
+    mean_y_x = pD[..., 0] - pU[..., 0]
+    mean_y_y = pD[..., 1] - pU[..., 1]
+
+    nx = mean_x_z * mean_y_y - mean_x_y * mean_y_z
+    ny = -(mean_x_x * mean_y_z - mean_x_z * mean_y_x)
+    nz = mean_x_y * mean_y_x - mean_x_x * mean_y_y
+    nlen2 = (nx * nx + ny * ny) + nz * nz
+
+    cos_theta = -((vertices_m[..., 0] * nx + vertices_m[..., 1] * ny)
+                  + vertices_m[..., 2] * nz)
+    sgn = torch.where(cos_theta <= 0.0, -1.0, 1.0)
+    scale = sgn / torch.sqrt(torch.clamp_min(nlen2, 1e-30))
+    n = torch.stack([nx, ny, nz], dim=-1) * scale[..., None]
+
+    bad = (
+        in_border
+        | (smoothing <= 2.0)
+        | (cont == 0)
+        | (cL == 0) | (cR == 0) | (cU == 0) | (cD == 0)
+        | (nlen2 == 0.0)
+    )
+    return torch.where(bad[..., None], torch.full_like(n, BAD), n)
+
+
 def cm_normals(
     vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int
 ) -> torch.Tensor:
@@ -246,17 +352,24 @@ def cm_normals(
 def generate_normal_map(
     points_mm: torch.Tensor, p: NormalParams = NormalParams()
 ) -> torch.Tensor:
-    """NormalMapGenerator::generateNormalMap (cu:513-524), method "cm":
-    mm -> m, smoothing map, CM normals, fill + flip.
+    """NormalMapGenerator::generateNormalMap (cu:513-524): mm -> m, then
+    the bilateral normals as they are, or the smoothing map, the SDC or CM
+    normals, fill + flip.
 
     points_mm: [B, H, W, 3] real-world points in millimetres.
     Returns normals [B, H, W, 3] with the (-1,-1,-1) invalid sentinel."""
-    if p.method in ("sdc", "bilateral"):
-        raise NotImplementedError(f"normal method {p.method!r} is not ported yet")
-    if p.method != "cm":
+    if p.method not in ("cm", "sdc", "bilateral"):
         raise ValueError(f"unknown normal method {p.method!r}")
-    vm = points_mm / 1000.0
+    # mm -> m as the product with the f32 1/1000 on every device: PyTorch
+    # on CUDA and XLA under jit both turn the division into this product,
+    # PyTorch on the CPU would divide
+    vm = points_mm * (1.0 / 1000.0)
+    if p.method == "bilateral":
+        return bilateral_normals(vm)
     border = int(p.normal_smoothing_size)
     smooth = smoothing_map(vm, p)
-    raw = cm_normals(vm, smooth, border)
+    if p.method == "sdc":
+        raw = sdc_normals(vm, smooth, border)
+    else:
+        raw = cm_normals(vm, smooth, border)
     return _rest_normals(raw, vm)

@@ -9,9 +9,11 @@ result, so the CPU tests and chip_smoke.py hold the port to the same bar.
 The same gates hold the port against the JAX package's own kde_pipeline
 outputs, written by tests/gen_torch_fixtures.py: at 640x480 with
 KDEConfig() (kde_jax_640x480_seed0.npz) and at 96x128 under four more
-configs (kde_jax_96x128_ext_seed0.npz); and the JAX package's
-rgbf_pipeline, spdsp_pipeline and tof_pipeline at 96x128 and 640x480
-(dasp_jax_{96x128,640x480}_seed0.npz).  The fixtures are only read
+configs (kde_jax_96x128_ext_seed0.npz) and with the "sdc" and
+"bilateral" normal methods at both sizes (kde_jax_{96x128,640x480}_
+normals_seed0.npz, which also holds mrf_pipeline at 640x480); and the JAX
+package's rgbf_pipeline, spdsp_pipeline and tof_pipeline at 96x128 and
+640x480 (dasp_jax_{96x128,640x480}_seed0.npz).  The fixtures are only read
 (np.load): tests/golden.py rewrites a fixture whose key differs, so nothing
 here goes through it.
 
@@ -55,12 +57,14 @@ def load_fixture(refexact: bool) -> Dict[str, np.ndarray]:
 
 
 def _jax_outputs(z, prefix: str, intr: Intrinsics) -> Dict[str, np.ndarray]:
-    """A JAX fixture's arrays keyed as kde_gates reads them: labels as i32,
-    normals as f32, optimized_points rebuilt from the stored depth along
-    the unit-z rays (the pipeline's last step is rays * z)."""
-    h, w = z["jbf_depth"].shape
-    out = {k: z[k] for k in z.files if "__" not in k}
-    out.update({k.split("__", 1)[1]: z[k] for k in z.files if k.startswith(prefix + "__")})
+    """A JAX fixture's arrays (an npz or a dict) keyed as kde_gates reads
+    them: labels as i32, normals as f32, optimized_points rebuilt from the
+    stored depth along the unit-z rays (the pipeline's last step is
+    rays * z)."""
+    names = list(getattr(z, "files", z))
+    out = {k: z[k] for k in names if "__" not in k}
+    out.update({k.split("__", 1)[1]: z[k] for k in names if k.startswith(prefix + "__")})
+    h, w = out["jbf_depth"].shape
     for k in ("nasp_labels", "merged_labels", "seeds"):
         if k in out:
             out[k] = out[k].astype(np.int32)
@@ -91,6 +95,38 @@ def load_jax_ext(name: str) -> Dict[str, np.ndarray]:
         return _jax_outputs(z, name, default_kinect_intrinsics(128, 96))
 
 
+NORMAL_METHODS = ("sdc", "bilateral")  # gen_torch_fixtures.NORMAL_METHODS
+
+
+def load_jax_normals(size: str, method: str) -> Dict[str, np.ndarray]:
+    """The JAX kde_pipeline outputs with normals.method `method`, keyed as
+    kde_gates reads them: at "96x128" on scene_96x128() (grid 3x4, with
+    merged_sizes and the full normals); at "640x480" on the frame of
+    load_jax_640x480() (KDEConfig()'s grid), whose JBF depth is that
+    fixture's, with the normals' validity ("normal_valid", [H, W]) and the
+    normals on every 4th row and column ("normals_sub4") in place of the
+    normals."""
+    if size == "96x128":
+        with np.load(os.path.join(FIXTURES, "kde_jax_96x128_normals_seed0.npz")) as z:
+            return _jax_outputs(z, method, default_kinect_intrinsics(128, 96))
+    with np.load(os.path.join(FIXTURES, "kde_jax_640x480_normals_seed0.npz")) as z, \
+            np.load(os.path.join(FIXTURES, "kde_jax_640x480_seed0.npz")) as cm:
+        arrays = {f"{method}__{k}": cm[k] for k in ("jbf_depth", "optimized_z")}
+        arrays.update({k: z[k] for k in z.files if k.startswith(method + "__")})
+    arrays[f"{method}__optimized_z"] = (arrays[f"{method}__optimized_z"]
+                                        + arrays.pop(f"{method}__optimized_z_minus_cm"))
+    out = _jax_outputs(arrays, method, default_kinect_intrinsics(640, 480))
+    out["normal_valid"] = np.unpackbits(out["normal_valid"])[: 480 * 640].reshape(480, 640) > 0
+    out["normals_sub4"] = out["normals_sub4"].astype(np.float32)
+    return out
+
+
+def load_jax_mrf_640x480() -> np.ndarray:
+    """The JAX mrf_pipeline output on the frame of load_jax_640x480()."""
+    with np.load(os.path.join(FIXTURES, "kde_jax_640x480_normals_seed0.npz")) as z:
+        return z["mrf__depth"]
+
+
 def _endpoint_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> Gate:
     gates: Gate = {}
     got_l = got["nasp_labels"]
@@ -111,9 +147,16 @@ def kde_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> 
     worst = float(jd.max())
     gates["jbf_allclose_excess_mm"] = (worst, 0.25, worst <= 0.25)
 
-    got_n, wn = got["normals"], want["normals"]
-    gv, wv = (got_n != -1.0).any(-1), (wn != -1.0).any(-1)
-    flags = float((gv == wv).mean())
+    got_n = got["normals"]
+    gv = (got_n != -1.0).any(-1)
+    if "normals" in want:
+        wn = want["normals"]
+        wv = (wn != -1.0).any(-1)
+        flags = float((gv == wv).mean())
+    else:  # the validity at every pixel, the normals on every 4th row and column
+        flags = float((gv == want["normal_valid"]).mean())
+        got_n, wn = got_n[::4, ::4], want["normals_sub4"]
+        gv, wv = gv[::4, ::4], want["normal_valid"][::4, ::4]
     gates["normal_flags_match"] = (flags, 0.995, flags > 0.995)
     both_zero = (np.linalg.norm(got_n, axis=-1) < 1e-6) & (np.linalg.norm(wn, axis=-1) < 1e-6)
     ok = both_zero | (np.abs(np.sum(got_n * wn, axis=-1)) > 0.999)
@@ -128,6 +171,28 @@ def kde_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> 
     gates["merged_invalid_agreement"] = (inv, 0.995, inv > 0.995)
     part, total = partition_agreement(got_m[stable], want_m[stable])
     gates["merged_partition_agreement"] = (part, 0.995, total > 0 and part > 0.995)
+    return gates
+
+
+# SDC's bars at 640x480 against the JAX package: the SDC normal is
+# ill-conditioned in the f32 summed-area tables, which the two packages sum
+# in different orders (ops/integral.py).  On make_noisy_scene(480, 640,
+# seed=0), the port on the CPU: normal directions agree on 0.9820 of the
+# pixels and NASP labels on 0.9716 (52 of 300 seeds move; 0.9887 with the
+# JAX seeds), while the merged partition and the optimized points pass
+# kde_gates' bars (1.0 and 1.0).
+SDC_640X480_BARS = {"normal_direction_agreement": 0.97, "nasp_label_agreement": 0.95}
+
+
+def normal_method_gates(method: str, got: Mapping[str, np.ndarray],
+                        want: Mapping[str, np.ndarray]) -> Gate:
+    """kde_gates for KDE under normals.method `method` at 640x480 against
+    load_jax_normals("640x480", method), with SDC_640X480_BARS for "sdc"."""
+    gates = kde_gates(got, want)
+    if method == "sdc":
+        for name, lim in SDC_640X480_BARS.items():
+            val = gates[name][0]
+            gates[name] = (val, lim, val > lim)
     return gates
 
 

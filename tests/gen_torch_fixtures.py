@@ -1,6 +1,6 @@
 """Generate the JAX-package fixtures the PyTorch port is held against.
 
-    python tests/gen_torch_fixtures.py [full] [ext] [stages] [dasp]
+    python tests/gen_torch_fixtures.py [full] [ext] [stages] [dasp] [normals] [refs]
 
 Not a test module (pytest collects test_*.py only).  Runs the JAX package
 on the CPU and writes, with np.savez_compressed, under tests/golden/:
@@ -41,6 +41,34 @@ on the CPU and writes, with np.savez_compressed, under tests/golden/:
           z and TOF's plane-fitted z (RGBF's refined depth would take the
           two files past 2 MB together: RGBF is held by its labels there).
 
+  normals kde_jax_96x128_normals_seed0.npz — kde_pipeline at 96x128 (the
+          oracle scene, grid 3x4) with normals.method "sdc" and
+          "bilateral": per method "<method>__nasp_labels",
+          "__merged_labels" (int16), "__merged_sizes", "__optimized_z",
+          "__normals" (f32) and "__seeds" (int16, sampled from those
+          normals), and jbf_depth once.
+          kde_jax_640x480_normals_seed0.npz — the same two methods with the
+          default grid on make_noisy_scene(480, 640, seed=0), the B=1
+          frame chip_smoke.py holds the card to: per method the label maps
+          (int16), the seeds, the normals' validity (packed bits), the
+          normals on every 4th row and column (f16) and the optimized z as
+          its f32 difference from the "cm" method's in kde_jax_640x480_
+          seed0.npz ("__optimized_z_minus_cm", checked to add back
+          exactly; all zeros on this frame, where the three methods give
+          the same optimized z); and mrf_pipeline's output on the same
+          frame ("mrf__depth", f32).  The JBF depth of that frame is
+          kde_jax_640x480_seed0.npz's.
+
+  refs    torch_refs_96x128_seed0.npz — the JAX and oracle outputs that
+          tests/test_torch_nasp.py and tests/test_torch_dasp.py hold the
+          port to, on the inputs those modules build from numpy seeds:
+          "nasp__*" the pallas_nasp kernels in interpret mode (each
+          parametrised case), the JAX points and normals of the NASP scene,
+          the JAX segment on the fused Pallas route, and the JAX weighted
+          update of the subnormal case; "dasp__*" the SLIC oracle's SP /
+          DASP segmentations, the JAX colour seeds and the JAX 5-iteration
+          DASP segmentations (~40 s).
+
 The fixtures are read with np.load only (tests/golden.py::cached would
 rewrite a fixture whose key differs).  Rerun a part after a change to the
 JAX package's code it runs; the port's tests then read the new arrays.
@@ -61,6 +89,10 @@ EXT = os.path.join(GOLDEN, "kde_jax_96x128_ext_seed0.npz")
 STAGES = os.path.join(GOLDEN, "torch_stages_96x128_seed0.npz")
 DASP_SMALL = os.path.join(GOLDEN, "dasp_jax_96x128_seed0.npz")
 DASP_FULL = os.path.join(GOLDEN, "dasp_jax_640x480_seed0.npz")
+REFS = os.path.join(GOLDEN, "torch_refs_96x128_seed0.npz")
+NORMALS_SMALL = os.path.join(GOLDEN, "kde_jax_96x128_normals_seed0.npz")
+NORMALS_FULL = os.path.join(GOLDEN, "kde_jax_640x480_normals_seed0.npz")
+NORMAL_METHODS = ("sdc", "bilateral")
 FULL_MAX_BYTES = 3 * 2**20
 
 
@@ -278,7 +310,190 @@ def gen_dasp():
     _save(DASP_FULL, _dasp_run(480, 640, None, small=False))
 
 
+def _nasp_refs():
+    """The JAX outputs test_torch_nasp.py reads, keyed by case."""
+    _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.camera import (
+        default_kinect_intrinsics, projective_to_real,
+    )
+    from kinectdepthmapenhancement_tpu.core.config import NormalParams
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu.ops import normals, pallas_nasp, slic
+
+    import test_torch_nasp as t
+
+    out = {}
+    intr = default_kinect_intrinsics(t.W, t.H)
+    color, noisy, _ = make_noisy_scene(t.H, t.W, intr, seed=5)
+    pts = projective_to_real(jnp.asarray(noisy), intr)
+    nmap = normals.generate_normal_map(pts, NormalParams(cov_impl="xla", dt_impl="xla"))
+    out["scene_points"], out["scene_normals"] = np.asarray(pts), np.asarray(nmap)
+    seeds = t.scene_seeds()
+    cl = slic.init_clusters(jnp.asarray(seeds), jnp.asarray(color), pts, nmap)
+    cand = np.concatenate(
+        [np.asarray(cl.rgb), np.asarray(cl.xy).astype(np.float32),
+         np.asarray(cl.center)[:, 2:3], np.asarray(cl.normal)], axis=-1,
+    ).reshape(t.GRID.rows, t.GRID.cols, 9)
+    out["assign_cand"] = cand
+    for r in t.ASSIGN_R:
+        res = pallas_nasp.nasp_assign_and_analyze(
+            jnp.asarray(color, jnp.float32), pts, nmap, jnp.asarray(cand), interpret=True,
+            **t.assign_kw(r))
+        for name, a in zip(("labels", "distance", "sums"), res):
+            out[f"assign_r{r}__{name}"] = np.asarray(a)
+    for mode, r, label_map in t.CELL_SUMS_CASES:
+        args, kw = t.cell_sums_inputs(mode, r, label_map)
+        out[f"cell_sums_{mode}_r{r}_{label_map}"] = np.asarray(pallas_nasp.nasp_cell_sums(
+            *(jnp.asarray(a) for a in args), interpret=True, **kw))
+    for f, r in t.LABEL_SUMS_CASES:
+        labels, feats = t.label_sums_inputs(f, r)
+        out[f"label_sums_f{f}_r{r}"] = np.asarray(pallas_nasp.label_cell_sums(
+            jnp.asarray(labels), jnp.asarray(feats), interpret=True, **dict(t.CELL, r=r)))
+    for f, r in t.GATHER_CASES:
+        labels, table = t.gather_inputs(f, r)
+        out[f"gather_f{f}_r{r}"] = np.asarray(pallas_nasp.label_cell_gather(
+            jnp.asarray(labels), jnp.asarray(table), interpret=True, **dict(t.CELL, r=r)))
+    slic.force_cell(True)
+    slic.tables.force_mode("mxu")
+    try:
+        seg = slic.segment(
+            jnp.asarray(color), pts, nmap, grid=t.GRID,
+            params=dataclasses.replace(t.PARAMS, stats_impl="pallas"), variant="nasp",
+            seeds=jnp.asarray(seeds))
+    finally:
+        slic.force_cell(None)
+        slic.tables.force_mode(None)
+    out["segment__labels"], out["segment__distance"] = np.asarray(seg.labels), np.asarray(
+        seg.distance)
+    for name in t.CLUSTER_FIELDS:
+        out[f"segment__{name}"] = np.asarray(getattr(seg.clusters, name))
+    labels, color_f, points, normals_, cl = t.subnormal_inputs()
+    idx = slic._CellIndex(jnp.asarray(labels), t.GRID, t.R, t.H, t.W, kernel_sums=False)
+    upd = slic._update_nasp_weighted(
+        idx, jnp.asarray(labels), slic.Clusters(**{k: jnp.asarray(v) for k, v in cl.items()}),
+        jnp.asarray(color_f), jnp.asarray(points), jnp.asarray(normals_), t.GRID,
+        dataclasses.replace(t.PARAMS, stats_impl="xla"), t.SUBNORMAL_WINDOW, t.H, t.W)
+    for name in t.CLUSTER_FIELDS:
+        out[f"subnormal__{name}"] = np.asarray(getattr(upd, name))
+    return {f"nasp__{k}": v for k, v in out.items()}
+
+
+def _dasp_refs():
+    """The oracle and JAX outputs test_torch_dasp.py reads, keyed by case."""
+    _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.config import SLICParams
+    from kinectdepthmapenhancement_tpu.ops import slic
+
+    import oracle_slic
+    import test_torch_dasp as t
+
+    out = {}
+    small = t.small_scene_arrays()
+    color, _, points = t.crop(small)
+    for name, (variant, sig, iters) in t.ORACLE_CASES.items():
+        want = oracle_slic.slic_segment(
+            color, None if variant == "sp" else points, None, 3, 4, *sig, iters, variant)
+        for f in ("labels", "rgb", "xy", "center"):
+            out[f"oracle_{name}__{f}"] = np.asarray(want[f])
+    for variant, window in t.SEED_CASES:
+        for h, w in t.SEED_SIZES:
+            cf = small["color"][:h, :w].astype(np.float32)
+            out[f"seeds_{variant}_{h}x{w}"] = np.asarray(slic._compute_seeds(
+                jnp.asarray(cf), None, t.GRID, h, w, window, variant, grad_impl="xla"))
+    for name, sig in t.FIVE_ITER_CASES.items():
+        res = slic.segment(jnp.asarray(color), jnp.asarray(points), None, grid=t.GRID,
+                           params=SLICParams(*sig, 5), variant="dasp")
+        out[f"five_{name}__labels"] = np.asarray(res.labels)
+        out[f"five_{name}__xy"] = np.asarray(res.clusters.xy)
+        out[f"five_{name}__center"] = np.asarray(res.clusters.center)
+    return {f"dasp__{k}": v for k, v in out.items()}
+
+
+def gen_refs():
+    arrays = {}
+    for name, fn in (("nasp", _nasp_refs), ("dasp", _dasp_refs)):
+        t0 = time.time()
+        arrays.update(fn())
+        print(f"{name} refs: {time.time() - t0:.1f} s")
+    _save(REFS, arrays)
+
+
+def normal_configs(grid=None):
+    """KDEConfig under each of NORMAL_METHODS (JAX), on `grid` (default 15x20)."""
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
+
+    base = KDEConfig() if grid is None else dataclasses.replace(KDEConfig(), grid=grid)
+    return {m: dataclasses.replace(base, normals=dataclasses.replace(base.normals, method=m))
+            for m in NORMAL_METHODS}
+
+
+def _minus_cm(z):
+    """z - the cm method's optimized z at 640x480 (FULL), checked to add
+    back to z exactly."""
+    with np.load(FULL) as f:
+        cm = f["optimized_z"]
+    d = (z - cm).astype(np.float32)
+    if not np.array_equal(cm + d, z):
+        raise ValueError("optimized z does not round-trip through its difference from cm's")
+    return d
+
+
+def _normals_run(h, w, grid, small):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu.models import pipelines
+    from kinectdepthmapenhancement_tpu.ops import slic
+
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
+    d, c = jnp.asarray(noisy), jnp.asarray(color)
+    arrays = {}
+    for name, cfg in normal_configs(grid).items():
+        t0 = time.time()
+        res = jax.jit(lambda d, c, cfg=cfg: pipelines.kde_pipeline(d, c, intr, cfg))(d, c)
+        res = jax.tree_util.tree_map(np.asarray, res)
+        seeds = jax.jit(lambda c, n, cfg=cfg: slic._compute_seeds(
+            c, n, cfg.grid, h, w, 8, "nasp", grad_impl=cfg.nasp.grad_impl))(
+            jnp.asarray(color, jnp.float32), jnp.asarray(res.normals))
+        print(f"{name} {h}x{w}: {time.time() - t0:.1f} s")
+        out = dict(nasp_labels=res.nasp_labels.astype(np.int16),
+                   merged_labels=res.merged_labels.astype(np.int16),
+                   optimized_z=res.optimized_points[..., 2].astype(np.float32),
+                   seeds=np.asarray(seeds).astype(np.int16))
+        if small:
+            out.update(merged_sizes=res.merged_sizes.astype(np.int32),
+                       normals=res.normals.astype(np.float32))
+            arrays.setdefault("jbf_depth", res.jbf_depth.astype(np.float32))
+        else:
+            out.update(normal_valid=np.packbits((res.normals != -1.0).any(-1)),
+                       normals_sub4=res.normals[::4, ::4].astype(np.float16),
+                       optimized_z_minus_cm=_minus_cm(out.pop("optimized_z")))
+        arrays.update({f"{name}__{k}": v for k, v in out.items()})
+    if not small:
+        t0 = time.time()
+        arrays["mrf__depth"] = np.asarray(
+            jax.jit(pipelines.mrf_pipeline)(d, c)).astype(np.float32)
+        print(f"mrf {h}x{w}: {time.time() - t0:.1f} s")
+    return arrays
+
+
+def gen_normals():
+    _jax()
+    from kinectdepthmapenhancement_tpu.core.config import GridParams
+
+    _save(NORMALS_SMALL, _normals_run(96, 128, GridParams(rows=3, cols=4), small=True))
+    _save(NORMALS_FULL, _normals_run(480, 640, None, small=False))
+
+
 if __name__ == "__main__":
-    parts = sys.argv[1:] or ["full", "ext", "stages", "dasp"]
+    parts = sys.argv[1:] or ["full", "ext", "stages", "dasp", "normals", "refs"]
     for part in parts:
-        {"full": gen_full, "ext": gen_ext, "stages": gen_stages, "dasp": gen_dasp}[part]()
+        {"full": gen_full, "ext": gen_ext, "stages": gen_stages, "dasp": gen_dasp,
+         "normals": gen_normals, "refs": gen_refs}[part]()

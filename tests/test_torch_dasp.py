@@ -1,6 +1,11 @@
 """PyTorch port: the SP and DASP SLIC variants (ops/slic.py) against the
 NumPy oracle and the JAX package on the CPU.
 
+The oracle's and the JAX package's outputs on this module's inputs (the
+48x64 crop of the conftest scene) are committed: tests/golden/
+torch_refs_96x128_seed0.npz, written by `python tests/gen_torch_fixtures.py
+refs` from this module's case lists.
+
 Bars (tests/test_slic.py:_compare): labels and cluster xy EXACT, rgb
 within 1e-4, centres within rtol 1e-4 / 0.05 mm (the oracle sums in f64).
 Against the JAX package, with its seeds: labels and xy exact, centres
@@ -11,25 +16,51 @@ give equal labels; their tables differ in summation order only.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from kinectdepthmapenhancement_tpu.core.camera import projective_to_real
 from kinectdepthmapenhancement_tpu.core.config import GridParams, SLICParams
-from kinectdepthmapenhancement_tpu.ops import slic as js
 from kinectdepthmapenhancement_tpu_torch import convert
+from kinectdepthmapenhancement_tpu_torch.core.camera import (
+    default_kinect_intrinsics,
+    projective_to_real,
+)
+from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
 from kinectdepthmapenhancement_tpu_torch.ops import slic as ts
-
-import oracle_slic
 
 torch.set_num_threads(2)
 
 GRID = GridParams(rows=3, cols=4)
 TGRID = convert.config_from_jax(GRID)
+ORACLE_CASES = {  # name: (variant, (spatial, color, depth, normal sigma), iterations)
+    "sp": ("sp", (200.0, 40.0, 0.0, 0.0), 2),
+    "dasp": ("dasp", (100.0, 20.0, 200.0, 0.0), 2),
+    "dasp_depth_sigma0": ("dasp", (200.0, 10.0, 0.0, 0.0), 1),
+}
+SEED_CASES = [("sp", 16), ("dasp", 4)]
+SEED_SIZES = [(48, 64), (96, 128)]
+FIVE_ITER_CASES = {"color_slic": (200.0, 10.0, 0.0, 0.0), "depth_slic": (0.0, 10.0, 200.0, 0.0)}
+REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                    "torch_refs_96x128_seed0.npz")
+
+
+def small_scene_arrays():
+    """The conftest small_scene (make_noisy_scene(96, 128, seed=3))."""
+    intr = default_kinect_intrinsics(128, 96)
+    color, depth, _ = make_noisy_scene(96, 128, intr, seed=3)
+    return dict(color=color, depth=depth, intr=intr)
+
+
+def crop(small):
+    """The 48x64 crop tests/test_slic.py:_setup takes, with its points."""
+    h, w = 48, 64
+    color = small["color"][:h, :w]
+    depth = small["depth"][:h, :w]
+    points = projective_to_real(torch.from_numpy(np.ascontiguousarray(depth)), small["intr"])
+    return color, depth, points.numpy().astype(np.float32)
 
 
 def _t(a):
@@ -37,13 +68,14 @@ def _t(a):
 
 
 @pytest.fixture(scope="module")
-def scene(small_scene):
-    """The 48x64 crop tests/test_slic.py:_setup takes, with its points."""
-    h, w = 48, 64
-    color = small_scene["color"][:h, :w]
-    depth = small_scene["depth"][:h, :w]
-    points = np.asarray(projective_to_real(jnp.asarray(depth), small_scene["intr"]))
-    return color, depth, points.astype(np.float32)
+def refs():
+    with np.load(REFS) as z:
+        return {k[len("dasp__"):]: z[k] for k in z.files if k.startswith("dasp__")}
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return crop(small_scene_arrays())
 
 
 def _segment(color, points, sig, iters, variant, **kw):
@@ -61,18 +93,13 @@ def _compare(got, want):
                                rtol=1e-4, atol=0.05)
 
 
-@pytest.mark.parametrize(
-    "variant,sig,iters",
-    [("sp", (200.0, 40.0, 0.0, 0.0), 2), ("dasp", (100.0, 20.0, 200.0, 0.0), 2),
-     ("dasp", (200.0, 10.0, 0.0, 0.0), 1)],
-    ids=["sp", "dasp", "dasp_depth_sigma0"],
-)
-def test_segment_matches_oracle(scene, variant, sig, iters):
+@pytest.mark.parametrize("name", list(ORACLE_CASES))
+def test_segment_matches_oracle(scene, refs, name):
     """tests/test_slic.py:45-79 on the port: SP, DASP, and DASP with
     depth_sigma = 0 (the colour SLIC of RGBF / SPDSP: no -1 labels)."""
+    variant, sig, iters = ORACLE_CASES[name]
     color, depth, points = scene
-    want = oracle_slic.slic_segment(
-        color, None if variant == "sp" else points, None, 3, 4, *sig, iters, variant)
+    want = {f: refs[f"oracle_{name}__{f}"] for f in ("labels", "rgb", "xy", "center")}
     got = _segment(color, points, sig, iters, variant)
     _compare(got, want)
     lab = got.labels[0].numpy()
@@ -82,24 +109,22 @@ def test_segment_matches_oracle(scene, variant, sig, iters):
         assert np.all(lab >= 0)
 
 
-@pytest.mark.parametrize("variant,window", [("sp", 16), ("dasp", 4)])
-def test_color_seeds_equal_jax(small_scene, variant, window):
+@pytest.mark.parametrize("variant,window", SEED_CASES)
+def test_color_seeds_equal_jax(refs, variant, window):
     """The colour seed gradient's argmin picks the JAX package's seeds at
     48x64 (SP's window 16 reads the whole-frame gradient, DASP's window 4
     the sub-grid) and at 96x128 (both on the sub-grid)."""
-    for h, w in ((48, 64), (96, 128)):
-        cf = small_scene["color"][:h, :w].astype(np.float32)
+    small = small_scene_arrays()
+    for h, w in SEED_SIZES:
+        cf = small["color"][:h, :w].astype(np.float32)
         assert ts._subgrid_ok(TGRID, h, w, window) == (variant == "dasp" or h == 96)
-        want = np.asarray(js._compute_seeds(jnp.asarray(cf), None, GRID, h, w, window, variant,
-                                            grad_impl="xla"))
         got = ts._compute_seeds(_t(cf), None, TGRID, h, w, window)[0].numpy()
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, refs[f"seeds_{variant}_{h}x{w}"])
 
 
-@pytest.mark.parametrize(
-    "sig,capped", [((200.0, 10.0, 0.0, 0.0), False), ((0.0, 10.0, 200.0, 0.0), True)],
-    ids=["color_slic", "depth_slic"])
-def test_dasp_five_iterations_routes(scene, sig, capped):
+@pytest.mark.parametrize("name,capped", [("color_slic", False), ("depth_slic", True)],
+                         ids=["color_slic", "depth_slic"])
+def test_dasp_five_iterations_routes(scene, refs, name, capped):
     """SPDSP / TOF's 5-iteration DASP against the global route ("global")
     and the JAX package's segment (its global route on the CPU): labels and
     xy exactly, rgb within 1e-3, centres within rtol 1e-5 / 1e-3 mm
@@ -107,14 +132,13 @@ def test_dasp_five_iterations_routes(scene, sig, capped):
     within the cap of 3, so "auto" and "cell" take the capped route (each
     later update cell-local at r = 3); the colour SLIC's (spatial sigma 10
     of 210) leave it, so "auto" falls back to the global index."""
+    sig = FIVE_ITER_CASES[name]
     color, _, points = scene
     base = _segment(color, points, sig, 5, "dasp", locality="global")
-    jres = js.segment(jnp.asarray(color), jnp.asarray(points), None, grid=GRID,
-                      params=SLICParams(*sig, 5), variant="dasp")
-    np.testing.assert_array_equal(base.labels[0].numpy(), np.asarray(jres.labels))
-    np.testing.assert_array_equal(base.clusters.xy[0].numpy(), np.asarray(jres.clusters.xy))
-    np.testing.assert_allclose(base.clusters.center[0].numpy(),
-                               np.asarray(jres.clusters.center), rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(base.labels[0].numpy(), refs[f"five_{name}__labels"])
+    np.testing.assert_array_equal(base.clusters.xy[0].numpy(), refs[f"five_{name}__xy"])
+    np.testing.assert_allclose(base.clusters.center[0].numpy(), refs[f"five_{name}__center"],
+                               rtol=1e-5, atol=1e-3)
     assert bool(ts.labels_within_cap(base.labels, TGRID, 3, 48, 64).all()) == capped
     for locality in ("auto", "cell") if capped else ("auto",):
         fast = _segment(color, points, sig, 5, "dasp", locality=locality)
@@ -143,11 +167,12 @@ def test_dasp_label_index_takes_the_variant_cap(scene):
         ts.label_index(lab, TGRID, p, "bogus")
 
 
-def test_batched_segment_equals_per_frame(small_scene):
+def test_batched_segment_equals_per_frame():
     """[B, H, W] frames segment as each frame alone (two crops of the
     scene, 5-iteration depth SLIC: per-frame cap checks, batched sweeps)."""
+    small_scene = small_scene_arrays()
     intr = small_scene["intr"]
-    pts = np.asarray(projective_to_real(jnp.asarray(small_scene["depth"]), intr), np.float32)
+    pts = projective_to_real(torch.from_numpy(small_scene["depth"]), intr).numpy()
     crops = [(slice(0, 48), slice(0, 64)), (slice(48, 96), slice(64, 128))]
     colors = [small_scene["color"][c] for c in crops]
     points = [pts[c] for c in crops]

@@ -107,15 +107,15 @@ def test_kde_batched_equals_per_frame():
 
 
 def test_kde_unported_options_raise():
-    """The non-"cm" normal methods are the KDE options left unported
-    (plane_merge, fill_holes, later iterations and non-dividing grids run:
-    tests/test_torch_kde_ext.py)."""
+    """Every normal method of the JAX package runs (cm here; sdc and
+    bilateral: tests/test_torch_normal_methods.py); a method neither
+    package has raises ValueError, as the JAX package's generate_normal_map
+    does."""
     intr, color, noisy, grid = _scene()
     ti = convert.intrinsics_from_jax(intr)
-    for method in ("bilateral", "sdc"):
-        cfg = dataclasses.replace(KDEConfig(), grid=grid)
-        cfg = dataclasses.replace(cfg, normals=dataclasses.replace(cfg.normals, method=method))
-        with pytest.raises(NotImplementedError):
-            tpipe.kde_pipeline(
-                torch.from_numpy(noisy), torch.from_numpy(color), ti, convert.config_from_jax(cfg)
-            )
+    cfg = dataclasses.replace(KDEConfig(), grid=grid)
+    cfg = dataclasses.replace(cfg, normals=dataclasses.replace(cfg.normals, method="pca"))
+    with pytest.raises(ValueError, match="unknown normal method"):
+        tpipe.kde_pipeline(
+            torch.from_numpy(noisy), torch.from_numpy(color), ti, convert.config_from_jax(cfg)
+        )

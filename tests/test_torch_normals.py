@@ -206,7 +206,11 @@ def test_smallest_eigenvector_matches_jax():
 
 
 def test_unported_methods_raise(scene):
-    for method in ("sdc", "bilateral"):
-        with pytest.raises(NotImplementedError):
+    """sdc and bilateral are ported (tests/test_torch_normal_methods.py); an
+    unknown method raises ValueError in both packages."""
+    for method in ("pca", ""):
+        with pytest.raises(ValueError, match="unknown normal method"):
             tn.generate_normal_map(_t(scene["points"]), convert.config_from_jax(
                 NormalParams(method=method)))
+        with pytest.raises(ValueError, match="unknown normal method"):
+            jn.generate_normal_map(jnp.asarray(scene["points"]), NormalParams(method=method))
