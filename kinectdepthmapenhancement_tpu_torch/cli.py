@@ -1,17 +1,25 @@
 """Command-line interface: the reference's file-replay entry point
-(main.cpp:139-201), the PyTorch counterpart of the JAX package's cli.py.
+(main.cpp:139-201) and its evaluation main() (main.cpp:158-309), the
+PyTorch counterpart of the JAX package's cli.py.
 
   python -m kinectdepthmapenhancement_tpu_torch enhance \\
       --depth experiment/depth.xml --color experiment/color.jpg \\
       --pipeline kde --out refined.xml [--ply cloud.ply] [--png depth.png] \\
       [--debug-dir dbg/] [--device cuda]
 
+  python -m kinectdepthmapenhancement_tpu_torch evaluate out.txt [--full] \\
+      [--tum DIR --frames N] [--grid RxC] [--methods input,jbf,kde] \\
+      [--timing-iters N] [--figure cmp.png] [--device cuda]
+
 `enhance` reads a cv::FileStorage XML depth ("depth" node, mm) and a colour
-image, runs one pipeline on the device (the card unless --device says
-otherwise; without a card "cuda" raises), writes the refined depth back as
-FileStorage XML and optional PLY / PNG renders.  The work after the file
-reads is `enhance`, a function of arrays.  `evaluate` (the timing and
-accuracy harness) is not ported yet and raises.
+image, runs one pipeline, writes the refined depth back as FileStorage XML
+and optional PLY / PNG renders.  The work after the file reads is
+`enhance`, a function of arrays.  `evaluate` times every method on one
+frame and writes its mean 3-D error against ground truth
+(utils/evaluate.py, the evaluation.txt layout): on the 640x480 test scene,
+or with --tum on a TUM RGB-D sequence against the pseudo-ground truth its
+depth frames fold to.  Both run on the card unless --device says
+otherwise; without a card "cuda" raises.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from kinectdepthmapenhancement_tpu_torch.core.camera import (
     projective_to_real,
 )
 from kinectdepthmapenhancement_tpu_torch.core.config import (
+    GridParams,
     KDEConfig,
     RGBFConfig,
     SPDSPConfig,
@@ -111,9 +120,26 @@ def _cmd_enhance(args: argparse.Namespace) -> int:
 
 
 def _cmd_evaluate(args: argparse.Namespace) -> int:
-    raise NotImplementedError(
-        "evaluate is not ported yet (ROADMAP Queue A9b: utils/evaluate.py, "
-        "core/datasets.py, the evaluate command)")
+    from kinectdepthmapenhancement_tpu_torch.utils import evaluate
+
+    grid = None
+    if args.grid:
+        rows, cols = (int(t) for t in args.grid.lower().split("x"))
+        grid = GridParams(rows=rows, cols=cols)
+    methods = args.methods.split(",") if args.methods else None
+    kw = dict(include_sp_methods=args.full, grid=grid, timing_iters=args.timing_iters,
+              methods=methods, figure_path=args.figure, device=args.device)
+    if args.tum:
+        results = evaluate.evaluate_tum(args.tum, frames=args.frames, **kw)
+        print(evaluate.write_report(args.out, results))
+    else:
+        if args.frames != 30:
+            print("warning: --frames only applies with --tum; ignored", file=sys.stderr)
+        evaluate.main(args.out, **kw)
+    dev = resolve_device(args.device)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
+    print(f"runtimes measured on {where}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -136,8 +162,25 @@ def main(argv=None) -> int:
     en.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     en.set_defaults(fn=_cmd_enhance)
 
-    ev = sub.add_parser("evaluate", help="timing + accuracy harness (not ported yet)")
+    ev = sub.add_parser("evaluate", help="timing + accuracy harness (evaluation.txt)")
     ev.add_argument("out", help="output text file")
+    ev.add_argument("--full", action="store_true", help="include SPDSP/TOF")
+    ev.add_argument(
+        "--tum",
+        help="TUM RGB-D sequence dir: evaluate a real frame against the "
+        "temporally-accumulated pseudo-GT (capture protocol, main.cpp:86-116)",
+    )
+    ev.add_argument("--frames", type=int, default=30,
+                    help="frames folded into the pseudo-GT accumulator (with --tum)")
+    ev.add_argument("--grid", help="superpixel grid ROWSxCOLS override, e.g. 3x4")
+    ev.add_argument("--methods", help="comma-separated subset to run, e.g. input,jbf,kde")
+    ev.add_argument("--timing-iters", type=int, default=5, help="timed repetitions per method")
+    ev.add_argument(
+        "--figure",
+        help="write a side-by-side comparison PNG (input / GT / each method's depth "
+        "render, the reference's PCL 6-viewport view, main.cpp:362-413)",
+    )
+    ev.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ev.set_defaults(fn=_cmd_evaluate)
 
     args = ap.parse_args(argv)

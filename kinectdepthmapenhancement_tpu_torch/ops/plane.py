@@ -309,7 +309,12 @@ def depth_bilateral(
     optimized: torch.Tensor, rays: torch.Tensor, p: ProjectionParams = ProjectionParams()
 ) -> torch.Tensor:
     """bilateralfilter (Projection_GPU.cu:198-227): 7x7 spatial x depth
-    Gaussian on z; x, y recomputed from the rays; 0 where no valid support."""
+    Gaussian on z; x, y recomputed from the rays; 0 where no valid support.
+
+    The depth factor and the weight flush to 0 below FLT_MIN, as XLA does
+    (stencil.flush_subnormal): a hole pixel whose valid neighbours lie
+    1.3-1.45 m from its z = 0 (depth_sigma 100) has only subnormal weights,
+    so no support, and stays 0."""
     _, h, w, _ = optimized.shape
     r = p.window // 2
     spatial = stencil.gaussian_spatial_filter(p.window, p.spatial_sigma, optimized.device)
@@ -322,8 +327,9 @@ def depth_bilateral(
         nz = stencil.shift(zpad, dy, dx, r, (h, w))
         ok = nz > VALID_DEPTH_MM
         e = nz - z
-        filt = torch.exp(-(e * e) / (2.0 * p.depth_sigma**2))
-        filt = filt * spatial[dy + r, dx + r]
+        filt = torch.exp(stencil.div_const(-(e * e), 2.0 * p.depth_sigma**2))
+        filt = stencil.flush_subnormal(filt)
+        filt = stencil.flush_subnormal(filt * spatial[dy + r, dx + r])
         filt = torch.where(ok, filt, zero)
         num = num + nz * filt
         den = den + filt

@@ -1,5 +1,6 @@
-"""Device timing on the card: call time with CUDA events, device time with
-the profiler.
+"""Timing: a pipeline's wall time on fresh inputs (time_pipeline, on any
+device), call time on the card with CUDA events and device time with the
+profiler.
 
 PyTorch launches return before the device finishes, so a host clock without
 a synchronise measures the enqueue.  cuda_ms brackets each call with CUDA
@@ -9,15 +10,49 @@ host-side dispatch is the dispatch.  device_ms sums the durations of the
 device activities (kernels, memsets, copies) that the profiler's CUDA
 tracing records over many calls: what the card spent, whatever the host
 did around it.  Both refuse to run without a card: a CPU time is never a
-device time.
+device time.  time_pipeline is the evaluation harness's clock
+(utils/evaluate.py): it runs on the CPU as well, so its caller prints the
+device beside every time.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Tuple
+import time
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+
+
+def time_pipeline(
+    fn: Callable,
+    make_args: Callable[[int], Sequence],
+    *,
+    iters: int = 5,
+) -> Dict[str, float]:
+    """{"median_s", "min_s", "fps"} of fn(*make_args(i)) over `iters` timed
+    calls after one warm-up call (i == -1).
+
+    make_args(i) returns fresh inputs for call i, already on the device;
+    they are built before the clock starts.  The clock stops when the sum
+    of fn's output (a tensor) has been read back to the host, so a call on
+    the card is timed to its completion (the JAX package's
+    utils/timing.py:21-44 does the same)."""
+    def run(args) -> float:
+        return float(torch.sum(fn(*args)))
+
+    run(make_args(-1))
+    times = []
+    for i in range(iters):
+        args = make_args(i)
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(args)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return {"median_s": med, "min_s": min(times),
+            "fps": 1.0 / med if med > 0 else float("inf")}
 
 
 def _require_cuda(what: str) -> None:

@@ -7,8 +7,9 @@ SuperpixelSegmentation::getSegmentedImage / getRandomColorImage
 (MarkovRandomField.cpp:86-99) and Kinect::CreateDepthImage
 (Kinect/Kinect.cpp:108-151).  The renders return u8 tensors on the input's
 device; point_cloud returns a NumPy array; the writers import PIL only
-when called.  save_video and comparison_figure belong to the evaluation
-harness and are not ported yet.
+when called.  save_video and comparison_figure (the evaluation harness's
+montage, utils/evaluate.py) take NumPy arrays or tensors and write the same
+bytes as the JAX package's.
 """
 
 from __future__ import annotations
@@ -129,6 +130,53 @@ def save_png(path: str, image: torch.Tensor) -> None:
     from PIL import Image
 
     Image.fromarray(torch.as_tensor(image).cpu().numpy()).save(path)
+
+
+def _host(image) -> np.ndarray:
+    """A u8 image as a NumPy array (a tensor is copied to the host)."""
+    return (image.cpu().numpy() if isinstance(image, torch.Tensor)
+            else np.asarray(image)).astype(np.uint8, copy=False)
+
+
+def save_video(path: str, frames, fps: float = 30.0) -> None:
+    """Write a frame sequence as an animated GIF, the counterpart of the
+    reference's per-run segmentation cv::VideoWriter
+    (SuperpixelSegmentation.cpp:9, 30 fps XVID).  `frames` is an iterable of
+    u8 [H, W, 3] images; GIF is the codec-free container PIL can always
+    write (path should end in .gif)."""
+    from PIL import Image
+
+    imgs = [Image.fromarray(_host(f)) for f in frames]
+    if not imgs:
+        raise ValueError("no frames")
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=int(round(1000.0 / fps)), loop=0)
+
+
+def comparison_figure(panels, cols: int = 3, caption_h: int = 18) -> np.ndarray:
+    """Side-by-side montage of captioned depth renders, the reference's PCL
+    6-viewport comparison (INPUT / GROUND TRUTH / MRF / RGBF / JBF /
+    PROPOSED, main.cpp:362-413) as one image.
+
+    panels: an ordered dict or list of (name, u8 [H, W, 3] image); returns
+    the montage as a u8 NumPy array (rows of `cols` panels, each under a
+    caption bar)."""
+    from PIL import Image, ImageDraw
+
+    items = list(panels.items()) if isinstance(panels, dict) else list(panels)
+    if not items:
+        raise ValueError("no panels")
+    h, w = items[0][1].shape[:2]
+    rows = -(-len(items) // cols)
+    out = np.zeros((rows * (h + caption_h), cols * w, 3), np.uint8)
+    for i, (name, img) in enumerate(items):
+        r, c = divmod(i, cols)
+        y0 = r * (h + caption_h)
+        bar = Image.new("RGB", (w, caption_h), (30, 30, 30))
+        ImageDraw.Draw(bar).text((4, 2), str(name), fill=(255, 255, 255))
+        out[y0:y0 + caption_h, c * w:(c + 1) * w] = np.asarray(bar)
+        out[y0 + caption_h:y0 + caption_h + h, c * w:(c + 1) * w] = _host(img)
+    return out
 
 
 def dump_kde_debug(out_dir: str, res, color: torch.Tensor, k: int, frame_id: int = 0) -> list:

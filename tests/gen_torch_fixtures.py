@@ -1,6 +1,7 @@
 """Generate the JAX-package fixtures the PyTorch port is held against.
 
     python tests/gen_torch_fixtures.py [full] [ext] [stages] [dasp] [normals] [refs]
+                                       [eval] [planes] [registration] [sdc_spread]
 
 Not a test module (pytest collects test_*.py only).  Runs the JAX package
 on the CPU and writes, with np.savez_compressed, under tests/golden/:
@@ -69,6 +70,49 @@ on the CPU and writes, with np.savez_compressed, under tests/golden/:
           DASP segmentations, the JAX colour seeds and the JAX 5-iteration
           DASP segmentations (~40 s).
 
+  eval    eval_jax_96x128_seed6.npz — the JAX evaluate_tum on the sequence
+          of tests/test_datasets.py:106-134 (make_noisy_scene(96, 128,
+          seed=6) through kinect_v1_sensor_model, 8 frames, grid 3x4,
+          timing_iters=1): per row "<row>__mean_3d_error_mm", "__rmse_mm"
+          and "__valid_px"; the pseudo-ground truth the sequence folds to
+          ("gt"), and on the evaluated frame each row's scored depth
+          ("<row>__z") and the NASP seeds of the kde row ("kde__seeds",
+          sampled from its normals), to tell a seed near-tie from a fault.
+
+  planes  kde_jax_planes_seed0.npz — kde_pipeline with plane_merge=True,
+          and with plane_merge=True, fill_holes=4, under normals.method
+          "cm" and "sdc", on make_banded_scene(seed=0, hole_fraction=0.15)
+          (scripts/eval_far_range.py --holes 0.15's frame, where the plane
+          stage moves pixels): per run "<method>_<config>__optimized_z"
+          (f32; for every run after the first, cm_pm, its difference from
+          the first's, "__optimized_z_minus_first", checked to add back
+          exactly), "__merged_labels" (int16), "__moved" (packed bits: the
+          pixels whose output point lies more than MOVED_MM from the final
+          depth bilateral of the JBF points alone) and "__filled" (packed
+          bits: input holes with depth in the output), at 640x480
+          ("480x640__" first) and at 96x128 on grid 3x4 ("96x128__"
+          first), each size written only where pixels move.
+
+  registration
+          registration_jax_640x480_seed0.npz — register_depth_to_color
+          (eager, no jax.jit) of make_noisy_scene(480, 640, seed=0)'s
+          noisy depth through golden.registration_extrinsics() (a 2 degree
+          rotation about y and a 25 mm baseline) with the default
+          intrinsics: the
+          filled pixels ("filled", packed bits) and the z map on every 4th
+          row and column ("z_sub4", f32), and the projected coordinates
+          ("near_uc", "near_vc") of the source points where one of them
+          lies within 1e-3 px of .5, where the two packages may round a
+          point to different pixels.
+
+  sdc_spread
+          writes nothing: the SDC plane runs of the planes part at 640x480
+          again with ops/integral.py's tables summed in float64 (as the
+          port sums them), each held to the planes fixture by
+          golden.plane_stage_gates with every bar reported: the spread
+          that golden.SDC_PLANES_640X480_BARS doubles (not in the default
+          list of parts).
+
 The fixtures are read with np.load only (tests/golden.py::cached would
 rewrite a fixture whose key differs).  Rerun a part after a change to the
 JAX package's code it runs; the port's tests then read the new arrays.
@@ -93,6 +137,15 @@ REFS = os.path.join(GOLDEN, "torch_refs_96x128_seed0.npz")
 NORMALS_SMALL = os.path.join(GOLDEN, "kde_jax_96x128_normals_seed0.npz")
 NORMALS_FULL = os.path.join(GOLDEN, "kde_jax_640x480_normals_seed0.npz")
 NORMAL_METHODS = ("sdc", "bilateral")
+EVAL = os.path.join(GOLDEN, "eval_jax_96x128_seed6.npz")
+PLANES = os.path.join(GOLDEN, "kde_jax_planes_seed0.npz")
+EVAL_ROWS = ("input", "jbf", "mrf", "rgbf", "kde")
+PLANE_METHODS = ("cm", "sdc")
+# a pixel the plane stage moved: its output point differs from the final
+# depth bilateral of the JBF points alone by more than this (mm); below it,
+# the two are the same computation rounded in another order
+MOVED_MM = 0.01
+REGISTRATION = os.path.join(GOLDEN, "registration_jax_640x480_seed0.npz")
 FULL_MAX_BYTES = 3 * 2**20
 
 
@@ -492,8 +545,240 @@ def gen_normals():
     _save(NORMALS_FULL, _normals_run(480, 640, None, small=False))
 
 
+def tum_eval_frames(datasets, make_noisy_scene, intr_fn):
+    """tests/test_datasets.py:106-134's sequence: (timestamp, color, depth)
+    for 8 frames of make_noisy_scene(96, 128, seed=6) through the Kinect v1
+    sensor model (either package's copies of the NumPy functions)."""
+    h, w = 96, 128
+    color, _, gt = make_noisy_scene(h, w, intr_fn(w, h), seed=6)
+    rng = np.random.default_rng(6)
+    return [(100.0 + 0.033 * i, color, datasets.kinect_v1_sensor_model(gt, rng))
+            for i in range(8)]
+
+
+def gen_eval():
+    import tempfile
+
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core import buffer2d, datasets
+    from kinectdepthmapenhancement_tpu.core.camera import (
+        default_kinect_intrinsics, projective_to_real,
+    )
+    from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig, RGBFConfig
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu.models import pipelines
+    from kinectdepthmapenhancement_tpu.ops import slic
+    from kinectdepthmapenhancement_tpu.utils import evaluate
+
+    grid = GridParams(rows=3, cols=4)
+    frames = tum_eval_frames(datasets, make_noisy_scene, default_kinect_intrinsics)
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "seq")
+        datasets.write_tum_sequence(root, frames)
+        t0 = time.time()
+        rows = evaluate.evaluate_tum(root, frames=8, include_sp_methods=False, grid=grid,
+                                     timing_iters=1)
+        print(f"evaluate_tum 96x128: {time.time() - t0:.1f} s")
+        seq = datasets.TUMSequence(root)
+        buf = buffer2d.init(96, 128)
+        for i in range(8):
+            buf = buffer2d.update(buf, jnp.asarray(seq[i].depth))
+        fr, intr = seq[4], seq.intrinsics
+    for name in EVAL_ROWS:
+        for k, v in rows[name].items():
+            arrays[f"{name}__{k}"] = np.asarray(v, np.int64 if k == "valid_px" else np.float64)
+    d, c = jnp.asarray(fr.depth), jnp.asarray(fr.color)
+    kde_cfg = dataclasses.replace(KDEConfig(), grid=grid)
+    rgbf_cfg = dataclasses.replace(RGBFConfig(), grid=grid)
+    res = jax.jit(lambda d, c: pipelines.kde_pipeline(d, c, intr, kde_cfg))(d, c)
+    arrays.update({
+        "gt": np.asarray(buf.depth, np.float32),
+        "input__z": np.asarray(fr.depth, np.float32),
+        "jbf__z": np.asarray(jax.jit(pipelines.jbf_pipeline)(d, c)),
+        "mrf__z": np.asarray(jax.jit(pipelines.mrf_pipeline)(d, c)),
+        "rgbf__z": np.asarray(jax.jit(lambda d, c: pipelines.rgbf_pipeline(
+            d, projective_to_real(d, intr), c, rgbf_cfg).refined_depth)(d, c)),
+        "kde__z": np.asarray(res.optimized_points[..., 2]),
+        "kde__seeds": np.asarray(jax.jit(lambda c, n: slic._compute_seeds(
+            c, n, grid, 96, 128, 8, "nasp", grad_impl=kde_cfg.nasp.grad_impl))(
+            jnp.asarray(fr.color, jnp.float32), res.normals)).astype(np.int16),
+    })
+    for name in EVAL_ROWS:
+        print(f"{name}: " + ", ".join(f"{k} {v}" for k, v in rows[name].items()))
+    _save(EVAL, arrays)
+
+
+def plane_configs(grid=None):
+    """{"<method>_<config>": JAX KDEConfig}: plane_merge=True ("pm") and
+    plane_merge=True, fill_holes=4 ("pm_fill") under PLANE_METHODS."""
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
+
+    base = KDEConfig() if grid is None else dataclasses.replace(KDEConfig(), grid=grid)
+    out = {}
+    for m in PLANE_METHODS:
+        bm = dataclasses.replace(base, normals=dataclasses.replace(base.normals, method=m),
+                                 plane_merge=True)
+        out[f"{m}_pm"] = bm
+        out[f"{m}_pm_fill"] = dataclasses.replace(bm, fill_holes=4)
+    return out
+
+
+def _planes_run(h, w, grid, names=None):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.camera import (
+        default_kinect_intrinsics, normalized_rays, projective_to_real,
+    )
+    from kinectdepthmapenhancement_tpu.core.testdata import make_banded_scene
+    from kinectdepthmapenhancement_tpu.models import pipelines
+    from kinectdepthmapenhancement_tpu.ops import plane
+
+    intr = default_kinect_intrinsics(w, h)
+    color, sensor, _ = make_banded_scene(h, w, intr, seed=0, hole_fraction=0.15)
+    d, c = jnp.asarray(sensor), jnp.asarray(color)
+    rays = normalized_rays(intr, h, w)
+    arrays, moved_any, first_z = {}, False, None
+    pre = f"{h}x{w}__"
+    for name, cfg in plane_configs(grid).items():
+        if names is not None and name not in names:
+            continue
+        t0 = time.time()
+        res = jax.jit(lambda d, c, cfg=cfg: pipelines.kde_pipeline(d, c, intr, cfg))(d, c)
+        base = np.asarray(jax.jit(lambda z, cfg=cfg: plane.depth_bilateral(
+            projective_to_real(z, intr), rays, cfg.projection))(res.jbf_depth))
+        opt = np.asarray(res.optimized_points)
+        moved = np.abs(base - opt).max(-1) > MOVED_MM
+        filled = (opt[..., 2] > 50.0) & (sensor <= 50.0)
+        print(f"{name} {h}x{w}: {time.time() - t0:.1f} s; the plane stage moved "
+              f"{int(moved.sum())} pixels, {int(filled.sum())} holes filled")
+        moved_any |= bool(moved.any())
+        z = opt[..., 2].astype(np.float32)
+        if first_z is None:
+            first_z = z
+            arrays[f"{pre}{name}__optimized_z"] = z
+        else:  # stored as its difference from the first run's, which adds back exactly
+            dz = (z - first_z).astype(np.float32)
+            if not np.array_equal(first_z + dz, z):
+                raise ValueError(f"{name}: optimized z does not round-trip through its difference")
+            arrays[f"{pre}{name}__optimized_z_minus_first"] = dz
+        arrays.update({
+            f"{pre}{name}__merged_labels": np.asarray(res.merged_labels).astype(np.int16),
+            f"{pre}{name}__moved": np.packbits(moved),
+            f"{pre}{name}__filled": np.packbits(filled),
+        })
+    return arrays if moved_any else {}
+
+
+def gen_planes():
+    _jax()
+    from kinectdepthmapenhancement_tpu.core.config import GridParams
+
+    arrays = _planes_run(480, 640, None)
+    small = _planes_run(96, 128, GridParams(rows=3, cols=4))
+    if not small:
+        print("96x128: the plane stage moves no pixel; no copy written")
+    _save(PLANES, {**arrays, **small})
+
+
+def gen_registration():
+    _jax()
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core import registration
+    from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+    h, w = 480, 640
+    intr = default_kinect_intrinsics(w, h)
+    _, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
+    rot, t = golden.registration_extrinsics()
+    z = np.asarray(registration.register_depth_to_color(
+        jnp.asarray(noisy), intr, intr, registration.Extrinsics(jnp.asarray(rot), jnp.asarray(t))))
+    # the function's projected coordinates, by its own eager operations
+    u = jnp.arange(w, dtype=jnp.float32)[None, :]
+    v = jnp.arange(h, dtype=jnp.float32)[:, None]
+    d = jnp.asarray(noisy)
+    pts = jnp.stack([(u - intr.cx) / intr.fx * d, (intr.cy - v) / intr.fy * d, d], -1)
+    pc = pts.reshape(-1, 3) @ jnp.asarray(rot).T + jnp.asarray(t)
+    valid = np.asarray((d.reshape(-1) > 0.0) & (pc[:, 2] > 1.0))
+    safe = jnp.where(valid, pc[:, 2], 1.0)
+    uc = np.asarray(pc[:, 0] / safe * intr.fx + intr.cx)
+    vc = np.asarray(intr.cy - pc[:, 1] / safe * intr.fy)
+    near = valid & ((np.abs(np.abs(uc % 1.0) - 0.5) < golden.TIE_PX)
+                    | (np.abs(np.abs(vc % 1.0) - 0.5) < golden.TIE_PX))
+    print(f"registration 640x480: {int((z > 0).sum())} pixels filled, "
+          f"{int(near.sum())} near-tie source points")
+    _save(REGISTRATION, dict(filled=np.packbits(z > 0), z_sub4=z[::4, ::4].astype(np.float32),
+                             near_uc=uc[near], near_vc=vc[near]))
+
+
+def _tables_in_float64():
+    """Swap the JAX package's ops/integral.py::build for one that sums the
+    summed-area tables and the channel means in float64 and rounds them
+    once to f32, as the port does (host callbacks; no x64 mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.ops import integral
+
+    def prefix(x):
+        shape = (x.shape[0] + 1, x.shape[1] + 1) + x.shape[2:]
+
+        def f(a):
+            t = np.cumsum(np.cumsum(np.asarray(a, np.float64), 0), 1).astype(np.float32)
+            return np.pad(t, [(1, 0), (1, 0)] + [(0, 0)] * (a.ndim - 2))
+
+        return jax.pure_callback(f, jax.ShapeDtypeStruct(shape, jnp.float32), x)
+
+    def build(channels, valid):
+        h, w, _ = channels.shape
+        mu = jax.pure_callback(
+            lambda ch: (np.asarray(ch, np.float64).sum((0, 1)) / (h * w)).astype(np.float32),
+            jax.ShapeDtypeStruct(channels.shape[-1:], jnp.float32), channels)
+        return integral.CenteredIntegral(
+            centered=prefix(channels - mu[None, None, :]),
+            count=prefix(jnp.ones((h, w), jnp.float32)),
+            valid=prefix(valid.astype(jnp.float32)), mu=mu)
+
+    integral.build = build
+
+
+def gen_sdc_spread():
+    """Writes nothing: prints golden.plane_stage_gates of the JAX package's
+    SDC plane runs at 640x480 with its summed-area tables summed in float64
+    against the planes fixture (its own runs with f32 tables), the spread
+    golden.SDC_PLANES_640X480_BARS is set from (~2 min)."""
+    _jax()
+    from kinectdepthmapenhancement_tpu.core.testdata import make_banded_scene
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+    _tables_in_float64()
+    arrays = _planes_run(480, 640, None, names=("sdc_pm", "sdc_pm_fill"))
+    _, _, gt = make_banded_scene(480, 640, seed=0, hole_fraction=0.15)
+    first = arrays["480x640__sdc_pm__optimized_z"]  # this call's first run
+    for name in ("sdc_pm", "sdc_pm_fill"):
+        pre = f"480x640__{name}__"
+        got = {"optimized_z": arrays[pre + "optimized_z"] if pre + "optimized_z" in arrays
+               else first + arrays[pre + "optimized_z_minus_first"],
+               "merged_labels": arrays[pre + "merged_labels"].astype(np.int32)}
+        for k in ("moved", "filled"):
+            got[k] = np.unpackbits(arrays[pre + k])[: 480 * 640].reshape(480, 640) > 0
+        gates = golden.plane_stage_gates(got, golden.load_jax_planes("640x480", name), gt,
+                                         dict.fromkeys(golden.PLANE_STAGE_BARS))
+        print(f"{name}, tables in float64 against f32: "
+              + ", ".join(f"{k} {v[0]:.6g}" for k, v in gates.items()))
+
+
 if __name__ == "__main__":
-    parts = sys.argv[1:] or ["full", "ext", "stages", "dasp", "normals", "refs"]
+    parts = sys.argv[1:] or ["full", "ext", "stages", "dasp", "normals", "refs", "eval",
+                             "planes", "registration"]
     for part in parts:
         {"full": gen_full, "ext": gen_ext, "stages": gen_stages, "dasp": gen_dasp,
-         "normals": gen_normals, "refs": gen_refs}[part]()
+         "normals": gen_normals, "refs": gen_refs, "eval": gen_eval,
+         "planes": gen_planes, "registration": gen_registration,
+         "sdc_spread": gen_sdc_spread}[part]()

@@ -1001,3 +1001,44 @@ def test_dasp_pipelines_640x480(dasp640, name):
     else:
         gates.update(golden.tof_quality_gates(got["plane_fitted"][..., 2], gt))
     assert not golden.failures(gates), gates
+
+
+def test_registration_card_equals_cpu_and_jax(dev):
+    """register_depth_to_color at 640x480 (a 2 degree rotation, a 25 mm
+    baseline): the card's output bitwise equal to the CPU's (no float
+    atomics: a scatter "amin"), and held against the JAX function's output
+    of the same input (golden.registration_gates)."""
+    from kinectdepthmapenhancement_tpu_torch.core.registration import (
+        Extrinsics, register_depth_to_color,
+    )
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+    intr = default_kinect_intrinsics(640, 480)
+    _, noisy, _ = make_noisy_scene(480, 640, intr, seed=0)
+    rot, t = (torch.from_numpy(a) for a in golden.registration_extrinsics())
+    cpu = register_depth_to_color(torch.from_numpy(noisy), intr, intr, Extrinsics(rot, t))
+    card = register_depth_to_color(torch.from_numpy(noisy).to(dev), intr, intr,
+                                   Extrinsics(rot.to(dev), t.to(dev)))
+    assert card.is_cuda and torch.equal(card.cpu(), cpu)
+    gates = golden.registration_gates(card.cpu().numpy(), golden.load_jax_registration())
+    assert not golden.failures(gates), gates
+
+
+def test_evaluate_rows_card_against_cpu(dev):
+    """utils/evaluate.py at 96x128 (grid 3x4) on the card: every row's
+    mean 3-D error and RMSE within 1e-4 (relative) of the CPU's, valid
+    pixels within 0.1%; the kde row launches every kernel."""
+    from kinectdepthmapenhancement_tpu_torch.utils import evaluate
+
+    intr = default_kinect_intrinsics(W, H)
+    color, noisy, gt = make_noisy_scene(H, W, intr, seed=6)
+    kw = dict(include_sp_methods=True, grid=GRID, timing_iters=1)
+    before = cuda_cov.launches
+    card = evaluate.evaluate(noisy, color, gt, device=dev, **kw)
+    assert cuda_cov.launches > before
+    cpu = evaluate.evaluate(noisy, color, gt, device="cpu", **kw)
+    assert list(card) == list(cpu) == ["input", "jbf", "mrf", "rgbf", "kde", "spdsp", "tof"]
+    for name in card:
+        for k in ("mean_3d_error_mm", "rmse_mm"):
+            assert card[name][k] == pytest.approx(cpu[name][k], rel=1e-4), (name, k)
+        assert abs(card[name]["valid_px"] - cpu[name]["valid_px"]) <= 1e-3 * H * W, name
