@@ -27,7 +27,9 @@ Phases (each prints its results; any failure exits non-zero):
      paths add: the colour seed gradient on DASP's window-4 sub-grid, the
      label sums at F = 10 (the DASP update) at r = 2 and 3, the gather at
      F = 2 (the DASP window's centres) at r = 2 and 3 and at F = 4 and 7
-     (the PCA planes, the PCA merge's table) at r = 4; time kernel,
+     (the PCA planes, the PCA merge's table) at r = 4; and the JBF on the
+     haloed width tiles phase 11's paths give it ([B, 480, 324], [B, 480,
+     164], [B, 480, 161]: x = 2 and 4 at 640 columns, x = 4 at 628); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -107,9 +109,26 @@ Phases (each prints its results; any failure exits non-zero):
      every chunk bitwise equal to the stream over core/io.py reads, frames
      per second; and the cm normals read against the JAX package's alone,
      in SDC's place and rounded to f16 (ROADMAP C1);
+  11. (before phase 9's summary) drive the multi-process layer
+     (parallel/) at 640x480: (a) world size 1 over NCCL in this process
+     (initialize from MASTER_ADDR / MASTER_PORT / RANK, global_mesh,
+     local_batch_to_global of the four frames): the data-parallel step
+     bitwise equal to phase 4's kde_pipeline at B=4, every kernel launched,
+     frame 0 through golden.kde_gates against the JAX package, global_mean
+     equal to the local mean, jbf_sharded bitwise equal to the unsharded
+     JBF; (b) gloo ranks sharing the card (multihost.spawn, world 2 and
+     4): jbf_sharded on 320-, 160- and 157-px tiles, the spatial step
+     (data 1 x x 2) and the data-parallel step (data 2 x x 1), each
+     gathered and bitwise equal to the unsharded run, one JBF launch a
+     rank a step; (c) dryrun(1) over NCCL and dryrun(4) under gloo; CUDA
+     event times (median of 5) of the step at world 1 against a bare
+     kde_pipeline call, one exchange_width under NCCL and under gloo, and
+     jbf_sharded a tile against the unsharded JBF, printed beside the
+     card's name and power limit (one card: not a scaling number);
   9. print the kernels JSON line (one entry per TPU kernel of the repo,
      each with its forms and their launches by path, and its launches on
-     phase 10's paths), then {"ok": true, "device": ...} last.
+     phase 10's and phase 11's paths), then {"ok": true, "device": ...}
+     last.
 
 Kernels are built under build/kernels/, the native frame source under
 build/native/, and phases 8 and 10 write their files under
@@ -146,6 +165,11 @@ SCHEDULERS = 528
 # its operations and their order
 ASSIGN_LOOP_INSTRUCTIONS = 62
 
+# the JBF's width tiles on phase 11's paths, named by the haloed tile's
+# width (ws + 2 * rj): x = 2 and 4 at 640 columns, x = 4 at 628 (157-px
+# tiles, a width that is not a multiple of 4)
+JBF_TILES = {"tile324": (2, 640), "tile164": (4, 640), "tile161": (4, 628)}  # form: (x, W)
+
 # a trace's name of a kernel of csrc/*.cu (each lives in an anonymous namespace)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+_kernel)\b")
 
@@ -161,6 +185,83 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
+    """One gloo rank of phase 11 (b), on the shared card: the JBF on width
+    tiles of the four 640x480 frames at x = world size (and, at world 4, of
+    their 628-column crop), at world 2 the spatial step (data 1 x x 2) and
+    the data-parallel step (data 2 x x 1, B=2 a rank), each from launch
+    counts at 0; the outputs gathered (rank 0 returns them), and the times
+    of one exchange_width and one jbf_sharded call (CUDA events, median of
+    5; every rank times the same calls, as each is a collective)."""
+    import torch
+    import torch.distributed as dist
+
+    from kinectdepthmapenhancement_tpu_torch.core.camera import default_kinect_intrinsics
+    from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
+    from kinectdepthmapenhancement_tpu_torch.ops import (
+        cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp,
+    )
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+    from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+
+    mods = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
+
+    def counted(fn):
+        for m in mods:
+            m.launches = 0
+        for k in cuda_nasp.launches:
+            cuda_nasp.launches[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+        c.update(cuda_nasp.launches)
+        return out, c
+
+    n = dist.get_world_size()
+    mesh = make_mesh(n, spatial=n, device="cuda")  # one data row, n width tiles
+    depth = torch.from_numpy(depth_np).to(mesh.device)
+    color = torch.from_numpy(color_np).to(mesh.device)
+    h, w = depth.shape[1:]
+    intr, cfg = default_kinect_intrinsics(w, h), KDEConfig()
+    p = cfg.jbf
+    res = {"rank": dist.get_rank(), "device": str(mesh.device), "counts": {}, "forms": {},
+           "out": {}, "ms": {}}
+
+    def path(tag, m, fn, form=None):
+        out, res["counts"][tag] = counted(fn)
+        res["forms"][tag] = form
+        res["out"][tag] = (tuple(out.shape), (halo.gather_width(out, m) if out.dim() == 3
+                                              else sharding.gather_global(out, m)).cpu())
+
+    frames = [(w, depth, color)] + ([(crop_w, depth[:, :, :crop_w], color[:, :, :crop_w])]
+                                    if n == 4 else [])
+    for width, d, c in frames:
+        form = f"tile{width // n + 4}"
+        path(f"jbf x{n} {form}", mesh,
+             lambda d=d, c=c: jbf_sharded(mesh.width_tile(d), mesh.width_tile(c), mesh, p), form)
+        d1, c1 = mesh.width_tile(d[:1]), mesh.width_tile(c[:1])
+        res["ms"][f"exchange_width gloo x{n} (colour halo 4, {form}, B=1)"] = cuda_ms(
+            lambda c1=c1: halo.exchange_width(c1, 4, mesh), warmup=2, iters=5)
+        res["ms"][f"jbf_sharded gloo x{n} {form} B=1"] = cuda_ms(
+            lambda d1=d1, c1=c1: jbf_sharded(d1, c1, mesh, p), warmup=2, iters=5)
+    if n == 2:
+        step = sharding.sharded_kde_step(mesh, intr, cfg)
+        path("spatial step data1 x2", mesh,
+             lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), f"tile{w // n + 4}")
+        res["ms"]["spatial step gloo data1 x2 B=4"] = cuda_ms(
+            lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), warmup=1, iters=5)
+        mesh_d = make_mesh(n, spatial=1, device="cuda")
+        b = depth.shape[0] // mesh_d.data
+        rows = slice(mesh_d.d * b, (mesh_d.d + 1) * b)
+        step_d = sharding.sharded_kde_step(mesh_d, intr, cfg)
+        path("data step data2 x1", mesh_d, lambda: step_d(depth[rows], color[rows]))
+    if res["rank"] != 0:
+        res["out"] = {}
+    return res
 
 
 def main() -> int:
@@ -257,6 +358,21 @@ def main() -> int:
         nsub = slic._subgrid_extract(nmap, grid, h, w, 8).contiguous()
         x = dict(depth=depth.contiguous(), guide=guide, dci=dci, vm=vm, rect=rect,
                  csub=csub, nsub=nsub, color_f=color_f, points=points, nmap=nmap)
+        # the JBF's haloed width tiles as parallel/stencil_shard.py hands
+        # them to the kernel (phase 11), tile s = 1 of each: the depth with
+        # rj columns of its neighbours (zeros past the frame), the guide
+        # smoothed on the colour tile with rg + rj columns of halo (reflect-101
+        # past the frame) and cut to the tile's columns [-rj, ws + rj)
+        rg, rj = cfg.jbf.guide_diameter // 2, cfg.jbf.window // 2
+        for tag, (nx, width) in JBF_TILES.items():
+            ws = width // nx
+            cpad = torch.nn.functional.pad(color[:, :, :width].permute(0, 3, 1, 2).float(),
+                                           (rg + rj, rg + rj, 0, 0), mode="reflect")
+            cpad = cpad.permute(0, 2, 3, 1).to(torch.uint8)[:, :, ws:2 * ws + 2 * (rg + rj)]
+            tile_guide = bilateral.guide_bilateral(cpad.contiguous(), cfg.jbf).float()
+            x[f"guide_{tag}"] = tile_guide[:, :, rg:rg + ws + 2 * rj].contiguous()
+            x[f"depth_{tag}"] = torch.nn.functional.pad(depth[:, :, :width], (rj, rj))[
+                :, :, ws:2 * ws + 2 * rj].contiguous()
         # the first NASP iteration's inputs on the plain route: seeds,
         # candidate fields, labels, the analyze-updated cluster table
         b = depth.shape[0]
@@ -471,6 +587,17 @@ def main() -> int:
             ops=lambda x: npx(x["depth"]) * 25 * (17 + 25),
             issue=tap_issue("jbf", "depth"),
             shape=lambda x: tuple(x["depth"].shape)),
+        **{f"jbf_{tag}": dict(
+            module=cuda_bilateral, bar="bitwise", activities=1, row="jbf", secondary=True,
+            form=tag,
+            run=lambda x, t=tag: cuda_bilateral.jbf(x[f"depth_{t}"], x[f"guide_{t}"], **jbf_kw),
+            plain=lambda x, t=tag: cuda_bilateral.jbf_plain(
+                x[f"depth_{t}"], x[f"guide_{t}"], **jbf_kw),
+            inputs=lambda x, t=tag: [x[f"depth_{t}"], x[f"guide_{t}"]],
+            # the tile's own taps: every pixel of the haloed tile is filtered
+            ops=lambda x, t=tag: npx(x[f"depth_{t}"]) * 25 * (17 + 25),
+            issue=tap_issue("jbf", f"depth_{tag}"),
+            shape=lambda x, t=tag: tuple(x[f"depth_{t}"].shape)) for tag in JBF_TILES},
         "chamfer_dt": dict(
             module=cuda_dt, bar="bitwise", activities=1,
             run=lambda x: cuda_dt.distance_transform(x["dci"], its),
@@ -1895,6 +2022,126 @@ def main() -> int:
         k: v for k, v in path_counts.items() if k.startswith(("eval.", "stream.native"))}},
         default=float))
 
+    # ---- phase 11: the multi-process layer (parallel/) at 640x480 (runs
+    # before phase 9's summary): (a) world size 1 over NCCL in this process;
+    # (b) gloo ranks sharing the one card, world 2 and 4; (c) the dryrun.
+    # One card measures no scaling: every time here is a path's cost
+    import socket
+
+    import torch.distributed as dist
+
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo, multihost, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+
+    t_phase11 = time.perf_counter()
+    p11_ms: dict = {}
+    p11_checks: dict = {}
+    p = cfg.jbf
+    jbf_ref4 = bilateral.joint_bilateral_filter(depth4, color4, p)
+    crop_w = JBF_TILES["tile161"][1]
+    jbf_ref_crop = bilateral.joint_bilateral_filter(
+        depth4[:, :, :crop_w].contiguous(), color4[:, :, :crop_w].contiguous(), p)
+
+    # (a) world 1 over NCCL: initialize from torch's env names (the world
+    # size passed: a world size of 1 read from the environment is the
+    # single-process case), the data-parallel step on the four frames
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0")
+    if not multihost.initialize(world_size=1):
+        _fail("phase 11 (a): initialize took the single-process case")
+    try:
+        if dist.get_backend() != "nccl":
+            _fail(f"phase 11 (a): backend {dist.get_backend()}, not nccl")
+        mesh = multihost.global_mesh()
+        gd = multihost.local_batch_to_global(mesh, list(depth4))
+        gc = multihost.local_batch_to_global(mesh, list(color4), extra_dims=1)
+        if (gd.size, gd.offset, gd.local.device) != (4, 0, mesh.device):
+            _fail(f"phase 11 (a): global batch {gd.size} at {gd.offset} on {gd.local.device}")
+        step = sharding.sharded_kde_step(mesh, intr, cfg)
+        out1 = drive("p11.world1 nccl step", lambda: step(gd.local, gc.local), all_kernels)
+        if not torch.equal(out1, res4.optimized_points):
+            _fail("phase 11 (a): the data-parallel step differs from kde_pipeline at B=4")
+        got1 = {f: getattr(res4, f)[0].cpu().numpy() for f in res4._fields}
+        got1["optimized_points"] = out1[0].cpu().numpy()
+        gates = golden.kde_gates(got1, golden.load_jax_640x480())
+        if golden.failures(gates):
+            _fail(f"phase 11 (a): frame 0 against the JAX package: {golden.failures(gates)}")
+        z = out1[..., 2].to(torch.float64)
+        # the local sum over the local count (a division by a Python number
+        # is a multiplication by its reciprocal on the card)
+        gmean, lmean = gd.global_mean(z), z.sum() / torch.tensor(float(z.numel()), device=dev,
+                                                                 dtype=torch.float64)
+        if not torch.equal(gmean, lmean):
+            _fail(f"phase 11 (a): global_mean {float(gmean)} against the local {float(lmean)}")
+        jbf1 = drive("p11.world1 nccl jbf_sharded",
+                     lambda: jbf_sharded(depth4, color4, mesh, p), ("cuda_bilateral",))
+        if not torch.equal(jbf1, jbf_ref4) or path_counts["p11.world1 nccl jbf_sharded"][
+                "cuda_bilateral"] != 1:
+            _fail("phase 11 (a): jbf_sharded at world 1 differs from the unsharded JBF")
+        p11_checks["world1 nccl"] = {
+            "step bitwise": True, "jax gates": {k: v[0] for k, v in gates.items()},
+            "global_mean": float(gmean), "jbf_sharded bitwise": True}
+        p11_ms["world1 nccl step B=4"] = cuda_ms(lambda: step(gd.local, gc.local),
+                                                 warmup=1, iters=5)
+        p11_ms["bare kde_pipeline B=4"] = cuda_ms(lambda: kde_pipeline(depth4, color4, intr, cfg),
+                                                  warmup=1, iters=5)
+        p11_ms["exchange_width nccl x1 (colour halo 4, B=1)"] = cuda_ms(
+            lambda: halo.exchange_width(color4[:1], 4, mesh), warmup=2, iters=5)
+        p11_ms["jbf_sharded nccl x1 B=1"] = cuda_ms(
+            lambda: jbf_sharded(depth4[:1], color4[:1], mesh, p), warmup=2, iters=5)
+    finally:
+        dist.destroy_process_group()
+        for var in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+            os.environ.pop(var)
+    p11_ms["unsharded joint_bilateral_filter B=1"] = cuda_ms(
+        lambda: bilateral.joint_bilateral_filter(depth4[:1], color4[:1], p), warmup=2, iters=5)
+    print(f"phase 11 (a): {time.perf_counter() - t_phase11:.1f} s")
+
+    # (b) gloo ranks sharing the card (rank r on card r modulo the count):
+    # the JBF on width tiles at x = 2 and 4 (and 157-px tiles of the 628-column
+    # crop), the spatial step (data 1 x x 2) and the data-parallel step
+    # (data 2 x x 1); each path's launches by rank, its output gathered on
+    # rank 0 and held bitwise against the unsharded run on the card
+    depth_np, color_np = depth4.cpu().numpy(), color4.cpu().numpy()
+    for n in (2, 4):
+        ranks = multihost.spawn(_phase11_rank, n, args=(depth_np, color_np, crop_w),
+                                device="cuda", backend="gloo", timeout_s=300)
+        for r in ranks:
+            for tag, cnt in r["counts"].items():
+                key = f"p11.{tag} rank{r['rank']}"
+                path_counts[key] = cnt
+                form = r["forms"].get(tag)
+                path_forms[key] = {f"jbf:{form}": cnt["cuda_bilateral"]} if form else {}
+                if cnt["cuda_bilateral"] != 1:
+                    _fail(f"phase 11 (b): {key} launched the JBF {cnt['cuda_bilateral']} times")
+                if "step" in tag and any(v == 0 for v in cnt.values()):
+                    _fail(f"phase 11 (b): {key}: a kernel of the path was never launched: {cnt}")
+        for tag, (shape, got) in ranks[0]["out"].items():
+            want = (res4.optimized_points if "step" in tag
+                    else jbf_ref_crop if got.shape[2] == crop_w else jbf_ref4)
+            if not torch.equal(got.to(dev), want):
+                _fail(f"phase 11 (b): {tag} (blocks {shape}) differs from the unsharded run")
+            p11_checks[f"gloo {tag}"] = {"block": shape, "bitwise": True}
+        p11_ms.update({f"{k} (rank 0)": v for k, v in ranks[0]["ms"].items()})
+        print(f"phase 11 (b) world {n} on {[r['device'] for r in ranks]}: "
+              f"{time.perf_counter() - t_phase11:.1f} s")
+
+    # (c) the dryrun: one rank over NCCL, four gloo ranks sharing the card
+    for n, backend in ((1, None), (4, "gloo")):
+        t0 = time.perf_counter()
+        dry = sharding.dryrun(n, backend=backend)
+        p11_ms[f"dryrun({n}) {backend or 'nccl'} wall"] = (time.perf_counter() - t0) * 1e3
+        if "parity=ok" not in dry["line"] or dry["jbf_launches"] != [1] * n:
+            _fail(f"phase 11 (c): dryrun({n}): {dry}")
+        p11_checks[f"dryrun({n})"] = dry
+    print(f"phase 11: {time.perf_counter() - t_phase11:.1f} s")
+    print(f"phase 11 times on {smi} (ms; CUDA events, median of 5; dryrun wall clock; one "
+          "card shared by every rank: not a scaling number): " + json.dumps(p11_ms))
+    print("parallel paths: " + json.dumps({"checks": p11_checks, "launches": {
+        k: v for k, v in path_counts.items() if k.startswith("p11.")}}, default=str))
+
     # ---- phase 9: summary lines, one JSON entry per TPU kernel; a second
     # form of a kernel (colour-only gradient, analyze-mode sums, the shapes
     # of phase 6's paths) is checked and timed beside its main-path form
@@ -1929,7 +2176,7 @@ def main() -> int:
             # phase 10's paths: each evaluate row (5 calls: one warm-up, 3
             # timed, one scored) and the native-fed stream
             "launches_by_path": {p: c[key] for p, c in path_counts.items()
-                                 if p.startswith(("eval.", "stream.native"))},
+                                 if p.startswith(("eval.", "stream.native", "p11."))},
             "max_abs_err": err, "ms": r["ms_b1"], "plain_ms": r["plain_ms_b1"],
             "bound_ms": r["bound_ms_b1"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms_b1"],

@@ -29,6 +29,9 @@ utils/     the evaluation harness (evaluate.py: every method timed and
 native/    the C++ frame source (framesource.cpp: FileStorage XML and raw
            depth frames read round robin on a background thread), built
            with g++ at first use under build/native/ and bound with ctypes
+parallel/  multi-process execution on torch.distributed: the ('data', 'x')
+           mesh, initialisation from torch's env names, halo exchange, the
+           JBF on width tiles, the sharded KDE step and its dryrun
 cli.py     `python -m kinectdepthmapenhancement_tpu_torch enhance|evaluate ...`
 convert.py carries the JAX package's config, intrinsics and streaming
            state across

@@ -128,15 +128,25 @@ def kde_pipeline(
     CCL and the plane stage take slic.label_index's index (cell-local, or
     global); the single-iteration path makes no host sync."""
     batched, (depth, color) = _batch(depth, color)
-    _, h, w = depth.shape
-    rays = normalized_rays(intr, h, w, depth.device)
-    k = cfg.grid.num_clusters
-
     # record_function names each stage in torch.profiler traces (the JAX
     # package's named_scope labels); outside a profiler it only opens and
     # closes a range
     with record_function("kde.jbf"):
         jbf_depth = bilateral.joint_bilateral_filter(depth, color, cfg.jbf)
+    return _unbatch(_kde_from_jbf(jbf_depth, color, intr, cfg), batched)
+
+
+def _kde_from_jbf(
+    jbf_depth: torch.Tensor, color: torch.Tensor, intr: Intrinsics, cfg: KDEConfig
+) -> KDEResult:
+    """kde_pipeline after its JBF, on batched frames: jbf_depth f32 [B, H, W]
+    mm (the filtered depth), color u8 [B, H, W, 3].  parallel/sharding.py's
+    spatial route runs the JBF on width tiles and this on the gathered
+    frames."""
+    _, h, w = jbf_depth.shape
+    rays = normalized_rays(intr, h, w, jbf_depth.device)
+    k = cfg.grid.num_clusters
+    with record_function("kde.jbf"):
         points = projective_to_real(jbf_depth, intr)
     with record_function("kde.normals"):
         nmap = normals.generate_normal_map(points, cfg.normals)
@@ -199,7 +209,7 @@ def kde_pipeline(
                 points[..., 2] <= plane.VALID_DEPTH_MM, cfg.fill_holes,
             )
         optimized = plane.depth_bilateral(optimized, rays, cfg.projection)
-    result = KDEResult(
+    return KDEResult(
         optimized_points=optimized,
         plane_fitted=plane_fitted,
         jbf_depth=jbf_depth,
@@ -209,7 +219,6 @@ def kde_pipeline(
         merged_variance=merged.variance,
         merged_sizes=merged.sizes,
     )
-    return _unbatch(result, batched)
 
 
 def _ers_front_end(depth, points, color, cfg):

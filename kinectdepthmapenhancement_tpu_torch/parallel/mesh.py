@@ -1,0 +1,113 @@
+"""The ('data', 'x') process mesh: frames over 'data', image width over 'x'.
+
+PyTorch counterpart of the JAX package's parallel/mesh.py.  A JAX Mesh
+holds devices; here one process drives one device (one rank), so the mesh
+holds this rank's place in the grid, its device and the process groups
+its collectives run over.  Ranks are laid out as the JAX mesh lays out
+devices, row-major over (data, x): rank = d * x + s.  The 'x' group of a
+rank is its data row (the ranks that tile the same frames); its 'data'
+group is its column (the ranks that hold the same width tile of the other
+rows' frames).
+
+Without torch.distributed initialised the mesh is 1 x 1, on the device the
+caller names (the card by default).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
+
+
+def rank_device(device=None, rank: Optional[int] = None) -> torch.device:
+    """This rank's device: `device` as given ("cpu", "cuda:1"); "cuda"
+    without an index (and None, the card) takes the card of this rank's
+    local rank (LOCAL_RANK, else `rank`, else the process group's rank)
+    modulo the cards on the host.  Raises without a card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's view of the ('data', 'x') mesh."""
+
+    data: int                 # extent of the 'data' axis
+    x: int                    # extent of the 'x' axis (width tiles)
+    rank: int
+    d: int                    # this rank's 'data' coordinate
+    s: int                    # this rank's 'x' coordinate
+    device: torch.device
+    x_ranks: Tuple[int, ...]  # the global ranks of this rank's data row
+    x_group: Any = None       # ProcessGroup over x_ranks (None at world size 1)
+    data_group: Any = None    # ProcessGroup over this rank's column
+
+    @property
+    def world_size(self) -> int:
+        return self.data * self.x
+
+    @property
+    def shape(self):
+        """{'data': ..., 'x': ...}, as a JAX Mesh's shape reads."""
+        return {"data": self.data, "x": self.x}
+
+    def width_tile(self, frames: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of full-width frames [B, H, W, ...]: the
+        tile [B, H, W / x, ...] at 'x' coordinate s.  Raises when x does
+        not divide W (the JAX sharding needs the same)."""
+        w = frames.shape[2]
+        if w % self.x:
+            raise ValueError(f"width {w} is not divisible by the mesh's x = {self.x}")
+        ws = w // self.x
+        return frames[:, :, self.s * ws:(self.s + 1) * ws]
+
+
+def wire(t: torch.Tensor, group) -> torch.Tensor:
+    """t as `group`'s backend carries it: through host memory under gloo
+    (its point-to-point ops take CPU tensors), on the device under NCCL.
+    The transport follows the backend the caller initialised; the caller
+    moves what arrives back with .to(mesh.device)."""
+    return t.cpu() if dist.get_backend(group) == "gloo" else t
+
+
+def make_mesh(n_devices: Optional[int] = None, spatial: int = 1, device=None) -> Mesh:
+    """Mesh over ('data', 'x'): `spatial` ranks on the image width, the rest
+    on the batch.  Under torch.distributed every rank calls it, in the same
+    order as every other collective call (it creates the process groups);
+    n_devices, when given, must be the world size.  Single-process it is
+    the 1 x 1 mesh on `device` (the card by default)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"n_devices={n_devices}, but the world has {n} ranks")
+    if n % spatial != 0:
+        raise ValueError(f"{n} devices not divisible by spatial={spatial}")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    data = n // spatial
+    d, s = divmod(rank, spatial)
+    x_group = data_group = None
+    if n > 1:
+        # dist.new_group must be called by every rank for every group, in
+        # the same order, including the groups a rank is not in
+        for row in range(data):
+            g = dist.new_group([row * spatial + c for c in range(spatial)])
+            x_group = g if row == d else x_group
+        for col in range(spatial):
+            g = dist.new_group([row * spatial + col for row in range(data)])
+            data_group = g if col == s else data_group
+    return Mesh(
+        data=data, x=spatial, rank=rank, d=d, s=s,
+        device=rank_device(device, rank),
+        x_ranks=tuple(d * spatial + c for c in range(spatial)),
+        x_group=x_group, data_group=data_group,
+    )

@@ -17,9 +17,11 @@ package's rgbf_pipeline, spdsp_pipeline and tof_pipeline at 96x128 and
 it moves pixels (kde_jax_planes_seed0.npz: plane merge
 and hole fill under the cm and SDC normals on the far-range frame) and
 depth-to-colour registration at 640x480
-(registration_jax_640x480_seed0.npz).  The fixtures are only read
-(np.load): tests/golden.py rewrites a fixture whose key differs, so nothing
-here goes through it.
+(registration_jax_640x480_seed0.npz); and the JAX package's parallel/:
+the JBF on width tiles and the sharded KDE step at 96x128
+(parallel_jax_seed0.npz).  The fixtures are only read (np.load):
+tests/golden.py rewrites a fixture whose key differs, so nothing here goes
+through it.
 
 Each gate returns {name: (value, limit, passed)}.
 """
@@ -129,6 +131,21 @@ def load_jax_mrf_640x480() -> np.ndarray:
     """The JAX mrf_pipeline output on the frame of load_jax_640x480()."""
     with np.load(os.path.join(FIXTURES, "kde_jax_640x480_normals_seed0.npz")) as z:
         return z["mrf__depth"]
+
+
+def load_jax_parallel() -> Dict[str, object]:
+    """The JAX package's parallel/ outputs (tests/golden/parallel_jax_seed0.npz,
+    gen_torch_fixtures.py parallel): "jbf_sharded" ([48, 64] f32, spatial
+    8) and "kde", one dict a frame of the 96x128 batch (seeds 0..3, grid
+    3x4), keyed as kde_gates reads it: the sharded step's optimized points,
+    the unsharded run's JBF depth, normals and label maps."""
+    with np.load(os.path.join(FIXTURES, "parallel_jax_seed0.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    intr = default_kinect_intrinsics(128, 96)
+    frames = [_jax_outputs({k: v[i] for k, v in arrays.items() if k.startswith("kde__")},
+                           "kde", intr)
+              for i in range(arrays["kde__optimized_z"].shape[0])]
+    return {"jbf_sharded": arrays["jbf_sharded"], "kde": frames}
 
 
 def _endpoint_gates(got: Mapping[str, np.ndarray], want: Mapping[str, np.ndarray]) -> Gate:

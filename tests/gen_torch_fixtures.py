@@ -1,7 +1,8 @@
 """Generate the JAX-package fixtures the PyTorch port is held against.
 
     python tests/gen_torch_fixtures.py [full] [ext] [stages] [dasp] [normals] [refs]
-                                       [eval] [planes] [registration] [sdc_spread]
+                                       [eval] [planes] [registration] [parallel]
+                                       [sdc_spread]
 
 Not a test module (pytest collects test_*.py only).  Runs the JAX package
 on the CPU and writes, with np.savez_compressed, under tests/golden/:
@@ -105,6 +106,20 @@ on the CPU and writes, with np.savez_compressed, under tests/golden/:
           lies within 1e-3 px of .5, where the two packages may round a
           point to different pixels.
 
+  parallel
+          parallel_jax_seed0.npz — the JAX package's parallel/ on 8 CPU
+          devices (the part sets XLA_FLAGS' host device count, so it runs
+          first of the parts named): "jbf_sharded", jbf_sharded at spatial
+          8 on the 48x64 inputs of tests/test_parallel.py:92-95 (seed 5,
+          10% holes; parallel_jbf_inputs); "kde__optimized_z", sharded_kde_step on
+          make_mesh(8, spatial=2) (data 4 x x 2) over make_noisy_scene(96,
+          128, seed=0..3), grid 3x4 (parallel_kde_inputs), the optimized
+          points' z (f32; the points are rays * z); and, from the unsharded
+          jitted kde_pipeline on the same frames (the sharded step returns
+          only the points), the stages golden.kde_gates reads besides:
+          "kde__jbf_depth" (f32), "kde__normals" (f16), "kde__nasp_labels"
+          and "kde__merged_labels" (int16), each [4, 96, 128, ...] (~4 min).
+
   sdc_spread
           writes nothing: the SDC plane runs of the planes part at 640x480
           again with ops/integral.py's tables summed in float64 (as the
@@ -146,6 +161,7 @@ PLANE_METHODS = ("cm", "sdc")
 # the two are the same computation rounded in another order
 MOVED_MM = 0.01
 REGISTRATION = os.path.join(GOLDEN, "registration_jax_640x480_seed0.npz")
+PARALLEL = os.path.join(GOLDEN, "parallel_jax_seed0.npz")
 FULL_MAX_BYTES = 3 * 2**20
 
 
@@ -774,11 +790,74 @@ def gen_sdc_spread():
               + ", ".join(f"{k} {v[0]:.6g}" for k, v in gates.items()))
 
 
+def parallel_jbf_inputs():
+    """The 48x64 depth (10% holes) and colour of tests/test_parallel.py:92-95."""
+    h, w = 48, 64
+    rng = np.random.default_rng(5)
+    depth = rng.uniform(400.0, 4000.0, (h, w)).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = 0.0
+    color = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+    return depth, color
+
+
+def parallel_kde_inputs(make_noisy_scene, intr):
+    """make_noisy_scene(96, 128, seed=0..3): colour [4, 96, 128, 3] and
+    noisy depth [4, 96, 128]."""
+    scenes = [make_noisy_scene(96, 128, intr, seed=s) for s in range(4)]
+    return np.stack([s[0] for s in scenes]), np.stack([s[1] for s in scenes])
+
+
+def gen_parallel():
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
+    jax = _jax()
+    if jax.device_count() < 8:
+        raise RuntimeError("the parallel part needs 8 CPU devices: run it alone or first")
+    import jax.numpy as jnp
+
+    from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
+    from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig
+    from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu.models import pipelines
+    from kinectdepthmapenhancement_tpu.parallel.mesh import make_mesh
+    from kinectdepthmapenhancement_tpu.parallel.sharding import sharded_kde_step
+    from kinectdepthmapenhancement_tpu.parallel.stencil_shard import jbf_sharded
+
+    depth, color = parallel_jbf_inputs()
+    mesh8 = make_mesh(8, spatial=8)
+    jbf = jax.jit(lambda a, b: jbf_sharded(a, b, mesh8))(jnp.asarray(depth), jnp.asarray(color))
+
+    h, w = 96, 128
+    intr = default_kinect_intrinsics(w, h)
+    cfg = dataclasses.replace(KDEConfig(), grid=GridParams(rows=3, cols=4))
+    colors, noisy = parallel_kde_inputs(make_noisy_scene, intr)
+    t0 = time.time()
+    step = sharded_kde_step(make_mesh(8, spatial=2), intr, cfg)
+    points = np.asarray(step(jnp.asarray(noisy), jnp.asarray(colors)))
+    print(f"sharded_kde_step on the 4 x 2 mesh: {time.time() - t0:.1f} s")
+    res = jax.jit(jax.vmap(lambda d, c: pipelines.kde_pipeline(d, c, intr, cfg)))(
+        jnp.asarray(noisy), jnp.asarray(colors))
+    res = jax.tree_util.tree_map(np.asarray, res)
+    gap = float(np.abs(points - res.optimized_points).max())
+    print(f"sharded against unsharded optimized points: max |d| {gap:.6g} mm")
+    _save(PARALLEL, {
+        "jbf_sharded": np.asarray(jbf, np.float32),
+        "kde__optimized_z": points[..., 2].astype(np.float32),
+        "kde__jbf_depth": res.jbf_depth.astype(np.float32),
+        "kde__normals": res.normals.astype(np.float16),
+        "kde__nasp_labels": res.nasp_labels.astype(np.int16),
+        "kde__merged_labels": res.merged_labels.astype(np.int16),
+    })
+
+
 if __name__ == "__main__":
     parts = sys.argv[1:] or ["full", "ext", "stages", "dasp", "normals", "refs", "eval",
-                             "planes", "registration"]
+                             "planes", "registration", "parallel"]
+    # the parallel part sets the host device count, read at JAX's first use
+    parts.sort(key=lambda part: part != "parallel")
     for part in parts:
         {"full": gen_full, "ext": gen_ext, "stages": gen_stages, "dasp": gen_dasp,
          "normals": gen_normals, "refs": gen_refs, "eval": gen_eval,
          "planes": gen_planes, "registration": gen_registration,
-         "sdc_spread": gen_sdc_spread}[part]()
+         "parallel": gen_parallel, "sdc_spread": gen_sdc_spread}[part]()

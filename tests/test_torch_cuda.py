@@ -1042,3 +1042,101 @@ def test_evaluate_rows_card_against_cpu(dev):
         for k in ("mean_3d_error_mm", "rmse_mm"):
             assert card[name][k] == pytest.approx(cpu[name][k], rel=1e-4), (name, k)
         assert abs(card[name]["valid_px"] - cpu[name]["valid_px"]) <= 1e-3 * H * W, name
+
+
+def _parallel_world1():
+    """One NCCL rank on the card (multihost.spawn): the data-parallel step on
+    two 96x128 frames and jbf_sharded at world 1, with their JBF launches."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import multihost, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+
+    mesh = multihost.global_mesh()
+    intr = default_kinect_intrinsics(W, H)
+    scenes = [make_noisy_scene(H, W, intr, seed=s) for s in (0, 3)]
+    depth = multihost.local_batch_to_global(mesh, [s[1] for s in scenes]).local
+    color = multihost.local_batch_to_global(mesh, [s[0] for s in scenes], extra_dims=1).local
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    before = cuda_bilateral.launches
+    step = sharding.sharded_kde_step(mesh, intr, cfg)(depth, color)
+    mid = cuda_bilateral.launches
+    jbf = jbf_sharded(depth, color, mesh, cfg.jbf)
+    return {"backend": torch.distributed.get_backend(), "device": str(mesh.device),
+            "step": step.cpu(), "jbf": jbf.cpu(),
+            "launches": (mid - before, cuda_bilateral.launches - mid)}
+
+
+def test_parallel_world1_nccl_on_the_card(dev, tmp_path):
+    """World size 1 over NCCL (one spawned rank on the card): the
+    data-parallel step bitwise kde_pipeline at B=2, jbf_sharded bitwise the
+    unsharded JBF, one JBF launch each."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import multihost
+
+    (got,) = multihost.spawn(_parallel_world1, 1, store_dir=str(tmp_path), timeout_s=120)
+    assert (got["backend"], got["device"], got["launches"]) == ("nccl", "cuda:0", (1, 1))
+    intr = default_kinect_intrinsics(W, H)
+    scenes = [make_noisy_scene(H, W, intr, seed=s) for s in (0, 3)]
+    depth = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    color = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    want = kde_pipeline(depth, color, intr, cfg).optimized_points
+    assert torch.equal(got["step"], want.cpu())
+    assert torch.equal(got["jbf"], bilateral.joint_bilateral_filter(depth, color).cpu())
+
+
+ODD_TILE = 77  # a tile width that is not a multiple of 4
+
+
+def _parallel_odd_tiles():
+    """Two gloo ranks sharing the card: jbf_sharded on 77-px tiles of two
+    96x154 frames, gathered."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+    from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+
+    mesh = make_mesh(2, spatial=2, device="cuda")
+    depth, color = _odd_frames(mesh.device)
+    before = cuda_bilateral.launches
+    tile = jbf_sharded(mesh.width_tile(depth), mesh.width_tile(color), mesh)
+    return {"shape": tuple(tile.shape), "launches": cuda_bilateral.launches - before,
+            "jbf": halo.gather_width(tile, mesh).cpu()}
+
+
+def _odd_frames(device):
+    intr = default_kinect_intrinsics(2 * ODD_TILE, H)
+    scenes = [make_noisy_scene(H, 2 * ODD_TILE, intr, seed=s) for s in (0, 3)]
+    depth = torch.from_numpy(np.stack([s[1] for s in scenes])).to(device)
+    return depth, torch.from_numpy(np.stack([s[0] for s in scenes])).to(device)
+
+
+def test_jbf_sharded_gloo_ranks_share_the_card_at_an_odd_tile_width(dev, tmp_path):
+    """Two gloo ranks on the one card (strips staged through the host):
+    jbf_sharded on 77-px tiles bitwise equal to the unsharded JBF, one
+    kernel launch a rank."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import multihost
+
+    ranks = multihost.spawn(_parallel_odd_tiles, 2, device="cuda", backend="gloo",
+                            store_dir=str(tmp_path), timeout_s=120)
+    assert [(r["shape"], r["launches"]) for r in ranks] == [((2, H, ODD_TILE), 1)] * 2
+    depth, color = _odd_frames(dev)
+    assert torch.equal(ranks[0]["jbf"], bilateral.joint_bilateral_filter(depth, color).cpu())
+
+
+def _never_reached():
+    raise AssertionError("a rank ran past initialize")
+
+
+def test_nccl_with_more_ranks_than_cards_raises(dev, tmp_path):
+    """NCCL refuses two ranks on one card: initialize raises on every rank
+    before init_process_group, so the run fails at once instead of hanging;
+    dryrun refuses in the parent."""
+    import time
+
+    from kinectdepthmapenhancement_tpu_torch.parallel import multihost, sharding
+
+    n = torch.cuda.device_count() + 1
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="NCCL needs one card per rank"):
+        multihost.spawn(_never_reached, n, store_dir=str(tmp_path), timeout_s=120)
+    assert time.monotonic() - t0 < 90
+    with pytest.raises(RuntimeError, match=f"need {n} devices"):
+        sharding.dryrun(n)

@@ -1,0 +1,292 @@
+"""PyTorch port: parallel/ (mesh, halo exchange, the JBF on width tiles, the
+sharded KDE step, the dryrun) on the CPU, with gloo ranks spawned once for
+the module (multihost.spawn, a file:// store under the test's temporary
+directory, 60 s deadline) running every multi-rank check; the counterparts
+of tests/test_parallel.py.
+
+Bars: the halo box sum, reflect101_at_global_edges, jbf_sharded and
+sharded_kde_step bitwise equal to the unsharded ops on the same inputs
+(the port's kde_pipeline, and joint_bilateral_filter's plain version).
+Against the JAX package (tests/golden/parallel_jax_seed0.npz, written by
+gen_torch_fixtures.py parallel): jbf_sharded within 2e-5 relative, the
+no-support zeros equal (the FMA contraction on a uniform-random depth
+field; see test_jbf_sharded_against_jax); each frame of the sharded KDE
+step by golden.kde_gates (tests/test_oracle_pipeline.py's thresholds)
+against the JAX sharded_kde_step on its 4 x 2 mesh.
+"""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from gen_torch_fixtures import parallel_jbf_inputs, parallel_kde_inputs
+from kinectdepthmapenhancement_tpu_torch.core.camera import default_kinect_intrinsics
+from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
+from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
+from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
+from kinectdepthmapenhancement_tpu_torch.ops import bilateral
+from kinectdepthmapenhancement_tpu_torch.parallel import halo, multihost, sharding
+from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+from kinectdepthmapenhancement_tpu_torch.utils import golden
+
+torch.set_num_threads(2)
+WORLD = 4
+GRID = GridParams(rows=3, cols=4)
+BOX_SHAPES = ((32, 64), (32, 32))  # 16- and 8-px tiles at x = 4
+REFLECT_R = 3
+
+
+def _box5(x):
+    """5x5 zero-padded box sum of [B, H, W] (tests/test_parallel.py:26-35)."""
+    p = F.pad(x, (2, 2, 2, 2))
+    h, w = x.shape[1:]
+    out = torch.zeros_like(x)
+    for dy in range(5):
+        for dx in range(5):
+            out = out + p[:, dy:dy + h, dx:dx + w]
+    return out
+
+
+def _box_inputs(h, w):
+    return torch.from_numpy(np.random.default_rng(0).normal(size=(2, h, w)).astype(np.float32))
+
+
+def _reflect_input():
+    return torch.from_numpy(
+        np.random.default_rng(1).normal(size=(2, 6, 64, 3)).astype(np.float32))
+
+
+def _jbf_input():
+    depth, color = parallel_jbf_inputs()
+    return torch.from_numpy(depth)[None], torch.from_numpy(color)[None]
+
+
+def _kde_input():
+    h, w = 96, 128
+    intr = default_kinect_intrinsics(w, h)
+    colors, noisy = parallel_kde_inputs(make_noisy_scene, intr)
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    return intr, cfg, torch.from_numpy(noisy), torch.from_numpy(colors)
+
+
+def _rank_checks():
+    """Every multi-rank check, on each of WORLD gloo ranks on the CPU; the
+    full-width results gathered on every rank."""
+    out = {}
+    mesh4 = make_mesh(WORLD, spatial=4, device="cpu")
+    for h, w in BOX_SHAPES:
+        tile = mesh4.width_tile(_box_inputs(h, w))
+        padded = F.pad(halo.exchange_width(tile, 2, mesh4), (0, 0, 2, 2))
+        local = sum(padded[:, dy:dy + h, dx:dx + tile.shape[2]]
+                    for dy in range(5) for dx in range(5))
+        out[f"box {h}x{w}"] = halo.gather_width(local, mesh4)
+
+    meshes = {"x2": make_mesh(WORLD, spatial=2, device="cpu"), "x4": mesh4}
+    for name, mesh in meshes.items():
+        tile = mesh.width_tile(_reflect_input())
+        padded = halo.reflect101_at_global_edges(
+            halo.exchange_width(tile, REFLECT_R, mesh), REFLECT_R, mesh)
+        out[f"reflect {name}"] = (mesh.s, padded)
+        depth, color = _jbf_input()
+        got = jbf_sharded(mesh.width_tile(depth), mesh.width_tile(color), mesh)
+        out[f"jbf {name}"] = halo.gather_width(got, mesh)
+
+    intr, cfg, depth, color = _kde_input()
+    for name, spatial in (("data2_x2", 2), ("data4_x1", 1)):
+        mesh = make_mesh(WORLD, spatial=spatial, device="cpu")
+        b = depth.shape[0] // mesh.data
+        rows = slice(mesh.d * b, (mesh.d + 1) * b)
+        step = sharding.sharded_kde_step(mesh, intr, cfg)
+        local = step(mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
+        out[f"kde {name}"] = (tuple(local.shape), sharding.gather_global(local, mesh))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    store = tmp_path_factory.mktemp("store")
+    return multihost.spawn(_rank_checks, WORLD, device="cpu", store_dir=str(store),
+                           timeout_s=60)
+
+
+@pytest.fixture(scope="module")
+def kde_want():
+    intr, cfg, depth, color = _kde_input()
+    res = kde_pipeline(depth, color, intr, cfg)
+    return {f: getattr(res, f).numpy() for f in res._fields}
+
+
+@pytest.mark.parametrize("shape", BOX_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_halo_box_sum_bitwise(ranks, shape):
+    """exchange_width at x = 4, then a local 5x5 zero-padded box sum: bitwise
+    the unsharded box sum (tests/test_parallel.py:38-59), on every rank."""
+    want = _box5(_box_inputs(*shape))
+    for r in ranks:
+        assert torch.equal(r[f"box {shape[0]}x{shape[1]}"], want)
+
+
+@pytest.mark.parametrize("name", ["x2", "x4"])
+def test_reflect101_matches_definition(ranks, name):
+    """exchange_width + reflect101_at_global_edges at radius 3: the tile's
+    window of the global reflect-101 pad (F.pad "reflect"), bitwise."""
+    x = _reflect_input()
+    glob = F.pad(x.permute(0, 3, 1, 2), (REFLECT_R, REFLECT_R, 0, 0), mode="reflect")
+    glob = glob.permute(0, 2, 3, 1)
+    for r in ranks:
+        s, padded = r[f"reflect {name}"]
+        ws = x.shape[2] // int(name[1])
+        assert torch.equal(padded, glob[:, :, s * ws:s * ws + ws + 2 * REFLECT_R])
+
+
+@pytest.mark.parametrize("name", ["x2", "x4"])
+def test_jbf_sharded_bitwise(ranks, name):
+    """jbf_sharded on 32- / 16-px tiles of the 48x64 input with 10% holes:
+    bitwise the port's unsharded joint_bilateral_filter, on every rank."""
+    depth, color = _jbf_input()
+    want = bilateral.joint_bilateral_filter(depth, color)
+    for r in ranks:
+        assert torch.equal(r[f"jbf {name}"], want)
+
+
+@pytest.mark.parametrize("name", ["x2", "x4"])
+def test_jbf_sharded_against_jax(ranks, name):
+    """The port's jbf_sharded against the JAX jbf_sharded at spatial 8 (the
+    fixture): within 2e-5 of the JAX value, relative, and the no-support
+    zeros equal.  XLA on the CPU contracts FMAs and the port does not; on
+    this uniform-random depth (400-4000 mm, the depth term steep) the
+    unsharded JBFs of the two packages differ by up to 118 ulps (1.21e-5
+    relative, 0.0288 mm; 0.984 of pixels within 1e-3 mm), where the 1e-3 mm
+    bar of tests/test_torch_bilateral.py:72-74 is set on make_noisy_scene.
+    Each package's sharded output equals its unsharded one bitwise."""
+    got = ranks[0][f"jbf {name}"][0].numpy()
+    want = golden.load_jax_parallel()["jbf_sharded"]
+    assert (np.abs(got - want) <= 2e-5 * np.abs(want)).all()
+    assert ((got == 0.0) == (want == 0.0)).all()
+
+
+@pytest.mark.parametrize("name", ["data2_x2", "data4_x1"])
+def test_sharded_kde_step_bitwise(ranks, kde_want, name):
+    """sharded_kde_step on make_noisy_scene(96, 128, seed=0..3), grid 3x4:
+    each rank's block is [b, 96, 128 / x, 3] and the gathered batch is
+    bitwise the port's kde_pipeline at B=4 on the same frames."""
+    want = torch.from_numpy(kde_want["optimized_points"])
+    block = {"data2_x2": (2, 96, 64, 3), "data4_x1": (1, 96, 128, 3)}[name]
+    for r in ranks:
+        shape, got = r[f"kde {name}"]
+        assert shape == block
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("frame", range(4))
+def test_sharded_kde_step_against_jax(ranks, kde_want, frame):
+    """Frame `frame` of the data 2 x x 2 step by golden.kde_gates against
+    the JAX sharded_kde_step on its 4 x 2 mesh (the optimized points; the
+    other stages from the unsharded runs of both packages)."""
+    got = {k: v[frame] for k, v in kde_want.items()}
+    got["optimized_points"] = ranks[0]["kde data2_x2"][1][frame].numpy()
+    gates = golden.kde_gates(got, golden.load_jax_parallel()["kde"][frame])
+    assert not golden.failures(gates), gates
+
+
+def test_single_process_mesh_and_step():
+    """Without torch.distributed: a 1 x 1 mesh on the named device; the JBF
+    at world 1 (both halos global edges) and the step (data parallel)
+    bitwise the unsharded ops."""
+    assert not dist.is_initialized()
+    mesh = make_mesh(device="cpu")
+    assert (mesh.shape, mesh.rank, mesh.device) == ({"data": 1, "x": 1}, 0, torch.device("cpu"))
+    depth, color = _jbf_input()
+    assert torch.equal(jbf_sharded(depth, color, mesh), bilateral.joint_bilateral_filter(depth, color))
+    intr, cfg, depth4, color4 = _kde_input()
+    got = sharding.sharded_kde_step(mesh, intr, cfg)(depth4[:1], color4[:1])
+    assert torch.equal(got, kde_pipeline(depth4[:1], color4[:1], intr, cfg).optimized_points)
+    assert torch.equal(sharding.gather_global(got, mesh), got)
+
+
+def test_rejections():
+    """What the JAX code would refuse: an impl or axis it does not name, a
+    width the mesh does not divide, a tile too narrow for its halo or for
+    reflect-101, a spatial extent that does not divide the world; and a
+    block on another device than the rank's."""
+    mesh = make_mesh(device="cpu")
+    depth, color = _jbf_input()
+    with pytest.raises(ValueError, match="impl"):
+        jbf_sharded(depth, color, mesh, impl="triton")
+    with pytest.raises(ValueError, match="axis"):
+        jbf_sharded(depth, color, mesh, axis="data")
+    with pytest.raises(ValueError, match="not divisible"):
+        make_mesh(device="cpu", spatial=2)
+    narrow = dataclasses.replace(mesh, x=3, s=1)
+    with pytest.raises(ValueError, match="not divisible"):
+        narrow.width_tile(depth)
+    with pytest.raises(ValueError, match="halo"):
+        halo.exchange_width(depth[:, :, :3], 4, mesh)
+    with pytest.raises(ValueError, match="reflect-101"):
+        halo.reflect101_at_global_edges(torch.zeros(1, 2, 2 * 4 + 4), 4, mesh)
+    intr, cfg, _, _ = _kde_input()
+    meta = dataclasses.replace(mesh, device=torch.device("meta"))
+    with pytest.raises(ValueError, match="this rank's device"):
+        sharding.sharded_kde_step(meta, intr, cfg)(depth, color)
+
+
+def test_exchange_width_zero_pads_at_world_one():
+    """At x = 1 both halos are global edges: zeros, the tile unchanged."""
+    mesh = make_mesh(device="cpu")
+    x = _box_inputs(4, 8)
+    got = halo.exchange_width(x, 2, mesh)
+    assert torch.equal(got, F.pad(x, (2, 2)))
+
+
+def test_disable_pallas():
+    """The same pure config function as the JAX package's
+    (tests/test_parallel.py:145-160): every kernel route set to "xla", the
+    rest of the config unchanged."""
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    forced = dataclasses.replace(
+        cfg,
+        normals=dataclasses.replace(cfg.normals, cov_impl="pallas"),
+        nasp=dataclasses.replace(cfg.nasp, grad_impl="pallas"),
+    )
+    off = sharding.disable_pallas(forced)
+    assert off.normals.cov_impl == "xla" and off.normals.dt_impl == "xla"
+    assert off.nasp.grad_impl == "xla" and off.nasp.stats_impl == "xla"
+    assert dataclasses.replace(off, normals=cfg.normals, nasp=cfg.nasp) == cfg
+
+
+def test_dryrun_four_ranks_on_cpu(tmp_path, capsys):
+    """dryrun(4) under gloo on the CPU: a data 2 x x 2 mesh, one step
+    bitwise the unsharded kde_pipeline, the parity line printed."""
+    got = sharding.dryrun(4, device="cpu", store_dir=str(tmp_path))
+    assert re.fullmatch(r"dryrun_multichip ok: mesh=\{'data': 2, 'x': 2\} out=\(2, 96, 128, 3\) "
+                        r"backend=gloo device=cpu parity=ok \(bitwise\)", got["line"])
+    assert got["line"] in capsys.readouterr().out
+    assert got["jbf_launches"] == [0] * 4  # the plain version on the CPU launches nothing
+
+
+def test_dryrun_on_the_card_refuses_more_ranks_than_cards():
+    """Under NCCL, n above the card count raises (no silent pass); without
+    a card, any dryrun on the card raises."""
+    with pytest.raises(RuntimeError):
+        sharding.dryrun(2, backend="nccl")
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """The port's parallel/ imports torch, never jax or
+    kinectdepthmapenhancement_tpu (a grep of its sources)."""
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "kinectdepthmapenhancement_tpu_torch", "parallel")
+    bad = re.compile(r"^\s*(import|from)\s+(jax|kinectdepthmapenhancement_tpu)\b(?!_torch)",
+                     re.MULTILINE)
+    files = sorted(f for f in os.listdir(root) if f.endswith(".py"))
+    assert files == ["__init__.py", "halo.py", "mesh.py", "multihost.py", "sharding.py",
+                     "stencil_shard.py"]
+    for f in files:
+        with open(os.path.join(root, f)) as fh:
+            assert not bad.search(fh.read()), f
