@@ -29,7 +29,12 @@ Phases (each prints its results; any failure exits non-zero):
      F = 2 (the DASP window's centres) at r = 2 and 3 and at F = 4 and 7
      (the PCA planes, the PCA merge's table) at r = 4; and the JBF on the
      haloed width tiles phase 11's paths give it ([B, 480, 324], [B, 480,
-     164], [B, 480, 161]: x = 2 and 4 at 640 columns, x = 4 at 628); time kernel,
+     164], [B, 480, 161]: x = 2 and 4 at 640 columns, x = 4 at 628); and
+     the forms the tiled route gives rows 2-8 (rows 2t-8t): the DT and
+     the covariance on the haloed tiles the tiled normals hand them
+     ([B, 480, 347] at x = 2, [B, 480, 214] at x = 4), the seed gradient
+     on x = 2's tile sub-grid, the four cell kernels at x = 2's tile
+     (cell columns 10-19); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -120,7 +125,15 @@ Phases (each prints its results; any failure exits non-zero):
      4): jbf_sharded on 320-, 160- and 157-px tiles, the spatial step
      (data 1 x x 2) and the data-parallel step (data 2 x x 1), each
      gathered and bitwise equal to the unsharded run, one JBF launch a
-     rank a step; (c) dryrun(1) over NCCL and dryrun(4) under gloo; CUDA
+     rank a step; and the tiled route (sharding.spatial_kde) at x = 2 and
+     4 on the four frames and on frame 0, each from counts at 0: every
+     KDEResult field gathered and bitwise equal to kde_pipeline on the
+     card, spatial_route "tiled" there and "replicated" on the 628
+     crop (bitwise too), every kernel launched on its tile forms by
+     every rank, the collectives a step, and per rank the peak device
+     memory, device ms by kde.* stage and step ms of the tiled route
+     beside the replicated route's (and rank 0's unsharded call's);
+     (c) dryrun(1) over NCCL and dryrun(4) under gloo; CUDA
      event times (median of 5) of the step at world 1 against a bare
      kde_pipeline call, one exchange_width under NCCL and under gloo, and
      jbf_sharded a tile against the unsharded JBF, printed beside the
@@ -170,6 +183,15 @@ ASSIGN_LOOP_INSTRUCTIONS = 62
 # tiles, a width that is not a multiple of 4)
 JBF_TILES = {"tile324": (2, 640), "tile164": (4, 640), "tile161": (4, 628)}  # form: (x, W)
 
+# the tiled route's kernel forms (phase 11), each on width tile s = 1: the DT
+# and the covariance on the haloed tile that normals_sharded hands them (27
+# columns of points each side, none past the frame), named by its width: x =
+# 2 ([B, 480, 347], its right edge the frame's) and x = 4 ([B, 480, 214]);
+# the seed gradient and the four cell kernels on x = 2's tile, cell columns
+# [CELL_TILE[0], CELL_TILE[0] + CELL_TILE[1])
+HALO_TILES = {"tile347": 2, "tile214": 4}  # form: x
+CELL_TILE = (10, 10)  # (c0, tile cols) of x = 2's tile 1 on the 20-column grid
+
 # a trace's name of a kernel of csrc/*.cu (each lives in an anonymous namespace)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+_kernel)\b")
 
@@ -185,6 +207,57 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+KDE_SCOPES = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
+
+
+def _stage_breakdown(fn, scopes=KDE_SCOPES) -> dict:
+    """One profiled call of fn (torch.profiler): its device activities by
+    kde.* stage, by kernel name and for the port's own kernels.  Every
+    device activity of the trace counts, the kernels launched through
+    ctypes too, which the profiler attaches to no CPU op; an activity counts
+    under the stage whose device-side span holds it, and one outside every
+    span under the stage of the activity before it (one stream, stages in
+    order).  Returns per: {stage: [device ms, activities]}, by_kernel,
+    port: {kernel: [device ms, launches]}, work (activities), attached,
+    spans."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in on_device if ev.name in scopes)
+    starts = [t0 for t0, _, _ in spans]  # the spans follow one another
+    work = sorted((ev for ev in on_device if ev.name not in scopes
+                   and not getattr(ev, "is_user_annotation", False)),
+                  key=lambda ev: ev.time_range.start)
+    attached = sum(len(ev.kernels) for ev in events if ev.device_type == DeviceType.CPU)
+    per = {name: [0.0, 0] for name in scopes + ("unscoped",)}  # device ms, activities
+    by_kernel: dict = {}
+    port: dict = {}  # the port's own kernels (csrc/*.cu): device ms, launches
+    scope = "unscoped"
+    for ev in work:
+        t = ev.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < spans[i][1]:
+            scope = spans[i][2]
+        ms = ev.time_range.elapsed_us() / 1e3
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+        per[scope][0] += ms
+        per[scope][1] += 1
+        own = PORT_KERNEL.match(ev.name)
+        if own:
+            acc = port.setdefault(own.group(1), [0.0, 0])
+            acc[0] += ms
+            acc[1] += 1
+    return {"per": per, "by_kernel": by_kernel, "port": port, "work": len(work),
+            "attached": attached, "spans": len(spans)}
 
 
 def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
@@ -215,6 +288,8 @@ def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
             m.launches = 0
         for k in cuda_nasp.launches:
             cuda_nasp.launches[k] = 0
+        cuda_nasp.launch_forms.clear()
+        cuda_gradient.launch_forms.clear()
         out = fn()
         torch.cuda.synchronize()
         c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
@@ -248,6 +323,7 @@ def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
             lambda c1=c1: halo.exchange_width(c1, 4, mesh), warmup=2, iters=5)
         res["ms"][f"jbf_sharded gloo x{n} {form} B=1"] = cuda_ms(
             lambda d1=d1, c1=c1: jbf_sharded(d1, c1, mesh, p), warmup=2, iters=5)
+    _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted)
     if n == 2:
         step = sharding.sharded_kde_step(mesh, intr, cfg)
         path("spatial step data1 x2", mesh,
@@ -262,6 +338,104 @@ def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
     if res["rank"] != 0:
         res["out"] = {}
     return res
+
+
+# the cell kernels' launch forms on the tiled route (cuda_nasp.launch_forms):
+# the first iteration, the weighted update, the plane residual and the
+# gathers of CCL (F = 6) and the plane stage (F = 1, 3), each on a width tile
+TILED_NASP_FORMS = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:tile",
+                    "label_cell_sums:r4:F2:tile", "label_cell_gather:r4:F6:tile",
+                    "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
+
+
+def _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted) -> None:
+    """Phase 11 (b)'s tiled route on one gloo rank (data 1 x x n): the
+    spatial step's stages after the JBF on the rank's own width tile
+    (sharding.spatial_kde) on the four frames (B=4) and on frame 0 (B=1),
+    each from launch counts at 0 and with the collectives it made; every
+    KDEResult field gathered and, on rank 0, held bitwise against
+    kde_pipeline on the card; at x = 4 the 628-column crop on the
+    replicated route, bitwise too.  Then, on the same frames at B=4 and
+    B=1, each route's peak device memory of this rank, its device ms by
+    kde.* stage (torch.profiler) and its ms (CUDA events, median of 5); and
+    on rank 0 the unsharded kde_pipeline's.  Results go in res["tiled"]."""
+    import torch
+
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
+    from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+
+    h, w = depth.shape[1:]
+    out = res["tiled"] = {"route": sharding.spatial_route(mesh, cfg, h, w),
+                          "route_crop": sharding.spatial_route(mesh, cfg, h, crop_w),
+                          "runs": {}, "memory_mib": {}, "stage_ms": {}, "ms": {}}
+
+    def gathered(result):
+        """Every field of the tile's KDEResult over the group: the per-pixel
+        maps along the width, the [B, K] tables checked equal on every
+        rank."""
+        g, same = {}, True
+        for f in result._fields:
+            v = getattr(result, f).contiguous()
+            if f in sharding.PER_PIXEL_FIELDS:
+                g[f] = halo.gather_width(v, mesh)
+            else:
+                every = mesh_mod.all_gather_x(v[None], mesh, dim=0)
+                same = same and all(torch.equal(e, every[0]) for e in every)
+                g[f] = v
+        return g, same
+
+    cases = [("B=4", depth, color, w), ("B=1", depth[:1], color[:1], w)]
+    if mesh.x == 4:
+        cases.append(("crop B=4", depth[:, :, :crop_w], color[:, :, :crop_w], crop_w))
+    for tag, d, c, width in cases:
+        mesh_mod.collectives = 0
+        (route, result), cnt = counted(lambda d=d, c=c: sharding.spatial_kde(
+            mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
+        run = {"route": route, "counts": cnt, "collectives": mesh_mod.collectives,
+               "forms": {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms},
+               "block": tuple(result.optimized_points.shape)}
+        g, run["tables_equal_on_ranks"] = gathered(result)
+        if res["rank"] == 0:
+            want = kde_pipeline(d.contiguous(), c.contiguous(), intr, cfg)
+            run["differs"] = [f for f in want._fields if not torch.equal(g[f], getattr(want, f))]
+        out["runs"][tag] = run
+
+    d4, c4 = mesh.width_tile(depth), mesh.width_tile(color)
+    for bsz in (4, 1):
+        d, c = d4[:bsz], c4[:bsz]
+        for route in ("tiled", "replicated"):
+            key = f"{route} B={bsz}"
+            call = (lambda d=d, c=c, route=route: sharding.spatial_kde(
+                d, c, mesh, intr, cfg, route=route))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            base = torch.cuda.memory_allocated(mesh.device)
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(mesh.device)
+            out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
+            sb = _stage_breakdown(call)
+            out["stage_ms"][key] = {s: v[0] for s, v in sb["per"].items()}
+            out["stage_ms"][key]["memcpy"] = sum(
+                ms for name, ms in sb["by_kernel"].items() if "Memcpy" in name)
+            out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
+    if res["rank"] == 0:
+        for bsz in (4, 1):
+            d, c = depth[:bsz], color[:bsz]
+            call = (lambda d=d, c=c: kde_pipeline(d, c, intr, cfg))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            base = torch.cuda.memory_allocated(mesh.device)
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(mesh.device)
+            key = f"unsharded B={bsz}"
+            out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
+            out["stage_ms"][key] = {s: v[0] for s, v in _stage_breakdown(call)["per"].items()}
+            out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
 
 
 def main() -> int:
@@ -286,6 +460,7 @@ def main() -> int:
         bilateral, ccl, cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, ers,
         normals, plane, slic,
     )
+    from kinectdepthmapenhancement_tpu_torch.parallel import stencil_shard
     from kinectdepthmapenhancement_tpu_torch.utils import golden, kernel_variants, metrics
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms, device_ms
 
@@ -333,6 +508,7 @@ def main() -> int:
     grid, nasp_p = cfg.grid, cfg.nasp
     cell = dict(rows=grid.rows, cols=grid.cols, r=4)
     cell5 = dict(cell, r=5)  # the capped iterations' cells
+    tile_kw = dict(c0=CELL_TILE[0], tile_cols=CELL_TILE[1])  # the tiled route's cells
     ws_x, ws_y = w // grid.cols, h // grid.rows
     s_scale = (ws_x + ws_y) / 2.0
     rp = ws_x * 2 // 16 + 1
@@ -473,6 +649,39 @@ def main() -> int:
         x["etable4"] = planes.nd.contiguous()
         x["etable7"] = torch.cat([planes.nd, planes.centers], -1).contiguous()
         x["csub4"] = slic._subgrid_extract(color_f, grid, h, w, 4).contiguous()
+        # the tiled route's inputs (phase 11's tile s = 1): the haloed points'
+        # depth-change map, window sizes and vertices of the DT and the
+        # covariance at x = 2 and 4; x = 2's tile of the cell kernels'
+        # planes, labels (the tile's assignment gives these columns, bitwise)
+        # and features, and its seed sub-grid
+        halo_r = stencil_shard.normals_halo(cfg.normals)
+        for tag, nx in HALO_TILES.items():
+            ws = w // nx
+            vm_t = vm[:, :, max(0, ws - halo_r):min(w, 2 * ws + halo_r)].contiguous()
+            if vm_t.shape[2] != int(tag[4:]):
+                _fail(f"the {tag} form is {vm_t.shape[2]} columns wide")
+            x[f"vm_{tag}"] = vm_t
+            x[f"dci_{tag}"] = normals.dci_map(
+                vm_t, cfg.normals.max_depth_change_factor).contiguous()
+            x[f"rect_{tag}"] = normals.smoothing_map(
+                vm_t, cfg.normals).to(torch.int32).contiguous()
+        c0, tc = CELL_TILE
+        cols_t = slice(c0 * ws_x, (c0 + tc) * ws_x)
+        for key in ("color_f", "points", "nmap", "labels", "feats2"):
+            x[f"{key}_t"] = x[key][:, :, cols_t].contiguous()
+        grid_t = GridParams(rows=grid.rows, cols=tc)
+        x["csub_t"] = slic._subgrid_extract(x["color_f_t"], grid_t, h, tc * ws_x, 8).contiguous()
+        x["nsub_t"] = slic._subgrid_extract(x["nmap_t"], grid_t, h, tc * ws_x, 8).contiguous()
+        tri_t = (x["color_f_t"], x["points_t"], x["nmap_t"])
+        x["scale_assign_t"] = cuda_nasp.nasp_cell_sums_plain(
+            x["labels_t"], *tri_t, cand[..., 3:5], lo=lo, hi=hi, mode="analyze",
+            abs_terms=True, **cell, **tile_kw)
+        x["scale_weighted_t"] = cuda_nasp.nasp_cell_sums_plain(
+            x["labels_t"], *tri_t, x["f_weighted"], lo=lo, hi=hi, mode="weighted",
+            abs_terms=True, color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma,
+            **cell, **tile_kw)
+        x["scale_label_t"] = cuda_nasp.label_cell_sums_plain(
+            x["labels_t"], x["feats2_t"].abs(), **cell, **tile_kw)
         # labels whose slot changes nearly every pixel: each pixel takes one
         # of the 3x3 cells around its own (the clusters whose update window
         # can reach it), -1 where that leaves the grid and on 3%
@@ -502,6 +711,8 @@ def main() -> int:
                            + labels.clamp_min(0).long()).reshape(-1)
         x["flat_label5"] = (bi[:, None, None] * grid.num_clusters
                             + labels5.clamp_min(0).long()).reshape(-1)
+        x["flat_label_t"] = (bi[:, None, None] * grid.num_clusters
+                             + x["labels_t"].clamp_min(0).long()).reshape(-1)
         return x
 
     # ---- phase 3: each kernel against its plain version on the card
@@ -544,16 +755,19 @@ def main() -> int:
             >= 0).sum(-1).to(torch.float64)
     n_cand = 64
 
-    def assign_ops(x):
+    def assign_ops(x, t=""):
         """Kernel 5: per pixel and in-grid candidate 33 (colour 8, pixel 7,
         depth 2, weighting 7, normal dot 5, normal term 3, the running
         argmin's compare 1), per out-of-grid one 1; per pixel 5 (its depth
         and normal validity, the invalid-depth override); per cell and
         in-grid candidate 4 (the candidate's depth and normal validity);
-        per labeled pixel the analyze features 16 and their 13 sums."""
-        b = x["color_f"].shape[0]
-        per_cell = ws_x * ws_y * (33 * n_in + (n_cand - n_in)) + 4 * n_in
-        return b * float(per_cell.sum()) + 5 * npx(x["color_f"]) + 29 * labeled(x)
+        per labeled pixel the analyze features 16 and their 13 sums.  t =
+        "_t": the tile's cells (CELL_TILE) and pixels."""
+        b = x["color_f" + t].shape[0]
+        n_c = n_in[:, CELL_TILE[0]:CELL_TILE[0] + CELL_TILE[1]] if t else n_in
+        per_cell = ws_x * ws_y * (33 * n_c + (n_cand - n_c)) + 4 * n_c
+        return (b * float(per_cell.sum()) + 5 * npx(x["color_f" + t])
+                + 29 * labeled(x, "labels" + t))
 
     def tap_issue(kernel, key):
         """The issue floor of the JBF or the gradient: its issued
@@ -813,6 +1027,92 @@ def main() -> int:
             ops=lambda x: 0,
             shape=lambda x, l=lab, t=tkey: tuple(x[l].shape) + (x[t].shape[-1],))
     kernels["seed_gradient_color"]["form"] = "color"
+    # the tiled route's forms (phase 11, rows 2t-8t): the DT and covariance
+    # on haloed tiles, the seed gradient on the tile's sub-grid, the four
+    # cell kernels at the tile's cells (the global grid's candidates and
+    # tables, global u), each against its plain version on the same tile
+    for tag in HALO_TILES:
+        kernels[f"chamfer_dt_{tag}"] = dict(
+            module=cuda_dt, bar="bitwise", row="chamfer_dt", secondary=True, activities=1,
+            form=tag,
+            run=lambda x, t=tag: cuda_dt.distance_transform(x[f"dci_{t}"], its),
+            plain=lambda x, t=tag: cuda_dt.distance_transform_plain(x[f"dci_{t}"], its),
+            inputs=lambda x, t=tag: [x[f"dci_{t}"]],
+            ops=lambda x, t=tag: dt_ops(x[f"dci_{t}"]),
+            shape=lambda x, t=tag: tuple(x[f"dci_{t}"].shape))
+        kernels[f"cm_covariance_{tag}"] = dict(
+            module=cuda_cov, bar="count exact, entries bitwise", row="cm_covariance",
+            secondary=True, form=tag,
+            run=lambda x, t=tag: cuda_cov.cm_covariances(x[f"vm_{t}"], x[f"rect_{t}"]),
+            plain=lambda x, t=tag: cuda_cov.cm_covariances_plain(x[f"vm_{t}"], x[f"rect_{t}"]),
+            inputs=lambda x, t=tag: [x[f"vm_{t}"], x[f"rect_{t}"]],
+            ops=lambda x, t=tag: 22 * cov_taps(x[f"rect_{t}"]),
+            shape=lambda x, t=tag: tuple(x[f"vm_{t}"].shape))
+    grid_t = GridParams(rows=grid.rows, cols=CELL_TILE[1])
+    ws_t = CELL_TILE[1] * ws_x
+    kernels["seed_gradient_nasp_tile"] = dict(
+        module=cuda_gradient, bar="bitwise, seeds identical", row="seed_gradient",
+        secondary=True, form="tile:nasp",
+        run=lambda x: cuda_gradient.seed_gradient(x["csub_t"], x["nsub_t"]),
+        plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub_t"], x["nsub_t"]),
+        ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(
+            slic._sample_seeds_subgrid(got[0], grid_t, h, ws_t, 8),
+            slic._sample_seeds_subgrid(want[0], grid_t, h, ws_t, 8)),
+        inputs=lambda x: [x["csub_t"], x["nsub_t"]],
+        ops=lambda x: npx(x["csub_t"]) * 121 * 20,
+        shape=lambda x: tuple(x["csub_t"].shape))
+    tri_t = ("color_f_t", "points_t", "nmap_t")
+    kernels["nasp_assign_analyze_tile"] = dict(
+        module=cuda_nasp, bar="labels, distance bitwise; sums: integer exact, "
+        "rest <= 1e-5 sum|terms|", row="nasp_assign_analyze", secondary=True, form="r4:tile",
+        run=lambda x: cuda_nasp.nasp_assign_and_analyze(
+            *(x[k] for k in tri_t), x["cand"], lo=lo, hi=hi, **x["akw"], **tile_kw),
+        plain=lambda x: cuda_nasp.nasp_assign_and_analyze_plain(
+            *(x[k] for k in tri_t), x["cand"], lo=lo, hi=hi, **x["akw"], **tile_kw),
+        ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        and sums_ok("analyze", "scale_assign_t")(got, want, x),
+        inputs=lambda x: [*(x[k] for k in tri_t), x["cand"]],
+        ops=lambda x: assign_ops(x, "_t"),
+        shape=lambda x: tuple(x["color_f_t"].shape))
+    kernels["nasp_cell_sums_weighted_tile"] = dict(
+        module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|", row="nasp_cell_sums",
+        secondary=True, form="r4:weighted:tile",
+        run=lambda x: cuda_nasp.nasp_cell_sums(
+            x["labels_t"], *(x[k] for k in tri_t), x["f_weighted"], mode="weighted",
+            **sums_kw, **tile_kw),
+        plain=lambda x: cuda_nasp.nasp_cell_sums_plain(
+            x["labels_t"], *(x[k] for k in tri_t), x["f_weighted"], mode="weighted",
+            **sums_kw, **tile_kw),
+        ok=sums_ok("weighted", "scale_weighted_t"),
+        inputs=lambda x: [x["labels_t"], *(x[k] for k in tri_t), x["f_weighted"]],
+        ops=lambda x: labeled(x, "labels_t") * (51 + 14),
+        shape=lambda x: tuple(x["color_f_t"].shape))
+    kernels["label_cell_sums_tile"] = dict(
+        module=cuda_nasp, bar="<= 1e-5 sum|terms|", row="label_cell_sums", secondary=True,
+        form="r4:F2:tile",
+        run=lambda x: cuda_nasp.label_cell_sums(x["labels_t"], x["feats2_t"], **cell, **tile_kw),
+        plain=lambda x: cuda_nasp.label_cell_sums_plain(
+            x["labels_t"], x["feats2_t"], **cell, **tile_kw),
+        ok=sums_ok("label", "scale_label_t"),
+        library=lambda x: torch.zeros(
+            (x["bi"].shape[0] * grid.num_clusters, 2), device=dev).index_add_(
+            0, x["flat_label_t"], x["feats2_t"].reshape(-1, 2)),
+        inputs=lambda x: [x["labels_t"], x["feats2_t"]],
+        ops=lambda x: npx(x["labels_t"]) * 2,
+        shape=lambda x: tuple(x["feats2_t"].shape))
+    for nf in (6, 1, 3):
+        tkey = f"table{nf}"
+        kernels[f"label_cell_gather_f{nf}_tile"] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=True,
+            form=f"r4:F{nf}:tile",
+            run=lambda x, t=tkey: cuda_nasp.label_cell_gather(
+                x["labels_t"], x[t], **cell, **tile_kw),
+            plain=lambda x, t=tkey: cuda_nasp.label_cell_gather_plain(
+                x["labels_t"], x[t], **cell, **tile_kw),
+            library=lambda x, t=tkey: x[t][x["bi"], x["labels_t"].clamp_min(0)],
+            inputs=lambda x, t=tkey: [x["labels_t"], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, nf=nf: tuple(x["labels_t"].shape) + (nf,))
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -1020,55 +1320,23 @@ def main() -> int:
     print(f"peak device memory: {peak:.2f} GiB")
 
     # where the time goes: one profiled call per batch size, device time per
-    # kde.* stage and per kernel name; busy share against the unprofiled
-    # median call time above.  Every device activity of the trace counts,
-    # the kernels launched through ctypes too, which the profiler attaches to
-    # no CPU op; an activity counts under the stage whose device-side span
-    # holds it, and one outside every span under the stage of the activity
-    # before it (one stream, stages in order).
+    # kde.* stage and per kernel name (_stage_breakdown); busy share against
+    # the unprofiled median call time above
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kde_scopes = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
+    kde_scopes = KDE_SCOPES
 
     def stage_profile(tag, fn, call_ms, port_kernels=True, scopes=kde_scopes):
         """One profiled call of fn: device ms and activities by kde.* stage,
         the top kernels, the port's own kernels; the busy share against
         call_ms (an unprofiled median)."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        on_device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
-        spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
-                       for ev in on_device if ev.name in scopes)
-        starts = [t0 for t0, _, _ in spans]  # the spans follow one another
-        work = sorted((ev for ev in on_device if ev.name not in scopes
-                       and not getattr(ev, "is_user_annotation", False)),
-                      key=lambda ev: ev.time_range.start)
-        attached = sum(len(ev.kernels) for ev in events if ev.device_type == DeviceType.CPU)
-        per = {name: [0.0, 0] for name in scopes + ("unscoped",)}  # device ms, activities
-        by_kernel: dict = {}
-        port: dict = {}  # the port's own kernels (csrc/*.cu): device ms, launches
-        scope = "unscoped"
-        for ev in work:
-            t = ev.time_range.start
-            i = bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t < spans[i][1]:
-                scope = spans[i][2]
-            ms = ev.time_range.elapsed_us() / 1e3
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
-            per[scope][0] += ms
-            per[scope][1] += 1
-            own = PORT_KERNEL.match(ev.name)
-            if own:
-                acc = port.setdefault(own.group(1), [0.0, 0])
-                acc[0] += ms
-                acc[1] += 1
+        sb = _stage_breakdown(fn, scopes)
+        per, by_kernel, port = sb["per"], sb["by_kernel"], sb["port"]
         busy = sum(by_kernel.values())
-        print(f"profile {tag}: {len(work)} device activities ({attached} attached to a CPU "
-              f"op), device busy {busy:.3f} ms of a {call_ms:.3f} ms call "
-              f"({100.0 * busy / call_ms:.1f}% busy); {len(spans)} stage spans on the device")
+        print(f"profile {tag}: {sb['work']} device activities ({sb['attached']} attached to a "
+              f"CPU op), device busy {busy:.3f} ms of a {call_ms:.3f} ms call "
+              f"({100.0 * busy / call_ms:.1f}% busy); {sb['spans']} stage spans on the device")
         for name, (ms, count) in per.items():
             print(f"  {name:16s} device {ms:.3f} ms in {count} activities")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
@@ -1077,7 +1345,7 @@ def main() -> int:
             f"{name} {ms:.4f} ms x{count}" for name, (ms, count) in sorted(port.items())))
         if port_kernels and not port:
             _fail(f"{tag}: the profile shows none of the port's kernels")
-        return {"activities": len(work), "busy_ms": busy,
+        return {"activities": sb["work"], "busy_ms": busy,
                 **{name: {"device_ms": ms, "activities": n} for name, (ms, n) in per.items()}}
 
     for bsz in (1, 4):
@@ -2125,6 +2393,40 @@ def main() -> int:
                 _fail(f"phase 11 (b): {tag} (blocks {shape}) differs from the unsharded run")
             p11_checks[f"gloo {tag}"] = {"block": shape, "bitwise": True}
         p11_ms.update({f"{k} (rank 0)": v for k, v in ranks[0]["ms"].items()})
+        # the tiled route: routes, bitwise fields, launches and forms by rank
+        for r in ranks:
+            td = r["tiled"]
+            if (td["route"], td["route_crop"]) != ("tiled", "replicated"):
+                _fail(f"phase 11 (b): spatial_route at x = {n} read {td['route']} (640) and "
+                      f"{td['route_crop']} ({crop_w}), not tiled and replicated")
+            for tag, run in td["runs"].items():
+                key = f"p11.tiled x{n} {tag} rank{r['rank']}"
+                path_counts[key] = run["counts"]
+                path_forms[key] = run["forms"]
+                want_route = "replicated" if tag.startswith("crop") else "tiled"
+                if run["route"] != want_route or not run["tables_equal_on_ranks"]:
+                    _fail(f"phase 11 (b): {key}: route {run['route']}, cluster tables equal "
+                          f"on the ranks: {run['tables_equal_on_ranks']}")
+                if run.get("differs"):
+                    _fail(f"phase 11 (b): {key}: {run['differs']} differ from kde_pipeline")
+                if want_route == "tiled":
+                    zero = [k for k, v in run["counts"].items() if v == 0]
+                    missing = [f for f in TILED_NASP_FORMS if not run["forms"].get(f)]
+                    if zero or missing:
+                        _fail(f"phase 11 (b): {key}: kernels never launched {zero}, tile forms "
+                              f"missing {missing}")
+                p11_checks[f"gloo {key}"] = {
+                    "route": run["route"], "block": run["block"], "bitwise": True,
+                    "collectives": run["collectives"], "launches": run["counts"]}
+        for r in ranks:
+            td = r["tiled"]
+            print(f"phase 11 (b) tiled x{n} rank {r['rank']} on {smi}: collectives a step "
+                  + json.dumps({t: run["collectives"] for t, run in td["runs"].items()})
+                  + "; peak device memory MiB (peak, above the inputs) "
+                  + json.dumps(td["memory_mib"]) + "; device ms by stage (torch.profiler, "
+                  "one call; ranks share the card) " + json.dumps(td["stage_ms"])
+                  + "; ms (CUDA events, median of 5) " + json.dumps(td["ms"]))
+            p11_ms.update({f"tiled x{n} rank{r['rank']} {k}": v for k, v in td["ms"].items()})
         print(f"phase 11 (b) world {n} on {[r['device'] for r in ranks]}: "
               f"{time.perf_counter() - t_phase11:.1f} s")
 

@@ -68,6 +68,15 @@
 // within 1 ulp of the exact sum for the rest.  The gather only copies.
 // Dynamic shared memory above 48 KB is allowed once per kernel and device
 // (no kernel here has static shared memory).
+//
+// Width tiles: every kernel takes the tile's first cell column c0 and its
+// cell columns tc (c0 = 0, tc = cols: the whole frame).  The image is the
+// tile [B, H, tc * bs_x]; cells, candidates and cluster ids are those of
+// the global grid (cols columns), a pixel's u is its global column, and a
+// sums kernel writes the tile's [B, rows*tc*n, F] partials, which the
+// caller gathers over the tiles in cell order.  A cell's result depends on
+// its own pixels and the global tables only, so a tile's cells are bitwise
+// the matching cells of the whole frame.
 
 #include <algorithm>
 #include <cfloat>
@@ -90,8 +99,10 @@ constexpr float INVALID_NORMAL = -1.0f;
 constexpr float INIT_DISTANCE = 999999.9f;  // the JAX package's slic.INIT_DISTANCE in f32
 constexpr unsigned ALL = 0xffffffffu;
 
+// H x W: the tile; rows x cols: the global grid; the tile holds cell
+// columns [c0, c0 + tc).
 struct Cells {
-  int H, W, rows, cols, r, bs_y, bs_x;
+  int H, W, rows, cols, r, bs_y, bs_x, c0, tc;
 };
 
 __device__ __forceinline__ float flush(float x) { return x < FLT_MIN ? 0.0f : x; }
@@ -214,9 +225,10 @@ __device__ __forceinline__ void zero_partials(double* part, int count) {
   for (int i = threadIdx.x; i < count; i += NT) part[i] = 0.0;
 }
 
-// The block's cell's [n * F] rows of the [B, rows*cols*n, F] partial table.
+// The block's cell's [n * F] rows of the tile's [B, rows*tc*n, F] partial
+// table (block x: the cell column within the tile).
 __device__ __forceinline__ float* cell_out(float* out, const Cells& c, int nF) {
-  const size_t cell = (static_cast<size_t>(blockIdx.z) * c.rows + blockIdx.y) * c.cols + blockIdx.x;
+  const size_t cell = (static_cast<size_t>(blockIdx.z) * c.rows + blockIdx.y) * c.tc + blockIdx.x;
   return out + cell * nF;
 }
 
@@ -359,7 +371,7 @@ label_sums_kernel(const int* __restrict__ labels, const float* __restrict__ feat
                   float* __restrict__ out, Cells c, int F) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nF = 4 * c.r * c.r * F;
-  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
+  const int b = blockIdx.z, cy = blockIdx.y, tx = blockIdx.x, cx = c.c0 + tx;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   double* part = reinterpret_cast<double*>(smem);                  // [NW][n*F]
   float* stage = reinterpret_cast<float*>(part + NW * nF);         // [NW][NS][32*F]
@@ -370,7 +382,7 @@ label_sums_kernel(const int* __restrict__ labels, const float* __restrict__ feat
   const Walk walk(c, w);
   StagedSource<VEC, FC> src{labels + frame, feats + frame * F, s_lab + w * NS * 32,
                             stage + w * NS * 32 * F, slot_table(c, cy, cx, s_slot), walk,
-                            Cursor(c, walk.p0 + lane), F, c.W, cx * c.bs_x, cy * c.bs_y,
+                            Cursor(c, walk.p0 + lane), F, c.W, tx * c.bs_x, cy * c.bs_y,
                             lane};
   for (int k = 0; k < NS - 1; ++k) src.fetch(k);
   __syncthreads();
@@ -394,7 +406,8 @@ struct AssignedSlot {
 // NASP update sums' source: the lane's slot (SlotOf), colour, point and
 // normal read directly (coalesced across the warp), its features formed in
 // registers from its cluster's fields, staged per candidate slot
-// (fld[j * NFLD]).
+// (fld[j * NFLD]).  x0 is the cell's first column in the tile, xg the
+// tile's first global column (u = xg + x).
 template <bool WEIGHTED, class SlotOf>
 struct NaspSource {
   static constexpr int F = WEIGHTED ? N_WEIGHTED : N_ANALYZE;
@@ -403,7 +416,7 @@ struct NaspSource {
   const float *color, *points, *normals;  // the frame's [H, W, 3]
   const float* fld;                       // [n][NFLD]
   Cursor at;
-  int W, x0, y0;
+  int W, x0, y0, xg;
   float lo, hi, c2, s2;
 
   __device__ int load(int, bool live, float (&f)[F]) {
@@ -415,7 +428,7 @@ struct NaspSource {
       const float col[3] = {color[3 * pix], color[3 * pix + 1], color[3 * pix + 2]};
       const float pt[3] = {points[3 * pix], points[3 * pix + 1], points[3 * pix + 2]};
       const float nm[3] = {normals[3 * pix], normals[3 * pix + 1], normals[3 * pix + 2]};
-      if (slot >= 0 && !nasp_features(WEIGHTED, static_cast<float>(x), static_cast<float>(y),
+      if (slot >= 0 && !nasp_features(WEIGHTED, static_cast<float>(xg + x), static_cast<float>(y),
                                        col, pt, nm, fld + slot * NFLD, lo, hi, c2, s2, f)) {
         slot = -1;
       }
@@ -442,7 +455,7 @@ nasp_sums_kernel(const int* __restrict__ labels, const float* __restrict__ color
   using Src = NaspSource<WEIGHTED, LabelSlot>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 4 * c.r * c.r, nF = n * Src::F;
-  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
+  const int b = blockIdx.z, cy = blockIdx.y, tx = blockIdx.x, cx = c.c0 + tx;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   double* part = reinterpret_cast<double*>(smem);             // [NW][n*F]
   float* fld = reinterpret_cast<float*>(part + NW * nF);      // [n][NFLD]
@@ -461,7 +474,7 @@ nasp_sums_kernel(const int* __restrict__ labels, const float* __restrict__ color
   const Walk walk(c, w);
   Src src{{labels + frame, slot_table(c, cy, cx, s_slot)}, color + 3 * frame,
           points + 3 * frame, normals + 3 * frame, fld, Cursor(c, walk.p0 + lane), c.W,
-          cx * c.bs_x, cy * c.bs_y, lo, hi, c2, s2};
+          tx * c.bs_x, cy * c.bs_y, c.c0 * c.bs_x, lo, hi, c2, s2};
   __syncthreads();
   run_sums<Src::F>(src, walk, Src::F, nF, part, cell_out(out, c, nF));
 }
@@ -493,7 +506,7 @@ struct Assigner {
   float* dist;                            // the frame's [H, W], written
   const float4* cand;                     // [m][3]
   int* s_slot;                            // [P], written
-  int m, m0, out_of_grid, own, own_slot, W, x0, y0, apply_invalid;
+  int m, m0, out_of_grid, own, own_slot, W, x0, y0, xg, apply_invalid;
   float w_col, w_spa, w_dep, w_nor, s2scale;
 
   __device__ void pixel(int px, int py, int p) const {
@@ -502,7 +515,7 @@ struct Assigner {
     const float col[3] = {color[3 * pix], color[3 * pix + 1], color[3 * pix + 2]};
     const float zc = points[3 * pix + 2];
     const float nm[3] = {normals[3 * pix], normals[3 * pix + 1], normals[3 * pix + 2]};
-    float u = static_cast<float>(x), v = static_cast<float>(y);
+    float u = static_cast<float>(xg + x), v = static_cast<float>(y);
     // u, v and the table's shared address are held in registers, not
     // recomputed for every candidate
     unsigned tab = static_cast<unsigned>(__cvta_generic_to_shared(cand));
@@ -579,7 +592,7 @@ assign_analyze_kernel(const float* __restrict__ color, const float* __restrict__
                       int apply_invalid) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = 4 * c.r * c.r, nF = n * N_ANALYZE;
-  const int b = blockIdx.z, cy = blockIdx.y, cx = blockIdx.x;
+  const int b = blockIdx.z, cy = blockIdx.y, tx = blockIdx.x, cx = c.c0 + tx;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   double* part = reinterpret_cast<double*>(smem);              // [NW][n*13]
   float4* s_cand = reinterpret_cast<float4*>(part + NW * nF);  // [m][3]
@@ -617,8 +630,8 @@ assign_analyze_kernel(const float* __restrict__ color, const float* __restrict__
   const Walk walk(c, w);
   const Assigner assign{color + 3 * frame, points + 3 * frame, normals + 3 * frame,
                         labels + frame, dist + frame, s_cand, s_slot, m, m0, out_of_grid,
-                        cy * c.cols + cx, r * two_r + r, c.W, cx * c.bs_x, cy * c.bs_y,
-                        apply_invalid, w_col, w_spa, w_dep, w_nor, s2scale};
+                        cy * c.cols + cx, r * two_r + r, c.W, tx * c.bs_x, cy * c.bs_y,
+                        c.c0 * c.bs_x, apply_invalid, w_col, w_spa, w_dep, w_nor, s2scale};
   Cursor at(c, walk.p0 + lane);
   for (int k = 0; k < walk.rounds; ++k) {
     if (walk.live(k, lane)) assign.pixel(at.px, at.py, at.py * c.bs_x + at.px);
@@ -627,7 +640,8 @@ assign_analyze_kernel(const float* __restrict__ color, const float* __restrict__
   // each lane reads back only the slots of its own pixels
   NaspSource<false, AssignedSlot> src{{s_slot}, color + 3 * frame, points + 3 * frame,
                                       normals + 3 * frame, fld, Cursor(c, walk.p0 + lane),
-                                      c.W, cx * c.bs_x, cy * c.bs_y, lo, hi, 1.0f, 1.0f};
+                                      c.W, tx * c.bs_x, cy * c.bs_y, c.c0 * c.bs_x, lo, hi,
+                                      1.0f, 1.0f};
   run_sums<N_ANALYZE>(src, walk, N_ANALYZE, nF, part, cell_out(out, c, nF));
 }
 
@@ -657,19 +671,20 @@ label_gather_kernel(const int* __restrict__ labels, const float* __restrict__ ta
   const float* src = table + (static_cast<size_t>(b) * c.rows * c.cols + base) * F;
   for (int i = tid; i < nrel * F; i += NT) s_tab[i] = src[i];
   // label base + rel (cell column lx) is a candidate of the pixels whose
-  // cell column lies in (lx - r, lx + r]
+  // cell column lies in (lx - r, lx + r]: a window of global columns
   for (int rel = tid; rel < nrel; rel += NT) {
     const int lx = rel % c.cols;
     s_win[rel] = make_int2((lx - c.r + 1) * c.bs_x, (lx + c.r + 1) * c.bs_x);
   }
   __syncthreads();
   const size_t row = (static_cast<size_t>(b) * c.H + y) * c.W;
+  const int xg = c.c0 * c.bs_x;  // the tile's first global column
   for (int x = tid; x < c.W; x += NT) {
     const int rel = labels[row + x] - base;
     int off = -1;
     if (rel >= 0 && rel < nrel) {
       const int2 win = s_win[rel];
-      if (x >= win.x && x < win.y) off = rel * F;
+      if (xg + x >= win.x && xg + x < win.y) off = rel * F;
     }
     s_off[x] = off;
   }
@@ -701,14 +716,15 @@ label_gather_kernel(const int* __restrict__ labels, const float* __restrict__ ta
   }
 }
 
-// A grid of cells that divides the image; blocks per (frame, cell) need
-// B and rows within a grid dimension's 65535.
-bool make_cells(int B, int H, int W, int rows, int cols, int r, Cells* c) {
+// A tile of tc whole cell columns [c0, c0 + tc) of a rows x cols grid that
+// divides the frame (the tile W = tc cell widths); blocks per (frame, cell)
+// need B and rows within a grid dimension's 65535.
+bool make_cells(int B, int H, int W, int rows, int cols, int r, int c0, int tc, Cells* c) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || rows <= 0 || rows > 65535 || cols <= 0 ||
-      r < 1)
+      r < 1 || tc <= 0 || c0 < 0 || c0 + tc > cols)
     return false;
-  if (H % rows != 0 || W % cols != 0) return false;
-  *c = Cells{H, W, rows, cols, r, H / rows, W / cols};
+  if (H % rows != 0 || W % tc != 0) return false;
+  *c = Cells{H, W, rows, cols, r, H / rows, W / tc, c0, tc};
   return true;
 }
 
@@ -777,12 +793,13 @@ bool aligned(const void* p, size_t bytes) {
 
 }  // namespace
 
-// labels [B, H, W] i32; table [B, rows*cols, F] f32; out [B, H, W, F] f32.
+// labels [B, H, W] i32 (the tile of cell columns [c0, c0 + tc)); table
+// [B, rows*cols, F] f32; out [B, H, W, F] f32.
 extern "C" int kde_label_cell_gather(const int* labels, const float* table, float* out,
-                                     int B, int H, int W, int rows, int cols, int r, int F,
-                                     void* stream) {
+                                     int B, int H, int W, int rows, int cols, int r, int c0,
+                                     int tc, int F, void* stream) {
   Cells c;
-  if (F <= 0 || !make_cells(B, H, W, rows, cols, r, &c))
+  if (F <= 0 || !make_cells(B, H, W, rows, cols, r, c0, tc, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(H, B);
   const size_t smem = label_gather_smem(c, F);
@@ -795,15 +812,15 @@ extern "C" int kde_label_cell_gather(const int* labels, const float* table, floa
   }
 }
 
-// labels [B, H, W] i32; feats [B, H, W, F] f32 (pre-masked), F <= 16;
-// out [B, rows*cols*(2r)^2, F] f32.
+// labels [B, H, W] i32 (the tile of cell columns [c0, c0 + tc)); feats
+// [B, H, W, F] f32 (pre-masked), F <= 16; out [B, rows*tc*(2r)^2, F] f32.
 extern "C" int kde_label_cell_sums(const int* labels, const float* feats, float* out,
-                                   int B, int H, int W, int rows, int cols, int r, int F,
-                                   void* stream) {
+                                   int B, int H, int W, int rows, int cols, int r, int c0,
+                                   int tc, int F, void* stream) {
   Cells c;
-  if (F <= 0 || F > MAXF || !make_cells(B, H, W, rows, cols, r, &c))
+  if (F <= 0 || F > MAXF || !make_cells(B, H, W, rows, cols, r, c0, tc, &c))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cols, rows, B);
+  const dim3 grid(tc, rows, B);
   const size_t smem = label_sums_smem(c, F);
   const int vec = F % 4 == 0 && aligned(feats, 16) ? 4 : F % 2 == 0 && aligned(feats, 8) ? 2 : 1;
   if (F == 1) return launch_label_sums<1>(vec, grid, smem, stream, labels, feats, out, c, F);
@@ -813,20 +830,21 @@ extern "C" int kde_label_cell_sums(const int* labels, const float* feats, float*
   return launch_label_sums<16>(vec, grid, smem, stream, labels, feats, out, c, F);
 }
 
-// labels [B, H, W] i32; color, points, normals [B, H, W, 3] f32; cand
-// [B, rows, cols, 2 | 8] f32 (x, y | x, y, rgb, normal); mode 0 analyze
-// (13 features), 1 weighted (14); c2 = 2 sigma_c^2, s2 = 2 sigma_s^2;
-// out [B, rows*cols*(2r)^2, 13 | 14] f32.  Any r whose partials fit a
-// block's shared memory (nasp_sums_smem).
+// labels [B, H, W] i32; color, points, normals [B, H, W, 3] f32 (the tile
+// of cell columns [c0, c0 + tc)); cand [B, rows, cols, 2 | 8] f32 (x, y |
+// x, y, rgb, normal; the global grid); mode 0 analyze (13 features), 1
+// weighted (14); c2 = 2 sigma_c^2, s2 = 2 sigma_s^2; out
+// [B, rows*tc*(2r)^2, 13 | 14] f32.  Any r whose partials fit a block's
+// shared memory (nasp_sums_smem).
 extern "C" int kde_nasp_cell_sums(const int* labels, const float* color,
                                   const float* points, const float* normals,
                                   const float* cand, float* out, int B, int H, int W,
-                                  int rows, int cols, int r, float lo, float hi, int mode,
-                                  float c2, float s2, void* stream) {
+                                  int rows, int cols, int r, int c0, int tc, float lo,
+                                  float hi, int mode, float c2, float s2, void* stream) {
   Cells c;
-  if ((mode != 0 && mode != 1) || !make_cells(B, H, W, rows, cols, r, &c))
+  if ((mode != 0 && mode != 1) || !make_cells(B, H, W, rows, cols, r, c0, tc, &c))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cols, rows, B);
+  const dim3 grid(tc, rows, B);
   const size_t smem = nasp_sums_smem(c, mode == 1);
   return mode == 1 ? launch_dyn<nasp_sums_kernel<true>>(grid, smem, stream, labels, color,
                                                         points, normals, cand, out, c, lo,
@@ -836,20 +854,23 @@ extern "C" int kde_nasp_cell_sums(const int* labels, const float* color,
                                                          hi, c2, s2);
 }
 
-// color, points, normals [B, H, W, 3] f32; cand [B, rows, cols, 9] f32 (rgb,
-// x, y, center z, normal); labels [B, H, W] i32, dist [B, H, W] f32 and
-// out [B, rows*cols*(2r)^2, 13] f32 are written.  w_* are the distance
-// weights and s2scale = s_scale^2, each as the plain version rounds them.
-// Any r whose partials fit a block's shared memory (assign_smem).
+// color, points, normals [B, H, W, 3] f32 (the tile of cell columns
+// [c0, c0 + tc)); cand [B, rows, cols, 9] f32 (rgb, x, y, center z, normal;
+// the global grid); labels [B, H, W] i32, dist [B, H, W] f32 and out
+// [B, rows*tc*(2r)^2, 13] f32 are written.  w_* are the distance weights
+// and s2scale = s_scale^2, each as the plain version rounds them.  Any r
+// whose partials fit a block's shared memory (assign_smem).
 extern "C" int kde_nasp_assign_analyze(const float* color, const float* points,
                                        const float* normals, const float* cand,
                                        int* labels, float* dist, float* out, int B, int H,
-                                       int W, int rows, int cols, int r, float lo, float hi,
-                                       float w_col, float w_spa, float w_dep, float w_nor,
-                                       float s2scale, int apply_invalid, void* stream) {
+                                       int W, int rows, int cols, int r, int c0, int tc,
+                                       float lo, float hi, float w_col, float w_spa,
+                                       float w_dep, float w_nor, float s2scale,
+                                       int apply_invalid, void* stream) {
   Cells c;
-  if (!make_cells(B, H, W, rows, cols, r, &c)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dyn<assign_analyze_kernel>(dim3(cols, rows, B), assign_smem(c), stream, color,
+  if (!make_cells(B, H, W, rows, cols, r, c0, tc, &c))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dyn<assign_analyze_kernel>(dim3(tc, rows, B), assign_smem(c), stream, color,
                                            points, normals, cand, labels, dist, out, c, lo, hi,
                                            w_col, w_spa, w_dep, w_nor, s2scale, apply_invalid);
 }

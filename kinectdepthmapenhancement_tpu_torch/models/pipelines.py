@@ -137,25 +137,38 @@ def kde_pipeline(
 
 
 def _kde_from_jbf(
-    jbf_depth: torch.Tensor, color: torch.Tensor, intr: Intrinsics, cfg: KDEConfig
+    jbf_depth: torch.Tensor, color: torch.Tensor, intr: Intrinsics, cfg: KDEConfig,
+    tile=None,
 ) -> KDEResult:
     """kde_pipeline after its JBF, on batched frames: jbf_depth f32 [B, H, W]
     mm (the filtered depth), color u8 [B, H, W, 3].  parallel/sharding.py's
-    spatial route runs the JBF on width tiles and this on the gathered
-    frames."""
+    spatial route runs the JBF on width tiles, then this on the gathered
+    frames (its replicated route) or on each rank's own tile (its tiled
+    route): `tile` is then that route's sharding.WidthTile, the frames are
+    the tile's, and the normals, NASP, the label index and the depth
+    bilateral take their tiled forms (the config must be one that
+    sharding.spatial_route tiles).  The result is the tile's, its cluster
+    tables the whole frames'."""
     _, h, w = jbf_depth.shape
-    rays = normalized_rays(intr, h, w, jbf_depth.device)
+    rays = normalized_rays(intr, h, w if tile is None else tile.width, jbf_depth.device)
+    if tile is not None:
+        rays = tile.crop_rays(rays)
     k = cfg.grid.num_clusters
     with record_function("kde.jbf"):
-        points = projective_to_real(jbf_depth, intr)
+        points = rays * jbf_depth[..., None]  # core.camera.projective_to_real
     with record_function("kde.normals"):
-        nmap = normals.generate_normal_map(points, cfg.normals)
+        nmap = (normals.generate_normal_map(points, cfg.normals) if tile is None
+                else tile.normal_map(points, cfg.normals))
     with record_function("kde.nasp"):
-        nasp = slic.segment(
-            color, points, nmap, grid=cfg.grid, params=cfg.nasp, variant="nasp"
-        )
+        if tile is None:
+            nasp = slic.segment(
+                color, points, nmap, grid=cfg.grid, params=cfg.nasp, variant="nasp"
+            )
+        else:
+            nasp = slic.segment_tile(color, points, nmap, grid=cfg.grid, params=cfg.nasp,
+                                     tile=tile)
     with record_function("kde.ccl_merge"):
-        index = slic.label_index(nasp.labels, cfg.grid, cfg.nasp)
+        index = slic.label_index(nasp.labels, cfg.grid, cfg.nasp, tile=tile)
         if cfg.plane_merge:
             # plane-consistency merge: the same MergeResult keying, so the
             # projection, gates and fill below are unchanged
@@ -208,7 +221,10 @@ def _kde_from_jbf(
                 optimized, rays, merged.labels, merged.nd_map, trust,
                 points[..., 2] <= plane.VALID_DEPTH_MM, cfg.fill_holes,
             )
-        optimized = plane.depth_bilateral(optimized, rays, cfg.projection)
+        if tile is None:
+            optimized = plane.depth_bilateral(optimized, rays, cfg.projection)
+        else:
+            optimized = tile.depth_bilateral(optimized, rays, cfg.projection)
     return KDEResult(
         optimized_points=optimized,
         plane_fitted=plane_fitted,

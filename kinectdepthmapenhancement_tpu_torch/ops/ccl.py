@@ -50,10 +50,13 @@ class MergeResult(NamedTuple):
 
 
 def _adjacency(idx) -> torch.Tensor:
-    """[B, K, K] bool: cluster pairs adjacent via a 4-neighbour pixel pair."""
+    """[B, K, K] bool: cluster pairs adjacent via a 4-neighbour pixel pair.
+    On a width tile (idx.tile) the right neighbour of the last column comes
+    from the next tile, -1 past the frame; pair counts gather per cell."""
     labels = idx.labels
     b, h, w = labels.shape
-    col = torch.full((b, h, 1), -1, dtype=labels.dtype, device=labels.device)
+    col = (torch.full((b, h, 1), -1, dtype=labels.dtype, device=labels.device)
+           if idx.tile is None else idx.tile.right_labels(labels))
     row = torch.full((b, 1, w), -1, dtype=labels.dtype, device=labels.device)
     right = torch.cat([labels[:, :, 1:], col], dim=2)
     down = torch.cat([labels[:, 1:, :], row], dim=1)

@@ -19,6 +19,14 @@ out-of-grid candidate; feature order is the JAX package's feats layout
 partials; the caller folds them to clusters with the candidate one-hot
 (_CellIndex.fold) on either route.
 
+Width tiles (parallel/sharding.py's tiled route): every function takes
+the tile's first cell column c0 and its cell columns tile_cols (default 0
+and cols: the whole frame).  Its image arguments are then the tile's
+columns, rows and cols stay the global grid's (candidates and cluster ids
+are global, pixel u is the global column), and sums come back as the
+tile's [B, rows*tile_cols*n, F] partials, which the caller gathers over
+the tiles in cell order before the fold.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The plain versions are the port's one-hot-product route cut at the
 kernel's output (every product through tables.exact_matmul).  Kernel
@@ -100,10 +108,29 @@ def from_cells(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     )
 
 
-def cell_onehot(labels: torch.Tensor, rows: int, cols: int, r: int) -> torch.Tensor:
-    """[B, rows, cols, P, n] f32: pixel p of a cell carries candidate j."""
-    cand = cand_grid(rows, cols, candidate_offsets(r), labels.device)
-    lb = to_cells(labels[..., None], rows, cols)[..., 0]
+def tile_cells(cols: int, c0: int = 0, tile_cols: Optional[int] = None) -> Tuple[int, int]:
+    """(c0, tile columns) of a width tile of a grid with `cols` cell columns:
+    the whole grid by default; raises when [c0, c0 + tile_cols) leaves it."""
+    tc = cols - c0 if tile_cols is None else tile_cols
+    if c0 < 0 or tc < 1 or c0 + tc > cols:
+        raise ValueError(f"cell columns [{c0}, {c0 + tc}) are not a tile of {cols} columns")
+    return c0, tc
+
+
+def tile_cand_grid(rows: int, cols: int, offs, device, c0: int, tc: int) -> torch.Tensor:
+    """cand_grid's [rows, tc, len(offs)] columns of the tile's cells."""
+    return cand_grid(rows, cols, offs, device)[:, c0:c0 + tc]
+
+
+def cell_onehot(
+    labels: torch.Tensor, rows: int, cols: int, r: int, c0: int = 0,
+    tile_cols: Optional[int] = None,
+) -> torch.Tensor:
+    """[B, rows, tc, P, n] f32: pixel p of a cell carries candidate j
+    (tc = tile_cols, the tile's cell columns: all cols by default)."""
+    c0, tc = tile_cells(cols, c0, tile_cols)
+    cand = tile_cand_grid(rows, cols, candidate_offsets(r), labels.device, c0, tc)
+    lb = to_cells(labels[..., None], rows, tc)[..., 0]
     return (lb[..., None] == cand[:, :, None, :]).to(torch.float32)
 
 
@@ -117,45 +144,49 @@ def _check_cells(h: int, w: int, rows: int, cols: int) -> None:
 
 def label_cell_gather_plain(
     labels: torch.Tensor, table: torch.Tensor, *, rows: int, cols: int, r: int,
-    oh: Optional[torch.Tensor] = None,
+    oh: Optional[torch.Tensor] = None, c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """labels [B, H, W] i32, table [B, K, F] -> [B, H, W, F]: each pixel's
     label row, 0 for labels outside the candidate set (-1 included).  A
     one-hot product, exact (one 1 per row).  `oh`: cell_onehot, if built."""
     b, h, w = labels.shape
-    _check_cells(h, w, rows, cols)
+    c0, tc = tile_cells(cols, c0, tile_cols)
+    _check_cells(h, w, rows, tc)
     f = table.shape[-1]
-    oh = cell_onehot(labels, rows, cols, r) if oh is None else oh
+    oh = cell_onehot(labels, rows, cols, r, c0, tc) if oh is None else oh
     n = oh.shape[-1]
-    cand = cand_grid(rows, cols, candidate_offsets(r), labels.device).reshape(1, -1)
-    ct = tables.gather(table.to(torch.float32), cand.expand(b, -1))
-    ct = ct.reshape(b * rows * cols, n, f)
-    out = tables.exact_matmul(oh.reshape(b * rows * cols, -1, n), ct)
-    return from_cells(out.reshape(b, rows, cols, -1, f), h, w)
+    cand = tile_cand_grid(rows, cols, candidate_offsets(r), labels.device, c0, tc)
+    ct = tables.gather(table.to(torch.float32), cand.reshape(1, -1).expand(b, -1))
+    ct = ct.reshape(b * rows * tc, n, f)
+    out = tables.exact_matmul(oh.reshape(b * rows * tc, -1, n), ct)
+    return from_cells(out.reshape(b, rows, tc, -1, f), h, w)
 
 
 def label_cell_sums_plain(
     labels: torch.Tensor, feats: torch.Tensor, *, rows: int, cols: int, r: int,
-    oh: Optional[torch.Tensor] = None,
+    oh: Optional[torch.Tensor] = None, c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """labels [B, H, W] i32, feats [B, H, W, F] (already masked) ->
-    [B, rows*cols*n, F] per-(cell, candidate) sums: oh^T @ feats per cell."""
+    [B, rows*tc*n, F] per-(cell, candidate) sums: oh^T @ feats per cell."""
     b, h, w = labels.shape
-    _check_cells(h, w, rows, cols)
+    c0, tc = tile_cells(cols, c0, tile_cols)
+    _check_cells(h, w, rows, tc)
     f = feats.shape[-1]
-    oh = cell_onehot(labels, rows, cols, r) if oh is None else oh
+    oh = cell_onehot(labels, rows, cols, r, c0, tc) if oh is None else oh
     n = oh.shape[-1]
-    fb = to_cells(feats.to(torch.float32), rows, cols).reshape(b * rows * cols, -1, f)
-    part = tables.exact_matmul(oh.reshape(b * rows * cols, -1, n).transpose(1, 2), fb)
+    fb = to_cells(feats.to(torch.float32), rows, tc).reshape(b * rows * tc, -1, f)
+    part = tables.exact_matmul(oh.reshape(b * rows * tc, -1, n).transpose(1, 2), fb)
     return part.reshape(b, -1, f)
 
 
 def nasp_features(
-    mode: str, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma
+    mode: str, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma,
+    x0: int = 0,
 ) -> torch.Tensor:
     """Per-pixel features [B, H, W, 13|14] of the NASP updates, zero outside
     the update window.  sel: the pixel's cluster fields, (x, y) for
-    "analyze", (x, y, rgb, normal) for "weighted".
+    "analyze", (x, y, rgb, normal) for "weighted"; x0: the first global
+    column of the image (a width tile's).
 
     A pixel counts when it lies within [lo, hi] of its cluster's mean pixel
     (both axes) and has a label.  "analyze" accepts a point / normal when
@@ -164,7 +195,7 @@ def nasp_features(
     dot(n, n_cluster) in (0.5, 1]."""
     b, h, w = labels.shape
     dev = labels.device
-    u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :].expand(b, h, w)
+    u = torch.arange(x0, x0 + w, dtype=torch.float32, device=dev)[None, None, :].expand(b, h, w)
     v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None].expand(b, h, w)
     dxp, dyp = u - sel[..., 0], v - sel[..., 1]
     mask = (dxp >= lo) & (dxp <= hi) & (dyp >= lo) & (dyp <= hi) & (labels >= 0)
@@ -202,17 +233,19 @@ def nasp_features(
 def nasp_cell_sums_plain(
     labels, color_f, points, normals, cand_fields, *, rows, cols, r, lo, hi, mode,
     color_sigma=1.0, spatial_sigma=1.0, oh: Optional[torch.Tensor] = None,
-    abs_terms: bool = False,
+    abs_terms: bool = False, c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of nasp_cell_sums: gather the cluster fields, form the
     features, sum them per (cell, candidate).  abs_terms: sum |feature|
     instead, the scale of each sum for sums_close."""
-    b = labels.shape[0]
-    kw = dict(rows=rows, cols=cols, r=r, oh=oh)
+    b, _, w = labels.shape
+    c0, tc = tile_cells(cols, c0, tile_cols)
+    kw = dict(rows=rows, cols=cols, r=r, oh=oh, c0=c0, tile_cols=tc)
     table = cand_fields.reshape(b, rows * cols, cand_fields.shape[-1])
     sel = label_cell_gather_plain(labels, table, **kw)
     feats = nasp_features(
-        mode, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma
+        mode, labels, sel, color_f, points, normals, lo, hi, color_sigma, spatial_sigma,
+        x0=c0 * (w // tc),
     )
     return label_cell_sums_plain(labels, feats.abs() if abs_terms else feats, **kw)
 
@@ -232,7 +265,8 @@ def sums_close(
 
 def assign_plain(
     color_f, points, normals, cand_fields, *, rows, cols, r,
-    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid,
+    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid, c0: int = 0,
+    tile_cols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """First NASP assignment (calculateLD_NASP), band-space form: labels are
     the grid init, so a cell's pixels share their candidate clusters and the
@@ -240,16 +274,19 @@ def assign_plain(
     [B, rows, 1, W].  Offsets dy-major with a strict-< running argmin: the
     first candidate wins ties.  An out-of-grid candidate costs INIT_DISTANCE
     and keeps the grid-init label.  cand_fields [B, rows, cols, 9]: rgb 3,
-    x, y, center z, normal 3."""
+    x, y, center z, normal 3 (the global grid; the image may be the tile of
+    cell columns [c0, c0 + tile_cols))."""
     b, h, w, _ = color_f.shape
     dev = color_f.device
-    bs_y, bs_x = h // rows, w // cols
+    c0, tc = tile_cells(cols, c0, tile_cols)
+    bs_y, bs_x = h // rows, w // tc
 
     def tob(x):
         return x.reshape(b, rows, bs_y, w)
 
     cfc = [tob(color_f[..., i]) for i in range(3)]
-    ub = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
+    x0 = c0 * bs_x
+    ub = torch.arange(x0, x0 + w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
     vb = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, rows, bs_y, 1)
     zc = tob(points[..., 2])
     nmc = [tob(normals[..., i]) for i in range(3)]
@@ -259,13 +296,14 @@ def assign_plain(
 
     gf = torch.nn.functional.pad(cand_fields, (0, 0, r, r, r, r))
     cyg = torch.arange(rows, dtype=torch.int32, device=dev)
-    cxg = torch.arange(cols, dtype=torch.int32, device=dev)
+    cxg = torch.arange(c0, c0 + tc, dtype=torch.int32, device=dev)
     own = torch.repeat_interleave(cyg[:, None] * cols + cxg[None, :], bs_x, dim=1)
     own = own[None, :, None, :]  # [1, rows, 1, W] grid-init labels
     init_d = torch.full((), INIT_DISTANCE, dtype=torch.float32, device=dev)
 
     for dy, dx in candidate_offsets(r):
-        cell = gf[:, r + dy : r + dy + rows, r + dx : r + dx + cols]  # [B, rows, cols, nf]
+        # [B, rows, tc, nf]: the tile's cells' candidates
+        cell = gf[:, r + dy : r + dy + rows, r + c0 + dx : r + c0 + dx + tc]
         cc = torch.repeat_interleave(cell, bs_x, dim=2)[:, :, None]  # [B, rows, 1, W, nf]
         ing_cell = ((cyg + dy >= 0) & (cyg + dy < rows))[:, None] & (
             (cxg + dx >= 0) & (cxg + dx < cols)
@@ -310,18 +348,20 @@ def assign_plain(
 
 def nasp_assign_and_analyze_plain(
     color_f, points, normals, cand_fields, *, rows, cols, r, lo, hi,
-    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid,
+    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid, c0: int = 0,
+    tile_cols: Optional[int] = None,
 ):
     """Plain version of nasp_assign_and_analyze: the band-space assignment,
     then the analyze sums over the labels it produced."""
+    tile = dict(c0=c0, tile_cols=tile_cols)
     labels, dist = assign_plain(
         color_f, points, normals, cand_fields, rows=rows, cols=cols, r=r,
         w_col=w_col, w_spa=w_spa, w_dep=w_dep, w_nor=w_nor, s_scale=s_scale,
-        apply_invalid=apply_invalid,
+        apply_invalid=apply_invalid, **tile,
     )
     part = nasp_cell_sums_plain(
         labels, color_f, points, normals, cand_fields[..., 3:5], rows=rows, cols=cols,
-        r=r, lo=lo, hi=hi, mode="analyze",
+        r=r, lo=lo, hi=hi, mode="analyze", **tile,
     )
     return labels, dist, part
 
@@ -338,59 +378,78 @@ def _call(name: str, form: str, argtypes: list, device, args) -> None:
     launch_forms[key] = launch_forms.get(key, 0) + 1
 
 
-def _check_grid(labels_or_image: torch.Tensor, rows: int, cols: int, r: int) -> None:
+def _check_grid(
+    labels_or_image: torch.Tensor, rows: int, cols: int, r: int, c0: int,
+    tile_cols: Optional[int],
+) -> Tuple[int, int]:
+    """(c0, tile columns), checked: the grid divides the (tile's) image."""
+    c0, tc = tile_cells(cols, c0, tile_cols)
     h, w = labels_or_image.shape[1:3]
-    _check_cells(h, w, rows, cols)
+    _check_cells(h, w, rows, tc)
     if r < 1:
         raise ValueError(f"candidate radius r={r} must be >= 1")
+    return c0, tc
+
+
+def _form(base: str, tc: int, cols: int) -> str:
+    """A launch form's name: a width tile of the grid adds ":tile"."""
+    return base + (":tile" if tc < cols else "")
 
 
 def label_cell_gather(
-    labels: torch.Tensor, table: torch.Tensor, *, rows: int, cols: int, r: int
+    labels: torch.Tensor, table: torch.Tensor, *, rows: int, cols: int, r: int,
+    c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """[B, H, W, F] = table[labels] over each cell's candidates, 0 outside
     them: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
     labels [B, H, W] i32, table [B, rows*cols, F] f32.  On the card the
     staged table rows must fit a block's shared memory (csrc/nasp.cu
     label_gather_smem); the launch raises otherwise."""
+    tile = dict(c0=c0, tile_cols=tile_cols)
     if labels.device.type == "cpu":
-        return label_cell_gather_plain(labels, table, rows=rows, cols=cols, r=r)
+        return label_cell_gather_plain(labels, table, rows=rows, cols=cols, r=r, **tile)
     b, h, w = labels.shape
-    _check_grid(labels, rows, cols, r)
+    c0, tc = _check_grid(labels, rows, cols, r, **tile)
     f = table.shape[-1]
     _build.check_tensor(labels, "label_cell_gather labels", torch.int32, (b, h, w))
     _build.check_tensor(table, "label_cell_gather table", torch.float32, (b, rows * cols, f))
     out = torch.empty((b, h, w, f), dtype=torch.float32, device=labels.device)
     _call(
-        "label_cell_gather", f"r{r}:F{f}", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
-        (labels.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, f),
+        "label_cell_gather", _form(f"r{r}:F{f}", tc, cols), [_build.PTR] * 3 + [_build.INT] * 9,
+        labels.device,
+        (labels.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, c0, tc,
+         f),
     )
     return out
 
 
 def label_cell_sums(
-    labels: torch.Tensor, feats: torch.Tensor, *, rows: int, cols: int, r: int
+    labels: torch.Tensor, feats: torch.Tensor, *, rows: int, cols: int, r: int,
+    c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
-    """[B, rows*cols*n, F] per-(cell, candidate) sums of pre-masked feats
+    """[B, rows*tc*n, F] per-(cell, candidate) sums of pre-masked feats
     [B, H, W, F] f32 grouped by labels [B, H, W] i32: the CUDA kernel for
     CUDA tensors, the plain version for CPU ones.  On the card F <= 16 and
     the warps' partials must fit a block's shared memory (csrc/nasp.cu
     label_sums_smem, ~173 KB at r = 5, F = 16); the launch raises
     otherwise."""
+    tile = dict(c0=c0, tile_cols=tile_cols)
     if labels.device.type == "cpu":
-        return label_cell_sums_plain(labels, feats, rows=rows, cols=cols, r=r)
+        return label_cell_sums_plain(labels, feats, rows=rows, cols=cols, r=r, **tile)
     b, h, w = labels.shape
-    _check_grid(labels, rows, cols, r)
+    c0, tc = _check_grid(labels, rows, cols, r, **tile)
     f = feats.shape[-1]
     if f > MAX_SUM_FEATURES:
         raise ValueError(f"label_cell_sums takes at most {MAX_SUM_FEATURES} features, got {f}")
     _build.check_tensor(labels, "label_cell_sums labels", torch.int32, (b, h, w))
     _build.check_tensor(feats, "label_cell_sums feats", torch.float32, (b, h, w, f))
     n = (2 * r) ** 2
-    out = torch.empty((b, rows * cols * n, f), dtype=torch.float32, device=labels.device)
+    out = torch.empty((b, rows * tc * n, f), dtype=torch.float32, device=labels.device)
     _call(
-        "label_cell_sums", f"r{r}:F{f}", [_build.PTR] * 3 + [_build.INT] * 7, labels.device,
-        (labels.data_ptr(), feats.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, f),
+        "label_cell_sums", _form(f"r{r}:F{f}", tc, cols), [_build.PTR] * 3 + [_build.INT] * 9,
+        labels.device,
+        (labels.data_ptr(), feats.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, c0, tc,
+         f),
     )
     return out
 
@@ -402,9 +461,9 @@ def _check_planes(what: str, color_f, points, normals, b, h, w) -> None:
 
 def nasp_cell_sums(
     labels, color_f, points, normals, cand_fields, *, rows, cols, r, lo, hi, mode,
-    color_sigma=1.0, spatial_sigma=1.0,
+    color_sigma=1.0, spatial_sigma=1.0, c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
-    """Per-(cell, candidate) NASP update sums [B, rows*cols*n, 13|14]:
+    """Per-(cell, candidate) NASP update sums [B, rows*tc*n, 13|14]:
     mode "analyze" (cand_fields [B, rows, cols, 2]: x, y) or "weighted"
     ([B, rows, cols, 8]: x, y, rgb, normal).  The CUDA kernel for CUDA
     tensors, the plain version for CPU ones.  On the card the warps'
@@ -413,25 +472,26 @@ def nasp_cell_sums(
     if mode not in _MODES:
         raise ValueError(f"nasp_cell_sums mode must be 'analyze' or 'weighted', got {mode!r}")
     kw = dict(rows=rows, cols=cols, r=r, lo=lo, hi=hi, mode=mode,
-              color_sigma=color_sigma, spatial_sigma=spatial_sigma)
+              color_sigma=color_sigma, spatial_sigma=spatial_sigma, c0=c0,
+              tile_cols=tile_cols)
     if labels.device.type == "cpu":
         return nasp_cell_sums_plain(labels, color_f, points, normals, cand_fields, **kw)
     b, h, w = labels.shape
-    _check_grid(labels, rows, cols, r)
+    c0, tc = _check_grid(labels, rows, cols, r, c0, tile_cols)
     nf = 2 if mode == "analyze" else 8
     nfeat = N_ANALYZE if mode == "analyze" else N_WEIGHTED
     _build.check_tensor(labels, "nasp_cell_sums labels", torch.int32, (b, h, w))
     _check_planes("nasp_cell_sums", color_f, points, normals, b, h, w)
     _build.check_tensor(cand_fields, "nasp_cell_sums cand_fields", torch.float32, (b, rows, cols, nf))
     n = (2 * r) ** 2
-    out = torch.empty((b, rows * cols * n, nfeat), dtype=torch.float32, device=labels.device)
+    out = torch.empty((b, rows * tc * n, nfeat), dtype=torch.float32, device=labels.device)
     _call(
-        "nasp_cell_sums", f"r{r}:{mode}",
-        [_build.PTR] * 6 + [_build.INT] * 6 + [_build.FLOAT] * 2 + [_build.INT]
+        "nasp_cell_sums", _form(f"r{r}:{mode}", tc, cols),
+        [_build.PTR] * 6 + [_build.INT] * 8 + [_build.FLOAT] * 2 + [_build.INT]
         + [_build.FLOAT] * 2,
         labels.device,
         (labels.data_ptr(), color_f.data_ptr(), points.data_ptr(), normals.data_ptr(),
-         cand_fields.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, float(lo),
+         cand_fields.data_ptr(), out.data_ptr(), b, h, w, rows, cols, r, c0, tc, float(lo),
          float(hi), _MODES[mode], 2.0 * color_sigma**2, 2.0 * spatial_sigma**2),
     )
     return out
@@ -439,21 +499,23 @@ def nasp_cell_sums(
 
 def nasp_assign_and_analyze(
     color_f, points, normals, cand_fields, *, rows, cols, r, lo, hi,
-    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid,
+    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid, c0: int = 0,
+    tile_cols: Optional[int] = None,
 ):
     """Fused first NASP assignment + analyze sums.  color_f, points, normals
     [B, H, W, 3] f32; cand_fields [B, rows, cols, 9] f32 (rgb, x, y,
     center z, normal).  Returns (labels [B, H, W] i32, distance [B, H, W]
-    f32, part [B, rows*cols*n, 13]).  The CUDA kernel for CUDA tensors, the
+    f32, part [B, rows*tc*n, 13]).  The CUDA kernel for CUDA tensors, the
     plain version for CPU ones.  On the card the warps' partials must fit a
     block's shared memory (csrc/nasp.cu assign_smem, ~93 KB at r = 5); the
     launch raises otherwise."""
     kw = dict(rows=rows, cols=cols, r=r, lo=lo, hi=hi, w_col=w_col, w_spa=w_spa,
-              w_dep=w_dep, w_nor=w_nor, s_scale=s_scale, apply_invalid=apply_invalid)
+              w_dep=w_dep, w_nor=w_nor, s_scale=s_scale, apply_invalid=apply_invalid,
+              c0=c0, tile_cols=tile_cols)
     if color_f.device.type == "cpu":
         return nasp_assign_and_analyze_plain(color_f, points, normals, cand_fields, **kw)
     b, h, w, _ = color_f.shape
-    _check_grid(color_f, rows, cols, r)
+    c0, tc = _check_grid(color_f, rows, cols, r, c0, tile_cols)
     _check_planes("nasp_assign_and_analyze", color_f, points, normals, b, h, w)
     _build.check_tensor(
         cand_fields, "nasp_assign_and_analyze cand_fields", torch.float32, (b, rows, cols, 9)
@@ -462,14 +524,14 @@ def nasp_assign_and_analyze(
     n = (2 * r) ** 2
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     dist = torch.empty((b, h, w), dtype=torch.float32, device=dev)
-    part = torch.empty((b, rows * cols * n, N_ANALYZE), dtype=torch.float32, device=dev)
+    part = torch.empty((b, rows * tc * n, N_ANALYZE), dtype=torch.float32, device=dev)
     # the weights as PyTorch rounds a Python scalar operand: to f32
     _call(
-        "nasp_assign_analyze", f"r{r}",
-        [_build.PTR] * 7 + [_build.INT] * 6 + [_build.FLOAT] * 7 + [_build.INT],
+        "nasp_assign_analyze", _form(f"r{r}", tc, cols),
+        [_build.PTR] * 7 + [_build.INT] * 8 + [_build.FLOAT] * 7 + [_build.INT],
         dev,
         (color_f.data_ptr(), points.data_ptr(), normals.data_ptr(), cand_fields.data_ptr(),
-         labels.data_ptr(), dist.data_ptr(), part.data_ptr(), b, h, w, rows, cols, r,
+         labels.data_ptr(), dist.data_ptr(), part.data_ptr(), b, h, w, rows, cols, r, c0, tc,
          float(lo), float(hi), w_col, w_spa, w_dep, w_nor, s_scale**2, int(apply_invalid)),
     )
     return labels, dist, part

@@ -22,7 +22,7 @@ Image tensors carry a leading batch dimension: [B, H, W, ...].
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -318,16 +318,20 @@ def sdc_normals(
 
 
 def cm_normals(
-    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int
+    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int, *, x0: int = 0,
+    width: Optional[int] = None,
 ) -> torch.Tensor:
     """computeNormalCM_GPU (NormalMapGenerator.cu:244-302): per-pixel
     covariance at the pixel's own window size (ops/cuda_cov.py), smallest
-    eigenvector, reference sign convention, invalid border."""
+    eigenvector, reference sign convention, invalid border.  The image may
+    be columns [x0, x0 + W) of a frame `width` wide (a width tile with its
+    halo): the border test reads global columns."""
     _, h, w = smoothing.shape
     dev = smoothing.device
+    width = w if width is None else width
     v = torch.arange(h, device=dev)[:, None]
-    u = torch.arange(w, device=dev)[None, :]
-    in_border = (u <= border) | (u >= w - border) | (v <= border) | (v >= h - border)
+    u = torch.arange(x0, x0 + w, device=dev)[None, :]
+    in_border = (u <= border) | (u >= width - border) | (v <= border) | (v >= h - border)
 
     rect = smoothing.to(torch.int32)
     cont, ent = cuda_cov.cm_covariances(vertices_m.contiguous(), rect.contiguous())
@@ -350,16 +354,22 @@ def cm_normals(
 
 
 def generate_normal_map(
-    points_mm: torch.Tensor, p: NormalParams = NormalParams()
+    points_mm: torch.Tensor, p: NormalParams = NormalParams(), *, x0: int = 0,
+    width: Optional[int] = None,
 ) -> torch.Tensor:
     """NormalMapGenerator::generateNormalMap (cu:513-524): mm -> m, then
     the bilateral normals as they are, or the smoothing map, the SDC or CM
     normals, fill + flip.
 
     points_mm: [B, H, W, 3] real-world points in millimetres.
-    Returns normals [B, H, W, 3] with the (-1,-1,-1) invalid sentinel."""
+    Returns normals [B, H, W, 3] with the (-1,-1,-1) invalid sentinel.
+    x0, width: the CM normals of columns [x0, x0 + W) of a frame `width`
+    wide (cm_normals; parallel/stencil_shard.normals_sharded); the other
+    methods take whole frames."""
     if p.method not in ("cm", "sdc", "bilateral"):
         raise ValueError(f"unknown normal method {p.method!r}")
+    if p.method != "cm" and (x0 != 0 or width is not None):
+        raise ValueError(f"the {p.method} normals take whole frames, not a width tile")
     # mm -> m as the product with the f32 1/1000 on every device: PyTorch
     # on CUDA and XLA under jit both turn the division into this product,
     # PyTorch on the CPU would divide
@@ -371,5 +381,5 @@ def generate_normal_map(
     if p.method == "sdc":
         raw = sdc_normals(vm, smooth, border)
     else:
-        raw = cm_normals(vm, smooth, border)
+        raw = cm_normals(vm, smooth, border, x0=x0, width=width)
     return _rest_normals(raw, vm)

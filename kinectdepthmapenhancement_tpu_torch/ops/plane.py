@@ -315,10 +315,15 @@ def depth_bilateral(
     (stencil.flush_subnormal): a hole pixel whose valid neighbours lie
     1.3-1.45 m from its z = 0 (depth_sigma 100) has only subnormal weights,
     so no support, and stays 0."""
-    _, h, w, _ = optimized.shape
+    return rays * bilateral_depth(optimized[..., 2], p)[..., None]
+
+
+def bilateral_depth(z: torch.Tensor, p: ProjectionParams = ProjectionParams()) -> torch.Tensor:
+    """depth_bilateral's new depth [B, H, W] from z [B, H, W] (zeros past
+    the image; parallel/stencil_shard.py runs it on haloed width tiles)."""
+    _, h, w = z.shape
     r = p.window // 2
-    spatial = stencil.gaussian_spatial_filter(p.window, p.spatial_sigma, optimized.device)
-    z = optimized[..., 2]
+    spatial = stencil.gaussian_spatial_filter(p.window, p.spatial_sigma, z.device)
     zpad = stencil.pad2d(z, r, 0.0)
     zero = torch.zeros_like(z)
     num = zero
@@ -334,8 +339,7 @@ def depth_bilateral(
         num = num + nz * filt
         den = den + filt
     empty = den == 0.0
-    new_z = torch.where(empty, zero, num / torch.where(empty, torch.ones_like(den), den))
-    return rays * new_z[..., None]
+    return torch.where(empty, zero, num / torch.where(empty, torch.ones_like(den), den))
 
 
 # ---------------------------------------------------------------- PCA planes

@@ -35,6 +35,14 @@ label-cell kernels; each wrapper takes its plain version for CPU tensors);
 later iterations' assignments are plain PyTorch on every route: the JAX
 package has no Pallas kernel there.
 
+On a width tile of whole cells (parallel/sharding.py's tiled route,
+segment_tile and a cell index with a `tile`), NASP's first iteration runs
+on the tile's pixels: the seed gradient on the tile's own sub-grid blocks,
+the fused assignment and the update sums on its cells, with the cluster
+tables replicated over the tile group and every per-cell partial gathered
+in cell order before the fold (CellTile.gather_cells), so each sum is the
+unsharded one bitwise.
+
 SP and DASP (the colour and depth SLICs of RGBF, SPDSP and TOF) seed from
 the colour form of the seed gradient (window 16 / 4) and run every
 assignment on the global route's sweep at r = 2 (16 candidates): the first
@@ -62,7 +70,7 @@ Tensors carry a leading batch dimension; cluster tables are [B, K, ...].
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Protocol, Union
 
 import torch
 
@@ -125,6 +133,30 @@ def _update_geometry(grid: GridParams, h: int, w: int, variant: str):
 # -------------------------------------------------------------- label index
 
 
+class CellTile(Protocol):
+    """A width tile of whole grid cells and its tile group's collectives, as
+    parallel/sharding.py's tiled route hands it to NASP, CCL and the plane
+    stage: cell columns [c0, c0 + cols) of the grid, pixel columns
+    [x0, x0 + cols * cell width) of a frame `width` wide."""
+
+    c0: int
+    cols: int
+    x0: int
+    width: int
+    # [B, rows, cols, ...] pieces of every tile -> [B, rows, grid cols, ...],
+    # in cell order
+    gather_cells: Callable[[torch.Tensor], torch.Tensor]
+    # (img [B, H, ws, ...] tile, global x, y [B, K]) -> img at those pixels
+    # [B, K, ...], each from the tile that holds it
+    pixels_at: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    # labels [B, H, ws] -> [B, H, 1]: the column right of the tile, -1 past
+    # the frame
+    right_labels: Callable[[torch.Tensor], torch.Tensor]
+    # integer-valued f32 counts (< 2^24) of every tile -> their sum (exact,
+    # so the same in any order)
+    sum_counts: Callable[[torch.Tensor], torch.Tensor]
+
+
 class _CellIndex:
     """Cell-local label index.  Valid ONLY when every label is either -1 or
     drawn from its pixel's cell-grid (2r)^2 neighbourhood — which holds after
@@ -139,11 +171,16 @@ class _CellIndex:
     card, their plain versions on the CPU); False (the "xla" route) runs the
     plain one-hot products on every device.  Every product is an f32 matmul
     with TF32 off (tables.exact_matmul): gathers are exact and sums
-    deterministic on both routes."""
+    deterministic on both routes.
+
+    tile (a CellTile): labels are the tile's [B, H, ws]; gathers stay on
+    the tile, and the per-cell partials of every sum are gathered over the
+    tile group (_gathered) before their last product, which then runs on
+    the unsharded run's input."""
 
     def __init__(
         self, labels: torch.Tensor, grid: GridParams, r: int, h: int, w: int,
-        *, kernel_sums: bool = True,
+        *, kernel_sums: bool = True, tile: Optional[CellTile] = None,
     ):
         self.rows, self.cols = grid.rows, grid.cols
         self.k = grid.num_clusters
@@ -152,6 +189,9 @@ class _CellIndex:
         self.labels = labels.contiguous()
         self.b = labels.shape[0]
         self.kernel_sums = kernel_sums
+        self.tile = tile
+        # the cell columns this index's labels cover
+        self.c0, self.tc = (0, self.cols) if tile is None else (tile.c0, tile.cols)
         self.cand = cuda_nasp.cand_grid(
             self.rows, self.cols, cuda_nasp.candidate_offsets(r), labels.device
         )  # [rows, cols, n]
@@ -162,18 +202,36 @@ class _CellIndex:
 
     @property
     def oh(self) -> torch.Tensor:
-        """[B, rows, cols, P, n] f32 cell one-hot, built on first use: the
+        """[B, rows, tc, P, n] f32 cell one-hot, built on first use: the
         kernel route reads it only for counts() and pair_counts()."""
         if self._oh is None:
-            self._oh = cuda_nasp.cell_onehot(self.labels, self.rows, self.cols, self.r)
+            self._oh = cuda_nasp.cell_onehot(
+                self.labels, self.rows, self.cols, self.r, self.c0, self.tc)
         return self._oh
 
     def _cells_flat(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, rows, cols, ...] -> [B*rows*cols, ...]."""
-        return x.reshape((self.b * self.rows * self.cols,) + tuple(x.shape[3:]))
+        """[B, rows, tc, ...] -> [B*rows*tc, ...]."""
+        return x.reshape((self.b * self.rows * self.tc,) + tuple(x.shape[3:]))
 
     def _geometry(self) -> dict:
-        return dict(rows=self.rows, cols=self.cols, r=self.r)
+        return dict(rows=self.rows, cols=self.cols, r=self.r, c0=self.c0, tile_cols=self.tc)
+
+    def _gathered(self, part: torch.Tensor) -> torch.Tensor:
+        """The labels' per-(cell, candidate) partials [B, rows*tc*n, F] ->
+        the whole grid's [B, rows*cols*n, F]: gathered over the tile group
+        in cell order on a tile, as they are otherwise."""
+        if self.tile is None:
+            return part
+        f = part.shape[-1]
+        cells = self.tile.gather_cells(part.reshape(self.b, self.rows, self.tc, self.n, f))
+        return cells.reshape(self.b, -1, f)
+
+    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """img[b, y[b, k], x[b, k]] -> [B, K, ...] at global pixels (from the
+        tile that holds each, on a tile)."""
+        if self.tile is None:
+            return _at_pixels(img, x, y)
+        return self.tile.pixels_at(img, x, y)
 
     def gather(self, table: torch.Tensor) -> torch.Tensor:
         """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for labels
@@ -186,8 +244,9 @@ class _CellIndex:
         )
 
     def fold(self, part: torch.Tensor) -> torch.Tensor:
-        """Per-(cell, candidate) partials [B, rows*cols*n, F] -> [B, K, F]."""
-        return tables.segment_sum(part, self.cand_flat, self.k, onehot=self.oh_k)
+        """Per-(cell, candidate) partials [B, rows*tc*n, F] of the labels'
+        cells -> [B, K, F]."""
+        return tables.segment_sum(self._gathered(part), self.cand_flat, self.k, onehot=self.oh_k)
 
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
@@ -215,24 +274,31 @@ class _CellIndex:
         labels_b must be a <=1-pixel shift of cell-local labels, so its
         values lie in the enlarged (2r+1)^2 candidate set of each pixel's
         cell.  Pairs accumulate per cell in candidate coordinates, then fold
-        to [K, K] through the candidate one-hots."""
+        to [K, K] through the candidate one-hots.  On a tile each tile folds
+        its own cells and the group sums the [B, K, K] counts: integers
+        below 2^24, exact in any order, so bitwise the fold over every cell
+        (a [B, K, K] payload where the per-cell indicators would be
+        rows*tc*n x K)."""
         r, k = self.r, self.k
-        rc = self.rows * self.cols
+        rc = self.rows * self.tc  # the labels' cells
         offs_b = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
         nb = len(offs_b)
-        cand_b = cuda_nasp.cand_grid(self.rows, self.cols, offs_b, labels_b.device)
-        lb_b = cuda_nasp.to_cells(labels_b[..., None], self.rows, self.cols)[..., 0]
+        cand_b = cuda_nasp.tile_cand_grid(
+            self.rows, self.cols, offs_b, labels_b.device, self.c0, self.tc)
+        lb_b = cuda_nasp.to_cells(labels_b[..., None], self.rows, self.tc)[..., 0]
         oh_b = (lb_b[..., None] == cand_b[:, :, None, :]).to(torch.float32)
         m = tables.exact_matmul(
             self._cells_flat(self.oh).transpose(1, 2), self._cells_flat(oh_b)
         )  # [B*rc, n, nb]
         m = (m > 0.0).to(torch.float32).reshape(self.b, rc, self.n, nb)
         oh_bk = tables.one_hot(cand_b, k).reshape(rc, nb, k)
-        oh_ak = tables.one_hot(self.cand, k).reshape(rc * self.n, k)
+        cand_a = self.cand[:, self.c0:self.c0 + self.tc]
+        oh_ak = tables.one_hot(cand_a, k).reshape(rc * self.n, k)
         t = tables.exact_matmul(m, oh_bk)  # [B, rc, n, K]; counts <= nb, exact
         t = (t > 0.0).to(torch.float32).reshape(self.b, rc * self.n, k)
         # integer counts < 2^24, exact in f32
-        return tables.exact_matmul(oh_ak.transpose(0, 1), t)
+        counts = tables.exact_matmul(oh_ak.transpose(0, 1), t)
+        return counts if self.tile is None else self.tile.sum_counts(counts)
 
 
 class _GlobalIndex:
@@ -249,6 +315,7 @@ class _GlobalIndex:
         self.labels = labels.contiguous()
         self.k = k
         self.b = labels.shape[0]
+        self.tile = None  # whole frames only
         self._oh: Optional[torch.Tensor] = None
 
     @property
@@ -260,6 +327,10 @@ class _GlobalIndex:
     def gather(self, table: torch.Tensor) -> torch.Tensor:
         """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for -1."""
         return tables.gather(table.to(torch.float32), self.labels)
+
+    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """img[b, y[b, k], x[b, k]] -> [B, K, ...]."""
+        return _at_pixels(img, x, y)
 
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
@@ -332,18 +403,24 @@ LabelIndex = Union[_CellIndex, _GlobalIndex]
 
 
 def cell_index(
-    labels: torch.Tensor, grid: GridParams, neighborhood: int, stats_impl: str = "auto"
+    labels: torch.Tensor, grid: GridParams, neighborhood: int, stats_impl: str = "auto",
+    tile: Optional[CellTile] = None,
 ) -> LabelIndex:
     """Index for downstream ops (CCL, plane) over single-iteration SLIC
     labels [B, H, W]: cell-local, or the global one when the grid does not
     divide the frame (the JAX package's cell_index gives None there and its
     callers take the global route); `stats_impl` picks the route of the
-    cell-local gathers and segment sums (_stats_impl_on)."""
+    cell-local gathers and segment sums (_stats_impl_on).  With a tile the
+    labels are the tile's, the frame tile.width wide, and the grid must
+    divide it."""
     h, w = labels.shape[-2:]
+    w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
     if not _cell_ok(grid, h, w):
+        if tile is not None:
+            raise ValueError(f"grid {grid.rows}x{grid.cols} does not divide the tiled {h}x{w}")
         return _GlobalIndex(labels, grid.num_clusters)
-    return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums)
+    return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums, tile=tile)
 
 
 def capped_index(
@@ -367,17 +444,21 @@ def capped_index(
 
 
 def label_index(
-    labels: torch.Tensor, grid: GridParams, params: SLICParams, variant: str = "nasp"
+    labels: torch.Tensor, grid: GridParams, params: SLICParams, variant: str = "nasp",
+    tile: Optional[CellTile] = None,
 ) -> LabelIndex:
     """The index over SLIC labels of `params` that an update, CCL or the
     plane stage takes: after one iteration cell_index's (r = 4 for NASP,
     2 for SP / DASP); after later iterations capped_index's at the
     variant's cap (5 for NASP, 3 for SP / DASP).  KDE's CCL and plane stage
     take it as the JAX package's _with_local_index does for its
-    multi-iteration pipelines."""
+    multi-iteration pipelines.  A tile takes single-iteration labels
+    only."""
     _, neighborhood, cap = _variant(variant)
     if params.iterations == 1:
-        return cell_index(labels, grid, neighborhood, params.stats_impl)
+        return cell_index(labels, grid, neighborhood, params.stats_impl, tile)
+    if tile is not None:
+        raise ValueError("a width tile's label index takes single-iteration labels only")
     return capped_index(labels, grid, cap, stats_impl=params.stats_impl,
                         locality=params.locality)
 
@@ -725,7 +806,8 @@ def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mo
     fields = fields.reshape(idx.b, idx.rows, idx.cols, -1).contiguous()
     kw = dict(
         rows=idx.rows, cols=idx.cols, r=idx.r, lo=lo, hi=hi, mode=mode,
-        color_sigma=params.color_sigma, spatial_sigma=params.spatial_sigma,
+        color_sigma=params.color_sigma, spatial_sigma=params.spatial_sigma, c0=idx.c0,
+        tile_cols=idx.tc,
     )
     args = (idx.labels, color_f, points, normals, fields)
     if idx.kernel_sums:
@@ -736,17 +818,21 @@ def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mo
 
 
 def _nasp_fused_first_iteration(
-    clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w, *, kernel
+    clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w, *, kernel,
+    tile: Optional[CellTile] = None,
 ):
     """First NASP iteration's assignment (calculateLD_NASP) and analyze
     update (analyzeClusters_NASP, NormalAdaptiveSuperpixel.cu:356-685): a
     pixel's 3-D point / normal count when z > 50 and the normal is valid
     (OR-validity).  `kernel` (the "auto"/"pallas" route) runs both in one
     call of cuda_nasp.nasp_assign_and_analyze (JAX slic.py:1010-1064);
-    otherwise ("xla") its plain version runs on every device.  Returns
-    (labels, distance, analyze-updated clusters, idx)."""
+    otherwise ("xla") its plain version runs on every device.  On a tile
+    the frame is the tile's and h, w the whole frame's.  Returns (labels,
+    distance, analyze-updated clusters, idx)."""
     lo, hi = window_range
     cand_fields, kw = _assign_args(clusters, grid, params, s_scale)
+    if tile is not None:
+        kw.update(c0=tile.c0, tile_cols=tile.cols)
     fused = (
         cuda_nasp.nasp_assign_and_analyze if kernel
         else cuda_nasp.nasp_assign_and_analyze_plain
@@ -754,8 +840,8 @@ def _nasp_fused_first_iteration(
     labels, distance, part = fused(color_f, points, normals, cand_fields, lo=lo, hi=hi, **kw)
     # after the first sweep labels come from the cell's candidate set, so
     # one cell-local index serves every gather / segment sum of the update
-    idx = _CellIndex(labels, grid, kw["r"], h, w, kernel_sums=kernel)
-    clusters = _nasp_analyze_post(idx.fold(part), clusters, points, h, w)
+    idx = _CellIndex(labels, grid, kw["r"], h, w, kernel_sums=kernel, tile=tile)
+    clusters = _nasp_analyze_post(idx.fold(part), clusters, points, h, w, idx.pixels_at)
     return labels, distance, clusters, idx
 
 
@@ -833,18 +919,19 @@ def _update(variant, idx, clusters, color_f, points, normals, params, window_ran
     return _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
 
 
-def _centroid_center(sums_xyz, npts, xy, points, h, w):
+def _centroid_center(sums_xyz, npts, xy, points, h, w, at=_at_pixels):
     """Centre = the 3-D point AT the 2-D centroid pixel when that pixel has
-    valid depth, else the mean of accepted points (bug (c) fallback)."""
+    valid depth, else the mean of accepted points (bug (c) fallback).
+    `at`: the pixel lookup (an index's pixels_at on a tile)."""
     px = xy[..., 0].clamp(0, w - 1)
     py = xy[..., 1].clamp(0, h - 1)
-    pt_at_centroid = _at_pixels(points, px, py)
+    pt_at_centroid = at(points, px, py)
     centroid_valid = pt_at_centroid[..., 2] > VALID_DEPTH_MM
     mean_pts = sums_xyz / torch.clamp_min(npts, 1.0)[..., None]
     return torch.where(centroid_valid[..., None], pt_at_centroid, mean_pts)
 
 
-def _nasp_analyze_post(sums, clusters: Clusters, points, h, w) -> Clusters:
+def _nasp_analyze_post(sums, clusters: Clusters, points, h, w, at=_at_pixels) -> Clusters:
     """Post-processing of the analyze sums [B, K, 13]."""
     size = sums[..., 5]
     nz = size > 0
@@ -854,7 +941,7 @@ def _nasp_analyze_post(sums, clusters: Clusters, points, h, w) -> Clusters:
     npts = sums[..., 12]
     has_pts = npts > 0
 
-    center = _centroid_center(sums[..., 6:9], npts, xy, points, h, w)
+    center = _centroid_center(sums[..., 6:9], npts, xy, points, h, w, at)
     normal = sums[..., 9:12] / torch.clamp_min(npts, 1.0)[..., None]
     center = torch.where(has_pts[..., None], center, torch.zeros_like(center))
     normal = torch.where(has_pts[..., None], normal, torch.full_like(normal, INVALID_NORMAL))
@@ -874,7 +961,7 @@ def _update_nasp_analyze(idx, clusters, color_f, points, normals, params, window
     356-685) on any index: the capped iterations' _CellIndex (r = 5) or the
     _GlobalIndex (JAX slic.py:1159-1228)."""
     sums = _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, "analyze")
-    return _nasp_analyze_post(sums, clusters, points, h, w)
+    return _nasp_analyze_post(sums, clusters, points, h, w, idx.pixels_at)
 
 
 def _update_nasp_weighted(idx, clusters, color_f, points, normals, params, window_range, h, w) -> Clusters:
@@ -884,10 +971,10 @@ def _update_nasp_weighted(idx, clusters, color_f, points, normals, params, windo
     3-D/normal sums accept z > 50, a valid normal and dot(n, n_cluster) in
     (0.5, 1]."""
     sums = _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, "weighted")
-    return _nasp_weighted_post(sums, clusters, points, h, w)
+    return _nasp_weighted_post(sums, clusters, points, h, w, idx.pixels_at)
 
 
-def _nasp_weighted_post(sums, clusters: Clusters, points, h, w) -> Clusters:
+def _nasp_weighted_post(sums, clusters: Clusters, points, h, w, at=_at_pixels) -> Clusters:
     """Post-processing of the weighted sums [B, K, 14].  A cluster whose
     weights sum to 0 keeps its row (subnormal weights are flushed, so a sum
     of them is 0, as in XLA)."""
@@ -899,7 +986,7 @@ def _nasp_weighted_post(sums, clusters: Clusters, points, h, w) -> Clusters:
     npts = sums[..., 13]
     has_pts = npts > 0
 
-    center = _centroid_center(sums[..., 6:9], npts, xy, points, h, w)
+    center = _centroid_center(sums[..., 6:9], npts, xy, points, h, w, at)
     nmean = sums[..., 9:12] / torch.clamp_min(npts, 1.0)[..., None]
     nlen = torch.sqrt(stencil.dot3(nmean, nmean))
     normal = nmean / torch.clamp_min(nlen, 1e-30)[..., None]
@@ -1000,6 +1087,70 @@ def segment(
     for _ in range(1, params.iterations):
         labels, distance, clusters = later_iteration(
             labels, distance, clusters, *frame, grid=grid, params=params, variant=variant)
+    return SLICResult(labels=labels, distance=distance, clusters=clusters)
+
+
+def nasp_tile_ok(grid: GridParams, h: int, w: int, ws: int) -> bool:
+    """True when NASP can run on width tiles ws wide of h x w frames
+    (segment_tile): the grid divides the frame, each tile holds whole cells,
+    and each seed window's gradient support stays in its cell."""
+    return (_cell_ok(grid, h, w) and ws % (w // grid.cols) == 0
+            and _subgrid_ok(grid, h, w, _VARIANTS["nasp"][0]))
+
+
+def segment_tile(
+    color: torch.Tensor,
+    points: torch.Tensor,
+    normals: torch.Tensor,
+    *,
+    grid: GridParams,
+    params: SLICParams,
+    tile: CellTile,
+) -> SLICResult:
+    """NASP (one iteration) on a width tile of whole cells: segment's
+    NASP route on the tile's frames color u8 [B, H, ws, 3], points and
+    normals f32 [B, H, ws, 3] (ws = tile.cols cell widths at tile.x0 of a
+    frame tile.width wide), every rank of the tile group calling it.  The
+    seed gradient runs on the tile's own sub-grid blocks (each seed window's
+    support lies in its cell), the tile's rows of the initial cluster table
+    are gathered into the global one (tile.gather_cells), then the fused
+    first iteration and the weighted update run on the tile with the
+    cluster tables replicated.  Returns the tile's labels and distance and
+    the global cluster table, each bitwise the matching part of segment's
+    result on the whole frames."""
+    if params.iterations != 1:
+        raise ValueError(f"segment_tile runs one NASP iteration, not {params.iterations}")
+    seed_window = _VARIANTS["nasp"][0]
+    b, h, ws = color.shape[:3]
+    w = tile.width
+    grid_t = GridParams(rows=grid.rows, cols=tile.cols)  # the tile's cells
+    if not nasp_tile_ok(grid, h, w, ws) or ws != tile.cols * (w // grid.cols):
+        raise ValueError(f"a {ws}-px tile of {tile.cols} cells does not hold whole seed "
+                         f"cells of grid {grid.rows}x{grid.cols} on {h}x{w}")
+    kernel = _stats_impl_on(params.stats_impl)
+    s_scale, window_range = _update_geometry(grid, h, w, "nasp")
+    color_f = color.to(torch.float32).contiguous()
+    frame = (color_f, points.contiguous(), normals.contiguous())
+
+    csub = _subgrid_extract(color_f, grid_t, h, ws, seed_window)
+    nsub = _subgrid_extract(frame[2], grid_t, h, ws, seed_window)
+    seeds = _sample_seeds_subgrid(_gradient(csub, nsub), grid_t, h, ws, seed_window)
+    local = init_clusters(seeds, color, *frame[1:])
+    shift = torch.tensor([tile.x0, 0], dtype=torch.int32, device=seeds.device)
+    # one gather of the tile's rows: rgb, global (x, y), centre, normal
+    rows_t = torch.cat([local.rgb, (seeds + shift).to(torch.float32), local.center,
+                        local.normal], dim=-1)
+    table = tile.gather_cells(rows_t.reshape(b, grid.rows, tile.cols, -1)).reshape(
+        b, grid.num_clusters, -1)
+    clusters = Clusters(
+        rgb=table[..., 0:3].contiguous(), xy=table[..., 3:5].to(torch.int32),
+        size=torch.zeros((b, grid.num_clusters), dtype=torch.int32, device=color.device),
+        center=table[..., 5:8].contiguous(), normal=table[..., 8:11].contiguous(),
+        variance=torch.zeros((b, grid.num_clusters), dtype=torch.float32, device=color.device),
+    )
+    labels, distance, clusters, idx = _nasp_fused_first_iteration(
+        clusters, *frame, grid, params, window_range, s_scale, h, w, kernel=kernel, tile=tile)
+    clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
     return SLICResult(labels=labels, distance=distance, clusters=clusters)
 
 

@@ -10,25 +10,34 @@ op over the padded tile is bitwise equal to the unsharded op.
 
 Tiles carry a leading batch axis: [B, H, ws, ...], the width on axis 2.
 Under NCCL the strips stay on the card; under gloo they go through host
-memory (mesh.wire).
+memory (mesh.wire).  A stencil whose own edge rule is not a zero pad
+takes a halo filled with its out-of-image value (exchange_width's
+`fill`: -1 for labels) or none at the global edges (drop_global_edges:
+the tile's edge is then the frame's, for replicate pads and +inf
+borders).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.distributed as dist
 
-from kinectdepthmapenhancement_tpu_torch.parallel.mesh import Mesh, wire
+from kinectdepthmapenhancement_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_x, note_collective, wire,
+)
 
 
-def exchange_width(x: torch.Tensor, radius: int, mesh: Mesh) -> torch.Tensor:
+def exchange_width(x: torch.Tensor, radius: int, mesh: Mesh, fill: float = 0) -> torch.Tensor:
     """x [B, H, ws, ...] padded to [B, H, ws + 2 * radius, ...] with its
-    'x' neighbours' boundary columns, zeros at the global image edges.
-    Every rank of the 'x' group calls it with tiles of the same shape."""
+    'x' neighbours' boundary columns, `fill` (zeros by default) at the
+    global image edges.  Every rank of the 'x' group calls it with tiles of
+    the same shape."""
     ws = x.shape[2]
     if ws < radius:
         raise ValueError(f"a tile {ws} wide cannot supply a halo of {radius} columns")
-    zeros = torch.zeros_like(x[:, :, :radius])
+    zeros = torch.full_like(x[:, :, :radius], fill)
     from_left, from_right = zeros, zeros
     if mesh.x > 1:
         group = mesh.x_group
@@ -47,6 +56,7 @@ def exchange_width(x: torch.Tensor, radius: int, mesh: Mesh) -> torch.Tensor:
             ops.append(dist.P2POp(dist.irecv, recv[side], peer, group))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        note_collective()
         from_left = recv["left"].to(x.device) if "left" in recv else zeros
         from_right = recv["right"].to(x.device) if "right" in recv else zeros
     return torch.cat([from_left, x, from_right], dim=2)
@@ -78,13 +88,16 @@ def reflect101_at_global_edges(padded: torch.Tensor, radius: int, mesh: Mesh) ->
     return torch.cat([left, core, right], dim=2)
 
 
+def drop_global_edges(padded: torch.Tensor, radius: int, mesh: Mesh) -> Tuple[torch.Tensor, int]:
+    """(tile, left): padded as exchange_width returns it without its halos
+    at the global image edges, so the tile's edge there is the frame's;
+    left is the halo columns it keeps on the left (0 on the first tile)."""
+    lo = radius if mesh.s == 0 else 0
+    hi = padded.shape[2] - (radius if mesh.s == mesh.x - 1 else 0)
+    return padded[:, :, lo:hi], radius - lo
+
+
 def gather_width(tile: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The full-width frames [B, H, x * ws, ...] from every rank's tile of
     this 'x' group, in 'x' order (dist.all_gather over the group)."""
-    if mesh.x == 1:
-        return tile
-    group = mesh.x_group
-    mine = wire(tile.contiguous(), group)
-    parts = [torch.empty_like(mine) for _ in range(mesh.x)]
-    dist.all_gather(parts, mine, group=group)
-    return torch.cat(parts, dim=2).to(tile.device)
+    return all_gather_x(tile, mesh, dim=2)

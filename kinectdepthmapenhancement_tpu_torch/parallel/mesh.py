@@ -11,6 +11,12 @@ rows' frames).
 
 Without torch.distributed initialised the mesh is 1 x 1, on the device the
 caller names (the card by default).
+
+Width tiles of whole grid cells (the tiled KDE route, sharding.py): a
+rank's tile starts at global column x0 = s * ws and holds cell columns
+[c0, c0 + tile cols) (Mesh.tile_cells); gather_cells puts the group's
+per-cell pieces back in cell order.  `collectives` counts the collective
+calls over a process group (each exchange or gather here and in halo.py).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 import torch.distributed as dist
 
 from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
+
+collectives = 0  # collective calls since the last reset (chip_smoke.py reads it)
 
 
 def rank_device(device=None, rank: Optional[int] = None) -> torch.device:
@@ -72,6 +80,17 @@ class Mesh:
         ws = w // self.x
         return frames[:, :, self.s * ws:(self.s + 1) * ws]
 
+    def tile_cells(self, w: int, grid_cols: int) -> Tuple[int, int, int]:
+        """(x0, c0, tile cols) of this rank's width tile of frames w wide
+        over a grid of grid_cols cell columns: its first global column, its
+        first cell column and its count of cell columns.  Raises unless the
+        grid divides w and the tile holds whole cells."""
+        if w % self.x or w % grid_cols or (w // self.x) % (w // grid_cols):
+            raise ValueError(f"{self.x} width tiles of {w} columns do not hold whole cells "
+                             f"of a {grid_cols}-column grid")
+        ws, cell = w // self.x, w // grid_cols
+        return self.s * ws, self.s * (ws // cell), ws // cell
+
 
 def wire(t: torch.Tensor, group) -> torch.Tensor:
     """t as `group`'s backend carries it: through host memory under gloo
@@ -79,6 +98,33 @@ def wire(t: torch.Tensor, group) -> torch.Tensor:
     The transport follows the backend the caller initialised; the caller
     moves what arrives back with .to(mesh.device)."""
     return t.cpu() if dist.get_backend(group) == "gloo" else t
+
+
+def note_collective() -> None:
+    """Count one collective call (the module's `collectives`)."""
+    global collectives
+    collectives += 1
+
+
+def all_gather_x(t: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
+    """The 'x' group's pieces of t (each rank's of the same shape)
+    concatenated along `dim` in 'x' order (dist.all_gather over the
+    group); t itself at x == 1."""
+    if mesh.x == 1:
+        return t
+    group = mesh.x_group
+    mine = wire(t.contiguous(), group)
+    parts = [torch.empty_like(mine) for _ in range(mesh.x)]
+    dist.all_gather(parts, mine, group=group)
+    note_collective()
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def gather_cells(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Per-cell pieces [B, rows, tile cols, ...] of every rank of the 'x'
+    group -> [B, rows, cols, ...], in global cell order (the tiles hold
+    consecutive cell columns in 'x' order)."""
+    return all_gather_x(x, mesh, dim=2)
 
 
 def make_mesh(n_devices: Optional[int] = None, spatial: int = 1, device=None) -> Mesh:

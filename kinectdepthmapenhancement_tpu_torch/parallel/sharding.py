@@ -8,11 +8,27 @@ PyTorch has no such partitioner, so the two regimes are written out:
   * 'x' == 1, data parallel: each rank runs the whole kde_pipeline on its
     own frames (no collective), every kernel of the path on each rank;
   * 'x' > 1, spatial: each rank holds a width tile of its data row's
-    frames; the JBF runs on the haloed tile (stencil_shard.jbf_sharded,
-    the csrc/jbf.cu kernel), the filtered depth and the colour tiles are
-    all-gathered over the 'x' group, the stages after the JBF
-    (pipelines._kde_from_jbf) run on the whole frames, replicated within
-    the group, and each rank keeps its own width slice of the output.
+    frames and the JBF runs on the haloed tile (stencil_shard.jbf_sharded,
+    the csrc/jbf.cu kernel).  spatial_route then picks, from the config
+    and the shapes alone, one of two routes for the stages after the JBF:
+      - "tiled" (the default KDEConfig() on tiles of whole grid cells):
+        each rank runs them on its own tile (pipelines._kde_from_jbf with
+        a WidthTile): the CM normals on a tile with a 27-column halo of
+        points (stencil_shard.normals_sharded: the DT and covariance
+        kernels on the haloed tile), NASP's seeds on the tile's own cells
+        and its first iteration and weighted update on the tile's cells
+        (the cell kernels at the tile's first cell column), the CCL merge
+        with a one-column label halo, the plane stage per pixel and the
+        depth bilateral with a 3-column halo.  Every cluster sum goes
+        through per-(cell, candidate) partials; the group's partials are
+        gathered in cell order (not summed) and folded replicated, so the
+        [B, K, ...] tables are the unsharded ones bitwise;
+      - "replicated" (every other config or tiling: bilateral or SDC
+        normals, later NASP iterations, plane merge, hole fill, tiles that
+        split a cell): the filtered depth and the colour tiles are
+        all-gathered over the 'x' group, the stages after the JBF run on
+        the whole frames on every rank of the group, and each rank keeps
+        its own width slice.
 
 Either way the output is bitwise equal to kde_pipeline on the same frames.
 `dryrun(n)` is the counterpart of the JAX dryrun and of
@@ -30,20 +46,34 @@ import torch
 import torch.distributed as dist
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import Intrinsics, default_kinect_intrinsics
-from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
-from kinectdepthmapenhancement_tpu_torch.models.pipelines import _kde_from_jbf, kde_pipeline
-from kinectdepthmapenhancement_tpu_torch.ops import cuda_bilateral
+from kinectdepthmapenhancement_tpu_torch.core.config import (
+    GridParams, KDEConfig, NormalParams, ProjectionParams,
+)
+from kinectdepthmapenhancement_tpu_torch.models.pipelines import (
+    KDEResult, _kde_from_jbf, kde_pipeline,
+)
+from kinectdepthmapenhancement_tpu_torch.ops import cuda_bilateral, slic
 from kinectdepthmapenhancement_tpu_torch.parallel import halo, multihost
-from kinectdepthmapenhancement_tpu_torch.parallel.mesh import Mesh, make_mesh, wire
-from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import jbf_sharded
+from kinectdepthmapenhancement_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_x, gather_cells, make_mesh, wire,
+)
+from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import (
+    depth_bilateral_sharded, jbf_sharded, normals_halo, normals_sharded,
+)
+
+ROUTES = ("tiled", "replicated")
 
 
 def disable_pallas(cfg: KDEConfig) -> KDEConfig:
     """cfg with every kernel route set to its plain ("xla") twin, as the JAX
     package's disable_pallas: GSPMD cannot partition a pallas_call, so its
-    spatially sharded step must never reach one.  The port's spatial route
-    does not call it: its kernels run on each rank's own tiles and whole
-    frames, so no partitioner ever meets them."""
+    spatially sharded step must never reach one.  The port's spatial step
+    does not call it: no partitioner ever meets its kernels.  On its tiled
+    route every kernel of the path runs on the rank's own tile (the JBF,
+    DT and covariance on haloed tiles, the seed gradient on the tile's
+    sub-grid, the NASP cell kernels at the tile's first cell column); on
+    its replicated route the JBF runs on the tile and the rest on the
+    gathered whole frames."""
     return dataclasses.replace(
         cfg,
         normals=dataclasses.replace(cfg.normals, cov_impl="xla", dt_impl="xla"),
@@ -51,12 +81,132 @@ def disable_pallas(cfg: KDEConfig) -> KDEConfig:
     )
 
 
+class WidthTile:
+    """This rank's width tile of whole grid cells on the tiled route: the
+    slic.CellTile that NASP, CCL and the plane stage read (its cell and
+    pixel columns, the 'x' group's cell gather, pixel lookup and label
+    halo), and the stencil stages that pipelines._kde_from_jbf runs on
+    haloed tiles.  Every method that communicates is a collective of the
+    'x' group."""
+
+    def __init__(self, mesh: Mesh, grid: GridParams, w: int):
+        self.mesh = mesh
+        self.width = w
+        self.x0, self.c0, self.cols = mesh.tile_cells(w, grid.cols)
+        self.ws = w // mesh.x
+
+    def gather_cells(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_cells(x, self.mesh)
+
+    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """img [B, H, ws, ...] (the tile) at global pixels (x, y) [B, K]:
+        each rank reads the pixels of its columns, the group's reads are
+        gathered, and each pixel takes its own tile's value (a selection,
+        exact)."""
+        b, h, ws = img.shape[:3]
+        flat = img.reshape((b, h * ws) + tuple(img.shape[3:]))
+        local = (x.long() - self.x0).clamp(0, ws - 1)
+        mine = flat[torch.arange(b, device=img.device)[:, None], y.long() * ws + local]
+        every = all_gather_x(mine[None], self.mesh, dim=0)  # [x, B, K, ...]
+        owner = (x.long() // ws).reshape((1,) + tuple(x.shape) + (1,) * (mine.dim() - 2))
+        return torch.gather(every, 0, owner.expand((1,) + tuple(mine.shape)))[0]
+
+    def sum_counts(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the 'x' group of each rank's integer-valued f32
+        counts x (< 2^24: exact, the same in any order), gathered and added
+        in 'x' order."""
+        return all_gather_x(x[None], self.mesh, dim=0).sum(dim=0)
+
+    def right_labels(self, labels: torch.Tensor) -> torch.Tensor:
+        """[B, H, 1]: the labels of the column right of the tile (its right
+        neighbour's first), -1 past the frame."""
+        return halo.exchange_width(labels, 1, self.mesh, fill=-1)[:, :, -1:]
+
+    def crop_rays(self, rays: torch.Tensor) -> torch.Tensor:
+        """The tile's columns of the frame's ray map [H, W, 3]."""
+        return rays[:, self.x0:self.x0 + self.ws]
+
+    def normal_map(self, points: torch.Tensor, p: NormalParams) -> torch.Tensor:
+        return normals_sharded(points, self.mesh, p)
+
+    def depth_bilateral(self, optimized: torch.Tensor, rays: torch.Tensor,
+                        p: ProjectionParams) -> torch.Tensor:
+        return depth_bilateral_sharded(optimized, rays, self.mesh, p)
+
+
+def spatial_route(mesh: Mesh, cfg: KDEConfig, h: int, w: int) -> str:
+    """The route of the stages after the JBF on this mesh for frames h x w:
+    "tiled" when 'x' > 1 cuts the width into tiles of whole grid cells
+    (slic.nasp_tile_ok: the grid divides the frame, each seed window's
+    support lies in its cell), each tile at least as wide as its halos,
+    and the config's later stages all have a tiled form: the CM normals,
+    one NASP iteration, the normal merge and no hole fill (the default
+    KDEConfig()); "replicated" otherwise, and at 'x' == 1 (where each rank
+    runs kde_pipeline on its own frames).  A choice on the static
+    arguments, not a fallback: a kernel that fails on a tile raises."""
+    if mesh.x == 1 or w % mesh.x:
+        return "replicated"
+    ws = w // mesh.x
+    if (cfg.normals.method != "cm" or cfg.nasp.iterations != 1 or cfg.plane_merge
+            or cfg.fill_holes > 0):
+        return "replicated"
+    if not slic.nasp_tile_ok(cfg.grid, h, w, ws):
+        return "replicated"
+    if ws < max(normals_halo(cfg.normals), cfg.projection.window // 2):
+        return "replicated"
+    return "tiled"
+
+
+def _tiled_kde_from_jbf(jbf_t: torch.Tensor, color_t: torch.Tensor, mesh: Mesh,
+                        intr: Intrinsics, cfg: KDEConfig) -> KDEResult:
+    """The stages after the JBF on this rank's width tile (the tiled
+    route): jbf_t f32 [B, H, ws], color_t u8 [B, H, ws, 3] -> the tile's
+    KDEResult ([B, H, ws, ...] maps, the whole frames' [B, K] tables).
+    Raises where spatial_route does not read "tiled"."""
+    b, h, ws = jbf_t.shape
+    w = ws * mesh.x
+    if spatial_route(mesh, cfg, h, w) != "tiled":
+        raise ValueError(f"the stages after the JBF have no tiled form for this config on "
+                         f"{mesh.x} tiles of {h}x{w}")
+    return _kde_from_jbf(jbf_t, color_t, intr, cfg, tile=WidthTile(mesh, cfg.grid, w))
+
+
+# the KDEResult fields that are maps [B, H, W, ...]; the rest are [B, K] tables
+PER_PIXEL_FIELDS = ("optimized_points", "plane_fitted", "jbf_depth", "normals",
+                    "nasp_labels", "merged_labels")
+
+
+def spatial_kde(depth_t: torch.Tensor, color_t: torch.Tensor, mesh: Mesh, intr: Intrinsics,
+                cfg: KDEConfig, route: Optional[str] = None):
+    """KDE of this rank's width tile at 'x' > 1: depth f32 [b, H, ws] and
+    color u8 [b, H, ws, 3] -> (route, the tile's KDEResult): the JBF on the
+    haloed tile, then the stages after it on spatial_route's route (on the
+    replicated one, each per-pixel field is cut to the tile).  Every field
+    is bitwise the tile's part of kde_pipeline on the whole frames.  Every
+    rank of the 'x' group calls it.  `route` names one to take instead
+    (chip_smoke.py measures the replicated route beside the tiled one);
+    "tiled" raises where spatial_route does not read it."""
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    b, h, ws = depth_t.shape
+    route = route or spatial_route(mesh, cfg, h, ws * mesh.x)
+    jbf_t = jbf_sharded(depth_t, color_t, mesh, cfg.jbf)
+    if route == "tiled":
+        return route, _tiled_kde_from_jbf(jbf_t, color_t, mesh, intr, cfg)
+    full = _kde_from_jbf(halo.gather_width(jbf_t, mesh), halo.gather_width(color_t, mesh),
+                         intr, cfg)
+    return route, full._replace(
+        **{f: mesh.width_tile(getattr(full, f)) for f in PER_PIXEL_FIELDS})
+
+
 def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
     """Returns the batched KDE step on this rank's local blocks: depth f32
     [b, H, ws] and color u8 [b, H, ws, 3] on mesh.device -> optimized points
     f32 [b, H, ws, 3], where b is this data row's frames and ws = W / x its
     width tile (the whole width at x == 1).  The layout of the JAX step's
-    P("data", None, "x", None) output.  Every rank of the mesh calls it."""
+    P("data", None, "x", None) output.  Every rank of the mesh calls it.
+    At 'x' > 1 the step records the route its last call took in
+    `step.route` (spatial_route)."""
 
     def check(depth_b, color_b):
         for t in (depth_b, color_b):
@@ -72,11 +222,10 @@ def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
 
     def spatial_step(depth_t, color_t):
         check(depth_t, color_t)
-        jbf_t = jbf_sharded(depth_t, color_t, mesh, cfg.jbf)
-        result = _kde_from_jbf(halo.gather_width(jbf_t, mesh), halo.gather_width(color_t, mesh),
-                               intr, cfg)
-        return mesh.width_tile(result.optimized_points).contiguous()
+        spatial_step.route, result = spatial_kde(depth_t, color_t, mesh, intr, cfg)
+        return result.optimized_points.contiguous()
 
+    spatial_step.route = None
     return spatial_step
 
 
@@ -113,6 +262,7 @@ def _dryrun_rank(device) -> dict:
     before = cuda_bilateral.launches
     out = step(mesh.width_tile(d_local.local), mesh.width_tile(c_local.local))
     launches = cuda_bilateral.launches - before
+    route = getattr(step, "route", "data")
     full = gather_global(out, mesh)
     if tuple(full.shape) != (batch, h, w, 3):
         raise RuntimeError(f"dryrun: output {tuple(full.shape)}, want {(batch, h, w, 3)}")
@@ -125,7 +275,8 @@ def _dryrun_rank(device) -> dict:
             raise RuntimeError(f"dryrun: the sharded step differs from kde_pipeline on {bad} "
                                "pixels")
         line = (f"dryrun_multichip ok: mesh={mesh.shape} out={tuple(full.shape)} "
-                f"backend={dist.get_backend()} device={mesh.device} parity=ok (bitwise)")
+                f"route={route} backend={dist.get_backend()} device={mesh.device} "
+                "parity=ok (bitwise)")
     return {"line": line, "jbf_launches": launches}
 
 

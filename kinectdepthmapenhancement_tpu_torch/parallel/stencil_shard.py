@@ -1,4 +1,5 @@
-"""The joint bilateral filter on width tiles, under explicit halo exchange.
+"""The stencil stages of KDE on width tiles, under explicit halo exchange:
+the joint bilateral filter, the CM normals and the depth bilateral.
 
 PyTorch counterpart of the JAX package's parallel/stencil_shard.py (the
 semantics of JointBilateralFilter.cu:4-83, identical to
@@ -16,15 +17,19 @@ ops.bilateral.joint_bilateral_filter):
 
 The output is bitwise equal to the unsharded bilateral.joint_bilateral_filter
 (tests/test_torch_parallel.py on the CPU, chip_smoke.py phase 11 on the
-card).
+card).  normals_sharded and depth_bilateral_sharded (the tiled KDE route,
+sharding.py) are likewise bitwise the tile's columns of the unsharded
+normals.generate_normal_map (method "cm") and plane.depth_bilateral.
 """
 
 from __future__ import annotations
 
 import torch
 
-from kinectdepthmapenhancement_tpu_torch.core.config import JBFParams
-from kinectdepthmapenhancement_tpu_torch.ops import bilateral
+from kinectdepthmapenhancement_tpu_torch.core.config import (
+    JBFParams, NormalParams, ProjectionParams,
+)
+from kinectdepthmapenhancement_tpu_torch.ops import bilateral, cuda_cov, normals, plane
 from kinectdepthmapenhancement_tpu_torch.parallel import halo
 from kinectdepthmapenhancement_tpu_torch.parallel.mesh import Mesh
 
@@ -69,3 +74,71 @@ def jbf_sharded(
         color_sigma=p.color_sigma, depth_sigma=p.depth_sigma,
     )
     return out[:, :, rj:rj + ws].contiguous()
+
+
+def normals_halo(p: NormalParams = NormalParams()) -> int:
+    """Columns of points each side that the CM normals of a tile read: the
+    DT's dt_iterations rounds of one pixel over the depth-change map, which
+    reads one column further (dci_map's right neighbour and the left
+    neighbour's test); the covariance window's 10 (cuda_cov.MAX_R, the
+    window min(DT, 20 + z/10) <= 21 px) and the rest normals' 1 lie
+    within.  27 at the default 26 rounds."""
+    return max(p.dt_iterations + 1, cuda_cov.MAX_R, 1)
+
+
+def normals_sharded(
+    points: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams()
+) -> torch.Tensor:
+    """CM normal map of this rank's width tile: points f32 [B, H, ws, 3] mm
+    -> normals [B, H, ws, 3], bitwise the tile's columns of
+    normals.generate_normal_map on the whole frames.  Every rank of the 'x'
+    group calls it: one exchange of normals_halo(p) columns of points, then
+    haloed_normals."""
+    if p.method != "cm":
+        raise ValueError(f"normals_sharded tiles the cm normals, not {p.method!r}")
+    return haloed_normals(halo.exchange_width(points, normals_halo(p), mesh), mesh, p)
+
+
+def haloed_normals(
+    padded: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams()
+) -> torch.Tensor:
+    """The tile's CM normals [B, H, ws, 3] from its points padded with
+    normals_halo(p) columns as exchange_width pads them.  The halos at the
+    global image edges are dropped (drop_global_edges: dci_map's replicate
+    right neighbour, the cross product's replicate pad, the covariance
+    sweep's zero pad and the DT's +inf border then see the frame's edge
+    there); the smoothing map, the DT kernel (csrc/dt.cu) and the
+    covariance kernel (csrc/cov.cu) run unchanged on the haloed tile, the
+    border test on global columns, and the halo is cropped.  No kept value
+    reads the outermost halo column.  (The DT's far value is w + h of the
+    haloed tile, not of the frame: both exceed the smoothing size
+    20 + z/10 the map clamps to.)"""
+    radius = normals_halo(p)
+    ws = padded.shape[2] - 2 * radius
+    tile, left = halo.drop_global_edges(padded, radius, mesh)
+    nmap = normals.generate_normal_map(tile.contiguous(), p, x0=mesh.s * ws - left,
+                                       width=mesh.x * ws)
+    return nmap[:, :, left:left + ws].contiguous()
+
+
+def depth_bilateral_sharded(
+    optimized: torch.Tensor, rays: torch.Tensor, mesh: Mesh,
+    p: ProjectionParams = ProjectionParams(),
+) -> torch.Tensor:
+    """plane.depth_bilateral of this rank's width tile: optimized points
+    [B, H, ws, 3] mm and the tile's rays [H, ws, 3] -> [B, H, ws, 3],
+    bitwise the tile's columns of the unsharded filter.  The depth takes a
+    halo of window // 2 columns, zeros at the global edges (the filter's
+    pad2d convention)."""
+    zpad = halo.exchange_width(optimized[..., 2].contiguous(), p.window // 2, mesh)
+    return haloed_depth_bilateral(zpad, rays, p)
+
+
+def haloed_depth_bilateral(
+    zpad: torch.Tensor, rays: torch.Tensor, p: ProjectionParams = ProjectionParams()
+) -> torch.Tensor:
+    """The tile's depth-bilateral points from its depth [B, H, ws + 2r]
+    padded with r = window // 2 columns as exchange_width pads it."""
+    r = p.window // 2
+    ws = zpad.shape[2] - 2 * r
+    return rays * plane.bilateral_depth(zpad, p)[:, :, r:r + ws][..., None]

@@ -1140,3 +1140,113 @@ def test_nccl_with_more_ranks_than_cards_raises(dev, tmp_path):
     assert time.monotonic() - t0 < 90
     with pytest.raises(RuntimeError, match=f"need {n} devices"):
         sharding.dryrun(n)
+
+
+# width tiles of the tiled KDE route (parallel/sharding.py): (c0, tile
+# cols) of a 4-column grid at x = 2 (the second tile) and x = 4 (the
+# second, the last), and x = 2's first tile
+CELL_TILES = [(2, 2), (1, 1), (3, 1), (0, 2)]
+CELL_TILE_IDS = ["x2s1", "x4s1", "x4s3", "x2s0"]
+
+
+def _tile_cols(t, c0, tc, cell_w):
+    return t[:, :, c0 * cell_w:(c0 + tc) * cell_w].contiguous()
+
+
+def _tile_part(part, grid, c0, tc, n=64):
+    b, _, f = part.shape
+    return part.reshape(b, grid.rows, grid.cols, n, f)[:, :, c0:c0 + tc].reshape(b, -1, f)
+
+
+@pytest.mark.parametrize("c0, tc", CELL_TILES, ids=CELL_TILE_IDS)
+def test_nasp_kernels_on_a_width_tile(nasp, c0, tc):
+    """The four NASP cell kernels on a width tile of whole cells (c0, tile
+    cols; the global grid's candidates, global u): the fused assignment's
+    labels and distance and the gather bitwise their plain versions on the
+    tile, the sums to sums_close; and each bitwise the full-frame kernel's
+    cells and columns (a cell reads only its own pixels and the global
+    tables, so the tile form keeps the c0 = 0 bits)."""
+    x, cl, grid = nasp, nasp["clusters"], nasp["grid"]
+    cw = W // grid.cols
+    tile = dict(c0=c0, tile_cols=tc)
+    t = [_tile_cols(a, c0, tc, cw) for a in (x["cf"], x["points"], x["nmap"])]
+    akw = dict(lo=x["lo"], hi=x["hi"], **x["akw"])
+    full = cuda_nasp.nasp_assign_and_analyze(x["cf"], x["points"], x["nmap"], x["cand"], **akw)
+    got = cuda_nasp.nasp_assign_and_analyze(*t, x["cand"], **akw, **tile)
+    want = cuda_nasp.nasp_assign_and_analyze_plain(*t, x["cand"], **akw, **tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lab_t = got[0]
+    xy = x["cand"][..., 3:5].contiguous()
+    kw = dict(x["cell"], lo=x["lo"], hi=x["hi"], mode="analyze", **tile)
+    scale = cuda_nasp.nasp_cell_sums_plain(lab_t, *t, xy, abs_terms=True, **kw)
+    assert cuda_nasp.sums_close(got[2], want[2], scale, cuda_nasp.INTEGER_FEATURES["analyze"])
+    assert torch.equal(got[0], _tile_cols(full[0], c0, tc, cw))
+    assert torch.equal(got[2], _tile_part(full[2], grid, c0, tc))
+
+    p = x["params"]
+    for mode in ("analyze", "weighted"):
+        fields = cl.xy.float() if mode == "analyze" else torch.cat(
+            [cl.xy.float(), cl.rgb, cl.normal], -1)
+        fields = fields.reshape(2, grid.rows, grid.cols, -1).contiguous()
+        kw = dict(x["cell"], lo=x["lo"], hi=x["hi"], mode=mode, color_sigma=p.color_sigma,
+                  spatial_sigma=p.spatial_sigma)
+        g = cuda_nasp.nasp_cell_sums(lab_t, *t, fields, **kw, **tile)
+        w_ = cuda_nasp.nasp_cell_sums_plain(lab_t, *t, fields, **kw, **tile)
+        s_ = cuda_nasp.nasp_cell_sums_plain(lab_t, *t, fields, abs_terms=True, **kw, **tile)
+        f_ = cuda_nasp.nasp_cell_sums(x["labels"], x["cf"], x["points"], x["nmap"], fields, **kw)
+        torch.cuda.synchronize()
+        assert cuda_nasp.sums_close(g, w_, s_, cuda_nasp.INTEGER_FEATURES[mode]), mode
+        assert torch.equal(g, _tile_part(f_, grid, c0, tc)), mode
+
+    rng = np.random.default_rng(8)
+    feats = torch.tensor(rng.normal(size=(2, H, W, 2)).astype(np.float32), device=x["cf"].device)
+    feats = (feats * (x["labels"] >= 0)[..., None]).contiguous()
+    f_t = _tile_cols(feats, c0, tc, cw)
+    g = cuda_nasp.label_cell_sums(lab_t, f_t, **x["cell"], **tile)
+    w_ = cuda_nasp.label_cell_sums_plain(lab_t, f_t, **x["cell"], **tile)
+    s_ = cuda_nasp.label_cell_sums_plain(lab_t, f_t.abs(), **x["cell"], **tile)
+    f_ = cuda_nasp.label_cell_sums(x["labels"], feats, **x["cell"])
+    torch.cuda.synchronize()
+    assert cuda_nasp.sums_close(g, w_, s_)
+    assert torch.equal(g, _tile_part(f_, grid, c0, tc))
+    table = torch.tensor(rng.normal(size=(2, grid.num_clusters, 6)).astype(np.float32) * 1e3,
+                         device=x["cf"].device)
+    for tab in (table, table[..., 2:3].contiguous(), table[..., :3].contiguous()):
+        g = cuda_nasp.label_cell_gather(lab_t, tab, **x["cell"], **tile)
+        torch.cuda.synchronize()
+        assert torch.equal(g, cuda_nasp.label_cell_gather_plain(lab_t, tab, **x["cell"], **tile))
+        assert torch.equal(g, _tile_cols(cuda_nasp.label_cell_gather(x["labels"], tab,
+                                                                     **x["cell"]), c0, tc, cw))
+
+
+@pytest.mark.parametrize("x", [2, 4])
+def test_dt_and_cov_kernels_on_haloed_tiles(inputs, x):
+    """The DT and covariance kernels on each haloed width tile that
+    parallel/stencil_shard.haloed_normals hands them (27 columns of points
+    each side, none past the frame): bitwise their plain versions; and the
+    tile's CM normals on the card bitwise the full frame's columns."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import stencil_shard
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+
+    p = KDEConfig().normals
+    r = stencil_shard.normals_halo(p)
+    points = inputs["vm"] * 1000.0
+    want = normals.generate_normal_map(points, p)
+    ws = W // x
+    for s in range(x):
+        lo, hi = max(0, s * ws - r), min(W, (s + 1) * ws + r)
+        vm = inputs["vm"][:, :, lo:hi].contiguous()
+        dci = normals.dci_map(vm, p.max_depth_change_factor).contiguous()
+        got = cuda_dt.distance_transform(dci, p.dt_iterations)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_dt.distance_transform_plain(dci, p.dt_iterations)), s
+        rect = normals.smoothing_map(vm, p).to(torch.int32).contiguous()
+        cnt, cov = cuda_cov.cm_covariances(vm, rect)
+        cnt_p, cov_p = cuda_cov.cm_covariances_plain(vm, rect)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, cnt_p) and _same_bits(cov, cov_p), s
+        padded = torch.nn.functional.pad(points, (0, 0, r, r))[:, :, s * ws:s * ws + ws + 2 * r]
+        mesh = dataclasses.replace(make_mesh(device=str(points.device)), x=x, s=s)
+        got = stencil_shard.haloed_normals(padded, mesh, p)
+        assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s

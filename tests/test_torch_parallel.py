@@ -6,13 +6,17 @@ of tests/test_parallel.py.
 
 Bars: the halo box sum, reflect101_at_global_edges, jbf_sharded and
 sharded_kde_step bitwise equal to the unsharded ops on the same inputs
-(the port's kde_pipeline, and joint_bilateral_filter's plain version).
+(the port's kde_pipeline, and joint_bilateral_filter's plain version);
+the spatial step's tiled route (the stages after the JBF on each rank's
+width tile, sharding.spatial_kde) at data 2 x x 2 and data 1 x x 4 with
+every KDEResult field gathered bitwise equal to kde_pipeline's, and its
+replicated route (plane_merge, a width the grid does not divide) too.
 Against the JAX package (tests/golden/parallel_jax_seed0.npz, written by
 gen_torch_fixtures.py parallel): jbf_sharded within 2e-5 relative, the
 no-support zeros equal (the FMA contraction on a uniform-random depth
 field; see test_jbf_sharded_against_jax); each frame of the sharded KDE
 step by golden.kde_gates (tests/test_oracle_pipeline.py's thresholds)
-against the JAX sharded_kde_step on its 4 x 2 mesh.
+against the JAX sharded_kde_step on its 4 x 2 mesh, at x = 2 and x = 4.
 """
 
 import dataclasses
@@ -76,6 +80,48 @@ def _kde_input():
     return intr, cfg, torch.from_numpy(noisy), torch.from_numpy(colors)
 
 
+def _gather_batch(t, mesh):
+    """The global batch of every data row's [b, ...] tensor t, the same on
+    the ranks of a row (the cluster tables): rank d * x's of each row."""
+    parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.cat(parts[::mesh.x], dim=0)
+
+
+def _spatial_fields(mesh, depth, color, intr, cfg):
+    """(route, {field: global batch}) of sharding.spatial_kde on this rank's
+    rows and tile: per-pixel fields through gather_global, the [b, K]
+    tables from each row's first rank (equal on every rank of the row is
+    checked here)."""
+    b = depth.shape[0] // mesh.data
+    rows = slice(mesh.d * b, (mesh.d + 1) * b)
+    route, res = sharding.spatial_kde(mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]),
+                                      mesh, intr, cfg)
+    got = {}
+    for f in res._fields:
+        v = getattr(res, f)
+        if f in sharding.PER_PIXEL_FIELDS:
+            got[f] = sharding.gather_global(v.contiguous(), mesh)
+        else:
+            every = [torch.empty_like(v) for _ in range(mesh.world_size)]
+            dist.all_gather(every, v.contiguous())
+            row = every[mesh.d * mesh.x:(mesh.d + 1) * mesh.x]
+            assert all(torch.equal(r, row[0]) for r in row), f
+            got[f] = _gather_batch(v, mesh)
+    return route, got
+
+
+def _replicated_cases():
+    """(name, cfg, depth, color) of the replicated route's checks: plane
+    merge on the 96x128 frames, and the default config on their first 126
+    columns (grid 3x4 does not divide 126), two frames each."""
+    intr, cfg, depth, color = _kde_input()
+    return [("plane_merge", intr, dataclasses.replace(cfg, plane_merge=True), depth[:2],
+             color[:2]),
+            ("width126", default_kinect_intrinsics(126, 96), cfg,
+             depth[:2, :, :126].contiguous(), color[:2, :, :126].contiguous())]
+
+
 def _rank_checks():
     """Every multi-rank check, on each of WORLD gloo ranks on the CPU; the
     full-width results gathered on every rank."""
@@ -99,13 +145,19 @@ def _rank_checks():
         out[f"jbf {name}"] = halo.gather_width(got, mesh)
 
     intr, cfg, depth, color = _kde_input()
-    for name, spatial in (("data2_x2", 2), ("data4_x1", 1)):
+    for name, spatial in (("data2_x2", 2), ("data1_x4", 4), ("data4_x1", 1)):
         mesh = make_mesh(WORLD, spatial=spatial, device="cpu")
         b = depth.shape[0] // mesh.data
         rows = slice(mesh.d * b, (mesh.d + 1) * b)
         step = sharding.sharded_kde_step(mesh, intr, cfg)
         local = step(mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
-        out[f"kde {name}"] = (tuple(local.shape), sharding.gather_global(local, mesh))
+        out[f"kde {name}"] = (tuple(local.shape), sharding.gather_global(local, mesh),
+                              getattr(step, "route", None))
+        if spatial > 1:
+            out[f"tiled {name}"] = _spatial_fields(mesh, depth, color, intr, cfg)
+    mesh = make_mesh(WORLD, spatial=2, device="cpu")
+    for name, intr_c, cfg_c, depth_c, color_c in _replicated_cases():
+        out[f"replicated {name}"] = _spatial_fields(mesh, depth_c, color_c, intr_c, cfg_c)
     return out
 
 
@@ -171,26 +223,61 @@ def test_jbf_sharded_against_jax(ranks, name):
     assert ((got == 0.0) == (want == 0.0)).all()
 
 
-@pytest.mark.parametrize("name", ["data2_x2", "data4_x1"])
+@pytest.mark.parametrize("name", ["data2_x2", "data1_x4", "data4_x1"])
 def test_sharded_kde_step_bitwise(ranks, kde_want, name):
     """sharded_kde_step on make_noisy_scene(96, 128, seed=0..3), grid 3x4:
     each rank's block is [b, 96, 128 / x, 3] and the gathered batch is
-    bitwise the port's kde_pipeline at B=4 on the same frames."""
+    bitwise the port's kde_pipeline at B=4 on the same frames; the spatial
+    steps record the tiled route (64- and 32-px tiles of whole 32-px
+    cells)."""
     want = torch.from_numpy(kde_want["optimized_points"])
-    block = {"data2_x2": (2, 96, 64, 3), "data4_x1": (1, 96, 128, 3)}[name]
+    block = {"data2_x2": (2, 96, 64, 3), "data1_x4": (4, 96, 32, 3),
+             "data4_x1": (1, 96, 128, 3)}[name]
     for r in ranks:
-        shape, got = r[f"kde {name}"]
+        shape, got, route = r[f"kde {name}"]
         assert shape == block
+        assert route == (None if name == "data4_x1" else "tiled")
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("frame", range(4))
-def test_sharded_kde_step_against_jax(ranks, kde_want, frame):
-    """Frame `frame` of the data 2 x x 2 step by golden.kde_gates against
-    the JAX sharded_kde_step on its 4 x 2 mesh (the optimized points; the
-    other stages from the unsharded runs of both packages)."""
+@pytest.mark.parametrize("name", ["data2_x2", "data1_x4"])
+def test_tiled_route_every_field_bitwise(ranks, kde_want, name):
+    """The tiled route (sharding.spatial_kde on the default config): every
+    KDEResult field of every rank, gathered, bitwise kde_pipeline's at B=4,
+    the [B, K] cluster tables equal on the ranks of a row."""
+    for r in ranks:
+        route, got = r[f"tiled {name}"]
+        assert route == "tiled"
+        for f, want in kde_want.items():
+            assert torch.equal(got[f], torch.from_numpy(want)), f
+
+
+@pytest.mark.parametrize("case", ["plane_merge", "width126"])
+def test_replicated_route_every_field_bitwise(ranks, case):
+    """What the tiled route does not take keeps the replicated route
+    (plane_merge; 63-px tiles of a width the grid does not divide), every
+    field bitwise kde_pipeline's on the same frames."""
+    (name, intr, cfg, depth, color), = [c for c in _replicated_cases() if c[0] == case]
+    want = kde_pipeline(depth, color, intr, cfg)
+    for r in ranks:
+        route, got = r[f"replicated {case}"]
+        assert route == "replicated"
+        for f in want._fields:
+            assert torch.equal(got[f], getattr(want, f)), f
+
+
+JAX_CASES = [("data2_x2", f) for f in range(4)] + [("data1_x4", f) for f in range(4)]
+
+
+@pytest.mark.parametrize("name, frame", JAX_CASES,
+                         ids=[f"{f}" if n == "data2_x2" else f"x4-{f}" for n, f in JAX_CASES])
+def test_sharded_kde_step_against_jax(ranks, kde_want, name, frame):
+    """Frame `frame` of the data 2 x x 2 and data 1 x x 4 steps by
+    golden.kde_gates against the JAX sharded_kde_step on its 4 x 2 mesh (the
+    optimized points; the other stages from the unsharded runs of both
+    packages)."""
     got = {k: v[frame] for k, v in kde_want.items()}
-    got["optimized_points"] = ranks[0]["kde data2_x2"][1][frame].numpy()
+    got["optimized_points"] = ranks[0][f"kde {name}"][1][frame].numpy()
     gates = golden.kde_gates(got, golden.load_jax_parallel()["kde"][frame])
     assert not golden.failures(gates), gates
 
@@ -261,11 +348,13 @@ def test_disable_pallas():
 
 
 def test_dryrun_four_ranks_on_cpu(tmp_path, capsys):
-    """dryrun(4) under gloo on the CPU: a data 2 x x 2 mesh, one step
-    bitwise the unsharded kde_pipeline, the parity line printed."""
+    """dryrun(4) under gloo on the CPU: a data 2 x x 2 mesh, one step (the
+    tiled route) bitwise the unsharded kde_pipeline, the parity line
+    printed."""
     got = sharding.dryrun(4, device="cpu", store_dir=str(tmp_path))
     assert re.fullmatch(r"dryrun_multichip ok: mesh=\{'data': 2, 'x': 2\} out=\(2, 96, 128, 3\) "
-                        r"backend=gloo device=cpu parity=ok \(bitwise\)", got["line"])
+                        r"route=tiled backend=gloo device=cpu parity=ok \(bitwise\)",
+                        got["line"])
     assert got["line"] in capsys.readouterr().out
     assert got["jbf_launches"] == [0] * 4  # the plain version on the CPU launches nothing
 
