@@ -34,7 +34,10 @@ Phases (each prints its results; any failure exits non-zero):
      the covariance on the haloed tiles the tiled normals hand them
      ([B, 480, 347] at x = 2, [B, 480, 214] at x = 4), the seed gradient
      on x = 2's tile sub-grid, the four cell kernels at x = 2's tile
-     (cell columns 10-19); time kernel,
+     (cell columns 10-19); and at that tile the forms the other configs'
+     tiled steps add (rows 6bt-8bt): the NASP sums at r = 5, the label
+     sums at F = 4 and 6 (r = 4) and F = 2 at r = 5, the gathers at F =
+     6, 3 and 1 at r = 5; time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -132,7 +135,16 @@ Phases (each prints its results; any failure exits non-zero):
      crop (bitwise too), every kernel launched on its tile forms by
      every rank, the collectives a step, and per rank the peak device
      memory, device ms by kde.* stage and step ms of the tiled route
-     beside the replicated route's (and rank 0's unsharded call's);
+     beside the replicated route's (and rank 0's unsharded call's); then
+     the other configs on the tiled route at x = 2 and 4, B=4 (and B=1
+     once): the bilateral and SDC normals, plane merge with fill_holes=4
+     on phase 10's banded frame with 15% holes (and three more seeds),
+     three NASP iterations capped and with locality="global", and all of
+     them at once: spatial_route "tiled", every field bitwise
+     kde_pipeline's, holes filled within the fill's reach of an inner
+     tile edge, each kernel of the path launched in its tile forms (and
+     none it does not run), the collectives a step, and per rank the
+     peak device memory and step ms beside the replicated route's;
      (c) dryrun(1) over NCCL and dryrun(4) under gloo; CUDA
      event times (median of 5) of the step at world 1 against a bare
      kde_pipeline call, one exchange_width under NCCL and under gloo, and
@@ -260,14 +272,16 @@ def _stage_breakdown(fn, scopes=KDE_SCOPES) -> dict:
             "attached": attached, "spans": len(spans)}
 
 
-def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
+def _phase11_rank(depth_np, color_np, crop_w: int, banded_np) -> dict:
     """One gloo rank of phase 11 (b), on the shared card: the JBF on width
     tiles of the four 640x480 frames at x = world size (and, at world 4, of
     their 628-column crop), at world 2 the spatial step (data 1 x x 2) and
     the data-parallel step (data 2 x x 1, B=2 a rank), each from launch
     counts at 0; the outputs gathered (rank 0 returns them), and the times
     of one exchange_width and one jbf_sharded call (CUDA events, median of
-    5; every rank times the same calls, as each is a collective)."""
+    5; every rank times the same calls, as each is a collective); then the
+    tiled route under the default config (_phase11_tiled) and the others
+    (_phase11_configs; banded_np: the banded frames' depth and colour)."""
     import torch
     import torch.distributed as dist
 
@@ -324,6 +338,8 @@ def _phase11_rank(depth_np, color_np, crop_w: int) -> dict:
         res["ms"][f"jbf_sharded gloo x{n} {form} B=1"] = cuda_ms(
             lambda d1=d1, c1=c1: jbf_sharded(d1, c1, mesh, p), warmup=2, iters=5)
     _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted)
+    banded = tuple(torch.from_numpy(a).to(mesh.device) for a in banded_np)
+    _phase11_configs(res, mesh, {"noisy": (depth, color), "banded": banded}, intr, counted)
     if n == 2:
         step = sharding.sharded_kde_step(mesh, intr, cfg)
         path("spatial step data1 x2", mesh,
@@ -436,6 +452,138 @@ def _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted) -> None:
             out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
             out["stage_ms"][key] = {s: v[0] for s, v in _stage_breakdown(call)["per"].items()}
             out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
+
+
+def phase11_configs():
+    """name: (KDEConfig, frames) of the configs beyond the default that
+    phase 11 (b) runs on the tiled route: the bilateral and SDC normals,
+    plane merge with fill_holes=4 on the banded frames with 15% holes (phase
+    10's far-range frame and three more seeds), three NASP iterations on
+    the capped route and with locality="global" (the global index), and
+    SDC, plane merge, the fill and three global-index iterations at once on
+    the banded frames."""
+    from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
+
+    base = KDEConfig()
+
+    def normals(method):
+        return dataclasses.replace(base.normals, method=method)
+
+    iter3 = dataclasses.replace(base, nasp=dataclasses.replace(base.nasp, iterations=3))
+    glob = dataclasses.replace(iter3, nasp=dataclasses.replace(iter3.nasp, locality="global"))
+    return {
+        "bilateral": (dataclasses.replace(base, normals=normals("bilateral")), "noisy"),
+        "sdc": (dataclasses.replace(base, normals=normals("sdc")), "noisy"),
+        "plane_merge_fill": (dataclasses.replace(base, plane_merge=True, fill_holes=4),
+                             "banded"),
+        "iter3": (iter3, "noisy"),
+        "iter3_global": (glob, "noisy"),
+        "all": (dataclasses.replace(glob, normals=normals("sdc"), plane_merge=True,
+                                    fill_holes=4), "banded"),
+    }
+
+
+# each config's tiled step: the kernels it must launch and must not (by
+# counter), and the cuda_nasp forms it must launch on the tile
+_FIRST = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:tile")
+_CELL_R4 = ("label_cell_sums:r4:F2:tile", "label_cell_gather:r4:F6:tile",
+            "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
+CONFIG_PATHS = {
+    "bilateral": (("cuda_dt", "cuda_cov"), _FIRST + _CELL_R4),
+    "sdc": (("cuda_cov",), _FIRST + _CELL_R4),
+    "plane_merge_fill": ((), _FIRST + _CELL_R4 + ("label_cell_sums:r4:F4:tile",
+                                                  "label_cell_sums:r4:F6:tile")),
+    "iter3": ((), _FIRST + ("nasp_cell_sums:r5:analyze:tile", "nasp_cell_sums:r5:weighted:tile",
+                            "label_cell_sums:r5:F2:tile", "label_cell_gather:r5:F6:tile",
+                            "label_cell_gather:r5:F1:tile", "label_cell_gather:r5:F3:tile")),
+    "iter3_global": (("label_cell_sums", "label_cell_gather"), _FIRST),
+    "all": (("cuda_cov", "label_cell_sums", "label_cell_gather"), _FIRST),
+}
+
+
+def _phase11_configs(res, mesh, frames, intr, counted) -> None:
+    """Phase 11 (b)'s other configs on one gloo rank (data 1 x x n): each of
+    phase11_configs() on the tiled route (sharding.spatial_kde) at B=4, and
+    "all" also at B=1, from launch counts at 0 with the collectives it
+    made; every KDEResult field gathered and, on rank 0, held bitwise
+    against kde_pipeline on the card, with the pixels the hole fill filled
+    (plane.plane_hole_fill's output against its input, recorded in that
+    call).  Then at B=4 each config's peak device memory of this rank and
+    its ms (CUDA events, median of 5) on the tiled and the replicated
+    route, and on rank 0 the unsharded kde_pipeline call's.  Results go in
+    res["configs"]."""
+    import torch
+
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
+    from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, plane
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+
+    out = res["configs"] = {"routes": {}, "runs": {}, "memory_mib": {}, "ms": {}}
+
+    def measure(key, call):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        base = torch.cuda.memory_allocated(mesh.device)
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
+        out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
+
+    for name, (cfg, scene) in phase11_configs().items():
+        depth, color = frames[scene]
+        h, w = depth.shape[1:]
+        out["routes"][name] = sharding.spatial_route(mesh, cfg, h, w)
+        for bsz in ((4, 1) if name == "all" else (4,)):
+            d, c = depth[:bsz], color[:bsz]
+            mesh_mod.collectives = 0
+            (route, result), cnt = counted(lambda d=d, c=c, cfg=cfg: sharding.spatial_kde(
+                mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
+            run = {"route": route, "counts": cnt, "collectives": mesh_mod.collectives,
+                   "forms": {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms},
+                   "block": tuple(result.optimized_points.shape), "tables_equal_on_ranks": True}
+            got = {}
+            for f in result._fields:
+                v = getattr(result, f).contiguous()
+                if f in sharding.PER_PIXEL_FIELDS:
+                    got[f] = halo.gather_width(v, mesh)
+                else:
+                    every = mesh_mod.all_gather_x(v[None], mesh, dim=0)
+                    run["tables_equal_on_ranks"] &= all(torch.equal(e, every[0]) for e in every)
+                    got[f] = v
+            if res["rank"] == 0:
+                fill, seen = plane.plane_hole_fill, {}
+
+                def record(optimized, *args, fill=fill, seen=seen):
+                    filled = fill(optimized, *args)
+                    seen["filled"] = (filled != optimized).any(-1)
+                    return filled
+
+                plane.plane_hole_fill = record
+                try:
+                    want = kde_pipeline(d.contiguous(), c.contiguous(), intr, cfg)
+                finally:
+                    plane.plane_hole_fill = fill
+                run["differs"] = [f for f in want._fields
+                                  if not torch.equal(got[f], getattr(want, f))]
+                if cfg.fill_holes:
+                    ws = w // mesh.x
+                    near = torch.zeros(w, dtype=torch.bool, device=d.device)
+                    for edge in range(ws, w, ws):
+                        near[edge - cfg.fill_holes:edge + cfg.fill_holes] = True
+                    run["filled"] = int(seen["filled"].sum())
+                    run["filled_near_tile_edges"] = int(seen["filled"][:, :, near].sum())
+            out["runs"][f"{name} B={bsz}"] = run
+
+        d, c = mesh.width_tile(depth), mesh.width_tile(color)
+        for route in ("tiled", "replicated"):
+            measure(f"{name} {route} B=4", lambda route=route, cfg=cfg: sharding.spatial_kde(
+                d, c, mesh, intr, cfg, route=route))
+        if res["rank"] == 0:
+            measure(f"{name} unsharded B=4",
+                    lambda cfg=cfg: kde_pipeline(depth, color, intr, cfg))
 
 
 def main() -> int:
@@ -682,6 +830,19 @@ def main() -> int:
             **cell, **tile_kw)
         x["scale_label_t"] = cuda_nasp.label_cell_sums_plain(
             x["labels_t"], x["feats2_t"].abs(), **cell, **tile_kw)
+        # the forms the other configs' tiled steps add (rows 6bt-8bt), at the
+        # same tile: three-iteration labels (r = 5) and merge_planes' moments
+        for key in ("labels5", "feats4", "feats6", "feats2_r5"):
+            x[f"{key}_t"] = x[key][:, :, cols_t].contiguous()
+        for mode in ("analyze", "weighted"):
+            x[f"scale5_{mode}_t"] = cuda_nasp.nasp_cell_sums_plain(
+                x["labels5_t"], *tri_t, x[f"f5_{mode}"], lo=lo, hi=hi, mode=mode,
+                abs_terms=True, color_sigma=nasp_p.color_sigma,
+                spatial_sigma=nasp_p.spatial_sigma, **cell5, **tile_kw)
+        for key, lab, kw in (("feats4", "labels_t", cell), ("feats6", "labels_t", cell),
+                             ("feats2_r5", "labels5_t", cell5)):
+            x[f"scale_{key}_t"] = cuda_nasp.label_cell_sums_plain(
+                x[lab], x[f"{key}_t"].abs(), **kw, **tile_kw)
         # labels whose slot changes nearly every pixel: each pixel takes one
         # of the 3x3 cells around its own (the clusters whose update window
         # can reach it), -1 where that leaves the grid and on 3%
@@ -713,6 +874,8 @@ def main() -> int:
                             + labels5.clamp_min(0).long()).reshape(-1)
         x["flat_label_t"] = (bi[:, None, None] * grid.num_clusters
                              + x["labels_t"].clamp_min(0).long()).reshape(-1)
+        x["flat_label5_t"] = (bi[:, None, None] * grid.num_clusters
+                              + x["labels5_t"].clamp_min(0).long()).reshape(-1)
         return x
 
     # ---- phase 3: each kernel against its plain version on the card
@@ -1113,6 +1276,58 @@ def main() -> int:
             inputs=lambda x, t=tkey: [x["labels_t"], x[t]],
             ops=lambda x: 0,
             shape=lambda x, nf=nf: tuple(x["labels_t"].shape) + (nf,))
+    # the tile forms the other configs' tiled steps add (rows 6bt-8bt, phase
+    # 11 (b)): the later iterations' capped update (r = 5, both modes),
+    # merge_planes' sums (F = 4, 6 at r = 4), the residual over capped
+    # labels (F = 2 at r = 5) and the gathers of CCL and the plane stage over
+    # them (F = 6, 3, 1 at r = 5), each at x = 2's tile
+    for mode, per_px in (("analyze", 16 + 13), ("weighted", 51 + 14)):
+        kernels[f"nasp_cell_sums_{mode}_r5_tile"] = dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|",
+            row="nasp_cell_sums", secondary=True, form=f"r5:{mode}:tile",
+            run=lambda x, m=mode: cuda_nasp.nasp_cell_sums(
+                x["labels5_t"], *(x[k] for k in tri_t), x[f"f5_{m}"], mode=m, **sums_kw5,
+                **tile_kw),
+            plain=lambda x, m=mode: cuda_nasp.nasp_cell_sums_plain(
+                x["labels5_t"], *(x[k] for k in tri_t), x[f"f5_{m}"], mode=m, **sums_kw5,
+                **tile_kw),
+            ok=sums_ok(mode, f"scale5_{mode}_t"),
+            inputs=lambda x, m=mode: [x["labels5_t"], *(x[k] for k in tri_t), x[f"f5_{m}"]],
+            ops=lambda x, n=per_px: labeled(x, "labels5_t") * n,
+            shape=lambda x: tuple(x["color_f_t"].shape))
+    for key, nf, r, feats in (("label_cell_sums_f4_tile", 4, 4, "feats4"),
+                              ("label_cell_sums_f6_tile", 6, 4, "feats6"),
+                              ("label_cell_sums_r5_tile", 2, 5, "feats2_r5")):
+        lab, flat, kw = ("labels_t", "flat_label_t", cell) if r == 4 else (
+            "labels5_t", "flat_label5_t", cell5)
+        ft = f"{feats}_t"
+        kernels[key] = dict(
+            module=cuda_nasp, bar="<= 1e-5 sum|terms|", row="label_cell_sums",
+            secondary=True, form=f"r{r}:F{nf}:tile",
+            run=lambda x, l=lab, f=ft, kw=kw: cuda_nasp.label_cell_sums(
+                x[l], x[f], **kw, **tile_kw),
+            plain=lambda x, l=lab, f=ft, kw=kw: cuda_nasp.label_cell_sums_plain(
+                x[l], x[f], **kw, **tile_kw),
+            ok=sums_ok("label", f"scale_{ft}"),
+            library=lambda x, f=ft, fl=flat, nf=nf: torch.zeros(
+                (x["bi"].shape[0] * grid.num_clusters, nf), device=dev).index_add_(
+                0, x[fl], x[f].reshape(-1, nf)),
+            inputs=lambda x, l=lab, f=ft: [x[l], x[f]],
+            ops=lambda x, f=ft: npx(x[f]) * x[f].shape[-1],
+            shape=lambda x, f=ft: tuple(x[f].shape))
+    for nf in (6, 3, 1):
+        tkey = f"table{nf}"
+        kernels[f"label_cell_gather_r5_f{nf}_tile"] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=True,
+            form=f"r5:F{nf}:tile",
+            run=lambda x, t=tkey: cuda_nasp.label_cell_gather(
+                x["labels5_t"], x[t], **cell5, **tile_kw),
+            plain=lambda x, t=tkey: cuda_nasp.label_cell_gather_plain(
+                x["labels5_t"], x[t], **cell5, **tile_kw),
+            library=lambda x, t=tkey: x[t][x["bi"], x["labels5_t"].clamp_min(0)],
+            inputs=lambda x, t=tkey: [x["labels5_t"], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, nf=nf: tuple(x["labels5_t"].shape) + (nf,))
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -2373,9 +2588,14 @@ def main() -> int:
     # (data 2 x x 1); each path's launches by rank, its output gathered on
     # rank 0 and held bitwise against the unsharded run on the card
     depth_np, color_np = depth4.cpu().numpy(), color4.cpu().numpy()
+    # phase 10's far-range frame with 15% holes and three more seeds: the
+    # frames of the plane merge and hole fill configs
+    banded = [make_banded_scene(h, w, intr, seed=s, hole_fraction=0.15) for s in range(4)]
+    banded_np = (np.stack([b_[1] for b_ in banded]), np.stack([b_[0] for b_ in banded]))
+    p11_configs: dict = {}
     for n in (2, 4):
-        ranks = multihost.spawn(_phase11_rank, n, args=(depth_np, color_np, crop_w),
-                                device="cuda", backend="gloo", timeout_s=300)
+        ranks = multihost.spawn(_phase11_rank, n, args=(depth_np, color_np, crop_w, banded_np),
+                                device="cuda", backend="gloo", timeout_s=600)
         for r in ranks:
             for tag, cnt in r["counts"].items():
                 key = f"p11.{tag} rank{r['rank']}"
@@ -2427,6 +2647,49 @@ def main() -> int:
                   "one call; ranks share the card) " + json.dumps(td["stage_ms"])
                   + "; ms (CUDA events, median of 5) " + json.dumps(td["ms"]))
             p11_ms.update({f"tiled x{n} rank{r['rank']} {k}": v for k, v in td["ms"].items()})
+        # the other configs on the tiled route: route, bitwise fields, the
+        # fill across tile edges, launches on the tile forms, collectives
+        for r in ranks:
+            cd = r["configs"]
+            off = {k: v for k, v in cd["routes"].items() if v != "tiled"}
+            if off:
+                _fail(f"phase 11 (b): spatial_route at x = {n} reads {off}, not tiled")
+            for tag, run in cd["runs"].items():
+                name = tag.split()[0]
+                key = f"p11.cfg x{n} {tag} rank{r['rank']}"
+                path_counts[key] = run["counts"]
+                path_forms[key] = run["forms"]
+                if run["route"] != "tiled" or not run["tables_equal_on_ranks"]:
+                    _fail(f"phase 11 (b): {key}: route {run['route']}, cluster tables equal "
+                          f"on the ranks: {run['tables_equal_on_ranks']}")
+                if run.get("differs"):
+                    _fail(f"phase 11 (b): {key}: {run['differs']} differ from kde_pipeline")
+                if "filled" in run and not (run["filled"] > 0
+                                            and run["filled_near_tile_edges"] > 0):
+                    _fail(f"phase 11 (b): {key}: {run['filled']} pixels filled, "
+                          f"{run['filled_near_tile_edges']} within the fill's reach of an "
+                          "inner tile edge")
+                idle, forms = CONFIG_PATHS[name]
+                cnt = run["counts"]
+                wrong = [k for k, v in cnt.items() if (v > 0) == (k in idle)]
+                missing = [f for f in forms if not run["forms"].get(f)]
+                if wrong or missing:
+                    _fail(f"phase 11 (b): {key}: kernels launched against the path {wrong} "
+                          f"({cnt}), tile forms missing {missing}")
+                p11_checks[f"gloo {key}"] = {
+                    "route": run["route"], "block": run["block"], "bitwise": True,
+                    "collectives": run["collectives"], "launches": cnt,
+                    **{k: run[k] for k in ("filled", "filled_near_tile_edges") if k in run}}
+            p11_configs[f"x{n} rank{r['rank']}"] = {
+                "collectives": {t: run["collectives"] for t, run in cd["runs"].items()},
+                "memory_mib": cd["memory_mib"], "ms": cd["ms"]}
+            p11_ms.update({f"cfg x{n} rank{r['rank']} {k}": v for k, v in cd["ms"].items()})
+        for tag, v in p11_configs.items():
+            if tag.startswith(f"x{n} "):
+                print(f"phase 11 (b) configs {tag} on {smi}: collectives a step "
+                      + json.dumps(v["collectives"]) + "; peak device memory MiB (peak, above "
+                      "the inputs), tiled and replicated, B=4 " + json.dumps(v["memory_mib"])
+                      + "; ms (CUDA events, median of 5) " + json.dumps(v["ms"]))
         print(f"phase 11 (b) world {n} on {[r['device'] for r in ranks]}: "
               f"{time.perf_counter() - t_phase11:.1f} s")
 

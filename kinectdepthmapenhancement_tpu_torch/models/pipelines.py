@@ -145,10 +145,10 @@ def _kde_from_jbf(
     spatial route runs the JBF on width tiles, then this on the gathered
     frames (its replicated route) or on each rank's own tile (its tiled
     route): `tile` is then that route's sharding.WidthTile, the frames are
-    the tile's, and the normals, NASP, the label index and the depth
-    bilateral take their tiled forms (the config must be one that
-    sharding.spatial_route tiles).  The result is the tile's, its cluster
-    tables the whole frames'."""
+    the tile's, and the normals, NASP, the label index, the hole fill and
+    the depth bilateral take their tiled forms (the frames must be ones
+    that sharding.spatial_route tiles).  The result is the tile's, its
+    cluster tables the whole frames'."""
     _, h, w = jbf_depth.shape
     rays = normalized_rays(intr, h, w if tile is None else tile.width, jbf_depth.device)
     if tile is not None:
@@ -217,7 +217,8 @@ def _kde_from_jbf(
             )
             if resid is not None:
                 trust = trust & (g[..., 2] < cfg.max_plane_residual)
-            optimized = plane.plane_hole_fill(
+            fill = plane.plane_hole_fill if tile is None else tile.plane_hole_fill
+            optimized = fill(
                 optimized, rays, merged.labels, merged.nd_map, trust,
                 points[..., 2] <= plane.VALID_DEPTH_MM, cfg.fill_holes,
             )

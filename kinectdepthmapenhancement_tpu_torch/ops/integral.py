@@ -131,6 +131,21 @@ def pad_tables(ci: CenteredIntegral, pad: int, h: int, w: int) -> PaddedIntegral
     )
 
 
+def crop_width(pi: PaddedIntegral, x0: int, w: int) -> PaddedIntegral:
+    """The padded tables of columns [x0, x0 + w) of pi's image: a box read at
+    pixel x of the crop reads pi's tables at pixel x0 + x (a width tile
+    reading the whole frame's tables).  Views, no copy."""
+    p = pi.pad
+    if x0 < 0 or x0 + w > pi.shape[1]:
+        raise ValueError(f"columns [{x0}, {x0 + w}) are not in an image {pi.shape[1]} wide")
+
+    def cols(t):
+        return t[:, :, x0:x0 + w + 1 + 2 * p]
+
+    return PaddedIntegral(centered=cols(pi.centered), count=cols(pi.count),
+                          valid=cols(pi.valid), mu=pi.mu, pad=p, shape=(pi.shape[0], w))
+
+
 def _corner_read(tbl: torch.Tensor, pi: PaddedIntegral, dv: Offset, du: Offset):
     """out[:, y, x] = tbl_unpadded[:, y + dv, x + du], 0 out of range: a
     slice for int offsets, a gather for per-pixel [B, H, W] offsets (the

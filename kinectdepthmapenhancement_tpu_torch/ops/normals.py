@@ -224,11 +224,12 @@ def bilateral_normals(vertices_m: torch.Tensor) -> torch.Tensor:
     return torch.where(bad[..., None], torch.full_like(flip, BAD), flip)
 
 
-def _box_channels(vertices_m: torch.Tensor) -> integral.CenteredIntegral:
-    """SDC's tables: z (0 where invalid) and the valid count.  (The JAX
-    package's nine-moment form for method "cm" has no caller: the CM
-    covariances are accumulated directly.)"""
-    return integral.build(vertices_m[..., 2:3], vertices_m[..., 2] != 0.0)
+def _box_channels(z_m: torch.Tensor) -> integral.CenteredIntegral:
+    """SDC's tables of a frame's z [B, H, W] in metres: z (0 where invalid)
+    and the valid count.  (The JAX package's nine-moment form for method
+    "cm" has no caller: the CM covariances are accumulated directly.)"""
+    z = z_m.contiguous()
+    return integral.build(z[..., None], z != 0.0)
 
 
 MAX_RECT = 21  # ddsa = 20 + z/10 with z <= ~15 m caps the window at 21 px
@@ -247,7 +248,8 @@ def _edge_shift(vertices_m: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor) ->
 
 
 def sdc_normals(
-    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int
+    vertices_m: torch.Tensor, smoothing: torch.Tensor, border: int, *, x0: int = 0,
+    width: Optional[int] = None, frame_z_m: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """computeNormalSDC_GPU (NormalMapGenerator.cu:29-120), stale-flip FIXED,
     with the JAX package's quirks: pU one row up and one column left (the
@@ -258,14 +260,27 @@ def sdc_normals(
     and selects per pixel; here each pixel reads the four corners of each
     box at its own size's offsets (integral's gather form): the same table
     values and the same additions.  A pixel whose size is below 2 has
-    smoothing < 2 and is invalid either way."""
+    smoothing < 2 and is invalid either way.
+
+    The image may be columns [x0, x0 + W) of a frame `width` wide (a width
+    tile with its halo): the summed-area tables are then built from the
+    whole frame's z in metres, frame_z_m [B, H, width] (their channel mean
+    and prefixes are whole-frame quantities), each pixel reads them at its
+    global column, and the border test reads global columns.  The edge
+    shifts clamp to the image, which is the frame's edge wherever a kept
+    pixel can reach it (stencil_shard.haloed_normals)."""
     _, h, w = smoothing.shape
     dev = smoothing.device
-    ci = _box_channels(vertices_m)
-    pi = integral.pad_tables(ci, MAX_RECT + 3, h, w)
+    width = w if width is None else width
+    if frame_z_m is None:
+        if (x0, width) != (0, w):
+            raise ValueError("the SDC normals of a width tile need the frame's z (frame_z_m)")
+        frame_z_m = vertices_m[..., 2]
+    ci = _box_channels(frame_z_m)
+    pi = integral.crop_width(integral.pad_tables(ci, MAX_RECT + 3, h, width), x0, w)
     v = torch.arange(h, device=dev)[:, None]
-    u = torch.arange(w, device=dev)[None, :]
-    in_border = (u < border) | (u > w - border) | (v < border) | (v > h - border)
+    u = torch.arange(x0, x0 + w, device=dev)[None, :]
+    in_border = (u < border) | (u > width - border) | (v < border) | (v > h - border)
 
     s = torch.clamp(smoothing.to(torch.int32), 2, MAX_RECT).to(torch.int64)
     r2, r4 = s >> 1, s >> 2
@@ -355,7 +370,7 @@ def cm_normals(
 
 def generate_normal_map(
     points_mm: torch.Tensor, p: NormalParams = NormalParams(), *, x0: int = 0,
-    width: Optional[int] = None,
+    width: Optional[int] = None, frame_z: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """NormalMapGenerator::generateNormalMap (cu:513-524): mm -> m, then
     the bilateral normals as they are, or the smoothing map, the SDC or CM
@@ -363,13 +378,13 @@ def generate_normal_map(
 
     points_mm: [B, H, W, 3] real-world points in millimetres.
     Returns normals [B, H, W, 3] with the (-1,-1,-1) invalid sentinel.
-    x0, width: the CM normals of columns [x0, x0 + W) of a frame `width`
-    wide (cm_normals; parallel/stencil_shard.normals_sharded); the other
-    methods take whole frames."""
+    x0, width: the normals of columns [x0, x0 + W) of a frame `width` wide
+    (a haloed width tile, parallel/stencil_shard.haloed_normals): the CM
+    and SDC border tests read global columns, and the SDC tables come from
+    frame_z, the whole frame's depth [B, H, width] in mm (sdc_normals);
+    the bilateral normals read one pixel each side and no column index."""
     if p.method not in ("cm", "sdc", "bilateral"):
         raise ValueError(f"unknown normal method {p.method!r}")
-    if p.method != "cm" and (x0 != 0 or width is not None):
-        raise ValueError(f"the {p.method} normals take whole frames, not a width tile")
     # mm -> m as the product with the f32 1/1000 on every device: PyTorch
     # on CUDA and XLA under jit both turn the division into this product,
     # PyTorch on the CPU would divide
@@ -379,7 +394,8 @@ def generate_normal_map(
     border = int(p.normal_smoothing_size)
     smooth = smoothing_map(vm, p)
     if p.method == "sdc":
-        raw = sdc_normals(vm, smooth, border)
+        frame_z_m = None if frame_z is None else frame_z * (1.0 / 1000.0)
+        raw = sdc_normals(vm, smooth, border, x0=x0, width=width, frame_z_m=frame_z_m)
     else:
         raw = cm_normals(vm, smooth, border, x0=x0, width=width)
     return _rest_normals(raw, vm)

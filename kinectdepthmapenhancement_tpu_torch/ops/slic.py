@@ -36,12 +36,16 @@ later iterations' assignments are plain PyTorch on every route: the JAX
 package has no Pallas kernel there.
 
 On a width tile of whole cells (parallel/sharding.py's tiled route,
-segment_tile and a cell index with a `tile`), NASP's first iteration runs
-on the tile's pixels: the seed gradient on the tile's own sub-grid blocks,
-the fused assignment and the update sums on its cells, with the cluster
-tables replicated over the tile group and every per-cell partial gathered
-in cell order before the fold (CellTile.gather_cells), so each sum is the
-unsharded one bitwise.
+segment_tile and a label index with a `tile`), NASP runs on the tile's
+pixels: the seed gradient on the tile's own sub-grid blocks, the fused
+assignment and the update sums on its cells, with the cluster tables
+replicated over the tile group and every per-cell partial gathered in cell
+order before the fold (CellTile.gather_cells), so each sum is the
+unsharded one bitwise.  Later iterations sweep the tile's pixels at their
+global columns; the cap check's per-frame verdicts are combined over the
+group before the host reads them (every rank takes the same branch), and
+off the cap the global index's float sums run on the group's gathered
+features as one whole-frame product (CellTile.gather_width).
 
 SP and DASP (the colour and depth SLICs of RGBF, SPDSP and TOF) seed from
 the colour form of the seed gradient (window 16 / 4) and run every
@@ -155,6 +159,8 @@ class CellTile(Protocol):
     # integer-valued f32 counts (< 2^24) of every tile -> their sum (exact,
     # so the same in any order)
     sum_counts: Callable[[torch.Tensor], torch.Tensor]
+    # [B, H, ws, ...] of every tile -> the frames [B, H, width, ...]
+    gather_width: Callable[[torch.Tensor], torch.Tensor]
 
 
 class _CellIndex:
@@ -309,45 +315,74 @@ class _GlobalIndex:
     segment sums, counts and pair counts are products with the [B, H*W, K]
     f32 one-hot through tables.exact_matmul (TF32 off, no float atomics:
     deterministic on every device).  The one-hot is built on first use:
-    0.37 GB a 640x480 frame at K = 300."""
+    0.37 GB a 640x480 frame at K = 300.
 
-    def __init__(self, labels: torch.Tensor, k: int):
+    tile (a CellTile): labels are the tile's [B, H, ws] at global columns
+    [tile.x0, tile.x0 + ws); gathers and pixel lookups stay on the tile,
+    counts and pair counts are the tile's one-hot products summed over the
+    group (integers, exact), and each float segment sum gathers the
+    group's masked features and runs the whole-frame product on every rank
+    (the unsharded product on the unsharded input, so bitwise; the frame's
+    one-hot is built from the gathered labels on first use)."""
+
+    def __init__(self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None):
         self.labels = labels.contiguous()
         self.k = k
         self.b = labels.shape[0]
-        self.tile = None  # whole frames only
+        self.tile = tile
+        self.x0 = 0 if tile is None else tile.x0
         self._oh: Optional[torch.Tensor] = None
+        self._frame_oh: Optional[torch.Tensor] = None
 
     @property
     def oh(self) -> torch.Tensor:
+        """[B, H*W, K] f32 one-hot of this index's labels (the tile's)."""
         if self._oh is None:
             self._oh = tables.one_hot(self.labels.reshape(self.b, -1), self.k)
         return self._oh
+
+    def _frame_onehot(self) -> torch.Tensor:
+        """The one-hot of the whole frames' labels (gathered on a tile)."""
+        if self.tile is None:
+            return self.oh
+        if self._frame_oh is None:
+            frame = self.tile.gather_width(self.labels)
+            self._frame_oh = tables.one_hot(frame.reshape(self.b, -1), self.k)
+        return self._frame_oh
 
     def gather(self, table: torch.Tensor) -> torch.Tensor:
         """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for -1."""
         return tables.gather(table.to(torch.float32), self.labels)
 
     def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """img[b, y[b, k], x[b, k]] -> [B, K, ...]."""
-        return _at_pixels(img, x, y)
+        """img[b, y[b, k], x[b, k]] -> [B, K, ...] at global pixels (from the
+        tile that holds each, on a tile)."""
+        if self.tile is None:
+            return _at_pixels(img, x, y)
+        return self.tile.pixels_at(img, x, y)
 
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
         f = feats.shape[-1]
         fm = torch.where(mask[..., None], feats.to(torch.float32), 0.0)
-        return tables.exact_matmul(self.oh.transpose(1, 2), fm.reshape(self.b, -1, f))
+        if self.tile is not None:
+            fm = self.tile.gather_width(fm)
+        return tables.exact_matmul(self._frame_onehot().transpose(1, 2),
+                                   fm.reshape(self.b, -1, f))
+
+    def _summed(self, counts: torch.Tensor) -> torch.Tensor:
+        return counts if self.tile is None else self.tile.sum_counts(counts)
 
     def counts(self) -> torch.Tensor:
         """Pixels per label [B, K] f32 (labels < 0 dropped)."""
-        return self.oh.sum(dim=1)
+        return self._summed(self.oh.sum(dim=1))
 
     def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
         """[B, K, K] f32: occurrences of (own label, labels_b) pixel pairs;
         pairs with either side < 0 are dropped.  Integer counts < 2^24,
         exact in f32."""
         ohb = tables.one_hot(labels_b.reshape(self.b, -1), self.k)
-        return tables.exact_matmul(self.oh.transpose(1, 2), ohb)
+        return self._summed(tables.exact_matmul(self.oh.transpose(1, 2), ohb))
 
 
 def _cell_ok(grid: GridParams, h: int, w: int) -> bool:
@@ -365,26 +400,37 @@ def init_labels(grid: GridParams, height: int, width: int, device=None) -> torch
 
 
 def labels_within_cap(
-    labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int
+    labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int, x0: int = 0
 ) -> torch.Tensor:
     """[B] bool, on the labels' device: every label >= 0 of the frame lies in
     its pixel's [-cap, cap-1]^2 cell-grid neighbourhood — the invariant that
     lets later iterations and downstream gathers run cell-local (JAX
     slic.py:371-391, per frame here).  One reduction; the caller reads it
-    on the host to pick a route."""
+    on the host to pick a route.  The labels may be columns [x0, x0 + ws)
+    of the h x w frame (a width tile): the cells are read at global
+    columns."""
     ws_x, ws_y = _grid_geometry(grid, h, w)
     dev = labels.device
+    cols = labels.shape[-1]
     lab0 = labels.clamp_min(0)
     dyl = lab0 // grid.cols - (torch.arange(h, dtype=labels.dtype, device=dev) // ws_y)[:, None]
-    dxl = lab0 % grid.cols - (torch.arange(w, dtype=labels.dtype, device=dev) // ws_x)[None, :]
+    dxl = lab0 % grid.cols - (torch.arange(x0, x0 + cols, dtype=labels.dtype, device=dev)
+                              // ws_x)[None, :]
     ok = (labels < 0) | ((dyl >= -cap) & (dyl <= cap - 1) & (dxl >= -cap) & (dxl <= cap - 1))
     return ok.reshape(labels.shape[0], -1).all(dim=1)
 
 
-def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int) -> bool:
+def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int,
+                tile: Optional[CellTile] = None) -> bool:
     """Host branch on labels_within_cap: True only when every frame of the
-    batch holds the invariant (a host sync)."""
-    return bool(labels_within_cap(labels, grid, cap, h, w).all())
+    batch holds the invariant (a host sync).  On a tile the frames' verdicts
+    are the tiles' combined over the group (a frame fails when any tile of
+    it fails), so every rank of the group reads the same verdict, the one
+    of the whole frames, and takes the same branch."""
+    ok = labels_within_cap(labels, grid, cap, h, w, x0=0 if tile is None else tile.x0)
+    if tile is not None:
+        ok = tile.sum_counts((~ok).to(torch.float32)) == 0.0
+    return bool(ok.all())
 
 
 def _stats_impl_on(stats_impl: str) -> bool:
@@ -425,7 +471,7 @@ def cell_index(
 
 def capped_index(
     labels: torch.Tensor, grid: GridParams, cap: int, *, stats_impl: str = "auto",
-    locality: str = "auto",
+    locality: str = "auto", tile: Optional[CellTile] = None,
 ) -> LabelIndex:
     """The cell-local index at r = cap when every label lies in its pixel's
     [-cap, cap-1]^2 cell neighbourhood (labels_within_cap on the device,
@@ -433,14 +479,16 @@ def capped_index(
     one otherwise, with locality="global", or when the grid does not divide
     the frame.  The JAX package branches the same way in a lax.cond
     (slic.py:1436-1478, pipelines.py:232-260).  Labels agree exactly on
-    either route; sums differ in order only."""
+    either route; sums differ in order only.  With a tile the labels are
+    the tile's, the frame tile.width wide, and the verdict the group's."""
     h, w = labels.shape[-2:]
+    w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
     if _cell_ok(grid, h, w) and locality != "global" and (
-        locality == "cell" or _within_cap(labels, grid, cap, h, w)
+        locality == "cell" or _within_cap(labels, grid, cap, h, w, tile)
     ):
-        return _CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums)
-    return _GlobalIndex(labels, grid.num_clusters)
+        return _CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile)
+    return _GlobalIndex(labels, grid.num_clusters, tile=tile)
 
 
 def label_index(
@@ -452,15 +500,13 @@ def label_index(
     2 for SP / DASP); after later iterations capped_index's at the
     variant's cap (5 for NASP, 3 for SP / DASP).  KDE's CCL and plane stage
     take it as the JAX package's _with_local_index does for its
-    multi-iteration pipelines.  A tile takes single-iteration labels
-    only."""
+    multi-iteration pipelines.  With a tile (a CellTile) the labels are
+    the tile's and every rank of its group calls it."""
     _, neighborhood, cap = _variant(variant)
     if params.iterations == 1:
         return cell_index(labels, grid, neighborhood, params.stats_impl, tile)
-    if tile is not None:
-        raise ValueError("a width tile's label index takes single-iteration labels only")
     return capped_index(labels, grid, cap, stats_impl=params.stats_impl,
-                        locality=params.locality)
+                        locality=params.locality, tile=tile)
 
 
 # ----------------------------------------------------------------- seeding
@@ -745,7 +791,7 @@ def _invalid_override(labels, dist, points, params, variant: str = "nasp"):
 
 def _assign_global(
     labels, distance, clusters, color_f, points, normals, grid, params, s_scale,
-    variant: str = "nasp",
+    variant: str = "nasp", x0: int = 0,
 ):
     """A variant's assignment sweep on the global route (JAX slic.py:_assign
     with cell_fast=False, cell_capped=0): a pixel's candidates are the
@@ -754,14 +800,16 @@ def _assign_global(
     these are the JAX cell_fast candidates, so the first SP / DASP sweep
     runs here too.  Label -1 (invalid depth) is taken as cluster 0's cell,
     and the override marks it -1 again.  Offsets run in chunks, each one
-    gather of the cluster fields and the distance over [B, C, H, W]."""
+    gather of the cluster fields and the distance over [B, C, H, W].  The
+    pixels may be columns [x0, x0 + W) of a wider frame (a width tile):
+    each pixel's candidates and distances are its own, at its global u."""
     b, h, w = labels.shape
     dev = labels.device
     r = _variant(variant)[1] // 2
     lab0 = labels.clamp_min(0)
     cur_cx = (lab0 % grid.cols)[:, None]
     cur_cy = (lab0 // grid.cols)[:, None]
-    u = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
+    u = torch.arange(x0, x0 + w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
     v = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, 1, h, 1)
     cf, z, nm, nv_pix = _pixel_planes(color_f, points, normals, (b, 1, h, w), variant)
     pix = (cf, u, v, z, nm, nv_pix)
@@ -800,7 +848,7 @@ def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mo
     if isinstance(idx, _GlobalIndex):
         feats = cuda_nasp.nasp_features(
             mode, idx.labels, idx.gather(fields), color_f, points, normals, lo, hi,
-            params.color_sigma, params.spatial_sigma,
+            params.color_sigma, params.spatial_sigma, x0=idx.x0,
         )
         return idx.segment_sum(feats, idx.labels >= 0)
     fields = fields.reshape(idx.b, idx.rows, idx.cols, -1).contiguous()
@@ -1107,19 +1155,20 @@ def segment_tile(
     params: SLICParams,
     tile: CellTile,
 ) -> SLICResult:
-    """NASP (one iteration) on a width tile of whole cells: segment's
-    NASP route on the tile's frames color u8 [B, H, ws, 3], points and
-    normals f32 [B, H, ws, 3] (ws = tile.cols cell widths at tile.x0 of a
-    frame tile.width wide), every rank of the tile group calling it.  The
-    seed gradient runs on the tile's own sub-grid blocks (each seed window's
+    """NASP on a width tile of whole cells: segment's NASP route on the
+    tile's frames color u8 [B, H, ws, 3], points and normals f32
+    [B, H, ws, 3] (ws = tile.cols cell widths at tile.x0 of a frame
+    tile.width wide), every rank of the tile group calling it.  The seed
+    gradient runs on the tile's own sub-grid blocks (each seed window's
     support lies in its cell), the tile's rows of the initial cluster table
     are gathered into the global one (tile.gather_cells), then the fused
     first iteration and the weighted update run on the tile with the
-    cluster tables replicated.  Returns the tile's labels and distance and
-    the global cluster table, each bitwise the matching part of segment's
-    result on the whole frames."""
-    if params.iterations != 1:
-        raise ValueError(f"segment_tile runs one NASP iteration, not {params.iterations}")
+    cluster tables replicated, and each later iteration too
+    (later_iteration with the tile).  Returns the tile's labels and
+    distance and the global cluster table, each bitwise the matching part
+    of segment's result on the whole frames."""
+    if params.locality not in ("auto", "cell", "global"):
+        raise ValueError(f"locality must be 'auto', 'cell' or 'global', got {params.locality!r}")
     seed_window = _VARIANTS["nasp"][0]
     b, h, ws = color.shape[:3]
     w = tile.width
@@ -1151,21 +1200,31 @@ def segment_tile(
     labels, distance, clusters, idx = _nasp_fused_first_iteration(
         clusters, *frame, grid, params, window_range, s_scale, h, w, kernel=kernel, tile=tile)
     clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
+    for _ in range(1, params.iterations):
+        labels, distance, clusters = later_iteration(
+            labels, distance, clusters, *frame, grid=grid, params=params, tile=tile)
     return SLICResult(labels=labels, distance=distance, clusters=clusters)
 
 
 def later_iteration(
     labels, distance, clusters, color_f, points, normals, *, grid: GridParams,
-    params: SLICParams, variant: str = "nasp",
+    params: SLICParams, variant: str = "nasp", tile: Optional[CellTile] = None,
 ):
     """One later iteration (assign, update) of a variant from the state
     (labels, distance, clusters): the global route's sweep, then the update
-    on label_index's index (see segment).  color_f f32 [B, H, W, 3]."""
+    on label_index's index (see segment).  color_f f32 [B, H, W, 3].  With
+    a tile (NASP only) the frames are the tile's, the sweep reads global
+    columns and the index is the tile group's (label_index)."""
     b, h, w = labels.shape
+    x0 = 0
+    if tile is not None:
+        if variant != "nasp":
+            raise ValueError(f"a width tile runs NASP's later iterations, not {variant!r}'s")
+        w, x0 = tile.width, tile.x0
     s_scale, window_range = _update_geometry(grid, h, w, variant)
     frame = (color_f, points, normals)
     labels, distance = _assign_global(
-        labels, distance, clusters, *frame, grid, params, s_scale, variant)
-    idx = label_index(labels, grid, params, variant)
+        labels, distance, clusters, *frame, grid, params, s_scale, variant, x0=x0)
+    idx = label_index(labels, grid, params, variant, tile=tile)
     clusters = _update(variant, idx, clusters, *frame, params, window_range, h, w)
     return labels, distance, clusters

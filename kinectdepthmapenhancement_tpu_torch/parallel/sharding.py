@@ -11,24 +11,29 @@ PyTorch has no such partitioner, so the two regimes are written out:
     frames and the JBF runs on the haloed tile (stencil_shard.jbf_sharded,
     the csrc/jbf.cu kernel).  spatial_route then picks, from the config
     and the shapes alone, one of two routes for the stages after the JBF:
-      - "tiled" (the default KDEConfig() on tiles of whole grid cells):
-        each rank runs them on its own tile (pipelines._kde_from_jbf with
-        a WidthTile): the CM normals on a tile with a 27-column halo of
-        points (stencil_shard.normals_sharded: the DT and covariance
-        kernels on the haloed tile), NASP's seeds on the tile's own cells
-        and its first iteration and weighted update on the tile's cells
-        (the cell kernels at the tile's first cell column), the CCL merge
-        with a one-column label halo, the plane stage per pixel and the
-        depth bilateral with a 3-column halo.  Every cluster sum goes
-        through per-(cell, candidate) partials; the group's partials are
-        gathered in cell order (not summed) and folded replicated, so the
-        [B, K, ...] tables are the unsharded ones bitwise;
-      - "replicated" (every other config or tiling: bilateral or SDC
-        normals, later NASP iterations, plane merge, hole fill, tiles that
-        split a cell): the filtered depth and the colour tiles are
-        all-gathered over the 'x' group, the stages after the JBF run on
-        the whole frames on every rank of the group, and each rank keeps
-        its own width slice.
+      - "tiled" (any KDEConfig on tiles of whole grid cells): each rank
+        runs them on its own tile (pipelines._kde_from_jbf with a
+        WidthTile): the normals from a haloed tile of points
+        (stencil_shard.normals_sharded: CM and SDC 27 columns, the DT and
+        covariance kernels on the haloed tile, SDC's summed-area tables
+        built from the group's gathered depth; bilateral 1 column), NASP's
+        seeds on the tile's own cells, its first iteration and weighted
+        update on the tile's cells (the cell kernels at the tile's first
+        cell column) and its later iterations' sweep on the tile's pixels,
+        the cap check's verdict combined over the group; the CCL merge
+        (normal or plane merge) with a one-column label halo, the plane
+        stage per pixel, the hole fill from a fill_holes-column halo and
+        the depth bilateral from a 3-column halo.  Every cluster sum goes
+        through per-(cell, candidate) partials gathered in cell order (not
+        summed) and folded replicated, or, on the global index of labels
+        past the cap, through the group's gathered features in one
+        whole-frame product, so the [B, K, ...] tables are the unsharded
+        ones bitwise;
+      - "replicated" (tiles that split a cell, a grid that does not
+        divide the frame, tiles narrower than a halo): the filtered depth
+        and the colour tiles are all-gathered over the 'x' group, the
+        stages after the JBF run on the whole frames on every rank of the
+        group, and each rank keeps its own width slice.
 
 Either way the output is bitwise equal to kde_pipeline on the same frames.
 `dryrun(n)` is the counterpart of the JAX dryrun and of
@@ -59,6 +64,7 @@ from kinectdepthmapenhancement_tpu_torch.parallel.mesh import (
 )
 from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import (
     depth_bilateral_sharded, jbf_sharded, normals_halo, normals_sharded,
+    plane_hole_fill_sharded,
 )
 
 ROUTES = ("tiled", "replicated")
@@ -84,10 +90,10 @@ def disable_pallas(cfg: KDEConfig) -> KDEConfig:
 class WidthTile:
     """This rank's width tile of whole grid cells on the tiled route: the
     slic.CellTile that NASP, CCL and the plane stage read (its cell and
-    pixel columns, the 'x' group's cell gather, pixel lookup and label
-    halo), and the stencil stages that pipelines._kde_from_jbf runs on
-    haloed tiles.  Every method that communicates is a collective of the
-    'x' group."""
+    pixel columns, the 'x' group's cell and width gathers, pixel lookup,
+    count sum and label halo), and the stencil stages that
+    pipelines._kde_from_jbf runs on haloed tiles.  Every method that
+    communicates is a collective of the 'x' group."""
 
     def __init__(self, mesh: Mesh, grid: GridParams, w: int):
         self.mesh = mesh
@@ -111,6 +117,10 @@ class WidthTile:
         owner = (x.long() // ws).reshape((1,) + tuple(x.shape) + (1,) * (mine.dim() - 2))
         return torch.gather(every, 0, owner.expand((1,) + tuple(mine.shape)))[0]
 
+    def gather_width(self, x: torch.Tensor) -> torch.Tensor:
+        """The frames [B, H, W, ...] from every rank's tile x [B, H, ws, ...]."""
+        return halo.gather_width(x.contiguous(), self.mesh)
+
     def sum_counts(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the 'x' group of each rank's integer-valued f32
         counts x (< 2^24: exact, the same in any order), gathered and added
@@ -129,6 +139,11 @@ class WidthTile:
     def normal_map(self, points: torch.Tensor, p: NormalParams) -> torch.Tensor:
         return normals_sharded(points, self.mesh, p)
 
+    def plane_hole_fill(self, optimized, rays, labels, nd_map, trust, invalid,
+                        steps: int) -> torch.Tensor:
+        return plane_hole_fill_sharded(optimized, rays, labels, nd_map, trust, invalid, steps,
+                                       self.mesh)
+
     def depth_bilateral(self, optimized: torch.Tensor, rays: torch.Tensor,
                         p: ProjectionParams) -> torch.Tensor:
         return depth_bilateral_sharded(optimized, rays, self.mesh, p)
@@ -138,21 +153,18 @@ def spatial_route(mesh: Mesh, cfg: KDEConfig, h: int, w: int) -> str:
     """The route of the stages after the JBF on this mesh for frames h x w:
     "tiled" when 'x' > 1 cuts the width into tiles of whole grid cells
     (slic.nasp_tile_ok: the grid divides the frame, each seed window's
-    support lies in its cell), each tile at least as wide as its halos,
-    and the config's later stages all have a tiled form: the CM normals,
-    one NASP iteration, the normal merge and no hole fill (the default
-    KDEConfig()); "replicated" otherwise, and at 'x' == 1 (where each rank
-    runs kde_pipeline on its own frames).  A choice on the static
-    arguments, not a fallback: a kernel that fails on a tile raises."""
+    support lies in its cell) and each tile is at least as wide as its
+    halos (the normals', the depth bilateral's and the hole fill's), for
+    any normal method, NASP iteration count, merge and hole fill;
+    "replicated" otherwise, and at 'x' == 1 (where each rank runs
+    kde_pipeline on its own frames).  A choice on the static arguments,
+    not a fallback: a kernel that fails on a tile raises."""
     if mesh.x == 1 or w % mesh.x:
         return "replicated"
     ws = w // mesh.x
-    if (cfg.normals.method != "cm" or cfg.nasp.iterations != 1 or cfg.plane_merge
-            or cfg.fill_holes > 0):
-        return "replicated"
     if not slic.nasp_tile_ok(cfg.grid, h, w, ws):
         return "replicated"
-    if ws < max(normals_halo(cfg.normals), cfg.projection.window // 2):
+    if ws < max(normals_halo(cfg.normals), cfg.projection.window // 2, cfg.fill_holes):
         return "replicated"
     return "tiled"
 

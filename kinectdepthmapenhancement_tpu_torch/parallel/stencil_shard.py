@@ -1,5 +1,6 @@
 """The stencil stages of KDE on width tiles, under explicit halo exchange:
-the joint bilateral filter, the CM normals and the depth bilateral.
+the joint bilateral filter, the normals (CM, SDC, bilateral), the plane
+hole fill and the depth bilateral.
 
 PyTorch counterpart of the JAX package's parallel/stencil_shard.py (the
 semantics of JointBilateralFilter.cu:4-83, identical to
@@ -17,14 +18,18 @@ ops.bilateral.joint_bilateral_filter):
 
 The output is bitwise equal to the unsharded bilateral.joint_bilateral_filter
 (tests/test_torch_parallel.py on the CPU, chip_smoke.py phase 11 on the
-card).  normals_sharded and depth_bilateral_sharded (the tiled KDE route,
-sharding.py) are likewise bitwise the tile's columns of the unsharded
-normals.generate_normal_map (method "cm") and plane.depth_bilateral.
+card).  normals_sharded, plane_hole_fill_sharded and
+depth_bilateral_sharded (the tiled KDE route, sharding.py) are likewise
+bitwise the tile's columns of the unsharded normals.generate_normal_map
+(every method), plane.plane_hole_fill and plane.depth_bilateral.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from kinectdepthmapenhancement_tpu_torch.core.config import (
     JBFParams, NormalParams, ProjectionParams,
@@ -77,48 +82,98 @@ def jbf_sharded(
 
 
 def normals_halo(p: NormalParams = NormalParams()) -> int:
-    """Columns of points each side that the CM normals of a tile read: the
+    """Columns of points each side that the normals of a tile read.  The
+    bilateral normals: 1 (the cross product's neighbours).  CM and SDC: the
     DT's dt_iterations rounds of one pixel over the depth-change map, which
     reads one column further (dci_map's right neighbour and the left
-    neighbour's test); the covariance window's 10 (cuda_cov.MAX_R, the
-    window min(DT, 20 + z/10) <= 21 px) and the rest normals' 1 lie
-    within.  27 at the default 26 rounds."""
-    return max(p.dt_iterations + 1, cuda_cov.MAX_R, 1)
+    neighbour's test); CM's covariance window (cuda_cov.MAX_R = 10, the
+    window min(DT, 20 + z/10) <= 21 px), SDC's edge shifts (r4 + 1 <= 6
+    at its window cap normals.MAX_RECT) and the rest normals' 1 lie
+    within.  27 at the default 26 rounds.  (SDC's box sums read the whole
+    frame's summed-area tables, not the halo.)"""
+    if p.method == "bilateral":
+        return 1
+    reach = cuda_cov.MAX_R if p.method == "cm" else normals.MAX_RECT // 4 + 1
+    return max(p.dt_iterations + 1, reach, 1)
 
 
 def normals_sharded(
     points: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams()
 ) -> torch.Tensor:
-    """CM normal map of this rank's width tile: points f32 [B, H, ws, 3] mm
-    -> normals [B, H, ws, 3], bitwise the tile's columns of
-    normals.generate_normal_map on the whole frames.  Every rank of the 'x'
-    group calls it: one exchange of normals_halo(p) columns of points, then
-    haloed_normals."""
-    if p.method != "cm":
-        raise ValueError(f"normals_sharded tiles the cm normals, not {p.method!r}")
-    return haloed_normals(halo.exchange_width(points, normals_halo(p), mesh), mesh, p)
+    """Normal map of this rank's width tile, any method: points f32
+    [B, H, ws, 3] mm -> normals [B, H, ws, 3], bitwise the tile's columns
+    of normals.generate_normal_map on the whole frames.  Every rank of the
+    'x' group calls it: one exchange of normals_halo(p) columns of points
+    and, for SDC, one gather of the group's depth (its summed-area tables
+    are whole-frame prefixes, [B, H, W] f32), then haloed_normals."""
+    padded = halo.exchange_width(points, normals_halo(p), mesh)
+    frame_z = (halo.gather_width(points[..., 2].contiguous(), mesh) if p.method == "sdc"
+               else None)
+    return haloed_normals(padded, mesh, p, frame_z=frame_z)
 
 
 def haloed_normals(
-    padded: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams()
+    padded: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams(),
+    frame_z: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The tile's CM normals [B, H, ws, 3] from its points padded with
-    normals_halo(p) columns as exchange_width pads them.  The halos at the
-    global image edges are dropped (drop_global_edges: dci_map's replicate
-    right neighbour, the cross product's replicate pad, the covariance
-    sweep's zero pad and the DT's +inf border then see the frame's edge
-    there); the smoothing map, the DT kernel (csrc/dt.cu) and the
-    covariance kernel (csrc/cov.cu) run unchanged on the haloed tile, the
-    border test on global columns, and the halo is cropped.  No kept value
-    reads the outermost halo column.  (The DT's far value is w + h of the
-    haloed tile, not of the frame: both exceed the smoothing size
-    20 + z/10 the map clamps to.)"""
+    """The tile's normals [B, H, ws, 3] from its points padded with
+    normals_halo(p) columns as exchange_width pads them (and, for SDC, the
+    whole frame's depth frame_z [B, H, W] mm).  The halos at the global
+    image edges are dropped (drop_global_edges: dci_map's replicate right
+    neighbour, the cross product's replicate pad, the covariance sweep's
+    zero pad, SDC's clamped edge shifts and the DT's +inf border then see
+    the frame's edge there); the smoothing map, the DT kernel (csrc/dt.cu),
+    the covariance kernel (csrc/cov.cu) or SDC's box reads at global
+    columns run unchanged on the haloed tile, the border tests on global
+    columns, and the halo is cropped.  No kept value reads the outermost
+    halo column.  (The DT's far value is w + h of the haloed tile, not of
+    the frame: both exceed the smoothing size 20 + z/10 the map clamps
+    to.)"""
     radius = normals_halo(p)
     ws = padded.shape[2] - 2 * radius
     tile, left = halo.drop_global_edges(padded, radius, mesh)
     nmap = normals.generate_normal_map(tile.contiguous(), p, x0=mesh.s * ws - left,
-                                       width=mesh.x * ws)
+                                       width=mesh.x * ws, frame_z=frame_z)
     return nmap[:, :, left:left + ws].contiguous()
+
+
+def plane_hole_fill_sharded(
+    optimized: torch.Tensor, rays: torch.Tensor, labels: torch.Tensor, nd_map: torch.Tensor,
+    trust: torch.Tensor, invalid: torch.Tensor, steps: int, mesh: Mesh,
+) -> torch.Tensor:
+    """plane.plane_hole_fill of this rank's width tile: optimized points
+    [B, H, ws, 3], the tile's rays [H, ws, 3], merged labels [B, H, ws],
+    their planes nd_map [B, H, ws, 4], trust and invalid [B, H, ws] ->
+    [B, H, ws, 3], bitwise the tile's columns of the unsharded fill.  A
+    pixel's fill reads its 4-neighbours' (label, plane) `steps` rounds
+    deep, so `steps` columns of halo are exact.  Every rank of the 'x'
+    group calls it: one exchange of labels + 1, the planes, trust and
+    invalid packed into one f32 tensor (labels < 2^24 are exact), zeros
+    past the frame: label -1, no plane, untrusted and not a hole, so a
+    halo pixel there never fills and reads as the fill's own out-of-image
+    value."""
+    f32 = torch.float32
+    packed = torch.cat([(labels + 1).to(f32)[..., None], nd_map,
+                        trust.to(f32)[..., None], invalid.to(f32)[..., None]], dim=-1)
+    return haloed_plane_hole_fill(halo.exchange_width(packed, steps, mesh), optimized, rays,
+                                  steps)
+
+
+def haloed_plane_hole_fill(
+    padded: torch.Tensor, optimized: torch.Tensor, rays: torch.Tensor, steps: int
+) -> torch.Tensor:
+    """The tile's filled points [B, H, ws, 3] from the packed (labels + 1,
+    planes, trust, invalid) [B, H, ws + 2 * steps, 7] padded as
+    plane_hole_fill_sharded exchanges it: plane.plane_hole_fill unchanged
+    on the haloed tile (the halo's points and rays zero: only the kept
+    columns' projections are read), the halo cropped."""
+    ws = optimized.shape[2]
+    labels = padded[..., 0].to(torch.int32) - 1
+    trust, invalid = padded[..., 5] > 0.0, padded[..., 6] > 0.0
+    out = plane.plane_hole_fill(F.pad(optimized, (0, 0, steps, steps)),
+                                F.pad(rays, (0, 0, steps, steps)), labels, padded[..., 1:5],
+                                trust, invalid, steps)
+    return out[:, :, steps:steps + ws]
 
 
 def depth_bilateral_sharded(

@@ -1250,3 +1250,89 @@ def test_dt_and_cov_kernels_on_haloed_tiles(inputs, x):
         mesh = dataclasses.replace(make_mesh(device=str(points.device)), x=x, s=s)
         got = stencil_shard.haloed_normals(padded, mesh, p)
         assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s
+
+
+# width tiles of the 640x480 path's 20-column grid: x = 2's second tile,
+# x = 4's second and last
+TILES_640 = [(10, 10), (5, 5), (15, 5)]
+TILE_640_IDS = ["x2s1", "x4s1", "x4s3"]
+
+
+@pytest.mark.parametrize("c0, tc", TILES_640, ids=TILE_640_IDS)
+def test_other_configs_cell_forms_on_a_width_tile(frame640, c0, tc):
+    """The cell-kernel forms the other configs' tiled steps add, at 640x480
+    on a width tile of whole 32-px cells: the NASP sums at r = 5 (both
+    modes) on three-iteration labels, the label sums at F = 4 and 6 (r = 4,
+    merge_planes) and F = 2 at r = 5 (the residual), the gathers at
+    F = 6, 3, 1 at r = 5 and F = 2 at r = 4 (the trust table): each
+    against its plain version on the tile (sums to sums_close, gathers
+    bitwise) and bitwise the full frame's kernel's cells and columns."""
+    x, grid = frame640, frame640["cfg"].grid
+    cw = FULL["w"] // grid.cols
+    tile = dict(c0=c0, tile_cols=tc)
+    t = [_tile_cols(a, c0, tc, cw) for a in (x["cf"], x["points"], x["nmap"])]
+    p = x["cfg"].nasp
+    lab5 = x["labels"][5]
+    lab5_t = _tile_cols(lab5, c0, tc, cw)
+    cl = x["clusters"][5]
+    for mode in ("analyze", "weighted"):
+        fields = cl.xy.float() if mode == "analyze" else torch.cat(
+            [cl.xy.float(), cl.rgb, cl.normal], -1)
+        fields = fields.reshape(1, grid.rows, grid.cols, -1).contiguous()
+        kw = dict(rows=grid.rows, cols=grid.cols, r=5, lo=-40, hi=39, mode=mode,
+                  color_sigma=p.color_sigma, spatial_sigma=p.spatial_sigma)
+        g = cuda_nasp.nasp_cell_sums(lab5_t, *t, fields, **kw, **tile)
+        w_ = cuda_nasp.nasp_cell_sums_plain(lab5_t, *t, fields, **kw, **tile)
+        s_ = cuda_nasp.nasp_cell_sums_plain(lab5_t, *t, fields, abs_terms=True, **kw, **tile)
+        f_ = cuda_nasp.nasp_cell_sums(lab5, x["cf"], x["points"], x["nmap"], fields, **kw)
+        torch.cuda.synchronize()
+        assert cuda_nasp.sums_close(g, w_, s_, cuda_nasp.INTEGER_FEATURES[mode]), mode
+        assert torch.equal(g, _tile_part(f_, grid, c0, tc, n=100)), mode
+    for r, f in ((4, 4), (4, 6), (5, 2)):
+        labels = x["labels"][r]
+        g_ = torch.Generator(device=labels.device).manual_seed(20 + f)
+        feats = torch.randn((1, FULL["h"], FULL["w"], f), device=labels.device, generator=g_)
+        feats = (feats * (x["points"][..., 2:3] > 50.0)).contiguous()
+        lab_t, f_t = _tile_cols(labels, c0, tc, cw), _tile_cols(feats, c0, tc, cw)
+        kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+        got = cuda_nasp.label_cell_sums(lab_t, f_t, **kw, **tile)
+        want = cuda_nasp.label_cell_sums_plain(lab_t, f_t, **kw, **tile)
+        scale = cuda_nasp.label_cell_sums_plain(lab_t, f_t.abs(), **kw, **tile)
+        full = cuda_nasp.label_cell_sums(labels, feats, **kw)
+        torch.cuda.synchronize()
+        assert cuda_nasp.sums_close(got, want, scale), (r, f)
+        assert torch.equal(got, _tile_part(full, grid, c0, tc, n=(2 * r) ** 2)), (r, f)
+    for r, f in ((5, 6), (5, 3), (5, 1), (4, 2)):
+        labels = x["labels"][r]
+        lab_t = _tile_cols(labels, c0, tc, cw)
+        g_ = torch.Generator(device=labels.device).manual_seed(30 + f)
+        table = torch.randn((1, grid.num_clusters, f), device=labels.device, generator=g_) * 1e3
+        kw = dict(rows=grid.rows, cols=grid.cols, r=r)
+        got = cuda_nasp.label_cell_gather(lab_t, table, **kw, **tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_nasp.label_cell_gather_plain(lab_t, table, **kw, **tile))
+        assert torch.equal(got, _tile_cols(cuda_nasp.label_cell_gather(labels, table, **kw),
+                                           c0, tc, cw)), (r, f)
+
+
+@pytest.mark.parametrize("method", ["bilateral", "sdc"])
+def test_bilateral_and_sdc_normals_on_haloed_tiles(inputs, method):
+    """stencil_shard.haloed_normals on the card under the bilateral and SDC
+    normals (SDC's DT kernel on the 27-column haloed tile, its tables from
+    the whole frame's depth): bitwise the full frame's columns, at x = 2
+    and 4."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import stencil_shard
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+
+    p = dataclasses.replace(KDEConfig().normals, method=method)
+    r = stencil_shard.normals_halo(p)
+    points = inputs["vm"] * 1000.0
+    want = normals.generate_normal_map(points, p)
+    frame_z = points[..., 2].contiguous() if method == "sdc" else None
+    for x in (2, 4):
+        ws = W // x
+        for s in range(x):
+            padded = torch.nn.functional.pad(points, (0, 0, r, r))[:, :, s * ws:s * ws + ws + 2 * r]
+            mesh = dataclasses.replace(make_mesh(device=str(points.device)), x=x, s=s)
+            got = stencil_shard.haloed_normals(padded, mesh, p, frame_z=frame_z)
+            assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), (x, s)

@@ -10,7 +10,9 @@ sharded_kde_step bitwise equal to the unsharded ops on the same inputs
 the spatial step's tiled route (the stages after the JBF on each rank's
 width tile, sharding.spatial_kde) at data 2 x x 2 and data 1 x x 4 with
 every KDEResult field gathered bitwise equal to kde_pipeline's, and its
-replicated route (plane_merge, a width the grid does not divide) too.
+replicated route (a grid that does not divide the frame, a width the grid
+does not divide) too; tests/test_torch_tiled_configs.py holds the tiled
+route under the other configs.
 Against the JAX package (tests/golden/parallel_jax_seed0.npz, written by
 gen_torch_fixtures.py parallel): jbf_sharded within 2e-5 relative, the
 no-support zeros equal (the FMA contraction on a uniform-random depth
@@ -112,12 +114,13 @@ def _spatial_fields(mesh, depth, color, intr, cfg):
 
 
 def _replicated_cases():
-    """(name, cfg, depth, color) of the replicated route's checks: plane
-    merge on the 96x128 frames, and the default config on their first 126
-    columns (grid 3x4 does not divide 126), two frames each."""
+    """(name, cfg, depth, color) of the replicated route's checks: grid 5x6
+    on the 96x128 frames (it divides neither side), and the default config
+    on their first 126 columns (grid 3x4 does not divide 126), two frames
+    each."""
     intr, cfg, depth, color = _kde_input()
-    return [("plane_merge", intr, dataclasses.replace(cfg, plane_merge=True), depth[:2],
-             color[:2]),
+    return [("grid5x6", intr, dataclasses.replace(cfg, grid=GridParams(rows=5, cols=6)),
+             depth[:2], color[:2]),
             ("width126", default_kinect_intrinsics(126, 96), cfg,
              depth[:2, :, :126].contiguous(), color[:2, :, :126].contiguous())]
 
@@ -252,11 +255,11 @@ def test_tiled_route_every_field_bitwise(ranks, kde_want, name):
             assert torch.equal(got[f], torch.from_numpy(want)), f
 
 
-@pytest.mark.parametrize("case", ["plane_merge", "width126"])
+@pytest.mark.parametrize("case", ["grid5x6", "width126"])
 def test_replicated_route_every_field_bitwise(ranks, case):
-    """What the tiled route does not take keeps the replicated route
-    (plane_merge; 63-px tiles of a width the grid does not divide), every
-    field bitwise kde_pipeline's on the same frames."""
+    """What the tiled route does not take keeps the replicated route (grid
+    5x6, which does not divide 96x128; 63-px tiles of a width the grid does
+    not divide), every field bitwise kde_pipeline's on the same frames."""
     (name, intr, cfg, depth, color), = [c for c in _replicated_cases() if c[0] == case]
     want = kde_pipeline(depth, color, intr, cfg)
     for r in ranks:

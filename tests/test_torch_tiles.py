@@ -9,11 +9,19 @@ columns of the full-frame call (labels, distance, gathers and the per-cell
 partials); the CM normals from a tile padded as exchange_width pads it
 (stencil_shard.haloed_normals: 27 columns, none kept at the global edges)
 equal the tile's columns of generate_normal_map, at x = 2 and 4 and on
-every tile; so does the depth bilateral from a 3-column halo; the label
-halo is -1 past the frame; the tile geometry and spatial_route's choice;
+every tile, and so do the bilateral normals (a 1-column halo) and the
+SDC normals (27 columns, the summed-area tables from the whole frame's
+depth); so does the depth bilateral from a 3-column halo, and the plane
+hole fill from a 4-column halo of (labels, planes, trust, holes), holes
+filled across the tile edges; the cap check on a tile's labels (global
+columns) equals the frame's verdict over the tile's pixels, and the
+global sweep on a tile the frame's columns; the global index's tile form
+at world 1 equals the untiled index; the label halo is -1 past the
+frame; the tile geometry and spatial_route's choice for every config;
 and the whole tiled stage list at world 1 (a WidthTile of every cell)
 equals kde_pipeline.  The card runs the kernels at the same tiles
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py); tests/test_torch_tiled_configs.py runs the
+other configs' tiled steps on gloo ranks.
 """
 
 import dataclasses
@@ -219,28 +227,173 @@ def test_tile_cells_geometry():
         _mesh(8, 0).tile_cells(640, 20)  # 80-px tiles of 32-px cells
 
 
+def _tiled_configs(cfg):
+    """The configs beyond the default that the tiled route takes: the
+    bilateral and SDC normals, plane merge with the hole fill, three NASP
+    iterations (capped and global), and all of them at once."""
+    def normals(method):
+        return dataclasses.replace(cfg.normals, method=method)
+
+    iter3 = dataclasses.replace(cfg, nasp=dataclasses.replace(cfg.nasp, iterations=3))
+    glob = dataclasses.replace(iter3, nasp=dataclasses.replace(iter3.nasp, locality="global"))
+    return [dataclasses.replace(cfg, normals=normals("bilateral")),
+            dataclasses.replace(cfg, normals=normals("sdc")),
+            dataclasses.replace(cfg, plane_merge=True, fill_holes=4), iter3, glob,
+            dataclasses.replace(glob, normals=normals("sdc"), plane_merge=True, fill_holes=4)]
+
+
 def test_spatial_route():
-    """"tiled" for the default KDEConfig() on tiles of whole cells (640x480
-    at x = 2 and 4, the 96x128 test frames at x = 2 and 4), "replicated"
-    for every config or tiling without a tiled form, and at x = 1."""
+    """"tiled" for every KDEConfig on tiles of whole cells (the default and
+    the six configs of tests/test_torch_tiled_configs.py: 640x480 at x = 2
+    and 4, the 96x128 test frames with grid 3x4 at x = 2 and 4);
+    "replicated" where a tile splits a cell (x = 8 at 640, the 628 crop, a
+    126-column frame), where the grid does not divide the frame (5x6 at
+    96x128), for a hole fill wider than a tile, and at x = 1."""
     cfg = KDEConfig()
     route = sharding.spatial_route
-    assert route(_mesh(2, 0), cfg, 480, 640) == "tiled"
-    assert route(_mesh(4, 2), cfg, 480, 640) == "tiled"
     small = dataclasses.replace(cfg, grid=GRID)
-    assert route(_mesh(2, 0), small, H, W) == route(_mesh(4, 0), small, H, W) == "tiled"
+    for c in [cfg] + _tiled_configs(cfg):
+        for x in (2, 4):
+            assert route(_mesh(x, 0), c, 480, 640) == "tiled", (x, c)
+    for c in [small] + _tiled_configs(small):
+        for x in (2, 4):
+            assert route(_mesh(x, x - 1), c, H, W) == "tiled", (x, c)
     assert route(_mesh(4, 0), cfg, 480, 628) == "replicated"  # 157-px tiles, grid 20
     assert route(_mesh(1, 0), cfg, 480, 640) == "replicated"
     assert route(_mesh(8, 0), cfg, 480, 640) == "replicated"  # 80-px tiles split cells
     assert route(_mesh(2, 0), small, H, 126) == "replicated"
-    off = [dataclasses.replace(cfg, plane_merge=True), dataclasses.replace(cfg, fill_holes=4),
-           dataclasses.replace(cfg, nasp=dataclasses.replace(cfg.nasp, iterations=3))]
-    off += [dataclasses.replace(cfg, normals=dataclasses.replace(cfg.normals, method=m))
-            for m in ("sdc", "bilateral")]
-    for c in off:
-        assert route(_mesh(2, 0), c, 480, 640) == "replicated"
+    for c in _tiled_configs(dataclasses.replace(cfg, grid=GridParams(rows=5, cols=6))):
+        assert route(_mesh(2, 0), c, H, W) == "replicated"
+    assert route(_mesh(4, 0), dataclasses.replace(small, fill_holes=40), H, W) == "replicated"
     with pytest.raises(ValueError, match="route"):
         sharding.spatial_kde(None, None, _mesh(2, 0), None, cfg, route="halo")
+
+
+@pytest.mark.parametrize("x", [2, 4])
+@pytest.mark.parametrize("method", ["bilateral", "sdc"])
+def test_bilateral_and_sdc_normals_from_haloed_tiles(frames, method, x):
+    """stencil_shard.haloed_normals under the bilateral (a 1-column halo)
+    and SDC normals (27 columns; the summed-area tables from the whole
+    frame's depth, as normals_sharded gathers it) on every tile: the
+    tile's columns of generate_normal_map on the whole frames."""
+    p = dataclasses.replace(frames["cfg"].normals, method=method)
+    r = stencil_shard.normals_halo(p)
+    assert r == (1 if method == "bilateral" else 27)
+    points = frames["points"]
+    want = normals.generate_normal_map(points, p)
+    frame_z = points[..., 2].contiguous() if method == "sdc" else None
+    ws = W // x
+    for s in range(x):
+        got = stencil_shard.haloed_normals(_halo(points, s, ws, r), _mesh(x, s), p,
+                                           frame_z=frame_z)
+        assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s
+    with pytest.raises(ValueError, match="frame's z"):
+        normals.sdc_normals(points[:, :, :ws] * 1e-3, torch.full((2, H, ws), 5.0), 20, x0=ws,
+                            width=W)
+
+
+def _fill_inputs():
+    """Inputs of plane.plane_hole_fill on 2 frames: 16x16 blocks of labels
+    with per-label planes, trusted on 3 of 4 labels, and rectangular holes
+    (label -1) across the tile edges at 32, 64 and 96 columns."""
+    rng = np.random.default_rng(4)
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    labels = ((yy // 16) * (W // 16) + xx // 16).to(torch.int32).expand(2, H, W).clone()
+    k = int(labels.max()) + 1
+    planes = torch.from_numpy(rng.normal(size=(2, k, 4)).astype(np.float32))
+    planes[..., 2] = planes[..., 2].abs() + 1.0
+    planes[..., 3] = planes[..., 3].abs() * 1000.0 + 500.0
+    nd_map = torch.gather(planes, 1, labels.reshape(2, -1, 1).long().expand(-1, -1, 4)).reshape(
+        2, H, W, 4)
+    trust = (labels % 4) != 3
+    invalid = torch.zeros(2, H, W, dtype=torch.bool)
+    for edge in (32, 64, 96):
+        invalid[:, 4:10, edge - 3:edge + 3] = True
+    for _ in range(12):
+        y0, x0 = int(rng.integers(0, H - 8)), int(rng.integers(20, W - 24))
+        invalid[:, y0:y0 + int(rng.integers(2, 9)), x0:x0 + int(rng.integers(2, 14))] = True
+    labels = torch.where(invalid, -1, labels)
+    rays = torch.from_numpy(rng.uniform(-0.5, 0.5, (H, W, 3)).astype(np.float32))
+    rays[..., 2] = 1.0
+    optimized = torch.from_numpy(rng.uniform(500.0, 4000.0, (2, H, W, 3)).astype(np.float32))
+    optimized = torch.where(invalid[..., None], 0.0, optimized)
+    return optimized, rays, labels, nd_map, trust, invalid
+
+
+@pytest.mark.parametrize("x", [2, 4])
+def test_plane_hole_fill_from_haloed_tiles(x):
+    """stencil_shard.haloed_plane_hole_fill on every tile, its (labels + 1,
+    planes, trust, invalid) padded with 4 columns as exchange_width pads
+    them (zeros past the frame): the tile's columns of plane_hole_fill on
+    the whole frames, holes filled within 4 columns of a tile edge among
+    them."""
+    steps = 4
+    optimized, rays, labels, nd_map, trust, invalid = _fill_inputs()
+    want = plane.plane_hole_fill(optimized, rays, labels, nd_map, trust, invalid, steps)
+    filled = (want != optimized).any(-1)
+    packed = torch.cat([(labels + 1).float()[..., None], nd_map, trust.float()[..., None],
+                        invalid.float()[..., None]], -1)
+    ws = W // x
+    for s in range(x):
+        cols = slice(s * ws, (s + 1) * ws)
+        got = stencil_shard.haloed_plane_hole_fill(
+            _halo(packed, s, ws, steps), optimized[:, :, cols], rays[:, cols], steps)
+        assert torch.equal(got, want[:, :, cols]), s
+        if s:
+            assert int(filled[:, :, s * ws - steps:s * ws + steps].sum()) > 0, s
+
+
+@pytest.mark.parametrize("c0, tc", TILES, ids=TILE_IDS)
+def test_cap_check_and_global_sweep_on_a_tile(frames, c0, tc):
+    """labels_within_cap on a tile's labels (global columns) equals the
+    verdict of the whole frame with every label off the tile dropped, at
+    caps 1, 2 and 5 (the frame's verdict is every tile's); _assign_global
+    from the first iteration's state on the tile's pixels (x0) equals the
+    frame's sweep's columns."""
+    x = frames
+    labels = x["labels"]
+    cols = slice(c0 * CELL_W, (c0 + tc) * CELL_W)
+    off_tile = torch.ones(W, dtype=torch.bool)
+    off_tile[cols] = False
+    for cap in (1, 2, 5):
+        got = slic.labels_within_cap(labels[:, :, cols], GRID, cap, H, W, x0=c0 * CELL_W)
+        want = slic.labels_within_cap(torch.where(off_tile, -1, labels), GRID, cap, H, W)
+        assert torch.equal(got, want), cap
+    assert not bool(slic.labels_within_cap(labels, GRID, 1, H, W).all())
+    cl = slic.init_clusters(slic._compute_seeds(x["cf"], x["nmap"], GRID, H, W, 8), x["color"],
+                            x["points"], x["nmap"])
+    s_scale, _ = slic._update_geometry(GRID, H, W, "nasp")
+    params = x["cfg"].nasp
+    planes = (x["cf"], x["points"], x["nmap"])
+    full = slic._assign_global(labels, x["dist"], cl, *planes, GRID, params, s_scale)
+    tile = slic._assign_global(labels[:, :, cols], x["dist"][:, :, cols], cl,
+                               *(t[:, :, cols] for t in planes), GRID, params, s_scale,
+                               x0=c0 * CELL_W)
+    for g, w in zip(tile, full):
+        assert torch.equal(g, w[:, :, cols])
+
+
+def test_global_index_tile_form_at_world_one(frames):
+    """_GlobalIndex with a WidthTile of the whole frame (world 1: the width
+    gather and the count sum pass through) equals the untiled index: its
+    gather, pixel lookup, segment sum, counts and pair counts."""
+    x = frames
+    labels = x["labels"]
+    k = GRID.num_clusters
+    tiled = slic._GlobalIndex(labels, k, tile=sharding.WidthTile(make_mesh(device="cpu"), GRID,
+                                                                  W))
+    plain = slic._GlobalIndex(labels, k)
+    table = torch.from_numpy(np.random.default_rng(5).normal(size=(2, k, 3)).astype(np.float32))
+    xs = torch.tensor([[0, 40, 127], [5, 64, 100]])
+    ys = torch.tensor([[0, 50, 95], [7, 33, 80]])
+    mask = x["points"][..., 2] > 50.0
+    right = torch.cat([labels[:, :, 1:], torch.full((2, H, 1), -1, dtype=labels.dtype)], 2)
+    for a, b in ((tiled.gather(table), plain.gather(table)),
+                 (tiled.pixels_at(x["points"], xs, ys), plain.pixels_at(x["points"], xs, ys)),
+                 (tiled.segment_sum(x["points"], mask), plain.segment_sum(x["points"], mask)),
+                 (tiled.counts(), plain.counts()),
+                 (tiled.pair_counts(right), plain.pair_counts(right))):
+        assert torch.equal(a, b)
 
 
 def test_tiled_stages_at_world_one(frames):
