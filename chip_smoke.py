@@ -37,7 +37,13 @@ Phases (each prints its results; any failure exits non-zero):
      (cell columns 10-19); and at that tile the forms the other configs'
      tiled steps add (rows 6bt-8bt): the NASP sums at r = 5, the label
      sums at F = 4 and 6 (r = 4) and F = 2 at r = 5, the gathers at F =
-     6, 3 and 1 at r = 5; time kernel,
+     6, 3 and 1 at r = 5; and the forms of the tiled route on frames the
+     grid does not divide and on tiles that split a cell (rows 1v, 2v, 3v,
+     4h, 5u-8u): the JBF on the 424x512 Kinect v2 frame's tiles ([B, 424,
+     260], [B, 424, 132]), the DT and the covariance on its haloed tiles
+     ([B, 424, 283], [B, 424, 182]), the seed gradient on its 5-column
+     haloed tile ([B, 424, 261]), the four cell kernels on x = 8's
+     cell-aligned tile at 640 (cell columns 3-4); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -128,14 +134,20 @@ Phases (each prints its results; any failure exits non-zero):
      4): jbf_sharded on 320-, 160- and 157-px tiles, the spatial step
      (data 1 x x 2) and the data-parallel step (data 2 x x 1), each
      gathered and bitwise equal to the unsharded run, one JBF launch a
-     rank a step; and the tiled route (sharding.spatial_kde) at x = 2 and
-     4 on the four frames and on frame 0, each from counts at 0: every
-     KDEResult field gathered and bitwise equal to kde_pipeline on the
-     card, spatial_route "tiled" there and "replicated" on the 628
-     crop (bitwise too), every kernel launched on its tile forms by
-     every rank, the collectives a step, and per rank the peak device
-     memory, device ms by kde.* stage and step ms of the tiled route
-     beside the replicated route's (and rank 0's unsharded call's); then
+     rank a step; and the tiled route (sharding.spatial_kde), default
+     config, on four frames and on frame 0, each from counts at 0: the
+     640x480 frames at x = 2 and 4 (data tiles of whole cells) and x = 8
+     (eight ranks: 80-px data tiles split the 32-px cells, so the stages
+     run on cell-aligned tiles of 96 and 64 px), the 424x512 Kinect v2
+     frames at x = 2 and 4 and the 628 crop at x = 4 (the grid does not
+     divide them: NASP's global route, no cell kernel, the seed gradient
+     on haloed tiles): spatial_route "tiled", every KDEResult field
+     gathered and bitwise equal to kde_pipeline on the card, every kernel
+     of the path launched on its tile forms by every rank and none it
+     does not run, the collectives a step, and per rank the peak device
+     memory and step ms of the tiled route beside the replicated route's
+     (and rank 0's unsharded call's) at B=4, and on the 640x480 frames at
+     x = 2 and 4 also at B=1 with device ms by kde.* stage; then
      the other configs on the tiled route at x = 2 and 4, B=4 (and B=1
      once): the bilateral and SDC normals, plane merge with fill_holes=4
      on phase 10's banded frame with 15% holes (and three more seeds),
@@ -190,19 +202,31 @@ SCHEDULERS = 528
 # its operations and their order
 ASSIGN_LOOP_INSTRUCTIONS = 62
 
-# the JBF's width tiles on phase 11's paths, named by the haloed tile's
-# width (ws + 2 * rj): x = 2 and 4 at 640 columns, x = 4 at 628 (157-px
+# the JBF's width tiles on phase 11's paths, named as cuda_bilateral's
+# launch_forms name them, by the haloed tile's width (w<ws + 2 * rj>): x = 2 and 4 at 640 columns, x = 4 at 628 (157-px
 # tiles, a width that is not a multiple of 4)
-JBF_TILES = {"tile324": (2, 640), "tile164": (4, 640), "tile161": (4, 628)}  # form: (x, W)
+JBF_TILES = {"w324": (2, 640), "w164": (4, 640), "w161": (4, 628)}  # form: (x, W)
 
 # the tiled route's kernel forms (phase 11), each on width tile s = 1: the DT
 # and the covariance on the haloed tile that normals_sharded hands them (27
-# columns of points each side, none past the frame), named by its width: x =
-# 2 ([B, 480, 347], its right edge the frame's) and x = 4 ([B, 480, 214]);
+# columns of points each side, none past the frame), named by its width as
+# cuda_dt's and cuda_cov's launch_forms name it: x = 2 ([B, 480, 347], its right edge the frame's) and x = 4 ([B, 480, 214]);
 # the seed gradient and the four cell kernels on x = 2's tile, cell columns
 # [CELL_TILE[0], CELL_TILE[0] + CELL_TILE[1])
-HALO_TILES = {"tile347": 2, "tile214": 4}  # form: x
+HALO_TILES = {"w347": 2, "w214": 4}  # form: x
 CELL_TILE = (10, 10)  # (c0, tile cols) of x = 2's tile 1 on the 20-column grid
+# the tiled route on the frames the grid does not divide and on tiles that
+# split a cell (phase 11 (b)), each on tile s = 1: the 424x512 Kinect v2
+# frame's JBF tiles at x = 2 and 4 (named as JBF_TILES), the DT and
+# covariance on its 27-column haloed tiles of points (x = 2: [B, 424, 283],
+# its right edge the frame's; x = 4: [B, 424, 182]) and the seed gradient on
+# x = 2's 5-column haloed tile ([B, 424, 261]); the four cell kernels on
+# x = 8's cell-aligned tile at 640 (2 of the 32-px cells, beside tile 0's 3)
+V2_SHAPE = (424, 512)
+V2_JBF_TILES = {"w260": 2, "w132": 4}  # form: x
+V2_HALO_TILES = {"w283": 2, "w182": 4}  # form: x
+V2_GRADIENT_TILE = "halo261"  # x = 2
+UNEVEN_TILE = (3, 2)  # (c0, tile cols) of x = 8's tile 1 on the 20-column grid
 
 # a trace's name of a kernel of csrc/*.cu (each lives in an anonymous namespace)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+_kernel)\b")
@@ -272,16 +296,20 @@ def _stage_breakdown(fn, scopes=KDE_SCOPES) -> dict:
             "attached": attached, "spans": len(spans)}
 
 
-def _phase11_rank(depth_np, color_np, crop_w: int, banded_np) -> dict:
-    """One gloo rank of phase 11 (b), on the shared card: the JBF on width
-    tiles of the four 640x480 frames at x = world size (and, at world 4, of
-    their 628-column crop), at world 2 the spatial step (data 1 x x 2) and
-    the data-parallel step (data 2 x x 1, B=2 a rank), each from launch
-    counts at 0; the outputs gathered (rank 0 returns them), and the times
-    of one exchange_width and one jbf_sharded call (CUDA events, median of
-    5; every rank times the same calls, as each is a collective); then the
-    tiled route under the default config (_phase11_tiled) and the others
-    (_phase11_configs; banded_np: the banded frames' depth and colour)."""
+def _phase11_rank(depth_np, color_np, crop_w: int, banded_np, v2_np) -> dict:
+    """One gloo rank of phase 11 (b), on the shared card.  At world 2 and 4:
+    the JBF on width tiles of the four 640x480 frames at x = world size
+    (and, at world 4, of their 628-column crop), at world 2 the spatial step
+    (data 1 x x 2) and the data-parallel step (data 2 x x 1, B=2 a rank),
+    each from launch counts at 0; the outputs gathered (rank 0 returns
+    them), and the times of one exchange_width and one jbf_sharded call
+    (CUDA events, median of 5; every rank times the same calls, as each is
+    a collective); then the tiled route under the default config on the
+    640x480 frames, the Kinect v2 frames (v2_np: 424x512 depth and colour)
+    and, at world 4, the 628 crop (_phase11_tiled), and the other configs
+    (_phase11_configs; banded_np: the banded frames' depth and colour).  At
+    world 8: the tiled route on the 640x480 frames alone, whose 80-px data
+    tiles split the 32-px cells."""
     import torch
     import torch.distributed as dist
 
@@ -298,17 +326,23 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np) -> dict:
     mods = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
 
     def counted(fn):
+        """fn() from launch counts and forms at 0 -> (its output, the
+        launches by kernel, the launches by form as the wrappers record
+        them)."""
+        for m in mods + (cuda_nasp,):
+            m.launch_forms.clear()
         for m in mods:
             m.launches = 0
         for k in cuda_nasp.launches:
             cuda_nasp.launches[k] = 0
-        cuda_nasp.launch_forms.clear()
-        cuda_gradient.launch_forms.clear()
         out = fn()
         torch.cuda.synchronize()
         c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
         c.update(cuda_nasp.launches)
-        return out, c
+        forms = {}
+        for m in mods + (cuda_nasp,):
+            forms.update(m.launch_forms)
+        return out, c, forms
 
     n = dist.get_world_size()
     mesh = make_mesh(n, spatial=n, device="cuda")  # one data row, n width tiles
@@ -318,32 +352,44 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np) -> dict:
     intr, cfg = default_kinect_intrinsics(w, h), KDEConfig()
     p = cfg.jbf
     res = {"rank": dist.get_rank(), "device": str(mesh.device), "counts": {}, "forms": {},
-           "out": {}, "ms": {}}
+           "expect": {}, "out": {}, "ms": {}}
+    if n == 8:
+        _phase11_tiled(res, mesh, {"split": (depth, color, intr)}, cfg, counted)
+        return res
 
     def path(tag, m, fn, form=None):
-        out, res["counts"][tag] = counted(fn)
-        res["forms"][tag] = form
+        """Drive fn from counts at 0; `form` the JBF's launch form the path
+        must launch on (it reads the wrapper's record)."""
+        out, res["counts"][tag], res["forms"][tag] = counted(fn)
+        res["expect"][tag] = form
         res["out"][tag] = (tuple(out.shape), (halo.gather_width(out, m) if out.dim() == 3
                                               else sharding.gather_global(out, m)).cpu())
 
     frames = [(w, depth, color)] + ([(crop_w, depth[:, :, :crop_w], color[:, :, :crop_w])]
                                     if n == 4 else [])
     for width, d, c in frames:
-        form = f"tile{width // n + 4}"
-        path(f"jbf x{n} {form}", mesh,
+        wid = f"w{width // n + 4}"
+        form = f"jbf:{wid}"
+        path(f"jbf x{n} {wid}", mesh,
              lambda d=d, c=c: jbf_sharded(mesh.width_tile(d), mesh.width_tile(c), mesh, p), form)
         d1, c1 = mesh.width_tile(d[:1]), mesh.width_tile(c[:1])
-        res["ms"][f"exchange_width gloo x{n} (colour halo 4, {form}, B=1)"] = cuda_ms(
+        res["ms"][f"exchange_width gloo x{n} (colour halo 4, {wid}, B=1)"] = cuda_ms(
             lambda c1=c1: halo.exchange_width(c1, 4, mesh), warmup=2, iters=5)
-        res["ms"][f"jbf_sharded gloo x{n} {form} B=1"] = cuda_ms(
+        res["ms"][f"jbf_sharded gloo x{n} {wid} B=1"] = cuda_ms(
             lambda d1=d1, c1=c1: jbf_sharded(d1, c1, mesh, p), warmup=2, iters=5)
-    _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted)
+    vd, vc = (torch.from_numpy(a).to(mesh.device) for a in v2_np)
+    cases = {"640": (depth, color, intr),
+             "v2": (vd, vc, default_kinect_intrinsics(vd.shape[2], vd.shape[1]))}
+    if n == 4:
+        cases["crop628"] = (depth[:, :, :crop_w].contiguous(), color[:, :, :crop_w].contiguous(),
+                            default_kinect_intrinsics(crop_w, h))
+    _phase11_tiled(res, mesh, cases, cfg, counted)
     banded = tuple(torch.from_numpy(a).to(mesh.device) for a in banded_np)
     _phase11_configs(res, mesh, {"noisy": (depth, color), "banded": banded}, intr, counted)
     if n == 2:
         step = sharding.sharded_kde_step(mesh, intr, cfg)
         path("spatial step data1 x2", mesh,
-             lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), f"tile{w // n + 4}")
+             lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), f"jbf:w{w // n + 4}")
         res["ms"]["spatial step gloo data1 x2 B=4"] = cuda_ms(
             lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), warmup=1, iters=5)
         mesh_d = make_mesh(n, spatial=1, device="cuda")
@@ -362,31 +408,50 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np) -> dict:
 TILED_NASP_FORMS = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:tile",
                     "label_cell_sums:r4:F2:tile", "label_cell_gather:r4:F6:tile",
                     "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
+_CELL_KERNELS = ("nasp_assign_analyze", "nasp_cell_sums", "label_cell_sums",
+                 "label_cell_gather")
+# each tiled case of the default config: the kernels it must not launch (by
+# counter; every other must launch), the cell and gradient forms it must
+# launch and its collectives a step (B=4 and B=1 alike).  "640": data tiles
+# of whole cells; "split": x = 8's cell-aligned tiles (the data tiles split
+# cells: two retiles more); "v2", "crop628": frames the grid does not divide
+# (NASP's global route: no cell kernel, the seed gradient on haloed tiles,
+# four gathers more for the global first iteration and the seed windows)
+TILED_CASE_PATHS = {
+    "640": ((), TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 14),
+    "split": ((), TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 16),
+    "v2": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
+    "crop628": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
+}
 
 
-def _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted) -> None:
-    """Phase 11 (b)'s tiled route on one gloo rank (data 1 x x n): the
-    spatial step's stages after the JBF on the rank's own width tile
-    (sharding.spatial_kde) on the four frames (B=4) and on frame 0 (B=1),
-    each from launch counts at 0 and with the collectives it made; every
-    KDEResult field gathered and, on rank 0, held bitwise against
-    kde_pipeline on the card; at x = 4 the 628-column crop on the
-    replicated route, bitwise too.  Then, on the same frames at B=4 and
-    B=1, each route's peak device memory of this rank, its device ms by
-    kde.* stage (torch.profiler) and its ms (CUDA events, median of 5); and
-    on rank 0 the unsharded kde_pipeline's.  Results go in res["tiled"]."""
+def _phase11_tiled(res, mesh, cases, cfg, counted) -> None:
+    """Phase 11 (b)'s tiled route on one gloo rank (data 1 x x n), the
+    default config on each of `cases` (name: depth, colour, intrinsics of
+    four frames): the spatial step's stages after the JBF on the rank's own
+    width tile (sharding.spatial_kde) on the four frames (B=4) and on frame
+    0 (B=1), each from launch counts at 0 and with the collectives it made
+    and the launch forms the wrappers recorded, beside the widths the JBF,
+    DT and covariance must launch on (the haloed data tile; the haloed tile
+    of sharding.tile_spans); every KDEResult field gathered and, on rank 0,
+    held bitwise against kde_pipeline on the card.  Then, on the same
+    frames at B=4 (and B=1 on the "640" frames), each route's (tiled,
+    replicated) peak device memory of this rank and its ms (CUDA events,
+    median of 5), the replicated route's fields at B=4 gathered and held
+    bitwise as the tiled route's, and on the "640" frames its device ms by
+    kde.* stage (torch.profiler); and on rank 0 the unsharded
+    kde_pipeline's.  Results go in res["tiled"]."""
     import torch
 
     from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
-    from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp
-    from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding, stencil_shard
     from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
 
-    h, w = depth.shape[1:]
-    out = res["tiled"] = {"route": sharding.spatial_route(mesh, cfg, h, w),
-                          "route_crop": sharding.spatial_route(mesh, cfg, h, crop_w),
-                          "runs": {}, "memory_mib": {}, "stage_ms": {}, "ms": {}}
+    out = res["tiled"] = {"routes": {}, "spans": {}, "runs": {}, "replicated": {},
+                          "memory_mib": {}, "stage_ms": {}, "ms": {}}
+    rj = cfg.jbf.window // 2
+    halo_r = stencil_shard.normals_halo(cfg.normals)
 
     def gathered(result):
         """Every field of the tile's KDEResult over the group: the per-pixel
@@ -403,55 +468,74 @@ def _phase11_tiled(res, mesh, depth, color, intr, cfg, crop_w, counted) -> None:
                 g[f] = v
         return g, same
 
-    cases = [("B=4", depth, color, w), ("B=1", depth[:1], color[:1], w)]
-    if mesh.x == 4:
-        cases.append(("crop B=4", depth[:, :, :crop_w], color[:, :, :crop_w], crop_w))
-    for tag, d, c, width in cases:
-        mesh_mod.collectives = 0
-        (route, result), cnt = counted(lambda d=d, c=c: sharding.spatial_kde(
-            mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
-        run = {"route": route, "counts": cnt, "collectives": mesh_mod.collectives,
-               "forms": {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms},
-               "block": tuple(result.optimized_points.shape)}
-        g, run["tables_equal_on_ranks"] = gathered(result)
-        if res["rank"] == 0:
-            want = kde_pipeline(d.contiguous(), c.contiguous(), intr, cfg)
-            run["differs"] = [f for f in want._fields if not torch.equal(g[f], getattr(want, f))]
-        out["runs"][tag] = run
-
-    d4, c4 = mesh.width_tile(depth), mesh.width_tile(color)
-    for bsz in (4, 1):
-        d, c = d4[:bsz], c4[:bsz]
-        for route in ("tiled", "replicated"):
-            key = f"{route} B={bsz}"
-            call = (lambda d=d, c=c, route=route: sharding.spatial_kde(
-                d, c, mesh, intr, cfg, route=route))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(mesh.device)
-            base = torch.cuda.memory_allocated(mesh.device)
-            call()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated(mesh.device)
-            out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
+    def measure(key, call, stages):
+        """call()'s peak memory, device ms by stage and ms; returns its
+        first output."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        base = torch.cuda.memory_allocated(mesh.device)
+        first = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
+        if stages:
             sb = _stage_breakdown(call)
             out["stage_ms"][key] = {s: v[0] for s, v in sb["per"].items()}
             out["stage_ms"][key]["memcpy"] = sum(
                 ms for name, ms in sb["by_kernel"].items() if "Memcpy" in name)
-            out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
-    if res["rank"] == 0:
-        for bsz in (4, 1):
-            d, c = depth[:bsz], color[:bsz]
-            call = (lambda d=d, c=c: kde_pipeline(d, c, intr, cfg))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(mesh.device)
-            base = torch.cuda.memory_allocated(mesh.device)
-            call()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated(mesh.device)
-            key = f"unsharded B={bsz}"
-            out["memory_mib"][key] = {"peak": peak / 2**20, "above_inputs": (peak - base) / 2**20}
-            out["stage_ms"][key] = {s: v[0] for s, v in _stage_breakdown(call)["per"].items()}
-            out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
+        out["ms"][key] = cuda_ms(call, warmup=1, iters=5)
+        return first
+
+    for name, (depth, color, intr) in cases.items():
+        h, w = depth.shape[1:]
+        out["routes"][name] = sharding.spatial_route(mesh, cfg, h, w)
+        # the tiles the stages after the JBF run on, and the widths the JBF
+        # (the haloed data tile) and the DT and covariance (the tile with
+        # the normals' halo, none past the frame) must launch on
+        spans, _ = sharding.tile_spans(mesh, cfg.grid, h, w)
+        out["spans"][name] = spans
+        x0, width = spans[mesh.s]
+        haloed = min(w, x0 + width + halo_r) - max(0, x0 - halo_r)
+        expect = {f"jbf:w{w // mesh.x + 2 * rj}", f"chamfer_dt:w{haloed}",
+                  f"cm_covariance:w{haloed}"}
+        wants = {}
+        for tag, d, c in (("B=4", depth, color), ("B=1", depth[:1], color[:1])):
+            mesh_mod.collectives = 0
+            (route, result), cnt, forms = counted(
+                lambda d=d, c=c, intr=intr: sharding.spatial_kde(
+                    mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
+            run = {"route": route, "counts": cnt, "collectives": mesh_mod.collectives,
+                   "forms": forms, "expect_widths": sorted(expect),
+                   "block": tuple(result.optimized_points.shape)}
+            g, run["tables_equal_on_ranks"] = gathered(result)
+            if res["rank"] == 0:
+                want = kde_pipeline(d.contiguous(), c.contiguous(), intr, cfg)
+                run["differs"] = [f for f in want._fields
+                                  if not torch.equal(g[f], getattr(want, f))]
+                wants[tag] = want  # B=4's is held against the replicated route below
+            out["runs"][f"{name} {tag}"] = run
+        wants.pop("B=1", None)
+
+        d4, c4 = mesh.width_tile(depth), mesh.width_tile(color)
+        stages = name == "640"
+        for bsz in ((4, 1) if stages else (4,)):
+            d, c = d4[:bsz], c4[:bsz]
+            for route in ("tiled", "replicated"):
+                got_route, result = measure(
+                    f"{name} {route} B={bsz}",
+                    lambda d=d, c=c, route=route, intr=intr: sharding.spatial_kde(
+                        d, c, mesh, intr, cfg, route=route), stages)
+                if route == "replicated" and bsz == 4:
+                    g, same = gathered(result)
+                    rep = {"route": got_route, "tables_equal_on_ranks": same}
+                    if res["rank"] == 0:
+                        rep["differs"] = [f for f in wants["B=4"]._fields
+                                          if not torch.equal(g[f], getattr(wants["B=4"], f))]
+                    out["replicated"][f"{name} B=4"] = rep
+            if res["rank"] == 0:
+                measure(f"{name} unsharded B={bsz}",
+                        lambda bsz=bsz, intr=intr: kde_pipeline(depth[:bsz], color[:bsz], intr,
+                                                                cfg), stages)
 
 
 def phase11_configs():
@@ -515,7 +599,7 @@ def _phase11_configs(res, mesh, frames, intr, counted) -> None:
     import torch
 
     from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
-    from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, plane
+    from kinectdepthmapenhancement_tpu_torch.ops import plane
     from kinectdepthmapenhancement_tpu_torch.parallel import halo, sharding
     from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
@@ -539,10 +623,11 @@ def _phase11_configs(res, mesh, frames, intr, counted) -> None:
         for bsz in ((4, 1) if name == "all" else (4,)):
             d, c = depth[:bsz], color[:bsz]
             mesh_mod.collectives = 0
-            (route, result), cnt = counted(lambda d=d, c=c, cfg=cfg: sharding.spatial_kde(
-                mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
+            (route, result), cnt, forms = counted(
+                lambda d=d, c=c, cfg=cfg: sharding.spatial_kde(
+                    mesh.width_tile(d), mesh.width_tile(c), mesh, intr, cfg))
             run = {"route": route, "counts": cnt, "collectives": mesh_mod.collectives,
-                   "forms": {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms},
+                   "forms": forms,
                    "block": tuple(result.optimized_points.shape), "tables_equal_on_ranks": True}
             got = {}
             for f in result._fields:
@@ -664,6 +749,67 @@ def main() -> int:
     scenes = [make_noisy_scene(h, w, intr, seed=s) for s in range(4)]
     color4 = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
     depth4 = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    # the Kinect v2 frames of phase 3's and phase 11's tiled forms
+    intr_v2 = default_kinect_intrinsics(V2_SHAPE[1], V2_SHAPE[0])
+    v2_scenes = [make_noisy_scene(*V2_SHAPE, intr_v2, seed=s) for s in range(4)]
+    vcolor4 = torch.from_numpy(np.stack([s[0] for s in v2_scenes])).to(dev)
+    vdepth4 = torch.from_numpy(np.stack([s[1] for s in v2_scenes])).to(dev)
+
+    def jbf_tile(depth, color, nx, width):
+        """(guide, depth) of the JBF's haloed width tile s = 1 of x = nx
+        tiles of the frames' first `width` columns, as
+        parallel/stencil_shard.py hands them to the kernel: the depth with rj
+        columns of its neighbours (zeros past the frame), the guide smoothed
+        on the colour tile with rg + rj columns of halo (reflect-101 past the
+        frame) and cut to the tile's columns [-rj, ws + rj)."""
+        rg, rj = cfg.jbf.guide_diameter // 2, cfg.jbf.window // 2
+        ws = width // nx
+        cpad = torch.nn.functional.pad(color[:, :, :width].permute(0, 3, 1, 2).float(),
+                                       (rg + rj, rg + rj, 0, 0), mode="reflect")
+        cpad = cpad.permute(0, 2, 3, 1).to(torch.uint8)[:, :, ws:2 * ws + 2 * (rg + rj)]
+        tile_guide = bilateral.guide_bilateral(cpad.contiguous(), cfg.jbf).float()
+        return (tile_guide[:, :, rg:rg + ws + 2 * rj].contiguous(),
+                torch.nn.functional.pad(depth[:, :, :width], (rj, rj))[
+                    :, :, ws:2 * ws + 2 * rj].contiguous())
+
+    def halo_tile(t, nx, radius):
+        """Tile s = 1 of x = nx tiles of t [B, H, W, ...] with `radius`
+        columns of its neighbours each side and none past the frame."""
+        ws = t.shape[2] // nx
+        return t[:, :, max(0, ws - radius):min(t.shape[2], 2 * ws + radius)].contiguous()
+
+    def v2_inputs(depth, color):
+        """Phase 11 (b)'s tile forms on the 424x512 Kinect v2 frames (the
+        grid does not divide them), tile s = 1: the JBF's haloed tiles at
+        x = 2 and 4, the depth-change map, window sizes and vertices of the
+        DT and the covariance on the 27-column haloed tiles of points, and
+        x = 2's colour and normals with the seed gradient's 5-column halo."""
+        hv, wv = depth.shape[1:]
+        p = cfg.jbf
+        x = {}
+        for tag, nx in V2_JBF_TILES.items():
+            x[f"guide_{tag}"], x[f"depth_{tag}"] = jbf_tile(depth, color, nx, wv)
+        guide = bilateral.guide_bilateral(color, p).to(torch.float32).contiguous()
+        jbf_depth = cuda_bilateral.jbf_plain(
+            depth, guide, window=p.window, spatial_sigma=p.spatial_sigma,
+            color_sigma=p.color_sigma, depth_sigma=p.depth_sigma)
+        points = projective_to_real(jbf_depth, default_kinect_intrinsics(wv, hv)).contiguous()
+        halo_r = stencil_shard.normals_halo(cfg.normals)
+        for tag, nx in V2_HALO_TILES.items():
+            vm_t = halo_tile(points / 1000.0, nx, halo_r)
+            if vm_t.shape[2] != int(tag[1:]):
+                _fail(f"the {tag} form is {vm_t.shape[2]} columns wide")
+            x[f"vm_{tag}"] = vm_t
+            x[f"dci_{tag}"] = normals.dci_map(
+                vm_t, cfg.normals.max_depth_change_factor).contiguous()
+            x[f"rect_{tag}"] = normals.smoothing_map(
+                vm_t, cfg.normals).to(torch.int32).contiguous()
+        nmap = normals.generate_normal_map(points, cfg.normals)
+        x["cf_h"] = halo_tile(color.to(torch.float32), 2, slic.GRAD_MARGIN)
+        x["nm_h"] = halo_tile(nmap, 2, slic.GRAD_MARGIN)
+        if x["cf_h"].shape[2] != int(V2_GRADIENT_TILE[4:]):
+            _fail(f"the {V2_GRADIENT_TILE} form is {x['cf_h'].shape[2]} columns wide")
+        return x
 
     def stage_inputs(depth, color):
         p = cfg.jbf
@@ -687,16 +833,8 @@ def main() -> int:
         # rj columns of its neighbours (zeros past the frame), the guide
         # smoothed on the colour tile with rg + rj columns of halo (reflect-101
         # past the frame) and cut to the tile's columns [-rj, ws + rj)
-        rg, rj = cfg.jbf.guide_diameter // 2, cfg.jbf.window // 2
         for tag, (nx, width) in JBF_TILES.items():
-            ws = width // nx
-            cpad = torch.nn.functional.pad(color[:, :, :width].permute(0, 3, 1, 2).float(),
-                                           (rg + rj, rg + rj, 0, 0), mode="reflect")
-            cpad = cpad.permute(0, 2, 3, 1).to(torch.uint8)[:, :, ws:2 * ws + 2 * (rg + rj)]
-            tile_guide = bilateral.guide_bilateral(cpad.contiguous(), cfg.jbf).float()
-            x[f"guide_{tag}"] = tile_guide[:, :, rg:rg + ws + 2 * rj].contiguous()
-            x[f"depth_{tag}"] = torch.nn.functional.pad(depth[:, :, :width], (rj, rj))[
-                :, :, ws:2 * ws + 2 * rj].contiguous()
+            x[f"guide_{tag}"], x[f"depth_{tag}"] = jbf_tile(depth, color, nx, width)
         # the first NASP iteration's inputs on the plain route: seeds,
         # candidate fields, labels, the analyze-updated cluster table
         b = depth.shape[0]
@@ -806,7 +944,7 @@ def main() -> int:
         for tag, nx in HALO_TILES.items():
             ws = w // nx
             vm_t = vm[:, :, max(0, ws - halo_r):min(w, 2 * ws + halo_r)].contiguous()
-            if vm_t.shape[2] != int(tag[4:]):
+            if vm_t.shape[2] != int(tag[1:]):
                 _fail(f"the {tag} form is {vm_t.shape[2]} columns wide")
             x[f"vm_{tag}"] = vm_t
             x[f"dci_{tag}"] = normals.dci_map(
@@ -830,6 +968,23 @@ def main() -> int:
             **cell, **tile_kw)
         x["scale_label_t"] = cuda_nasp.label_cell_sums_plain(
             x["labels_t"], x["feats2_t"].abs(), **cell, **tile_kw)
+        # x = 8's cell-aligned tile (UNEVEN_TILE) of the same planes, labels
+        # and features
+        uc0, utc = UNEVEN_TILE
+        cols_u = slice(uc0 * ws_x, (uc0 + utc) * ws_x)
+        for key in ("color_f", "points", "nmap", "labels", "feats2"):
+            x[f"{key}_u"] = x[key][:, :, cols_u].contiguous()
+        tri_u = (x["color_f_u"], x["points_u"], x["nmap_u"])
+        uneven_kw = dict(c0=uc0, tile_cols=utc)
+        x["scale_assign_u"] = cuda_nasp.nasp_cell_sums_plain(
+            x["labels_u"], *tri_u, cand[..., 3:5], lo=lo, hi=hi, mode="analyze",
+            abs_terms=True, **cell, **uneven_kw)
+        x["scale_weighted_u"] = cuda_nasp.nasp_cell_sums_plain(
+            x["labels_u"], *tri_u, x["f_weighted"], lo=lo, hi=hi, mode="weighted",
+            abs_terms=True, color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma,
+            **cell, **uneven_kw)
+        x["scale_label_u"] = cuda_nasp.label_cell_sums_plain(
+            x["labels_u"], x["feats2_u"].abs(), **cell, **uneven_kw)
         # the forms the other configs' tiled steps add (rows 6bt-8bt), at the
         # same tile: three-iteration labels (r = 5) and merge_planes' moments
         for key in ("labels5", "feats4", "feats6", "feats2_r5"):
@@ -876,6 +1031,8 @@ def main() -> int:
                              + x["labels_t"].clamp_min(0).long()).reshape(-1)
         x["flat_label5_t"] = (bi[:, None, None] * grid.num_clusters
                               + x["labels5_t"].clamp_min(0).long()).reshape(-1)
+        x["flat_label_u"] = (bi[:, None, None] * grid.num_clusters
+                             + x["labels_u"].clamp_min(0).long()).reshape(-1)
         return x
 
     # ---- phase 3: each kernel against its plain version on the card
@@ -918,16 +1075,16 @@ def main() -> int:
             >= 0).sum(-1).to(torch.float64)
     n_cand = 64
 
-    def assign_ops(x, t=""):
+    def assign_ops(x, t="", tile=CELL_TILE):
         """Kernel 5: per pixel and in-grid candidate 33 (colour 8, pixel 7,
         depth 2, weighting 7, normal dot 5, normal term 3, the running
         argmin's compare 1), per out-of-grid one 1; per pixel 5 (its depth
         and normal validity, the invalid-depth override); per cell and
         in-grid candidate 4 (the candidate's depth and normal validity);
         per labeled pixel the analyze features 16 and their 13 sums.  t =
-        "_t": the tile's cells (CELL_TILE) and pixels."""
+        "_t" or "_u": the tile's cells (CELL_TILE, UNEVEN_TILE) and pixels."""
         b = x["color_f" + t].shape[0]
-        n_c = n_in[:, CELL_TILE[0]:CELL_TILE[0] + CELL_TILE[1]] if t else n_in
+        n_c = n_in[:, tile[0]:tile[0] + tile[1]] if t else n_in
         per_cell = ws_x * ws_y * (33 * n_c + (n_cand - n_c)) + 4 * n_c
         return (b * float(per_cell.sum()) + 5 * npx(x["color_f" + t])
                 + 29 * labeled(x, "labels" + t))
@@ -1215,8 +1372,8 @@ def main() -> int:
     ws_t = CELL_TILE[1] * ws_x
     kernels["seed_gradient_nasp_tile"] = dict(
         module=cuda_gradient, bar="bitwise, seeds identical", row="seed_gradient",
-        secondary=True, form="tile:nasp",
-        run=lambda x: cuda_gradient.seed_gradient(x["csub_t"], x["nsub_t"]),
+        secondary=True, form="nasp:tile",
+        run=lambda x: cuda_gradient.seed_gradient(x["csub_t"], x["nsub_t"], "tile"),
         plain=lambda x: cuda_gradient.seed_gradient_plain(x["csub_t"], x["nsub_t"]),
         ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(
             slic._sample_seeds_subgrid(got[0], grid_t, h, ws_t, 8),
@@ -1328,6 +1485,102 @@ def main() -> int:
             inputs=lambda x, t=tkey: [x["labels5_t"], x[t]],
             ops=lambda x: 0,
             shape=lambda x, nf=nf: tuple(x["labels5_t"].shape) + (nf,))
+    # the forms the tiled route adds on frames the grid does not divide and
+    # on tiles that split a cell (phase 11 (b); rows 1c, 2t/3t, 4h, 5t-8t):
+    # the JBF, the DT and the covariance on the Kinect v2 frame's haloed
+    # tiles, the seed gradient on its 5-column haloed tile, and the four cell
+    # kernels on x = 8's cell-aligned tile at 640 (UNEVEN_TILE)
+    for tag in V2_JBF_TILES:
+        kernels[f"jbf_v2_{tag}"] = dict(
+            module=cuda_bilateral, bar="bitwise", activities=1, row="jbf", secondary=True,
+            form=tag,
+            run=lambda x, t=tag: cuda_bilateral.jbf(x[f"depth_{t}"], x[f"guide_{t}"], **jbf_kw),
+            plain=lambda x, t=tag: cuda_bilateral.jbf_plain(
+                x[f"depth_{t}"], x[f"guide_{t}"], **jbf_kw),
+            inputs=lambda x, t=tag: [x[f"depth_{t}"], x[f"guide_{t}"]],
+            ops=lambda x, t=tag: npx(x[f"depth_{t}"]) * 25 * (17 + 25),
+            issue=tap_issue("jbf", f"depth_{tag}"),
+            shape=lambda x, t=tag: tuple(x[f"depth_{t}"].shape))
+    for tag in V2_HALO_TILES:
+        kernels[f"chamfer_dt_v2_{tag}"] = dict(
+            module=cuda_dt, bar="bitwise", row="chamfer_dt", secondary=True, activities=1,
+            form=tag,
+            run=lambda x, t=tag: cuda_dt.distance_transform(x[f"dci_{t}"], its),
+            plain=lambda x, t=tag: cuda_dt.distance_transform_plain(x[f"dci_{t}"], its),
+            inputs=lambda x, t=tag: [x[f"dci_{t}"]],
+            ops=lambda x, t=tag: dt_ops(x[f"dci_{t}"]),
+            shape=lambda x, t=tag: tuple(x[f"dci_{t}"].shape))
+        kernels[f"cm_covariance_v2_{tag}"] = dict(
+            module=cuda_cov, bar="count exact, entries bitwise", row="cm_covariance",
+            secondary=True, form=tag,
+            run=lambda x, t=tag: cuda_cov.cm_covariances(x[f"vm_{t}"], x[f"rect_{t}"]),
+            plain=lambda x, t=tag: cuda_cov.cm_covariances_plain(x[f"vm_{t}"], x[f"rect_{t}"]),
+            inputs=lambda x, t=tag: [x[f"vm_{t}"], x[f"rect_{t}"]],
+            ops=lambda x, t=tag: 22 * cov_taps(x[f"rect_{t}"]),
+            shape=lambda x, t=tag: tuple(x[f"vm_{t}"].shape))
+    kernels["seed_gradient_nasp_halo"] = dict(
+        module=cuda_gradient, bar="bitwise", row="seed_gradient", secondary=True,
+        form="nasp:halo",
+        run=lambda x: cuda_gradient.seed_gradient(x["cf_h"], x["nm_h"], "halo"),
+        plain=lambda x: cuda_gradient.seed_gradient_plain(x["cf_h"], x["nm_h"]),
+        inputs=lambda x: [x["cf_h"], x["nm_h"]],
+        ops=lambda x: npx(x["cf_h"]) * 121 * 20,
+        issue=tap_issue("seed_gradient_nasp", "cf_h"),
+        shape=lambda x: tuple(x["cf_h"].shape))
+    uneven_kw = dict(c0=UNEVEN_TILE[0], tile_cols=UNEVEN_TILE[1])
+    tri_u = ("color_f_u", "points_u", "nmap_u")
+    kernels["nasp_assign_analyze_uneven"] = dict(
+        module=cuda_nasp, bar="labels, distance bitwise; sums: integer exact, "
+        "rest <= 1e-5 sum|terms|", row="nasp_assign_analyze", secondary=True, form="r4:tile",
+        run=lambda x: cuda_nasp.nasp_assign_and_analyze(
+            *(x[k] for k in tri_u), x["cand"], lo=lo, hi=hi, **x["akw"], **uneven_kw),
+        plain=lambda x: cuda_nasp.nasp_assign_and_analyze_plain(
+            *(x[k] for k in tri_u), x["cand"], lo=lo, hi=hi, **x["akw"], **uneven_kw),
+        ok=lambda got, want, x: torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        and sums_ok("analyze", "scale_assign_u")(got, want, x),
+        inputs=lambda x: [*(x[k] for k in tri_u), x["cand"]],
+        ops=lambda x: assign_ops(x, "_u", UNEVEN_TILE),
+        shape=lambda x: tuple(x["color_f_u"].shape))
+    kernels["nasp_cell_sums_weighted_uneven"] = dict(
+        module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|", row="nasp_cell_sums",
+        secondary=True, form="r4:weighted:tile",
+        run=lambda x: cuda_nasp.nasp_cell_sums(
+            x["labels_u"], *(x[k] for k in tri_u), x["f_weighted"], mode="weighted",
+            **sums_kw, **uneven_kw),
+        plain=lambda x: cuda_nasp.nasp_cell_sums_plain(
+            x["labels_u"], *(x[k] for k in tri_u), x["f_weighted"], mode="weighted",
+            **sums_kw, **uneven_kw),
+        ok=sums_ok("weighted", "scale_weighted_u"),
+        inputs=lambda x: [x["labels_u"], *(x[k] for k in tri_u), x["f_weighted"]],
+        ops=lambda x: labeled(x, "labels_u") * (51 + 14),
+        shape=lambda x: tuple(x["color_f_u"].shape))
+    kernels["label_cell_sums_uneven"] = dict(
+        module=cuda_nasp, bar="<= 1e-5 sum|terms|", row="label_cell_sums", secondary=True,
+        form="r4:F2:tile",
+        run=lambda x: cuda_nasp.label_cell_sums(x["labels_u"], x["feats2_u"], **cell,
+                                                **uneven_kw),
+        plain=lambda x: cuda_nasp.label_cell_sums_plain(
+            x["labels_u"], x["feats2_u"], **cell, **uneven_kw),
+        ok=sums_ok("label", "scale_label_u"),
+        library=lambda x: torch.zeros(
+            (x["bi"].shape[0] * grid.num_clusters, 2), device=dev).index_add_(
+            0, x["flat_label_u"], x["feats2_u"].reshape(-1, 2)),
+        inputs=lambda x: [x["labels_u"], x["feats2_u"]],
+        ops=lambda x: npx(x["labels_u"]) * 2,
+        shape=lambda x: tuple(x["feats2_u"].shape))
+    for nf in (6, 1, 3):
+        tkey = f"table{nf}"
+        kernels[f"label_cell_gather_f{nf}_uneven"] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_cell_gather", secondary=True,
+            form=f"r4:F{nf}:tile",
+            run=lambda x, t=tkey: cuda_nasp.label_cell_gather(
+                x["labels_u"], x[t], **cell, **uneven_kw),
+            plain=lambda x, t=tkey: cuda_nasp.label_cell_gather_plain(
+                x["labels_u"], x[t], **cell, **uneven_kw),
+            library=lambda x, t=tkey: x[t][x["bi"], x["labels_u"].clamp_min(0)],
+            inputs=lambda x, t=tkey: [x["labels_u"], x[t]],
+            ops=lambda x: 0,
+            shape=lambda x, nf=nf: tuple(x["labels_u"].shape) + (nf,))
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -1359,6 +1612,7 @@ def main() -> int:
     report = {name: {"max_abs_err": 0.0} for name in kernels}
     for bsz in (1, 4):
         x = stage_inputs(depth4[:bsz], color4[:bsz])
+        x.update(v2_inputs(vdepth4[:bsz], vcolor4[:bsz]))
         torch.cuda.synchronize()
         for key in ("labels", "labels_scattered"):  # what a sums lane sees a round on
             lab = x[key]
@@ -1424,15 +1678,18 @@ def main() -> int:
     def reset_counts():
         for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient):
             m.launches = 0
+            m.launch_forms.clear()
         for name in cuda_nasp.launches:
             cuda_nasp.launches[name] = 0
         cuda_nasp.launch_forms.clear()
-        cuda_gradient.launch_forms.clear()
 
     def forms_now():
-        return {**cuda_nasp.launch_forms, **cuda_gradient.launch_forms}
+        forms = {}
+        for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient, cuda_nasp):
+            forms.update(m.launch_forms)
+        return forms
 
-    path_forms = {}  # path -> cuda_nasp.launch_forms of its driven run
+    path_forms = {}  # path -> the wrappers' launch_forms of its driven run
     path_counts = {}  # path -> launches of each kernel in its driven run
     reset_counts()
     res1 = kde_pipeline(depth4[0], color4[0], intr, cfg)
@@ -1765,9 +2022,7 @@ def main() -> int:
 
     # (d) a Kinect v2 frame, 424x512: the default 15x20 grid does not divide
     # it, so the NASP and downstream stages take the global route
-    intr_v2 = default_kinect_intrinsics(512, 424)
-    vcolor, vnoisy, _ = make_noisy_scene(424, 512, intr_v2, seed=0)
-    vd, vc = torch.from_numpy(vnoisy).to(dev), torch.from_numpy(vcolor).to(dev)
+    vd, vc = vdepth4[0], vcolor4[0]
     res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
                   stencil_kernels)
     check_outputs("kinect_v2 424x512", res_d, k_count)
@@ -2521,7 +2776,7 @@ def main() -> int:
     p11_checks: dict = {}
     p = cfg.jbf
     jbf_ref4 = bilateral.joint_bilateral_filter(depth4, color4, p)
-    crop_w = JBF_TILES["tile161"][1]
+    crop_w = JBF_TILES["w161"][1]
     jbf_ref_crop = bilateral.joint_bilateral_filter(
         depth4[:, :, :crop_w].contiguous(), color4[:, :, :crop_w].contiguous(), p)
 
@@ -2586,24 +2841,31 @@ def main() -> int:
     # the JBF on width tiles at x = 2 and 4 (and 157-px tiles of the 628-column
     # crop), the spatial step (data 1 x x 2) and the data-parallel step
     # (data 2 x x 1); each path's launches by rank, its output gathered on
-    # rank 0 and held bitwise against the unsharded run on the card
+    # rank 0 and held bitwise against the unsharded run on the card; the
+    # tiled route on the 640x480, Kinect v2 and 628-column frames at x = 2
+    # and 4 and at x = 8 (eight ranks: data tiles that split cells)
     depth_np, color_np = depth4.cpu().numpy(), color4.cpu().numpy()
+    v2_np = (vdepth4.cpu().numpy(), vcolor4.cpu().numpy())
     # phase 10's far-range frame with 15% holes and three more seeds: the
     # frames of the plane merge and hole fill configs
     banded = [make_banded_scene(h, w, intr, seed=s, hole_fraction=0.15) for s in range(4)]
     banded_np = (np.stack([b_[1] for b_ in banded]), np.stack([b_[0] for b_ in banded]))
     p11_configs: dict = {}
-    for n in (2, 4):
-        ranks = multihost.spawn(_phase11_rank, n, args=(depth_np, color_np, crop_w, banded_np),
+    for n in (2, 4, 8):
+        ranks = multihost.spawn(_phase11_rank, n,
+                                args=(depth_np, color_np, crop_w, banded_np, v2_np),
                                 device="cuda", backend="gloo", timeout_s=600)
         for r in ranks:
             for tag, cnt in r["counts"].items():
                 key = f"p11.{tag} rank{r['rank']}"
                 path_counts[key] = cnt
-                form = r["forms"].get(tag)
-                path_forms[key] = {f"jbf:{form}": cnt["cuda_bilateral"]} if form else {}
+                path_forms[key] = r["forms"][tag]
                 if cnt["cuda_bilateral"] != 1:
                     _fail(f"phase 11 (b): {key} launched the JBF {cnt['cuda_bilateral']} times")
+                form = r["expect"][tag]
+                jbf_forms = {f for f in r["forms"][tag] if f.startswith("jbf:")}
+                if form and jbf_forms != {form}:
+                    _fail(f"phase 11 (b): {key} launched the JBF on {jbf_forms}, not {form}")
                 if "step" in tag and any(v == 0 for v in cnt.values()):
                     _fail(f"phase 11 (b): {key}: a kernel of the path was never launched: {cnt}")
         for tag, (shape, got) in ranks[0]["out"].items():
@@ -2616,31 +2878,54 @@ def main() -> int:
         # the tiled route: routes, bitwise fields, launches and forms by rank
         for r in ranks:
             td = r["tiled"]
-            if (td["route"], td["route_crop"]) != ("tiled", "replicated"):
-                _fail(f"phase 11 (b): spatial_route at x = {n} read {td['route']} (640) and "
-                      f"{td['route_crop']} ({crop_w}), not tiled and replicated")
+            off = {k: v for k, v in td["routes"].items() if v != "tiled"}
+            if off:
+                _fail(f"phase 11 (b): spatial_route at x = {n} reads {off}, not tiled")
             for tag, run in td["runs"].items():
+                name = tag.split()[0]
                 key = f"p11.tiled x{n} {tag} rank{r['rank']}"
                 path_counts[key] = run["counts"]
                 path_forms[key] = run["forms"]
-                want_route = "replicated" if tag.startswith("crop") else "tiled"
-                if run["route"] != want_route or not run["tables_equal_on_ranks"]:
+                if run["route"] != "tiled" or not run["tables_equal_on_ranks"]:
                     _fail(f"phase 11 (b): {key}: route {run['route']}, cluster tables equal "
                           f"on the ranks: {run['tables_equal_on_ranks']}")
                 if run.get("differs"):
                     _fail(f"phase 11 (b): {key}: {run['differs']} differ from kde_pipeline")
-                if want_route == "tiled":
-                    zero = [k for k, v in run["counts"].items() if v == 0]
-                    missing = [f for f in TILED_NASP_FORMS if not run["forms"].get(f)]
-                    if zero or missing:
-                        _fail(f"phase 11 (b): {key}: kernels never launched {zero}, tile forms "
-                              f"missing {missing}")
+                idle, forms, collectives = TILED_CASE_PATHS[name]
+                cnt = run["counts"]
+                wrong = [k for k, v in cnt.items() if (v > 0) == (k in idle)]
+                missing = [f for f in forms if not run["forms"].get(f)]
+                if wrong or missing:
+                    _fail(f"phase 11 (b): {key}: kernels launched against the path {wrong} "
+                          f"({cnt}), tile forms missing {missing}")
+                # the JBF, DT and covariance launched on the expected widths alone
+                widths = sorted(f for f in run["forms"]
+                                if f.startswith(("jbf:", "chamfer_dt:", "cm_covariance:")))
+                if widths != run["expect_widths"]:
+                    _fail(f"phase 11 (b): {key}: the stencil kernels launched on {widths}, "
+                          f"not {run['expect_widths']}")
+                if run["collectives"] != collectives:
+                    _fail(f"phase 11 (b): {key}: {run['collectives']} collectives a step, "
+                          f"not {collectives}")
                 p11_checks[f"gloo {key}"] = {
                     "route": run["route"], "block": run["block"], "bitwise": True,
-                    "collectives": run["collectives"], "launches": run["counts"]}
+                    "collectives": run["collectives"], "launches": cnt}
+            # the replicated route, asked for by name, on every case at B=4
+            if sorted(td["replicated"]) != sorted(f"{c} B=4" for c in td["routes"]):
+                _fail(f"phase 11 (b): x = {n}: the replicated route ran on "
+                      f"{sorted(td['replicated'])}, not on every case")
+            for tag, rep in td["replicated"].items():
+                key = f"p11.replicated x{n} {tag} rank{r['rank']}"
+                if rep["route"] != "replicated" or not rep["tables_equal_on_ranks"]:
+                    _fail(f"phase 11 (b): {key}: route {rep['route']}, cluster tables equal "
+                          f"on the ranks: {rep['tables_equal_on_ranks']}")
+                if rep.get("differs"):
+                    _fail(f"phase 11 (b): {key}: {rep['differs']} differ from kde_pipeline")
+                p11_checks[f"gloo {key}"] = {"route": rep["route"], "bitwise": True}
         for r in ranks:
             td = r["tiled"]
-            print(f"phase 11 (b) tiled x{n} rank {r['rank']} on {smi}: collectives a step "
+            print(f"phase 11 (b) tiled x{n} rank {r['rank']} on {smi}: tiles (x0, width) "
+                  + json.dumps(td["spans"]) + "; collectives a step "
                   + json.dumps({t: run["collectives"] for t, run in td["runs"].items()})
                   + "; peak device memory MiB (peak, above the inputs) "
                   + json.dumps(td["memory_mib"]) + "; device ms by stage (torch.profiler, "
@@ -2650,6 +2935,8 @@ def main() -> int:
         # the other configs on the tiled route: route, bitwise fields, the
         # fill across tile edges, launches on the tile forms, collectives
         for r in ranks:
+            if "configs" not in r:
+                continue
             cd = r["configs"]
             off = {k: v for k, v in cd["routes"].items() if v != "tiled"}
             if off:
@@ -2713,7 +3000,7 @@ def main() -> int:
     # above, and listed under the row's "forms" with its launches by path
     def form_entry(name, k):
         """A kernel's form: its shape, B=1 / B=4 numbers, and its launches
-        per driven path (cuda_nasp.launch_forms)."""
+        per driven path (the wrappers' launch_forms)."""
         r = report[name]
         key = f"{k.get('row', name)}:{k['form']}"
         return {"form": name, "launch_form": key, "max_abs_err": r["max_abs_err"],

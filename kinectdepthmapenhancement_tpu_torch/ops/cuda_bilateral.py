@@ -23,6 +23,9 @@ from kinectdepthmapenhancement_tpu_torch.ops import stencil
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/jbf.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_bilateral.py:108"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# the same launches by the width of the array launched on, "jbf:w<W>"
+# (chip_smoke.py clears it with launches)
+launch_forms: Dict[str, int] = {}
 
 _ARGTYPES = (
     [_build.PTR] * 4 + [_build.INT] * 4 + [_build.FLOAT] * 2 + [_build.INT] * 2
@@ -143,4 +146,5 @@ def jbf(
          int(color_sigma != 0.0), int(depth_sigma != 0.0)),
     )
     launches += 1
+    launch_forms[f"jbf:w{w}"] = launch_forms.get(f"jbf:w{w}", 0) + 1
     return out

@@ -23,6 +23,9 @@ from kinectdepthmapenhancement_tpu_torch.ops import stencil
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/cov.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_cov.py:197"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# the same launches by the width of the array launched on, "cm_covariance:w<W>"
+# (chip_smoke.py clears it with launches)
+launch_forms: Dict[str, int] = {}
 
 MAX_RECT = 21  # ddsa = 20 + z/10 with z <= ~15 m caps the window at 21 px
 MAX_R = MAX_RECT >> 1
@@ -121,4 +124,5 @@ def cm_covariances(
         (vertices_m.data_ptr(), rect.data_ptr(), cnt.data_ptr(), cov.data_ptr(), b, h, w),
     )
     launches += 1
+    launch_forms[f"cm_covariance:w{w}"] = launch_forms.get(f"cm_covariance:w{w}", 0) + 1
     return cnt, cov

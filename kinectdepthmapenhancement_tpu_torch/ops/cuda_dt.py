@@ -12,6 +12,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +22,9 @@ from kinectdepthmapenhancement_tpu_torch import _build
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/dt.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_dt.py:60"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# the same launches by the width of the array launched on, "chamfer_dt:w<W>"
+# (chip_smoke.py clears it with launches)
+launch_forms: Dict[str, int] = {}
 
 # chamfer 3x3 neighbourhood, weights 1 / 1.4 (JAX ops/normals.py:81-85)
 _NEIGH = (
@@ -74,6 +79,7 @@ def distance_transform(dci: torch.Tensor, iterations: int) -> torch.Tensor:
             (src.data_ptr(), from_dci, out.data_ptr(), b, h, w, rounds),
         )
         launches += 1
+        launch_forms[f"chamfer_dt:w{w}"] = launch_forms.get(f"chamfer_dt:w{w}", 0) + 1
         src, from_dci, left = out, 0, left - rounds
         if left == 0:
             return out

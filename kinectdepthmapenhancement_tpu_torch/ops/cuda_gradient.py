@@ -21,8 +21,9 @@ from kinectdepthmapenhancement_tpu_torch.ops import stencil
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/seed_gradient.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_gradient.py:89"
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
-# the same launches by form, "seed_gradient:nasp" or "seed_gradient:color"
-# (chip_smoke.py clears it with launches)
+# the same launches by form, "seed_gradient:nasp" or "seed_gradient:color",
+# with the caller's ":<form>" where it names one (chip_smoke.py clears it
+# with launches)
 launch_forms: Dict[str, int] = {}
 
 R = 5  # the 11x11 gradient window half-width
@@ -73,10 +74,12 @@ def seed_gradient_plain(
 
 
 def seed_gradient(
-    color_f: torch.Tensor, normals: Optional[torch.Tensor] = None
+    color_f: torch.Tensor, normals: Optional[torch.Tensor] = None, form: Optional[str] = None
 ) -> torch.Tensor:
     """Seed gradient (NASP form when `normals` is given): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  form: the caller's
+    name of the input's shape for launch_forms ("tile" for a width tile's
+    sub-grid, "halo" for a haloed width tile)."""
     if color_f.device.type == "cpu":
         return seed_gradient_plain(color_f, normals)
     global launches
@@ -91,6 +94,7 @@ def seed_gradient(
          out.data_ptr(), b, h, w, int(normals is not None)),
     )
     launches += 1
-    key = "seed_gradient:" + ("nasp" if normals is not None else "color")
+    key = "seed_gradient:" + ("nasp" if normals is not None else "color") + (
+        f":{form}" if form else "")
     launch_forms[key] = launch_forms.get(key, 0) + 1
     return out

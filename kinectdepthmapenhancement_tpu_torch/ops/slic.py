@@ -35,17 +35,22 @@ label-cell kernels; each wrapper takes its plain version for CPU tensors);
 later iterations' assignments are plain PyTorch on every route: the JAX
 package has no Pallas kernel there.
 
-On a width tile of whole cells (parallel/sharding.py's tiled route,
-segment_tile and a label index with a `tile`), NASP runs on the tile's
-pixels: the seed gradient on the tile's own sub-grid blocks, the fused
-assignment and the update sums on its cells, with the cluster tables
-replicated over the tile group and every per-cell partial gathered in cell
-order before the fold (CellTile.gather_cells), so each sum is the
-unsharded one bitwise.  Later iterations sweep the tile's pixels at their
-global columns; the cap check's per-frame verdicts are combined over the
-group before the host reads them (every rank takes the same branch), and
-off the cap the global index's float sums run on the group's gathered
-features as one whole-frame product (CellTile.gather_width).
+On a width tile (parallel/sharding.py's tiled route, segment_tile and a
+label index with a `tile`), NASP runs on the tile's pixels with the cluster
+tables replicated over the tile group.  Seeds: the seed gradient on the
+tile's own sub-grid blocks where each seed window's support lies in its
+cell, else on the tile with a GRAD_MARGIN-column halo, each window's
+values read from the tile that holds each pixel.  Over a grid that divides
+the frame (tiles of whole cells) the fused assignment and the update sums
+run on the tile's cells, every per-cell partial gathered in cell order
+before the fold (CellTile.gather_cells), so each sum is the unsharded one
+bitwise; over one that does not, the first assignment is the global sweep
+at the tile's global columns and every update takes the global index,
+whose float sums run on the group's gathered features as one whole-frame
+product (CellTile.gather_width).  Later iterations sweep the tile's pixels
+at their global columns; the cap check's per-frame verdicts are combined
+over the group before the host reads them (every rank takes the same
+branch), and off the cap the global index takes over as above.
 
 SP and DASP (the colour and depth SLICs of RGBF, SPDSP and TOF) seed from
 the colour form of the seed gradient (window 16 / 4) and run every
@@ -85,7 +90,7 @@ from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, st
 INVALID_NORMAL = -1.0
 INIT_DISTANCE = cuda_nasp.INIT_DISTANCE
 
-_GRAD_MARGIN = 5  # the seed gradient's 11x11 window half-width
+GRAD_MARGIN = 5  # the seed gradient's 11x11 window half-width
 # per variant: seed window, candidate neighbourhood ((2r)^2 cells, r =
 # neighbourhood / 2) and the update window's rp numerator (JAX
 # slic.py:1349-1358); later iterations' locality cap is r + 1 (:1430)
@@ -138,14 +143,17 @@ def _update_geometry(grid: GridParams, h: int, w: int, variant: str):
 
 
 class CellTile(Protocol):
-    """A width tile of whole grid cells and its tile group's collectives, as
+    """A width tile and its tile group's collectives, as
     parallel/sharding.py's tiled route hands it to NASP, CCL and the plane
-    stage: cell columns [c0, c0 + cols) of the grid, pixel columns
-    [x0, x0 + cols * cell width) of a frame `width` wide."""
+    stage: pixel columns [x0, x0 + ws) of a frame `width` wide and, over a
+    grid that divides the frame, cell columns [c0, c0 + cols) of the grid
+    (the tile holds them whole; c0 and cols are None on a tile of pixels
+    only)."""
 
-    c0: int
-    cols: int
+    c0: Optional[int]
+    cols: Optional[int]
     x0: int
+    ws: int
     width: int
     # [B, rows, cols, ...] pieces of every tile -> [B, rows, grid cols, ...],
     # in cell order
@@ -161,6 +169,10 @@ class CellTile(Protocol):
     sum_counts: Callable[[torch.Tensor], torch.Tensor]
     # [B, H, ws, ...] of every tile -> the frames [B, H, width, ...]
     gather_width: Callable[[torch.Tensor], torch.Tensor]
+    # (x [B, H, ws, ...], radius) -> (x with radius columns of the
+    # neighbouring tiles each side and none past the frame, the columns kept
+    # on the left)
+    haloed: Callable[[torch.Tensor, int], tuple]
 
 
 class _CellIndex:
@@ -385,7 +397,9 @@ class _GlobalIndex:
         return self._summed(tables.exact_matmul(self.oh.transpose(1, 2), ohb))
 
 
-def _cell_ok(grid: GridParams, h: int, w: int) -> bool:
+def grid_divides(grid: GridParams, h: int, w: int) -> bool:
+    """Whether the grid cuts h x w frames into whole cells (the fused cell
+    route and the cell-aligned tiles need it)."""
     return h % grid.rows == 0 and w % grid.cols == 0
 
 
@@ -457,15 +471,12 @@ def cell_index(
     divide the frame (the JAX package's cell_index gives None there and its
     callers take the global route); `stats_impl` picks the route of the
     cell-local gathers and segment sums (_stats_impl_on).  With a tile the
-    labels are the tile's, the frame tile.width wide, and the grid must
-    divide it."""
+    labels are the tile's, the frame tile.width wide."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
-    if not _cell_ok(grid, h, w):
-        if tile is not None:
-            raise ValueError(f"grid {grid.rows}x{grid.cols} does not divide the tiled {h}x{w}")
-        return _GlobalIndex(labels, grid.num_clusters)
+    if not grid_divides(grid, h, w):
+        return _GlobalIndex(labels, grid.num_clusters, tile=tile)
     return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums, tile=tile)
 
 
@@ -484,7 +495,7 @@ def capped_index(
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
-    if _cell_ok(grid, h, w) and locality != "global" and (
+    if grid_divides(grid, h, w) and locality != "global" and (
         locality == "cell" or _within_cap(labels, grid, cap, h, w, tile)
     ):
         return _CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile)
@@ -512,23 +523,25 @@ def label_index(
 # ----------------------------------------------------------------- seeding
 
 
-def _gradient(color_f: torch.Tensor, normals: Optional[torch.Tensor]) -> torch.Tensor:
+def _gradient(color_f: torch.Tensor, normals: Optional[torch.Tensor],
+              form: Optional[str] = None) -> torch.Tensor:
     """Seed gradient: the colour form (SuperpixelSegmentation.cu:16-46) for
     SP / DASP (normals None); the NASP form scales the colour term by
     (1 - |n.n'|) where both normals are valid (AND-validity),
-    NormalAdaptiveSuperpixel.cu:39-71."""
+    NormalAdaptiveSuperpixel.cu:39-71.  form: the launch form's name
+    (cuda_gradient.seed_gradient)."""
     return cuda_gradient.seed_gradient(
-        color_f.contiguous(), None if normals is None else normals.contiguous())
+        color_f.contiguous(), None if normals is None else normals.contiguous(), form)
 
 
 def _subgrid_ok(grid: GridParams, h: int, w: int, window: int) -> bool:
     """True when every seed window's gradient support stays inside its cell,
     so the gradient can be computed on the seed sub-grid alone."""
-    if not _cell_ok(grid, h, w):
+    if not grid_divides(grid, h, w):
         return False
     ws_x, ws_y = _grid_geometry(grid, h, w)
     r = window // 2
-    m = _GRAD_MARGIN
+    m = GRAD_MARGIN
     return (
         ws_y // 2 - r - m >= 0
         and ws_y // 2 + r - 1 + m <= ws_y - 1
@@ -544,7 +557,7 @@ def _subgrid_extract(
     [B, H, W, C] -> [B, rows*(window+2m), cols*(window+2m), C]."""
     ws_x, ws_y = _grid_geometry(grid, h, w)
     r = window // 2
-    m = _GRAD_MARGIN
+    m = GRAD_MARGIN
     blk = window + 2 * m
     y0 = ws_y // 2 - r - m
     x0 = ws_x // 2 - r - m
@@ -575,7 +588,7 @@ def _sample_seeds_subgrid(
 ) -> torch.Tensor:
     """sample_seeds on the extracted sub-grid: the seed windows sit at the
     centre of each (window+2m) block; ties and ordering identical."""
-    m = _GRAD_MARGIN
+    m = GRAD_MARGIN
     blk = window + 2 * m
     b = gradient_sub.shape[0]
     g_blocks = (
@@ -589,30 +602,42 @@ def _sample_seeds_subgrid(
     return _seeds_from_best(torch.argmin(g_blocks, dim=-1), grid, h, w, window)
 
 
+def _seed_windows(grid: GridParams, height: int, width: int, window: int, device):
+    """(yy, xx) [K * window^2] of every cluster's `window x window` block
+    around its grid centre, clamped to the image, row-major offsets within
+    each block."""
+    ws_x, ws_y = _grid_geometry(grid, height, width)
+    r = window // 2
+    offs = torch.arange(window, device=device) - r
+    cy = torch.arange(grid.rows, device=device) * ws_y + ws_y // 2
+    cx = torch.arange(grid.cols, device=device) * ws_x + ws_x // 2
+    yy = (cy[:, None, None, None] + offs[None, None, :, None]).clamp(0, height - 1)
+    xx = (cx[None, :, None, None] + offs[None, None, None, :]).clamp(0, width - 1)
+    shape = (grid.rows, grid.cols, window, window)
+    return yy.expand(shape).reshape(-1), xx.expand(shape).reshape(-1)
+
+
+def _window_argmin(g: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor, k: int) -> torch.Tensor:
+    """(x, y) seeds [B, K, 2] i32 from the gradient g [B, K * window^2] at
+    _seed_windows' pixels (yy, xx): each block's first minimum (torch.argmin
+    returns the first, as jnp.argmin does)."""
+    b = g.shape[0]
+    best = torch.argmin(g.reshape(b, k, -1), dim=-1)
+    yy = yy.reshape(k, -1).expand(b, -1, -1)
+    xx = xx.reshape(k, -1).expand(b, -1, -1)
+    seed_y = torch.gather(yy, -1, best[..., None])[..., 0]
+    seed_x = torch.gather(xx, -1, best[..., None])[..., 0]
+    return torch.stack([seed_x, seed_y], dim=-1).to(torch.int32)
+
+
 def sample_seeds(
     gradient: torch.Tensor, grid: GridParams, height: int, width: int, window: int
 ) -> torch.Tensor:
     """Per cluster, the (x, y) of the minimum-gradient pixel in a
     `window x window` block around the grid centre (clamped to the image),
     ties to the first pixel in row-major offset order.  -> [B, K, 2] i32."""
-    ws_x, ws_y = _grid_geometry(grid, height, width)
-    dev = gradient.device
-    r = window // 2
-    offs = torch.arange(window, device=dev) - r
-    cy = torch.arange(grid.rows, device=dev) * ws_y + ws_y // 2
-    cx = torch.arange(grid.cols, device=dev) * ws_x + ws_x // 2
-    yy = (cy[:, None, None, None] + offs[None, None, :, None]).clamp(0, height - 1)
-    xx = (cx[None, :, None, None] + offs[None, None, None, :]).clamp(0, width - 1)
-    shape = (grid.rows, grid.cols, window, window)
-    yy, xx = yy.expand(shape).reshape(-1), xx.expand(shape).reshape(-1)
-    b = gradient.shape[0]
-    g = gradient[:, yy, xx].reshape(b, grid.rows, grid.cols, -1)
-    best = torch.argmin(g, dim=-1)
-    yy = yy.reshape(grid.rows, grid.cols, -1).expand(b, -1, -1, -1)
-    xx = xx.reshape(grid.rows, grid.cols, -1).expand(b, -1, -1, -1)
-    seed_y = torch.gather(yy, -1, best[..., None])[..., 0].reshape(b, -1)
-    seed_x = torch.gather(xx, -1, best[..., None])[..., 0].reshape(b, -1)
-    return torch.stack([seed_x, seed_y], dim=-1).to(torch.int32)
+    yy, xx = _seed_windows(grid, height, width, window, gradient.device)
+    return _window_argmin(gradient[:, yy, xx], yy, xx, grid.num_clusters)
 
 
 def _compute_seeds(
@@ -1114,7 +1139,7 @@ def segment(
         if seeds.dim() == 2:
             seeds = seeds.expand(b, -1, -1)
     clusters = init_clusters(seeds, color, points, normals)
-    cell_ok = _cell_ok(grid, h, w)
+    cell_ok = grid_divides(grid, h, w)
     if variant == "nasp" and cell_ok:
         # assignment + analyze sums in one call, weighted sums in a second
         labels, distance, clusters, idx = _nasp_fused_first_iteration(
@@ -1138,12 +1163,47 @@ def segment(
     return SLICResult(labels=labels, distance=distance, clusters=clusters)
 
 
-def nasp_tile_ok(grid: GridParams, h: int, w: int, ws: int) -> bool:
-    """True when NASP can run on width tiles ws wide of h x w frames
-    (segment_tile): the grid divides the frame, each tile holds whole cells,
-    and each seed window's gradient support stays in its cell."""
-    return (_cell_ok(grid, h, w) and ws % (w // grid.cols) == 0
-            and _subgrid_ok(grid, h, w, _VARIANTS["nasp"][0]))
+def _tile_clusters(color_f, points, normals, grid: GridParams, h: int, w: int,
+                   tile: CellTile) -> Clusters:
+    """The initial NASP cluster table [B, K, ...] on every rank of the tile
+    group from the tile's frames (color_f, points, normals [B, H, ws, 3]):
+    _compute_seeds' seeds on the whole frames and init_clusters' rows.
+    Where each seed window's support lies in its cell (_subgrid_ok on a
+    tile of whole cells) the gradient runs on the tile's own sub-grid
+    blocks and the tile's rows are gathered in cell order; otherwise it
+    runs on the tile with a GRAD_MARGIN-column halo (none past the frame:
+    the gradient's edge clamp is then the frame's), each seed window's
+    values are read from the tile that holds each pixel (clamped to the
+    image, as sample_seeds reads them), the first minimum is taken on every
+    rank, and the rows are read at the seeds."""
+    window = _VARIANTS["nasp"][0]
+    b, _, ws = color_f.shape[:3]
+    k = grid.num_clusters
+    planes = torch.cat([color_f, points, normals], dim=-1)  # rgb, centre, normal
+    if tile.c0 is not None and _subgrid_ok(grid, h, w, window):
+        grid_t = GridParams(rows=grid.rows, cols=tile.cols)  # the tile's cells
+        csub = _subgrid_extract(color_f, grid_t, h, ws, window)
+        nsub = _subgrid_extract(normals, grid_t, h, ws, window)
+        seeds = _sample_seeds_subgrid(_gradient(csub, nsub, "tile"), grid_t, h, ws, window)
+        shift = torch.tensor([tile.x0, 0], dtype=torch.int32, device=seeds.device)
+        # one gather of the tile's rows: rgb, centre, normal, global (x, y)
+        rows_t = torch.cat([_at_pixels(planes, seeds[..., 0], seeds[..., 1]),
+                            (seeds + shift).to(torch.float32)], dim=-1)
+        table = tile.gather_cells(rows_t.reshape(b, grid.rows, tile.cols, -1)).reshape(b, k, -1)
+        seeds = table[..., 9:11].to(torch.int32)
+    else:
+        padded, left = tile.haloed(torch.cat([color_f, normals], dim=-1), GRAD_MARGIN)
+        g = _gradient(padded[..., :3], padded[..., 3:], "halo")[:, :, left:left + ws]
+        yy, xx = _seed_windows(grid, h, w, window, color_f.device)
+        vals = tile.pixels_at(g, xx.expand(b, -1), yy.expand(b, -1))
+        seeds = _window_argmin(vals, yy, xx, k)
+        table = tile.pixels_at(planes, seeds[..., 0], seeds[..., 1])
+    zeros = torch.zeros((b, k), dtype=torch.float32, device=color_f.device)
+    return Clusters(
+        rgb=table[..., 0:3].contiguous(), xy=seeds, size=zeros.to(torch.int32),
+        center=table[..., 3:6].contiguous(), normal=table[..., 6:9].contiguous(),
+        variance=zeros,
+    )
 
 
 def segment_tile(
@@ -1155,51 +1215,43 @@ def segment_tile(
     params: SLICParams,
     tile: CellTile,
 ) -> SLICResult:
-    """NASP on a width tile of whole cells: segment's NASP route on the
-    tile's frames color u8 [B, H, ws, 3], points and normals f32
-    [B, H, ws, 3] (ws = tile.cols cell widths at tile.x0 of a frame
-    tile.width wide), every rank of the tile group calling it.  The seed
-    gradient runs on the tile's own sub-grid blocks (each seed window's
-    support lies in its cell), the tile's rows of the initial cluster table
-    are gathered into the global one (tile.gather_cells), then the fused
-    first iteration and the weighted update run on the tile with the
-    cluster tables replicated, and each later iteration too
-    (later_iteration with the tile).  Returns the tile's labels and
-    distance and the global cluster table, each bitwise the matching part
-    of segment's result on the whole frames."""
+    """NASP on a width tile: segment's NASP route on the tile's frames color
+    u8 [B, H, ws, 3], points and normals f32 [B, H, ws, 3] (columns
+    [tile.x0, tile.x0 + ws) of a frame tile.width wide), every rank of the
+    tile group calling it.  The initial table from the tile's seeds
+    (_tile_clusters), replicated; over a grid that divides the frame (the
+    tile then holds whole cells) the fused first iteration and the weighted
+    update on the tile's cells, over one that does not the global sweep from
+    the grid-init labels at the tile's global columns and the update on the
+    global index's tile form; each later iteration as later_iteration with
+    the tile.  Returns the tile's labels and distance and the global cluster
+    table, each bitwise the matching part of segment's result on the whole
+    frames."""
     if params.locality not in ("auto", "cell", "global"):
         raise ValueError(f"locality must be 'auto', 'cell' or 'global', got {params.locality!r}")
-    seed_window = _VARIANTS["nasp"][0]
     b, h, ws = color.shape[:3]
     w = tile.width
-    grid_t = GridParams(rows=grid.rows, cols=tile.cols)  # the tile's cells
-    if not nasp_tile_ok(grid, h, w, ws) or ws != tile.cols * (w // grid.cols):
-        raise ValueError(f"a {ws}-px tile of {tile.cols} cells does not hold whole seed "
-                         f"cells of grid {grid.rows}x{grid.cols} on {h}x{w}")
+    cell_ok = grid_divides(grid, h, w)
+    if ws != tile.ws or (cell_ok and (tile.c0 is None or ws != tile.cols * (w // grid.cols))):
+        raise ValueError(f"a {ws}-px tile is not the tile {tile.ws} wide at {tile.x0} "
+                         f"(of whole cells of grid {grid.rows}x{grid.cols} on {h}x{w})")
     kernel = _stats_impl_on(params.stats_impl)
     s_scale, window_range = _update_geometry(grid, h, w, "nasp")
     color_f = color.to(torch.float32).contiguous()
     frame = (color_f, points.contiguous(), normals.contiguous())
-
-    csub = _subgrid_extract(color_f, grid_t, h, ws, seed_window)
-    nsub = _subgrid_extract(frame[2], grid_t, h, ws, seed_window)
-    seeds = _sample_seeds_subgrid(_gradient(csub, nsub), grid_t, h, ws, seed_window)
-    local = init_clusters(seeds, color, *frame[1:])
-    shift = torch.tensor([tile.x0, 0], dtype=torch.int32, device=seeds.device)
-    # one gather of the tile's rows: rgb, global (x, y), centre, normal
-    rows_t = torch.cat([local.rgb, (seeds + shift).to(torch.float32), local.center,
-                        local.normal], dim=-1)
-    table = tile.gather_cells(rows_t.reshape(b, grid.rows, tile.cols, -1)).reshape(
-        b, grid.num_clusters, -1)
-    clusters = Clusters(
-        rgb=table[..., 0:3].contiguous(), xy=table[..., 3:5].to(torch.int32),
-        size=torch.zeros((b, grid.num_clusters), dtype=torch.int32, device=color.device),
-        center=table[..., 5:8].contiguous(), normal=table[..., 8:11].contiguous(),
-        variance=torch.zeros((b, grid.num_clusters), dtype=torch.float32, device=color.device),
-    )
-    labels, distance, clusters, idx = _nasp_fused_first_iteration(
-        clusters, *frame, grid, params, window_range, s_scale, h, w, kernel=kernel, tile=tile)
-    clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
+    clusters = _tile_clusters(*frame, grid, h, w, tile)
+    if cell_ok:
+        labels, distance, clusters, idx = _nasp_fused_first_iteration(
+            clusters, *frame, grid, params, window_range, s_scale, h, w, kernel=kernel,
+            tile=tile)
+        clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
+    else:
+        labels = init_labels(grid, h, w, color.device)[:, tile.x0:tile.x0 + ws].expand(b, h, ws)
+        distance = torch.full((b, h, ws), INIT_DISTANCE, dtype=torch.float32, device=color.device)
+        labels, distance = _assign_global(
+            labels, distance, clusters, *frame, grid, params, s_scale, x0=tile.x0)
+        idx = _GlobalIndex(labels, grid.num_clusters, tile=tile)
+        clusters = _update("nasp", idx, clusters, *frame, params, window_range, h, w)
     for _ in range(1, params.iterations):
         labels, distance, clusters = later_iteration(
             labels, distance, clusters, *frame, grid=grid, params=params, tile=tile)

@@ -14,12 +14,13 @@ memory (mesh.wire).  A stencil whose own edge rule is not a zero pad
 takes a halo filled with its out-of-image value (exchange_width's
 `fill`: -1 for labels) or none at the global edges (drop_global_edges:
 the tile's edge is then the frame's, for replicate pads and +inf
-borders).
+borders).  retile moves columns between two tilings of the same frames
+(the data tiles and the cell-aligned ones of the tiled KDE route).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -97,7 +98,55 @@ def drop_global_edges(padded: torch.Tensor, radius: int, mesh: Mesh) -> Tuple[to
     return padded[:, :, lo:hi], radius - lo
 
 
-def gather_width(tile: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The full-width frames [B, H, x * ws, ...] from every rank's tile of
-    this 'x' group, in 'x' order (dist.all_gather over the group)."""
-    return all_gather_x(tile, mesh, dim=2)
+def gather_width(tile: torch.Tensor, mesh: Mesh,
+                 widths: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The full-width frames [B, H, W, ...] from every rank's tile of this
+    'x' group, in 'x' order (dist.all_gather over the group); widths: every
+    rank's tile width where they differ (cell-aligned tiles)."""
+    return all_gather_x(tile, mesh, dim=2, sizes=widths)
+
+
+def retile(x: torch.Tensor, src: Sequence[Tuple[int, int]], dst: Sequence[Tuple[int, int]],
+           mesh: Mesh) -> torch.Tensor:
+    """This rank's columns src[s] of frames x [B, H, width, ...] -> its
+    columns dst[s] [B, H, width', ...]: src and dst are every rank's (x0,
+    width) of two tilings of the same frames (Mesh.tile_spans).  Each rank
+    sends the columns of its tile that another rank's dst holds to that
+    rank, one message a peer (dist.batch_isend_irecv; on the card under
+    NCCL, through host memory under gloo), and keeps its own; a copy, so
+    exact.  Every rank of the 'x' group calls it."""
+    x0, width = src[mesh.s]
+    y0, width_y = dst[mesh.s]
+    if x.shape[2] != width:
+        raise ValueError(f"a tile {x.shape[2]} wide; rank {mesh.s}'s source tile is {width}")
+    if mesh.x == 1:
+        return x
+    group = mesh.x_group
+    ops, pieces = [], []
+    for peer_s in range(mesh.x):
+        # my columns that peer_s holds in dst, and its columns that I hold
+        p0, pw = dst[peer_s]
+        lo, hi = max(x0, p0), min(x0 + width, p0 + pw)
+        if peer_s != mesh.s and hi > lo:
+            send = wire(x[:, :, lo - x0:hi - x0].contiguous(), group)
+            ops.append(dist.P2POp(dist.isend, send, mesh.x_ranks[peer_s], group))
+        q0, qw = src[peer_s]
+        lo, hi = max(q0, y0), min(q0 + qw, y0 + width_y)
+        if hi <= lo:
+            continue
+        if peer_s == mesh.s:
+            pieces.append(x[:, :, lo - x0:hi - x0])
+        else:
+            shape = (x.shape[0], x.shape[1], hi - lo) + tuple(x.shape[3:])
+            recv = wire(torch.empty(shape, dtype=x.dtype, device=x.device), group)
+            ops.append(dist.P2POp(dist.irecv, recv, mesh.x_ranks[peer_s], group))
+            pieces.append(recv)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    note_collective()
+    out = torch.cat([piece.to(x.device) for piece in pieces], dim=2)
+    if out.shape[2] != width_y:
+        raise ValueError(f"the source tiles cover {out.shape[2]} of the {width_y} columns of "
+                         f"rank {mesh.s}'s destination tile")
+    return out

@@ -12,18 +12,23 @@ rows' frames).
 Without torch.distributed initialised the mesh is 1 x 1, on the device the
 caller names (the card by default).
 
-Width tiles of whole grid cells (the tiled KDE route, sharding.py): a
-rank's tile starts at global column x0 = s * ws and holds cell columns
-[c0, c0 + tile cols) (Mesh.tile_cells); gather_cells puts the group's
-per-cell pieces back in cell order.  `collectives` counts the collective
-calls over a process group (each exchange or gather here and in halo.py).
+Width tiles (the tiled KDE route, sharding.py): a rank's data tile is
+columns [s * ws, (s + 1) * ws) of frames W = x * ws wide (width_tile).
+Over a grid that divides the frame, a rank's cell-aligned tile holds the
+cells whose first column lies in its data tile (Mesh.cell_tiles: uneven
+where a data tile splits a cell); Mesh.tile_spans gives every rank's
+(x0, width) of the data tiles, and the gathers here take uneven pieces
+(padded to the widest, then cut in 'x' order).  gather_cells puts the
+group's per-cell pieces back in cell order.  `collectives` counts the
+collective calls over a process group (each exchange or gather here and
+in halo.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -80,17 +85,28 @@ class Mesh:
         ws = w // self.x
         return frames[:, :, self.s * ws:(self.s + 1) * ws]
 
-    def tile_cells(self, w: int, grid_cols: int) -> Tuple[int, int, int]:
-        """(x0, c0, tile cols) of this rank's width tile of frames w wide
-        over a grid of grid_cols cell columns: its first global column, its
-        first cell column and its count of cell columns.  Raises unless the
-        grid divides w and the tile holds whole cells."""
-        if w % self.x or w % grid_cols or (w // self.x) % (w // grid_cols):
+    def cell_tiles(self, w: int, grid_cols: int) -> Tuple[Tuple[int, int, int], ...]:
+        """Every rank's (x0, c0, tile cols) of the 'x' group's cell-aligned
+        tiles of frames w wide over a grid of grid_cols cell columns: rank s
+        holds the cells whose first column lies in its data tile [s * ws,
+        (s + 1) * ws), so a data tile at least one cell wide gives every rank
+        at least one cell; x0 is the tile's first global column, c0 its first
+        cell column.  Tiles of several ranks differ in width where a data
+        tile splits a cell.  Raises unless x and the grid divide w and a data
+        tile is at least one cell wide."""
+        if w % self.x or w % grid_cols or w // self.x < w // grid_cols:
             raise ValueError(f"{self.x} width tiles of {w} columns do not hold whole cells "
                              f"of a {grid_cols}-column grid")
         ws, cell = w // self.x, w // grid_cols
-        return self.s * ws, self.s * (ws // cell), ws // cell
+        firsts = [-(-s * ws // cell) for s in range(self.x + 1)]  # ceil(s * ws / cell)
+        return tuple((c0 * cell, c0, c1 - c0) for c0, c1 in zip(firsts, firsts[1:]))
 
+    def tile_spans(self, w: int) -> Tuple[Tuple[int, int], ...]:
+        """Every rank's (x0, width) of the 'x' group's data tiles of frames
+        w wide (width_tile)."""
+        if w % self.x:
+            raise ValueError(f"width {w} is not divisible by the mesh's x = {self.x}")
+        return tuple((s * (w // self.x), w // self.x) for s in range(self.x))
 
 def wire(t: torch.Tensor, group) -> torch.Tensor:
     """t as `group`'s backend carries it: through host memory under gloo
@@ -106,25 +122,38 @@ def note_collective() -> None:
     collectives += 1
 
 
-def all_gather_x(t: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
-    """The 'x' group's pieces of t (each rank's of the same shape)
-    concatenated along `dim` in 'x' order (dist.all_gather over the
-    group); t itself at x == 1."""
+def all_gather_x(t: torch.Tensor, mesh: Mesh, dim: int = 2,
+                 sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The 'x' group's pieces of t concatenated along `dim` in 'x' order
+    (dist.all_gather over the group); t itself at x == 1.  The pieces are
+    of one shape, or `sizes` gives every rank's extent along `dim`: each
+    piece is then padded to the largest and cut back after the gather."""
     if mesh.x == 1:
         return t
+    if sizes is not None and sizes[mesh.s] != t.shape[dim]:
+        raise ValueError(f"rank {mesh.s}'s piece is {t.shape[dim]} along dim {dim}, "
+                         f"its size is {sizes[mesh.s]}")
+    if sizes is not None and t.shape[dim] < max(sizes):
+        pad = list(t.shape)
+        pad[dim] = max(sizes) - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
     group = mesh.x_group
     mine = wire(t.contiguous(), group)
     parts = [torch.empty_like(mine) for _ in range(mesh.x)]
     dist.all_gather(parts, mine, group=group)
     note_collective()
+    if sizes is not None:
+        parts = [part.narrow(dim, 0, n) for part, n in zip(parts, sizes)]
     return torch.cat(parts, dim=dim).to(t.device)
 
 
-def gather_cells(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def gather_cells(x: torch.Tensor, mesh: Mesh,
+                 tile_cols: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Per-cell pieces [B, rows, tile cols, ...] of every rank of the 'x'
     group -> [B, rows, cols, ...], in global cell order (the tiles hold
-    consecutive cell columns in 'x' order)."""
-    return all_gather_x(x, mesh, dim=2)
+    consecutive cell columns in 'x' order); tile_cols: every rank's count
+    where they differ (cell-aligned tiles)."""
+    return all_gather_x(x, mesh, dim=2, sizes=tile_cols)
 
 
 def make_mesh(n_devices: Optional[int] = None, spatial: int = 1, device=None) -> Mesh:

@@ -11,27 +11,36 @@ PyTorch has no such partitioner, so the two regimes are written out:
     frames and the JBF runs on the haloed tile (stencil_shard.jbf_sharded,
     the csrc/jbf.cu kernel).  spatial_route then picks, from the config
     and the shapes alone, one of two routes for the stages after the JBF:
-      - "tiled" (any KDEConfig on tiles of whole grid cells): each rank
-        runs them on its own tile (pipelines._kde_from_jbf with a
-        WidthTile): the normals from a haloed tile of points
-        (stencil_shard.normals_sharded: CM and SDC 27 columns, the DT and
-        covariance kernels on the haloed tile, SDC's summed-area tables
-        built from the group's gathered depth; bilateral 1 column), NASP's
-        seeds on the tile's own cells, its first iteration and weighted
-        update on the tile's cells (the cell kernels at the tile's first
-        cell column) and its later iterations' sweep on the tile's pixels,
-        the cap check's verdict combined over the group; the CCL merge
-        (normal or plane merge) with a one-column label halo, the plane
-        stage per pixel, the hole fill from a fill_holes-column halo and
-        the depth bilateral from a 3-column halo.  Every cluster sum goes
-        through per-(cell, candidate) partials gathered in cell order (not
-        summed) and folded replicated, or, on the global index of labels
-        past the cap, through the group's gathered features in one
-        whole-frame product, so the [B, K, ...] tables are the unsharded
-        ones bitwise;
-      - "replicated" (tiles that split a cell, a grid that does not
-        divide the frame, tiles narrower than a halo): the filtered depth
-        and the colour tiles are all-gathered over the 'x' group, the
+      - "tiled" (any KDEConfig, whenever each tile is at least as wide as
+        its halos): each rank runs them on its own tile
+        (pipelines._kde_from_jbf with a WidthTile).  Over a grid that
+        divides the frame the tile holds whole cells: the data tile itself
+        where it does, else the cell-aligned tile (Mesh.cell_tiles: the
+        cells whose first column lies in the data tile), to which the
+        filtered depth and the colour move first and from which the maps
+        move back after (halo.retile).  The normals from a haloed tile of
+        points (stencil_shard.normals_sharded: CM and SDC 27 columns, the
+        DT and covariance kernels on the haloed tile, SDC's summed-area
+        tables built from the group's gathered depth; bilateral 1 column);
+        NASP's seeds on the tile's own cells (the sub-grid gradient) or,
+        where a seed window's support leaves its cell, from the gradient on
+        a 5-column haloed tile with each window read from the tile that
+        holds each pixel; its first iteration and weighted update on the
+        tile's cells (the cell kernels at the tile's first cell column)
+        over a grid that divides the frame, else the global sweep from the
+        grid-init labels at the tile's global columns and the global
+        index; its later iterations' sweep on the tile's pixels, the cap
+        check's verdict combined over the group; the CCL merge (normal or
+        plane merge) with a one-column label halo, the plane stage per
+        pixel, the hole fill from a fill_holes-column halo and the depth
+        bilateral from a 3-column halo.  Every cluster sum goes through
+        per-(cell, candidate) partials gathered in cell order (not summed)
+        and folded replicated, or, on the global index, through the
+        group's gathered features in one whole-frame product, so the
+        [B, K, ...] tables are the unsharded ones bitwise;
+      - "replicated" (tiles narrower than a halo, data tiles narrower than
+        a cell; and by name, spatial_kde(route="replicated")): the filtered
+        depth and the colour tiles are all-gathered over the 'x' group, the
         stages after the JBF run on the whole frames on every rank of the
         group, and each rank keeps its own width slice.
 
@@ -77,9 +86,9 @@ def disable_pallas(cfg: KDEConfig) -> KDEConfig:
     does not call it: no partitioner ever meets its kernels.  On its tiled
     route every kernel of the path runs on the rank's own tile (the JBF,
     DT and covariance on haloed tiles, the seed gradient on the tile's
-    sub-grid, the NASP cell kernels at the tile's first cell column); on
-    its replicated route the JBF runs on the tile and the rest on the
-    gathered whole frames."""
+    sub-grid or on a haloed tile, the NASP cell kernels at the tile's first
+    cell column); on its replicated route the JBF runs on the tile and the
+    rest on the gathered whole frames."""
     return dataclasses.replace(
         cfg,
         normals=dataclasses.replace(cfg.normals, cov_impl="xla", dt_impl="xla"),
@@ -88,44 +97,60 @@ def disable_pallas(cfg: KDEConfig) -> KDEConfig:
 
 
 class WidthTile:
-    """This rank's width tile of whole grid cells on the tiled route: the
-    slic.CellTile that NASP, CCL and the plane stage read (its cell and
-    pixel columns, the 'x' group's cell and width gathers, pixel lookup,
-    count sum and label halo), and the stencil stages that
-    pipelines._kde_from_jbf runs on haloed tiles.  Every method that
+    """This rank's width tile on the tiled route: the slic.CellTile that
+    NASP, CCL and the plane stage read (its pixel columns and, over a grid
+    that divides the frame, its cell columns; the 'x' group's cell and width
+    gathers, pixel lookup, count sum, halos and label halo), and the stencil
+    stages that pipelines._kde_from_jbf runs on haloed tiles.  The tiles of
+    frames h x w are tile_spans': cell-aligned over a grid that divides the
+    frame (uneven where a data tile splits a cell), else the data tiles,
+    pixel columns only (no cell kernel runs there).  Every method that
     communicates is a collective of the 'x' group."""
 
-    def __init__(self, mesh: Mesh, grid: GridParams, w: int):
+    def __init__(self, mesh: Mesh, grid: GridParams, h: int, w: int):
         self.mesh = mesh
         self.width = w
-        self.x0, self.c0, self.cols = mesh.tile_cells(w, grid.cols)
-        self.ws = w // mesh.x
+        self.spans, self.tile_cols = tile_spans(mesh, grid, h, w)
+        self.widths = tuple(width for _, width in self.spans)
+        self.x0, self.ws = self.spans[mesh.s]
+        self.c0 = self.cols = None
+        if self.tile_cols is not None:
+            self.c0, self.cols = self.x0 // (w // grid.cols), self.tile_cols[mesh.s]
 
     def gather_cells(self, x: torch.Tensor) -> torch.Tensor:
-        return gather_cells(x, self.mesh)
+        return gather_cells(x, self.mesh, self.tile_cols)
 
     def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """img [B, H, ws, ...] (the tile) at global pixels (x, y) [B, K]:
+        """img [B, H, ws, ...] (the tile) at global pixels (x, y) [B, N]:
         each rank reads the pixels of its columns, the group's reads are
-        gathered, and each pixel takes its own tile's value (a selection,
-        exact)."""
+        gathered, and each pixel takes the value of the tile that holds it
+        (a selection, exact)."""
         b, h, ws = img.shape[:3]
         flat = img.reshape((b, h * ws) + tuple(img.shape[3:]))
         local = (x.long() - self.x0).clamp(0, ws - 1)
         mine = flat[torch.arange(b, device=img.device)[:, None], y.long() * ws + local]
-        every = all_gather_x(mine[None], self.mesh, dim=0)  # [x, B, K, ...]
-        owner = (x.long() // ws).reshape((1,) + tuple(x.shape) + (1,) * (mine.dim() - 2))
+        every = all_gather_x(mine[None], self.mesh, dim=0)  # [x, B, N, ...]
+        starts = torch.tensor([x0 for x0, _ in self.spans[1:]], device=x.device)
+        owner = torch.bucketize(x.long().contiguous(), starts, right=True)
+        owner = owner.reshape((1,) + tuple(x.shape) + (1,) * (mine.dim() - 2))
         return torch.gather(every, 0, owner.expand((1,) + tuple(mine.shape)))[0]
 
     def gather_width(self, x: torch.Tensor) -> torch.Tensor:
         """The frames [B, H, W, ...] from every rank's tile x [B, H, ws, ...]."""
-        return halo.gather_width(x.contiguous(), self.mesh)
+        return halo.gather_width(x.contiguous(), self.mesh, self.widths)
 
     def sum_counts(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the 'x' group of each rank's integer-valued f32
         counts x (< 2^24: exact, the same in any order), gathered and added
         in 'x' order."""
         return all_gather_x(x[None], self.mesh, dim=0).sum(dim=0)
+
+    def haloed(self, x: torch.Tensor, radius: int):
+        """(x [B, H, ws, ...] with `radius` columns of its neighbours each
+        side and none past the frame, the columns kept on the left): the
+        tile's edge at the frame's edge is the frame's."""
+        return halo.drop_global_edges(halo.exchange_width(x, radius, self.mesh), radius,
+                                      self.mesh)
 
     def right_labels(self, labels: torch.Tensor) -> torch.Tensor:
         """[B, H, 1]: the labels of the column right of the tile (its right
@@ -137,7 +162,8 @@ class WidthTile:
         return rays[:, self.x0:self.x0 + self.ws]
 
     def normal_map(self, points: torch.Tensor, p: NormalParams) -> torch.Tensor:
-        return normals_sharded(points, self.mesh, p)
+        return normals_sharded(points, self.mesh, p, x0=self.x0, width=self.width,
+                               widths=self.widths)
 
     def plane_hole_fill(self, optimized, rays, labels, nd_map, trust, invalid,
                         steps: int) -> torch.Tensor:
@@ -149,38 +175,77 @@ class WidthTile:
         return depth_bilateral_sharded(optimized, rays, self.mesh, p)
 
 
+def tile_spans(mesh: Mesh, grid: GridParams, h: int, w: int):
+    """(spans, tile_cols) of the tiles the tiled route's stages after the
+    JBF run on for frames h x w: over a grid that divides the frame the
+    cell-aligned tiles (Mesh.cell_tiles), every rank's (x0, width) and its
+    count of cell columns; else the data tiles' (x0, width) and None.
+    Raises where a data tile is narrower than a cell of a grid that divides
+    the frame."""
+    if not slic.grid_divides(grid, h, w):
+        return mesh.tile_spans(w), None
+    cell = w // grid.cols
+    tiles = mesh.cell_tiles(w, grid.cols)
+    return (tuple((x0, cols * cell) for x0, _, cols in tiles),
+            tuple(cols for _, _, cols in tiles))
+
+
+def tile_halo(cfg: KDEConfig) -> int:
+    """The widest halo a tile of the tiled route supplies: the normals'
+    (normals_halo), the depth bilateral's, the hole fill's and the seed
+    gradient's (slic.GRAD_MARGIN)."""
+    return max(normals_halo(cfg.normals), cfg.projection.window // 2, cfg.fill_holes,
+               slic.GRAD_MARGIN)
+
+
 def spatial_route(mesh: Mesh, cfg: KDEConfig, h: int, w: int) -> str:
     """The route of the stages after the JBF on this mesh for frames h x w:
-    "tiled" when 'x' > 1 cuts the width into tiles of whole grid cells
-    (slic.nasp_tile_ok: the grid divides the frame, each seed window's
-    support lies in its cell) and each tile is at least as wide as its
-    halos (the normals', the depth bilateral's and the hole fill's), for
-    any normal method, NASP iteration count, merge and hole fill;
+    "tiled" when 'x' > 1 cuts the width into data tiles at least one grid
+    cell wide and every tile the stages run on is at least as wide as its
+    halos (tile_halo): the data tiles where the grid does not divide the
+    frame (NASP's global route), else the cell-aligned tiles (tile_spans),
+    for any normal method, NASP iteration count, merge and hole fill;
     "replicated" otherwise, and at 'x' == 1 (where each rank runs
     kde_pipeline on its own frames).  A choice on the static arguments,
     not a fallback: a kernel that fails on a tile raises."""
-    if mesh.x == 1 or w % mesh.x:
+    if mesh.x == 1 or w % mesh.x or w // mesh.x < w // cfg.grid.cols:
         return "replicated"
-    ws = w // mesh.x
-    if not slic.nasp_tile_ok(cfg.grid, h, w, ws):
-        return "replicated"
-    if ws < max(normals_halo(cfg.normals), cfg.projection.window // 2, cfg.fill_holes):
-        return "replicated"
-    return "tiled"
+    spans, _ = tile_spans(mesh, cfg.grid, h, w)
+    return "tiled" if min(width for _, width in spans) >= tile_halo(cfg) else "replicated"
 
 
 def _tiled_kde_from_jbf(jbf_t: torch.Tensor, color_t: torch.Tensor, mesh: Mesh,
                         intr: Intrinsics, cfg: KDEConfig) -> KDEResult:
     """The stages after the JBF on this rank's width tile (the tiled
-    route): jbf_t f32 [B, H, ws], color_t u8 [B, H, ws, 3] -> the tile's
-    KDEResult ([B, H, ws, ...] maps, the whole frames' [B, K] tables).
-    Raises where spatial_route does not read "tiled"."""
+    route): jbf_t f32 [B, H, ws], color u8 [B, H, ws, 3] (the data tile)
+    -> the data tile's KDEResult ([B, H, ws, ...] maps, the whole frames'
+    [B, K] tables).  Where the data tiles split a grid cell, the filtered
+    depth and the colour (packed in one tensor) move to the cell-aligned
+    tiles first and the maps back after (halo.retile).  Raises where
+    spatial_route does not read "tiled"."""
     b, h, ws = jbf_t.shape
     w = ws * mesh.x
     if spatial_route(mesh, cfg, h, w) != "tiled":
         raise ValueError(f"the stages after the JBF have no tiled form for this config on "
                          f"{mesh.x} tiles of {h}x{w}")
-    return _kde_from_jbf(jbf_t, color_t, intr, cfg, tile=WidthTile(mesh, cfg.grid, w))
+    tile = WidthTile(mesh, cfg.grid, h, w)
+    data = mesh.tile_spans(w)
+    if tile.spans == data:
+        return _kde_from_jbf(jbf_t, color_t, intr, cfg, tile=tile)
+    f32 = torch.float32
+    moved = halo.retile(torch.cat([jbf_t[..., None], color_t.to(f32)], dim=-1), data,
+                        tile.spans, mesh)
+    res = _kde_from_jbf(moved[..., 0].contiguous(), moved[..., 1:].to(torch.uint8).contiguous(),
+                        intr, cfg, tile=tile)
+    # the maps in one tensor (labels < 2^24, exact in f32)
+    maps = torch.cat([res.optimized_points, res.plane_fitted, res.normals,
+                      res.nasp_labels.to(f32)[..., None], res.merged_labels.to(f32)[..., None]],
+                     dim=-1)
+    back = halo.retile(maps, tile.spans, data, mesh)
+    return res._replace(
+        optimized_points=back[..., 0:3].contiguous(), plane_fitted=back[..., 3:6].contiguous(),
+        jbf_depth=jbf_t, normals=back[..., 6:9].contiguous(),
+        nasp_labels=back[..., 9].to(torch.int32), merged_labels=back[..., 10].to(torch.int32))
 
 
 # the KDEResult fields that are maps [B, H, W, ...]; the rest are [B, K] tables
@@ -193,7 +258,9 @@ def spatial_kde(depth_t: torch.Tensor, color_t: torch.Tensor, mesh: Mesh, intr: 
     """KDE of this rank's width tile at 'x' > 1: depth f32 [b, H, ws] and
     color u8 [b, H, ws, 3] -> (route, the tile's KDEResult): the JBF on the
     haloed tile, then the stages after it on spatial_route's route (on the
-    replicated one, each per-pixel field is cut to the tile).  Every field
+    tiled one on the data tile or the cell-aligned tile, each per-pixel
+    field moved back to the data tile; on the replicated one on the
+    gathered frames, each per-pixel field cut to the tile).  Every field
     is bitwise the tile's part of kde_pipeline on the whole frames.  Every
     rank of the 'x' group calls it.  `route` names one to take instead
     (chip_smoke.py measures the replicated route beside the tiled one);

@@ -26,7 +26,7 @@ bitwise the tile's columns of the unsharded normals.generate_normal_map
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -98,42 +98,45 @@ def normals_halo(p: NormalParams = NormalParams()) -> int:
 
 
 def normals_sharded(
-    points: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams()
+    points: torch.Tensor, mesh: Mesh, p: NormalParams, x0: int, width: int,
+    widths: Sequence[int],
 ) -> torch.Tensor:
     """Normal map of this rank's width tile, any method: points f32
     [B, H, ws, 3] mm -> normals [B, H, ws, 3], bitwise the tile's columns
     of normals.generate_normal_map on the whole frames.  Every rank of the
     'x' group calls it: one exchange of normals_halo(p) columns of points
     and, for SDC, one gather of the group's depth (its summed-area tables
-    are whole-frame prefixes, [B, H, W] f32), then haloed_normals."""
+    are whole-frame prefixes, [B, H, W] f32), then haloed_normals.  The
+    tile starts at global column x0 of frames `width` wide, and widths is
+    every rank's tile width."""
     padded = halo.exchange_width(points, normals_halo(p), mesh)
-    frame_z = (halo.gather_width(points[..., 2].contiguous(), mesh) if p.method == "sdc"
-               else None)
-    return haloed_normals(padded, mesh, p, frame_z=frame_z)
+    frame_z = (halo.gather_width(points[..., 2].contiguous(), mesh, widths)
+               if p.method == "sdc" else None)
+    return haloed_normals(padded, mesh, p, x0, width, frame_z=frame_z)
 
 
 def haloed_normals(
-    padded: torch.Tensor, mesh: Mesh, p: NormalParams = NormalParams(),
+    padded: torch.Tensor, mesh: Mesh, p: NormalParams, x0: int, width: int,
     frame_z: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The tile's normals [B, H, ws, 3] from its points padded with
     normals_halo(p) columns as exchange_width pads them (and, for SDC, the
-    whole frame's depth frame_z [B, H, W] mm).  The halos at the global
-    image edges are dropped (drop_global_edges: dci_map's replicate right
-    neighbour, the cross product's replicate pad, the covariance sweep's
-    zero pad, SDC's clamped edge shifts and the DT's +inf border then see
-    the frame's edge there); the smoothing map, the DT kernel (csrc/dt.cu),
-    the covariance kernel (csrc/cov.cu) or SDC's box reads at global
-    columns run unchanged on the haloed tile, the border tests on global
-    columns, and the halo is cropped.  No kept value reads the outermost
-    halo column.  (The DT's far value is w + h of the haloed tile, not of
-    the frame: both exceed the smoothing size 20 + z/10 the map clamps
-    to.)"""
+    whole frame's depth frame_z [B, H, W] mm); the tile starts at global
+    column x0 of frames `width` wide.  The halos at the global image edges
+    are dropped (drop_global_edges: dci_map's replicate right neighbour,
+    the cross product's replicate pad, the covariance sweep's zero pad,
+    SDC's clamped edge shifts and the DT's +inf border then see the frame's
+    edge there); the smoothing map, the DT kernel (csrc/dt.cu), the
+    covariance kernel (csrc/cov.cu) or SDC's box reads at global columns
+    run unchanged on the haloed tile, the border tests on global columns,
+    and the halo is cropped.  No kept value reads the outermost halo
+    column.  (The DT's far value is w + h of the haloed tile, not of the
+    frame: both exceed the smoothing size 20 + z/10 the map clamps to.)"""
     radius = normals_halo(p)
     ws = padded.shape[2] - 2 * radius
     tile, left = halo.drop_global_edges(padded, radius, mesh)
-    nmap = normals.generate_normal_map(tile.contiguous(), p, x0=mesh.s * ws - left,
-                                       width=mesh.x * ws, frame_z=frame_z)
+    nmap = normals.generate_normal_map(tile.contiguous(), p, x0=x0 - left, width=width,
+                                       frame_z=frame_z)
     return nmap[:, :, left:left + ws].contiguous()
 
 

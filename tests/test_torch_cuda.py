@@ -44,7 +44,12 @@ truth.  The 640x480 main path is held against the JAX package's output
 (tests/golden/kde_jax_640x480_seed0.npz, golden.kde_gates) and against
 ground truth (tests/test_pipelines.py:31-51), and the far-range gate of
 tests/test_oracle_pipeline.py:230-287 runs on make_banded_scene.
-chip_smoke.py runs the same checks at the 640x480 path's shapes.
+The tiled route's forms: the seed gradient on 5-column haloed width tiles
+of a 424x512 Kinect v2 frame (x = 2 and 4) bitwise its plain version and
+the whole frame's columns, and the four cell kernels on the uneven
+cell-aligned tiles of x = 8 at 640x480 (3 and 2 cells) against their plain
+versions and the full frame's cells.  chip_smoke.py runs the same checks
+at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -1248,7 +1253,7 @@ def test_dt_and_cov_kernels_on_haloed_tiles(inputs, x):
         assert torch.equal(cnt, cnt_p) and _same_bits(cov, cov_p), s
         padded = torch.nn.functional.pad(points, (0, 0, r, r))[:, :, s * ws:s * ws + ws + 2 * r]
         mesh = dataclasses.replace(make_mesh(device=str(points.device)), x=x, s=s)
-        got = stencil_shard.haloed_normals(padded, mesh, p)
+        got = stencil_shard.haloed_normals(padded, mesh, p, s * ws, W)
         assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s
 
 
@@ -1334,5 +1339,121 @@ def test_bilateral_and_sdc_normals_on_haloed_tiles(inputs, method):
         for s in range(x):
             padded = torch.nn.functional.pad(points, (0, 0, r, r))[:, :, s * ws:s * ws + ws + 2 * r]
             mesh = dataclasses.replace(make_mesh(device=str(points.device)), x=x, s=s)
-            got = stencil_shard.haloed_normals(padded, mesh, p, frame_z=frame_z)
+            got = stencil_shard.haloed_normals(padded, mesh, p, s * ws, W, frame_z=frame_z)
             assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), (x, s)
+
+
+@pytest.mark.parametrize("x", [2, 4])
+def test_seed_gradient_on_haloed_tiles_at_kinect_v2(dev, x):
+    """The seed gradient kernel on each width tile of a 424x512 Kinect v2
+    frame (grid 15x20 does not divide it: the tiled route's haloed form),
+    its colour and normals padded with GRAD_MARGIN = 5 columns of the
+    neighbouring tiles and none past the frame (CellTile.haloed): bitwise
+    its plain version on the haloed tile, the tile's columns bitwise the
+    whole frame's kernel, and the seed windows read from the tiles give
+    the whole frame's seeds."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import halo
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+
+    h, w = 424, 512
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
+    cfg = KDEConfig()
+    c = torch.from_numpy(color).to(dev)[None]
+    d = torch.from_numpy(noisy).to(dev)[None]
+    points = projective_to_real(bilateral.joint_bilateral_filter(d, c, cfg.jbf), intr)
+    nmap = normals.generate_normal_map(points, cfg.normals).contiguous()
+    cf = c.float().contiguous()
+    full = cuda_gradient.seed_gradient(cf, nmap)
+    m = slic.GRAD_MARGIN
+    padded_frame = torch.nn.functional.pad(torch.cat([cf, nmap], -1), (0, 0, m, m))
+    ws = w // x
+    tiles = []
+    for s in range(x):
+        mesh = dataclasses.replace(make_mesh(device=str(dev)), x=x, s=s)
+        padded, left = halo.drop_global_edges(padded_frame[:, :, s * ws:s * ws + ws + 2 * m],
+                                              m, mesh)
+        cpad, npad = padded[..., :3].contiguous(), padded[..., 3:].contiguous()
+        got = cuda_gradient.seed_gradient(cpad, npad, "halo")
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_gradient.seed_gradient_plain(cpad, npad)), s
+        tiles.append(got[:, :, left:left + ws])
+        assert torch.equal(tiles[-1], full[:, :, s * ws:(s + 1) * ws]), s
+    g = torch.cat(tiles, dim=2)
+    yy, xx = slic._seed_windows(cfg.grid, h, w, 8, dev)
+    assert torch.equal(slic._window_argmin(g[:, yy, xx], yy, xx, cfg.grid.num_clusters),
+                       slic.sample_seeds(full, cfg.grid, h, w, 8))
+
+
+# cell-aligned tiles (c0, tile cols) of the 640x480 path's 20-column grid at
+# x = 8, whose 80-px data tiles split the 32-px cells: the first, second and
+# last
+UNEVEN_640 = [(0, 3), (3, 2), (18, 2)]
+UNEVEN_640_IDS = ["x8s0", "x8s1", "x8s7"]
+
+
+@pytest.mark.parametrize("c0, tc", UNEVEN_640, ids=UNEVEN_640_IDS)
+def test_nasp_kernels_on_uneven_cell_aligned_tiles(frame640, c0, tc):
+    """The four NASP cell kernels on the uneven cell-aligned tiles of x = 8
+    at 640x480 (3 and 2 cells): the fused assignment's labels and distance
+    and the gathers (F = 6, 1, 3) bitwise their plain versions on the
+    tile, the sums (the analyze partials, the weighted sums, the label sums
+    at F = 2) to sums_close; and each bitwise the full frame's kernel's
+    cells and columns."""
+    x, grid = frame640, frame640["cfg"].grid
+    h, w = FULL["h"], FULL["w"]
+    cw = w // grid.cols
+    tile = dict(c0=c0, tile_cols=tc)
+    t = [_tile_cols(a, c0, tc, cw) for a in (x["cf"], x["points"], x["nmap"])]
+    p = x["cfg"].nasp
+    seeds = slic._compute_seeds(x["cf"], x["nmap"], grid, h, w, 8)
+    cl = slic.init_clusters(seeds, x["color"], x["points"], x["nmap"])
+    s_scale, (lo, hi) = slic._update_geometry(grid, h, w, "nasp")
+    cand, akw = slic._assign_args(cl, grid, p, s_scale)
+    full = cuda_nasp.nasp_assign_and_analyze(x["cf"], x["points"], x["nmap"], cand, lo=lo,
+                                             hi=hi, **akw)
+    got = cuda_nasp.nasp_assign_and_analyze(*t, cand, lo=lo, hi=hi, **akw, **tile)
+    want = cuda_nasp.nasp_assign_and_analyze_plain(*t, cand, lo=lo, hi=hi, **akw, **tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cell = dict(rows=grid.rows, cols=grid.cols, r=4)
+    kw = dict(cell, lo=lo, hi=hi, mode="analyze", **tile)
+    scale = cuda_nasp.nasp_cell_sums_plain(got[0], *t, cand[..., 3:5].contiguous(),
+                                           abs_terms=True, **kw)
+    assert cuda_nasp.sums_close(got[2], want[2], scale, cuda_nasp.INTEGER_FEATURES["analyze"])
+    assert torch.equal(got[0], _tile_cols(full[0], c0, tc, cw))
+    assert torch.equal(got[1], _tile_cols(full[1], c0, tc, cw))
+    assert torch.equal(got[2], _tile_part(full[2], grid, c0, tc))
+
+    labels, one = x["labels"][4], x["clusters"][4]
+    lab_t = _tile_cols(labels, c0, tc, cw)
+    fields = torch.cat([one.xy.float(), one.rgb, one.normal], -1).reshape(
+        1, grid.rows, grid.cols, -1).contiguous()
+    kw = dict(cell, lo=lo, hi=hi, mode="weighted", color_sigma=p.color_sigma,
+              spatial_sigma=p.spatial_sigma)
+    g = cuda_nasp.nasp_cell_sums(lab_t, *t, fields, **kw, **tile)
+    w_ = cuda_nasp.nasp_cell_sums_plain(lab_t, *t, fields, **kw, **tile)
+    s_ = cuda_nasp.nasp_cell_sums_plain(lab_t, *t, fields, abs_terms=True, **kw, **tile)
+    f_ = cuda_nasp.nasp_cell_sums(labels, x["cf"], x["points"], x["nmap"], fields, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nasp.sums_close(g, w_, s_, cuda_nasp.INTEGER_FEATURES["weighted"])
+    assert torch.equal(g, _tile_part(f_, grid, c0, tc))
+
+    z = x["points"][..., 2]
+    ok = ((z > 50.0) & (labels >= 0)).float()
+    feats = torch.stack([(z * 1e-3) ** 2 * ok, ok], -1).contiguous()
+    f_t = _tile_cols(feats, c0, tc, cw)
+    g = cuda_nasp.label_cell_sums(lab_t, f_t, **cell, **tile)
+    w_ = cuda_nasp.label_cell_sums_plain(lab_t, f_t, **cell, **tile)
+    s_ = cuda_nasp.label_cell_sums_plain(lab_t, f_t.abs(), **cell, **tile)
+    f_ = cuda_nasp.label_cell_sums(labels, feats, **cell)
+    torch.cuda.synchronize()
+    assert cuda_nasp.sums_close(g, w_, s_)
+    assert torch.equal(g, _tile_part(f_, grid, c0, tc))
+    table = torch.cat([one.center, one.normal], -1).contiguous()
+    for tab in (table, table[..., 2:3].contiguous(), table[..., :3].contiguous()):
+        g = cuda_nasp.label_cell_gather(lab_t, tab, **cell, **tile)
+        torch.cuda.synchronize()
+        assert torch.equal(g, cuda_nasp.label_cell_gather_plain(lab_t, tab, **cell, **tile))
+        assert torch.equal(g, _tile_cols(cuda_nasp.label_cell_gather(labels, tab, **cell),
+                                         c0, tc, cw))

@@ -17,9 +17,13 @@ filled across the tile edges; the cap check on a tile's labels (global
 columns) equals the frame's verdict over the tile's pixels, and the
 global sweep on a tile the frame's columns; the global index's tile form
 at world 1 equals the untiled index; the label halo is -1 past the
-frame; the tile geometry and spatial_route's choice for every config;
-and the whole tiled stage list at world 1 (a WidthTile of every cell)
-equals kde_pipeline.  The card runs the kernels at the same tiles
+frame; the tile geometry (cell-aligned tiles where a data tile splits a
+cell) and spatial_route's choice for every config; the seed gradient of
+5-column haloed tiles and the seeds read from them (grid 5x6, which does
+not divide the frame) equal the whole frame's; the plain cell functions
+at the uneven cell-aligned tiles of grid 4x5 on 96x160 frames equal the
+full frame's cells; and the whole tiled stage list at world 1 (a
+WidthTile of every cell) equals kde_pipeline.  The card runs the kernels at the same tiles
 (tests/test_torch_cuda.py); tests/test_torch_tiled_configs.py runs the
 other configs' tiled steps on gloo ranks.
 """
@@ -180,7 +184,8 @@ def test_normals_from_haloed_tiles(frames, x):
     ws = W // x
     want = frames["nmap"]
     for s in range(x):
-        got = stencil_shard.haloed_normals(_halo(frames["points"], s, ws, r), _mesh(x, s), p)
+        got = stencil_shard.haloed_normals(_halo(frames["points"], s, ws, r), _mesh(x, s), p,
+                                           s * ws, W)
         assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s
 
 
@@ -207,7 +212,7 @@ def test_label_halo_and_global_edges():
     labels = torch.arange(2 * 3 * 5, dtype=torch.int32).reshape(2, 3, 5)
     got = halo.exchange_width(labels, 1, mesh, fill=-1)
     assert torch.equal(got, F.pad(labels, (1, 1), value=-1))
-    tile = sharding.WidthTile(mesh, GridParams(rows=3, cols=5), 5)
+    tile = sharding.WidthTile(mesh, GridParams(rows=3, cols=5), 3, 5)
     assert torch.equal(tile.right_labels(labels), torch.full((2, 3, 1), -1, dtype=torch.int32))
     padded = torch.arange(10)[None, None].expand(1, 1, 10)  # radius 2 each side of 6
     for s, want_left, cols in ((0, 0, (2, 10)), (1, 2, (0, 10)), (3, 2, (0, 8))):
@@ -216,15 +221,44 @@ def test_label_halo_and_global_edges():
 
 
 def test_tile_cells_geometry():
-    """Mesh.tile_cells: (x0, c0, tile cols) of each rank's tile of whole
-    cells; tiles that split a cell raise."""
-    assert _mesh(2, 1).tile_cells(640, 20) == (320, 10, 10)
-    assert _mesh(4, 3).tile_cells(640, 20) == (480, 15, 5)
-    assert _mesh(4, 1).tile_cells(128, 4) == (32, 1, 1)
+    """Mesh.cell_tiles: (x0, c0, tile cols) of each rank's
+    cell-aligned tile, the cells whose first column lies in its data tile:
+    whole-cell data tiles unchanged; x = 8 at 640 (80-px data tiles of
+    32-px cells) gives tiles of 3 and 2 cells, every rank at least one, x0
+    and c0 in order and the tiles covering the frame; sharding.tile_spans
+    gives every rank's (x0, width) of the cell-aligned tiles where the grid
+    divides the frame, else of the data tiles (Mesh.tile_spans).  A grid that does not divide
+    the frame, or a data tile narrower than a cell, raises."""
+    assert _mesh(2, 1).cell_tiles(640, 20)[1] == (320, 10, 10)
+    assert _mesh(4, 3).cell_tiles(640, 20)[3] == (480, 15, 5)
+    assert _mesh(4, 1).cell_tiles(128, 4)[1] == (32, 1, 1)
+    tiles = _mesh(8, 0).cell_tiles(640, 20)
+    assert [cols for _, _, cols in tiles] == [3, 2] * 4
+    assert all(_mesh(8, s).cell_tiles(640, 20) == tiles for s in range(8))
+    for cols, (x0, c0, tc) in zip((160, 96, 120), (_mesh(x, 0).cell_tiles(160, 5)[1]
+                                                    for x in (2, 4, 5))):
+        assert x0 == c0 * 32 and tc >= 1, (cols, x0, c0, tc)
+    for x, w, cols in ((8, 640, 20), (4, 640, 10), (2, 160, 5), (4, 160, 5), (4, 120, 5)):
+        tiles = _mesh(x, 0).cell_tiles(w, cols)
+        cell = w // cols
+        assert tiles[0][:2] == (0, 0) and all(t[2] >= 1 for t in tiles), (x, w)
+        for (x0, c0, tc), (x1, c1, _) in zip(tiles, tiles[1:]):
+            assert x1 == x0 + tc * cell and c1 == c0 + tc, (x, w)
+        assert sum(t[2] for t in tiles) == cols
+        spans, tile_cols = sharding.tile_spans(_mesh(x, 0), GridParams(rows=4, cols=cols), 96, w)
+        assert spans == tuple((x0, tc * cell) for x0, _, tc in tiles)
+        assert tile_cols == tuple(tc for _, _, tc in tiles)
+    assert sharding.tile_spans(_mesh(4, 0), GridParams(rows=15, cols=10), 480, 640) == (
+        ((0, 192), (192, 128), (320, 192), (512, 128)), (3, 2, 3, 2))
+    assert sharding.tile_spans(_mesh(4, 0), GridParams(rows=4, cols=5), 96, 160)[0] == (
+        (0, 64), (64, 32), (96, 32), (128, 32))
+    crop = ((0, 157), (157, 157), (314, 157), (471, 157))
+    assert _mesh(4, 0).tile_spans(628) == crop
+    assert sharding.tile_spans(_mesh(4, 0), KDEConfig().grid, 480, 628) == (crop, None)
     with pytest.raises(ValueError, match="whole cells"):
-        _mesh(4, 0).tile_cells(628, 20)
+        _mesh(4, 0).cell_tiles(628, 20)
     with pytest.raises(ValueError, match="whole cells"):
-        _mesh(8, 0).tile_cells(640, 20)  # 80-px tiles of 32-px cells
+        _mesh(8, 0).cell_tiles(128, 4)  # 16-px data tiles of 32-px cells
 
 
 def _tiled_configs(cfg):
@@ -243,12 +277,18 @@ def _tiled_configs(cfg):
 
 
 def test_spatial_route():
-    """"tiled" for every KDEConfig on tiles of whole cells (the default and
-    the six configs of tests/test_torch_tiled_configs.py: 640x480 at x = 2
-    and 4, the 96x128 test frames with grid 3x4 at x = 2 and 4);
-    "replicated" where a tile splits a cell (x = 8 at 640, the 628 crop, a
-    126-column frame), where the grid does not divide the frame (5x6 at
-    96x128), for a hole fill wider than a tile, and at x = 1."""
+    """"tiled" for every KDEConfig whose tiles are at least as wide as their
+    halos and a data tile at least one cell wide: tiles of whole cells (the
+    default and the six configs of tests/test_torch_tiled_configs.py:
+    640x480 at x = 2 and 4, the 96x128 test frames with grid 3x4 at x = 2
+    and 4); grids that do not divide the frame (5x6 at 96x128 at x = 2 and
+    4, a 126-column frame at x = 2, the 628 crop at x = 4, Kinect v2's
+    424x512 at x = 2 and 4); data tiles that split a cell (x = 8 and 16 at
+    640, grid 15x10 at x = 4, grid 4x5 on 96x160 at x = 2 and 4).  "replicated"
+    for a tile narrower than a halo (a hole fill wider than a tile; the
+    24-px cell-aligned tiles of grid 4x5 on 96x120 at x = 4, narrower than
+    the normals' 27 columns), a data tile narrower than a cell, and at
+    x = 1."""
     cfg = KDEConfig()
     route = sharding.spatial_route
     small = dataclasses.replace(cfg, grid=GRID)
@@ -258,15 +298,116 @@ def test_spatial_route():
     for c in [small] + _tiled_configs(small):
         for x in (2, 4):
             assert route(_mesh(x, x - 1), c, H, W) == "tiled", (x, c)
-    assert route(_mesh(4, 0), cfg, 480, 628) == "replicated"  # 157-px tiles, grid 20
-    assert route(_mesh(1, 0), cfg, 480, 640) == "replicated"
-    assert route(_mesh(8, 0), cfg, 480, 640) == "replicated"  # 80-px tiles split cells
-    assert route(_mesh(2, 0), small, H, 126) == "replicated"
     for c in _tiled_configs(dataclasses.replace(cfg, grid=GridParams(rows=5, cols=6))):
-        assert route(_mesh(2, 0), c, H, W) == "replicated"
+        for x in (2, 4):
+            assert route(_mesh(x, 0), c, H, W) == "tiled", (x, c)
+    grid45 = dataclasses.replace(cfg, grid=GridParams(rows=4, cols=5))
+    grid1510 = dataclasses.replace(cfg, grid=GridParams(rows=15, cols=10))
+    for x, c, h, w in ((2, small, H, 126), (4, cfg, 480, 628), (2, cfg, 424, 512),
+                       (4, cfg, 424, 512), (8, cfg, 480, 640), (16, cfg, 480, 640),
+                       (4, grid1510, 480, 640), (2, grid45, 96, 160), (4, grid45, 96, 160)):
+        assert route(_mesh(x, 0), c, h, w) == "tiled", (x, h, w)
+    assert route(_mesh(1, 0), cfg, 480, 640) == "replicated"
+    assert route(_mesh(4, 0), grid45, 96, 120) == "replicated"  # 24-px cell-aligned tiles
+    assert route(_mesh(8, 0), small, H, W) == "replicated"  # 16-px data tiles, 32-px cells
+    assert route(_mesh(32, 0), cfg, 480, 640) == "replicated"  # 20-px data tiles
     assert route(_mesh(4, 0), dataclasses.replace(small, fill_holes=40), H, W) == "replicated"
     with pytest.raises(ValueError, match="route"):
         sharding.spatial_kde(None, None, _mesh(2, 0), None, cfg, route="halo")
+
+
+@pytest.mark.parametrize("x", [2, 4])
+def test_seeds_from_haloed_tiles(frames, x):
+    """Grid 5x6 (it does not divide 96x128): the seed gradient of each tile
+    from its colour and normals padded with GRAD_MARGIN = 5 columns as
+    exchange_width pads them, the halos at the frame's edges dropped
+    (CellTile.haloed), cropped to the tile, equals the tile's columns of
+    the whole frame's gradient; and the seed windows read from those tiles
+    (slic._window_argmin) give _compute_seeds' seeds."""
+    grid = GridParams(rows=5, cols=6)
+    cf, nmap = frames["cf"], frames["nmap"]
+    ws = W // x
+    tiles = []
+    for s in range(x):
+        padded, left = halo.drop_global_edges(
+            _halo(torch.cat([cf, nmap], -1), s, ws, slic.GRAD_MARGIN), slic.GRAD_MARGIN,
+            _mesh(x, s))
+        tiles.append(slic._gradient(padded[..., :3], padded[..., 3:])[:, :, left:left + ws])
+    g = torch.cat(tiles, dim=2)
+    assert torch.equal(g, slic._gradient(cf, nmap))
+    yy, xx = slic._seed_windows(grid, H, W, 8, cf.device)
+    assert torch.equal(slic._window_argmin(g[:, yy, xx], yy, xx, grid.num_clusters),
+                       slic._compute_seeds(cf, nmap, grid, H, W, 8))
+
+
+SPLIT_W = 160  # grid 4x5 on 96x160: 24x32-px cells
+SPLIT_GRID = GridParams(rows=4, cols=5)
+# the cell-aligned tiles (c0, tile cols) of x = 2 and x = 4
+SPLIT_TILES = [(0, 3), (3, 2), (0, 2), (2, 1), (3, 1), (4, 1)]
+SPLIT_IDS = ["x2s0", "x2s1", "x4s0", "x4s1", "x4s2", "x4s3"]
+
+
+@pytest.fixture(scope="module")
+def split_frames():
+    """frames()' first NASP iteration on make_noisy_scene(96, 160, seed=0,
+    1) over grid 4x5, and the full frame's weighted sums."""
+    intr = default_kinect_intrinsics(SPLIT_W, H)
+    scenes = [make_noisy_scene(H, SPLIT_W, intr, seed=s) for s in (0, 1)]
+    color = torch.from_numpy(np.stack([s[0] for s in scenes]))
+    depth = torch.from_numpy(np.stack([s[1] for s in scenes]))
+    cfg = dataclasses.replace(KDEConfig(), grid=SPLIT_GRID)
+    points = projective_to_real(bilateral.joint_bilateral_filter(depth, color, cfg.jbf), intr)
+    nmap = normals.generate_normal_map(points, cfg.normals)
+    cf = color.float()
+    cl = slic.init_clusters(slic._compute_seeds(cf, nmap, SPLIT_GRID, H, SPLIT_W, 8), color,
+                            points, nmap)
+    s_scale, (lo, hi) = slic._update_geometry(SPLIT_GRID, H, SPLIT_W, "nasp")
+    cand, akw = slic._assign_args(cl, SPLIT_GRID, cfg.nasp, s_scale)
+    labels, dist, part = cuda_nasp.nasp_assign_and_analyze_plain(
+        cf, points, nmap, cand, lo=lo, hi=hi, **akw)
+    fields = torch.cat([cand[..., 3:5], cand[..., 0:3], cand[..., 6:9]], -1).contiguous()
+    kw = dict(rows=4, cols=5, r=4, lo=lo, hi=hi, mode="weighted", color_sigma=10.0,
+              spatial_sigma=50.0)
+    weighted = cuda_nasp.nasp_cell_sums_plain(labels, cf, points, nmap, fields, **kw)
+    return dict(cf=cf, points=points, nmap=nmap, cand=cand, akw=akw, lo=lo, hi=hi,
+                labels=labels, dist=dist, part=part, fields=fields, kw=kw, weighted=weighted)
+
+
+@pytest.mark.parametrize("c0, tc", SPLIT_TILES, ids=SPLIT_IDS)
+def test_cell_plain_functions_at_uneven_tiles(split_frames, c0, tc):
+    """The four cell functions' plain versions on the cell-aligned tiles of
+    grid 4x5 on 96x160 at x = 2 and 4 (3 / 2 and 2 / 1 / 1 / 1 cells): the
+    fused assignment's labels, distance and partials, the weighted sums,
+    the label sums (F = 2) and the gathers (F = 6, 1, 3) equal the full
+    frame's cells and columns."""
+    x = split_frames
+    cols = slice(c0 * 32, (c0 + tc) * 32)
+    t = [a[:, :, cols].contiguous() for a in (x["cf"], x["points"], x["nmap"])]
+    tile = dict(c0=c0, tile_cols=tc)
+    labels, dist, part = cuda_nasp.nasp_assign_and_analyze_plain(
+        *t, x["cand"], lo=x["lo"], hi=x["hi"], **x["akw"], **tile)
+
+    def cells(p, n=64):
+        b, _, f = p.shape
+        return p.reshape(b, 4, 5, n, f)[:, :, c0:c0 + tc].reshape(b, -1, f)
+
+    assert torch.equal(labels, x["labels"][:, :, cols])
+    assert torch.equal(dist, x["dist"][:, :, cols])
+    assert torch.equal(part, cells(x["part"]))
+    got = cuda_nasp.nasp_cell_sums_plain(labels, *t, x["fields"], **x["kw"], **tile)
+    assert torch.equal(got, cells(x["weighted"]))
+    z = x["points"][..., 2]
+    ok = ((z > 50.0) & (x["labels"] >= 0)).float()
+    feats = torch.stack([(z * 1e-3) ** 2 * ok, ok], -1)
+    kw = dict(rows=4, cols=5, r=4)
+    full = cuda_nasp.label_cell_sums_plain(x["labels"], feats, **kw)
+    got = cuda_nasp.label_cell_sums_plain(labels, feats[:, :, cols].contiguous(), **kw, **tile)
+    assert torch.equal(got, cells(full))
+    table6 = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 20, 6)).astype(np.float32))
+    for table in (table6, table6[..., 2:3], table6[..., :3]):
+        full = cuda_nasp.label_cell_gather_plain(x["labels"], table, **kw)
+        got = cuda_nasp.label_cell_gather_plain(labels, table, **kw, **tile)
+        assert torch.equal(got, full[:, :, cols])
 
 
 @pytest.mark.parametrize("x", [2, 4])
@@ -284,7 +425,7 @@ def test_bilateral_and_sdc_normals_from_haloed_tiles(frames, method, x):
     frame_z = points[..., 2].contiguous() if method == "sdc" else None
     ws = W // x
     for s in range(x):
-        got = stencil_shard.haloed_normals(_halo(points, s, ws, r), _mesh(x, s), p,
+        got = stencil_shard.haloed_normals(_halo(points, s, ws, r), _mesh(x, s), p, s * ws, W,
                                            frame_z=frame_z)
         assert torch.equal(got, want[:, :, s * ws:(s + 1) * ws]), s
     with pytest.raises(ValueError, match="frame's z"):
@@ -381,7 +522,7 @@ def test_global_index_tile_form_at_world_one(frames):
     labels = x["labels"]
     k = GRID.num_clusters
     tiled = slic._GlobalIndex(labels, k, tile=sharding.WidthTile(make_mesh(device="cpu"), GRID,
-                                                                  W))
+                                                                  H, W))
     plain = slic._GlobalIndex(labels, k)
     table = torch.from_numpy(np.random.default_rng(5).normal(size=(2, k, 3)).astype(np.float32))
     xs = torch.tensor([[0, 40, 127], [5, 64, 100]])
@@ -405,6 +546,6 @@ def test_tiled_stages_at_world_one(frames):
     want = kde_pipeline(d, c, x["intr"], x["cfg"])
     jbf = bilateral.joint_bilateral_filter(d, c, x["cfg"].jbf)
     got = _kde_from_jbf(jbf, c, x["intr"], x["cfg"],
-                        tile=sharding.WidthTile(mesh, GRID, W))
+                        tile=sharding.WidthTile(mesh, GRID, H, W))
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
