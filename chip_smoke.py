@@ -162,6 +162,16 @@ Phases (each prints its results; any failure exits non-zero):
      kde_pipeline call, one exchange_width under NCCL and under gloo, and
      jbf_sharded a tile against the unsharded JBF, printed beside the
      card's name and power limit (one card: not a scaling number);
+  12. (before phase 9's summary) drive the compiled call (core/jit.py,
+     phase12): each of the slice's kde_pipeline configs (default, plane
+     merge + fill_holes=4, three NASP iterations "auto" and "global", SDC
+     and bilateral normals, the 424x512 Kinect v2 frames) and the JBF and
+     MRF baselines at B=1 and B=4 through jit, the replay bitwise the
+     eager call, every kernel of the eager call in the capture's launches
+     and in a profiled replay, eager against replay ms, capture ms, pool
+     and busy share; the conditional node taken both ways; run_stream at
+     batch 1, 4 and 8 and a resumed run; a host read under jit raising.
+     `python3 chip_smoke.py --phase12` runs phases 1, 2 and 12 alone;
   9. print the kernels JSON line (one entry per TPU kernel of the repo,
      each with its forms and their launches by path, and its launches on
      phase 10's and phase 11's paths), then {"ok": true, "device": ...}
@@ -671,6 +681,326 @@ def _phase11_configs(res, mesh, frames, intr, counted) -> None:
                     lambda cfg=cfg: kde_pipeline(depth, color, intr, cfg))
 
 
+
+# csrc kernel names (PORT_KERNEL's group) -> the launch counters' names
+KERNEL_COUNTER = {
+    "jbf_kernel": "cuda_bilateral", "dt_kernel": "cuda_dt", "cov_kernel": "cuda_cov",
+    "grad_kernel": "cuda_gradient", "assign_analyze_kernel": "nasp_assign_analyze",
+    "nasp_sums_kernel": "nasp_cell_sums", "label_sums_kernel": "label_cell_sums",
+    "label_gather_kernel": "label_cell_gather",
+}
+
+
+def phase12(dev, smi: str) -> dict:
+    """Phase 12: the compiled call (core/jit.py) on the card.  (a) each of
+    the slice's kde_pipeline configs at 640x480 (and the 424x512 Kinect v2
+    frames), B=1 and B=4, through jit: the capture from launch counts at 0
+    launches every kernel the eager call launches, the replay is bitwise
+    the eager call's and a second replay's outputs are other tensors with
+    the same bits, every kernel the eager call runs is in a profiled
+    replay by name, with the replay's device busy share; eager against
+    replay ms (CUDA events, median of 5), capture ms and the graph's pool;
+    JBF and MRF likewise; (b) the conditional taken both ways: a jitted
+    with_capped_index on labels that hold the cap and on labels that break
+    it, bitwise the eager host branch each way, each branch counted on the
+    device; (c) run_stream at batch 1, 4 and 8, every chunk bitwise
+    kde_pipeline's, frames/s, and a run stopped at 16 frames and resumed
+    from its checkpoint equal to the uninterrupted one; (d) a function
+    that reads a tensor on the host raises under jit, and a replay still
+    runs after it.  Returns the numbers it prints."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.core.camera import (
+        default_kinect_intrinsics, projective_to_real,
+    )
+    from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
+    from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
+    from kinectdepthmapenhancement_tpu_torch.models import pipelines, streaming
+    from kinectdepthmapenhancement_tpu_torch.ops import (
+        cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, slic,
+    )
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    wrappers = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
+
+    def reset_counts():
+        for m in wrappers:
+            m.launches = 0
+            m.launch_forms.clear()
+        for name in cuda_nasp.launches:
+            cuda_nasp.launches[name] = 0
+        cuda_nasp.launch_forms.clear()
+
+    def counts():
+        c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in wrappers}
+        c.update(cuda_nasp.launches)
+        return c
+
+    def frames(h, w, seeds=range(4)):
+        intr_f = default_kinect_intrinsics(w, h)
+        sc = [make_noisy_scene(h, w, intr_f, seed=s) for s in seeds]
+        return (intr_f, torch.from_numpy(np.stack([s[1] for s in sc])).to(dev),
+                torch.from_numpy(np.stack([s[0] for s in sc])).to(dev), sc)
+
+    intr, depth4, color4, scenes = frames(480, 640)
+    intr_v2, vdepth4, vcolor4, _ = frames(424, 512)
+
+    def replay_profile(fn):
+        """One profiled call of fn (a replay): the port's kernels in its
+        device trace by counter name, its device activities and busy
+        share (the union of their intervals over their span); None when
+        the trace holds no device activity."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = [ev for ev in prof.profiler.kineto_results.events()
+                if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()]
+        if not acts:
+            return None
+        names = set()
+        for ev in acts:
+            m = PORT_KERNEL.match(ev.name())
+            if m and m.group(1) in KERNEL_COUNTER:
+                names.add(KERNEL_COUNTER[m.group(1)])
+        busy_ns, end = 0, None
+        spans = sorted((ev.start_ns(), ev.end_ns()) for ev in acts)
+        for a, b in spans:
+            if end is None or a >= end:
+                busy_ns, end = busy_ns + b - a, b
+            elif b > end:
+                busy_ns, end = busy_ns + b - end, b
+        span_ms = (end - spans[0][0]) / 1e6
+        return {"kernels": sorted(names), "activities": len(acts),
+                "busy_ms": busy_ns / 1e6, "wall_ms": wall_ms, "span_ms": span_ms,
+                "busy_share": busy_ns / 1e6 / span_ms}
+
+    def fields(out):
+        return out._asdict() if hasattr(out, "_asdict") else {"out": out}
+
+    def same(a, b) -> list:
+        """The fields of a and b that differ (bitwise)."""
+        fa, fb = fields(a), fields(b)
+        return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+    kept = []  # every jitted call of (a), alive until (a) ends
+
+    def hold(tag, fn, args):
+        """fn through jit against the eager fn(*args): launches, bits,
+        aliasing, kernels in a profiled replay, times.  Returns the row.
+        The graph stays alive until the caller clears it: on an H100
+        under torch 2.11 the profiler has named a replay's kernels
+        wrongly after an earlier graph was destroyed."""
+        reset_counts()
+        eager = fn(*args)
+        torch.cuda.synchronize()
+        ran = {k for k, n in counts().items() if n}
+        reset_counts()
+        f = jit.jit(fn)
+        kept.append(f)
+        got = f(*args)
+        torch.cuda.synchronize()
+        captured = counts()
+        missing = [k for k in ran if not captured[k]]
+        if missing:
+            _fail(f"phase 12 {tag}: the capture never launched {missing}")
+        reset_counts()
+        again = f(*args)
+        torch.cuda.synchronize()
+        if any(counts().values()):
+            _fail(f"phase 12 {tag}: a replay launched from Python: {counts()}")
+        diff, diff2 = same(got, eager), same(again, eager)
+        if diff or diff2:
+            _fail(f"phase 12 {tag}: the replay differs from the eager call in {diff or diff2}")
+        alias = [k for k, v in fields(got).items() if v.data_ptr() == fields(again)[k].data_ptr()]
+        if alias:
+            _fail(f"phase 12 {tag}: two replays return the same tensors for {alias}")
+        for _ in range(3):  # a trace may come back short of device records
+            prof = replay_profile(lambda: f(*args))
+            absent = sorted(ran - set(prof["kernels"] if prof else ()))
+            if prof and not absent:
+                break
+            print(f"phase 12 {tag}: a profiled replay without {absent or 'device activity'}; "
+                  f"branches taken {f.info()[0]['taken']}")
+        if not prof:
+            _fail(f"phase 12 {tag}: three profiled replays held no device activity")
+        if absent:
+            _fail(f"phase 12 {tag}: kernels of the eager call absent from a profiled replay: "
+                  f"{absent} (trace: {prof['kernels']})")
+        eager_ms = cuda_ms(lambda: fn(*args), warmup=1, iters=5)
+        replay_ms = cuda_ms(lambda: f(*args), warmup=1, iters=5)
+        (key,) = f.info()
+        row = {"eager_ms": eager_ms, "replay_ms": replay_ms, "capture_ms": key["capture_ms"],
+               "warmup_ms": key["warmup_ms"], "pool_mb": key["pool_bytes"] / 2**20,
+               "segments": key["segments"], "conds": key["conds"], "taken": key["taken"],
+               "kernels": prof["kernels"], "activities": prof["activities"],
+               "busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
+               "span_ms": prof["span_ms"], "busy_share": prof["busy_share"]}
+        print(f"phase 12 {tag}: replay bitwise the eager call (2 replays, no alias); "
+              f"eager {eager_ms:.3f} ms, replay {replay_ms:.3f} ms (CUDA events, median of 5); "
+              f"warm-up {key['warmup_ms']:.1f} ms, capture {key['capture_ms']:.1f} ms, pool "
+              f"{row['pool_mb']:.1f} MiB, {key['segments']} segments, {key['conds']} conds "
+              f"taken {key['taken']}; profiled replay: {prof['activities']} device activities, "
+              f"busy {prof['busy_ms']:.3f} ms of their {prof['span_ms']:.3f} ms span "
+              f"({100 * prof['busy_share']:.1f}%; the profiled call's wall "
+              f"{prof['wall_ms']:.3f} ms), kernels {prof['kernels']} [{smi}]")
+        return row
+
+    base = KDEConfig()
+
+    def normals_cfg(method):
+        return dataclasses.replace(base, normals=dataclasses.replace(base.normals, method=method))
+
+    def iter3(locality):
+        return dataclasses.replace(base, nasp=dataclasses.replace(
+            base.nasp, iterations=3, locality=locality))
+
+    configs = {
+        "default": (base, intr, depth4, color4),
+        "plane_merge+fill4": (dataclasses.replace(base, plane_merge=True, fill_holes=4),
+                              intr, depth4, color4),
+        "iter3 auto": (iter3("auto"), intr, depth4, color4),
+        "iter3 global": (iter3("global"), intr, depth4, color4),
+        "sdc": (normals_cfg("sdc"), intr, depth4, color4),
+        "bilateral": (normals_cfg("bilateral"), intr, depth4, color4),
+        "v2 424x512": (base, intr_v2, vdepth4, vcolor4),
+    }
+    rows = {}
+    for name, (cfg, intr_c, d4, c4) in configs.items():
+        for bsz in (1, 4):
+            d, c = (d4[0], c4[0]) if bsz == 1 else (d4, c4)
+            rows[f"kde {name} B={bsz}"] = hold(
+                f"kde {name} B={bsz}", pipelines.kde_pipeline, (d, c, intr_c, cfg))
+    auto = rows["kde iter3 auto B=1"]
+    if auto["conds"] != 3 or rows["kde iter3 global B=1"]["conds"] != 0:
+        _fail(f"phase 12: three auto iterations hold {auto['conds']} conds (want 3: two "
+              "updates and the label index), the global ones "
+              f"{rows['kde iter3 global B=1']['conds']}")
+    for name, fn in (("jbf", pipelines.jbf_pipeline), ("mrf", pipelines.mrf_pipeline)):
+        for bsz in (1, 4):
+            d, c = (depth4[0], color4[0]) if bsz == 1 else (depth4, color4)
+            rows[f"{name} B={bsz}"] = hold(f"{name} B={bsz}", fn, (d, c))
+    kept.clear()
+
+    # (b) the conditional both ways: with_capped_index on three-iteration
+    # labels (they hold the cap) and on the same labels with the top half
+    # of every frame moved by half the frame (far outside the cap)
+    grid = base.grid
+    lab = pipelines.kde_pipeline(depth4, color4, intr, iter3("auto")).nasp_labels
+    broken = lab.clone()
+    broken[:, :240] = torch.roll(lab[:, :240], shifts=320, dims=-1)
+    feats = projective_to_real(depth4, intr)
+    table = torch.arange(grid.num_clusters * 4 * 2, dtype=torch.float32, device=dev)
+    table = table.reshape(4, grid.num_clusters, 2)
+
+    def capped(labels, x):
+        return slic.with_capped_index(
+            lambda idx: (idx.segment_sum(x, labels >= 0), idx.gather(table), idx.counts()),
+            labels, grid, 5)
+
+    verdicts = [slic._within_cap(lab, grid, 5, 480, 640),
+                slic._within_cap(broken, grid, 5, 480, 640)]
+    if verdicts != [True, False]:
+        _fail(f"phase 12 cond: the labels' verdicts read {verdicts}, not [True, False]")
+    jit.clear()
+    f = jit.jit(capped)
+    cond_rows = {}
+    for tag, labels in (("holds the cap", lab), ("breaks the cap", broken)):
+        got, eager = f(labels, feats), capped(labels, feats)
+        diff = [i for i, (a, b) in enumerate(zip(got, eager)) if not torch.equal(a, b)]
+        if diff:
+            _fail(f"phase 12 cond: labels that {tag}: outputs {diff} differ from the eager route")
+        cond_rows[tag] = cuda_ms(lambda: f(labels, feats), warmup=1, iters=5)
+    (key,) = jit.keys()
+    if key["taken"] != [[1 + 6, 1 + 6]]:  # one call each, then 6 timed each
+        _fail(f"phase 12 cond: branches taken {key['taken']}, not IF and ELSE 7 times each")
+    print(f"phase 12 cond: the replay took IF on labels that hold the cap and ELSE on labels "
+          f"that break it ({key['taken']} [IF, ELSE] on the device), each bitwise the eager "
+          f"route's; replay {cond_rows['holds the cap']:.3f} / "
+          f"{cond_rows['breaks the cap']:.3f} ms, pool {key['pool_bytes'] / 2**20:.1f} MiB "
+          f"(both branches) [{smi}]")
+    jit.clear()
+
+    # (c) run_stream at batch 1, 4 and 8: 32 noisy frames of scene 0
+    gt0, color0 = scenes[0][2], scenes[0][0]
+    rng = np.random.default_rng(0)
+    var = 0.45 * 2.85 * np.square(gt0 / 10.0) / 1.0e4
+    frames32 = [(gt0 + rng.uniform(-1, 1, gt0.shape) * var).astype(np.float32)
+                for _ in range(32)]
+    frames_dev = torch.from_numpy(np.stack(frames32)).to(dev)
+    stream_rows = {}
+    whole = None
+    for bsz in (1, 4, 8):
+        seen = []
+        streaming.run_stream(iter(frames32), color0, intr, batch=bsz,
+                             on_outputs=lambda s0, p: seen.append((s0, p)))
+        for s0, pts in seen:
+            k = pts.shape[0]
+            want = pipelines.kde_pipeline(frames_dev[s0:s0 + k], color4[0].expand(
+                k, -1, -1, -1).contiguous(), intr, base).optimized_points
+            if not torch.equal(pts, want):
+                _fail(f"phase 12 stream batch={bsz}: the chunk at frame {s0} differs from "
+                      "kde_pipeline")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = streaming.run_stream(iter(frames32), color0, intr, batch=bsz)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stream_rows[f"batch={bsz}"] = 32 / wall
+        print(f"phase 12 stream batch={bsz}: {len(seen)} chunks bitwise kde_pipeline's; "
+              f"32 frames in {wall * 1e3:.1f} ms, {32 / wall:.2f} frames/s [{smi}]")
+        whole = st
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "phase12_stream.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    part = streaming.run_stream(iter(frames32), color0, intr, batch=8, checkpoint_path=ckpt,
+                                checkpoint_every=8, max_frames=16)
+    resumed = streaming.run_stream(iter(frames32), color0, intr, batch=8,
+                                   checkpoint_path=ckpt, checkpoint_every=8)
+    if not (part.frame_index == 16 and resumed.frame_index == whole.frame_index == 32
+            and resumed.metric_sums == whole.metric_sums
+            and resumed.metric_counts == whole.metric_counts
+            and torch.equal(resumed.buffer.depth, whole.buffer.depth)
+            and torch.equal(resumed.buffer.weight, whole.buffer.weight)):
+        _fail("phase 12 stream: the resumed run differs from the uninterrupted one")
+    print("phase 12 stream resume: stopped at 16 frames, resumed to 32, equal to the "
+          "uninterrupted run")
+    streams = jit.keys()
+    jit.clear()
+
+    # (d) a host read inside a jit call raises; the card runs on
+    def host_read(x):
+        return x * x.sum().item()
+
+    try:
+        jit.jit(host_read)(torch.ones(8, device=dev))
+    except Exception as e:  # the capture's own error
+        raised = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        _fail("phase 12: a jit call that reads a tensor on the host did not raise")
+    after = hold("default B=1 after the failed capture", pipelines.kde_pipeline,
+                 (depth4[0], color4[0], intr, base))
+    kept.clear()
+    print(f"phase 12: a host read under jit raised ({raised}); the default config replays "
+          f"bitwise after it")
+    out = {"rows": rows, "cond_ms": cond_rows, "stream_fps": stream_rows,
+           "stream_keys": streams, "raised": raised,
+           "after_failed_capture_replay_ms": after["replay_ms"], "jit_stats": dict(jit.stats),
+           "seconds": time.perf_counter() - t_phase}
+    print(f"phase 12: {out['seconds']:.1f} s")
+    print("phase 12 json: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -681,6 +1011,7 @@ def main() -> int:
     import numpy as np
 
     from kinectdepthmapenhancement_tpu_torch import _build
+    from kinectdepthmapenhancement_tpu_torch.core import jit
     from kinectdepthmapenhancement_tpu_torch.core.camera import (
         default_kinect_intrinsics, normalized_rays, projective_to_real,
     )
@@ -733,6 +1064,10 @@ def main() -> int:
                  for k in kernel_variants.TAP_KERNELS}
     print("sass instructions a tap: " + "  ".join(
         f"{k} {n:.2f}" for k, n in tap_instr.items()))
+    if sys.argv[1:] == ["--phase12"]:  # phase 12 alone (not the smoke run)
+        phase12(dev, smi)
+        print(f"phase 12 alone: ok, {time.perf_counter() - t_start:.1f} s [{smi}]")
+        return 0
 
     # ---- inputs at the 640x480 KDE path's shapes, B=1 and B=4
     h, w = 480, 640
@@ -1676,6 +2011,9 @@ def main() -> int:
         return c
 
     def reset_counts():
+        # a compiled call (core/jit.py) launches from Python only when it
+        # captures: drop every captured call, so a driven path captures anew
+        jit.clear()
         for m in (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient):
             m.launches = 0
             m.launch_forms.clear()
@@ -2993,6 +3331,9 @@ def main() -> int:
           "card shared by every rank: not a scaling number): " + json.dumps(p11_ms))
     print("parallel paths: " + json.dumps({"checks": p11_checks, "launches": {
         k: v for k, v in path_counts.items() if k.startswith("p11.")}}, default=str))
+
+    # ---- phase 12: the compiled call (core/jit.py), before phase 9's summary
+    phase12(dev, smi)
 
     # ---- phase 9: summary lines, one JSON entry per TPU kernel; a second
     # form of a kernel (colour-only gradient, analyze-mode sums, the shapes

@@ -12,8 +12,9 @@ PyTorch counterpart of the JAX package's cli.py.
       [--timing-iters N] [--figure cmp.png] [--device cuda]
 
 `enhance` reads a cv::FileStorage XML depth ("depth" node, mm) and a colour
-image, runs one pipeline, writes the refined depth back as FileStorage XML
-and optional PLY / PNG renders.  The work after the file reads is
+image, runs one pipeline (jbf, mrf and kde as compiled calls,
+core/jit.py), writes the refined depth back as FileStorage XML and
+optional PLY / PNG renders.  The work after the file reads is
 `enhance`, a function of arrays.  `evaluate` times every method on one
 frame and writes its mean 3-D error against ground truth
 (utils/evaluate.py, the evaluation.txt layout): on the 640x480 test scene,
@@ -31,7 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from kinectdepthmapenhancement_tpu_torch.core import io
+from kinectdepthmapenhancement_tpu_torch.core import io, jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import (
     default_kinect_intrinsics,
     projective_to_real,
@@ -48,6 +49,13 @@ from kinectdepthmapenhancement_tpu_torch.models import pipelines
 from kinectdepthmapenhancement_tpu_torch.utils import visualize
 
 PIPELINES = ("jbf", "mrf", "rgbf", "kde", "spdsp", "tof")
+
+
+# the pipelines enhance runs as compiled calls (core/jit.py), as the JAX
+# package's cli.py:57-90 jits them; RGBF, SPDSP and TOF stay eager calls
+# until their cap checks run on the device
+_COMPILED = {"jbf": jit.jit(pipelines.jbf_pipeline), "mrf": jit.jit(pipelines.mrf_pipeline),
+             "kde": jit.jit(pipelines.kde_pipeline)}
 
 
 class Enhanced(NamedTuple):
@@ -70,8 +78,7 @@ def enhance(depth: np.ndarray, color: np.ndarray, pipeline: str = "kde", *, devi
     d = torch.from_numpy(np.array(depth, dtype=np.float32)).to(dev)
     c = torch.from_numpy(np.array(color, dtype=np.uint8)).to(dev)
     if pipeline in ("jbf", "mrf"):
-        fn = pipelines.jbf_pipeline if pipeline == "jbf" else pipelines.mrf_pipeline
-        refined = fn(d, c)
+        refined = _COMPILED[pipeline](d, c)
         points = projective_to_real(refined, intr)
     elif pipeline == "rgbf":
         refined = pipelines.rgbf_pipeline(d, projective_to_real(d, intr), c,
@@ -79,7 +86,7 @@ def enhance(depth: np.ndarray, color: np.ndarray, pipeline: str = "kde", *, devi
         points = projective_to_real(refined, intr)
     elif pipeline == "kde":
         cfg = KDEConfig()
-        res = pipelines.kde_pipeline(d, c, intr, cfg)
+        res = _COMPILED["kde"](d, c, intr, cfg)
         points = res.optimized_points
         refined = points[..., 2]
         if debug_dir:

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
+
 # global invalid-depth sentinel threshold (core/buffer2d.py:23 of the JAX package)
 VALID_DEPTH_MM = 50.0
 
@@ -66,7 +68,7 @@ def normalized_rays(
     v = torch.arange(height, dtype=f32, device=device)[:, None]
 
     def c(x):  # f32 0-dim operand: a true division on every device
-        return torch.tensor(x, dtype=f32, device=device)
+        return constant(float(x), f32, device)
 
     rx = ((u - c(intr.cx)) / c(intr.fx)).expand(height, width)
     ry = ((c(intr.cy) - v) / c(intr.fy)).expand(height, width)

@@ -125,8 +125,9 @@ def kde_pipeline(
     smoothing map, so it runs neither the DT nor the covariance kernel),
     both plane gate modes (max_plane_residual 0.0025 or inf), plane_merge, fill_holes,
     any number of NASP iterations and grids that do not divide the frame.
-    CCL and the plane stage take slic.label_index's index (cell-local, or
-    global); the single-iteration path makes no host sync."""
+    CCL and the plane stage take slic.with_label_index's index (cell-local,
+    or global); the single-iteration path makes no host sync, and under
+    core/jit.py no path does (each cap check a conditional node)."""
     batched, (depth, color) = _batch(depth, color)
     # record_function names each stage in torch.profiler traces (the JAX
     # package's named_scope labels); outside a profiler it only opens and
@@ -167,8 +168,10 @@ def _kde_from_jbf(
         else:
             nasp = slic.segment_tile(color, points, nmap, grid=cfg.grid, params=cfg.nasp,
                                      tile=tile)
-    with record_function("kde.ccl_merge"):
-        index = slic.label_index(nasp.labels, cfg.grid, cfg.nasp, tile=tile)
+
+    def tail(index):
+        """CCL and the plane stage on `index`: (plane_fitted, optimized,
+        merged labels, variance, sizes)."""
         if cfg.plane_merge:
             # plane-consistency merge: the same MergeResult keying, so the
             # projection, gates and fill below are unchanged
@@ -178,64 +181,81 @@ def _kde_from_jbf(
                 nasp.labels, nasp.clusters.normal, nasp.clusters.center, cfg.ccl,
                 index=index,
             )
-    with record_function("kde.projection"):
-        rep = merged.rep
-        plane_fitted = plane.set_pseudo_depth_map(
-            points, rays, merged.nd_map, merged.labels, merged.variance,
-            index=index, rep=rep,
-        )
-        # inf disables the plane-confidence gate (and skips the residual):
-        # exact reference behaviour
-        if math.isinf(cfg.max_plane_residual):
-            resid = None
-        else:
-            resid = plane.plane_fit_residual(points, plane_fitted, index=index, rep=rep)
-        optimized = plane.variance_optimization(
-            points,
-            plane_fitted,
-            merged.labels,
-            merged.variance,
-            merged.sizes,
-            min_cluster_size=cfg.min_cluster_size,
-            agree_tight=cfg.agree_tight,
-            agree_loose=cfg.agree_loose,
-            fit_residual=resid,
-            max_fit_residual=cfg.max_plane_residual,
-            index=index,
-            rep=rep,
-        )
-        if cfg.fill_holes > 0:
-            # per-pixel cluster trust: variance_optimization's gates
-            cols = [merged.variance[..., None], merged.sizes.to(torch.float32)[..., None]]
-            if resid is not None:
-                cols.append(resid[..., None])
-            g = plane.by_merged_label(torch.cat(cols, dim=-1), index, rep)
-            trust = (
-                (merged.labels > -1)
-                & (torch.clamp_max(g[..., 0], 1.0) > plane.COS_PI_8)
-                & (g[..., 1] > cfg.min_cluster_size)
-            )
-            if resid is not None:
-                trust = trust & (g[..., 2] < cfg.max_plane_residual)
-            fill = plane.plane_hole_fill if tile is None else tile.plane_hole_fill
-            optimized = fill(
-                optimized, rays, merged.labels, merged.nd_map, trust,
-                points[..., 2] <= plane.VALID_DEPTH_MM, cfg.fill_holes,
-            )
-        if tile is None:
-            optimized = plane.depth_bilateral(optimized, rays, cfg.projection)
-        else:
-            optimized = tile.depth_bilateral(optimized, rays, cfg.projection)
+        # the last part of the kde.ccl_merge span, so a device activity lies
+        # in the innermost span that holds it
+        with record_function("kde.projection"):
+            plane_fitted, optimized = _project(points, rays, merged, index, cfg, tile)
+        return plane_fitted, optimized, merged.labels, merged.variance, merged.sizes
+
+    with record_function("kde.ccl_merge"):
+        # the label index's route: a host branch, or in a jit call with
+        # three or more NASP iterations a conditional node
+        plane_fitted, optimized, merged_labels, merged_variance, merged_sizes = (
+            slic.with_label_index(tail, nasp.labels, cfg.grid, cfg.nasp, tile=tile))
     return KDEResult(
         optimized_points=optimized,
         plane_fitted=plane_fitted,
         jbf_depth=jbf_depth,
         normals=nmap,
         nasp_labels=nasp.labels,
-        merged_labels=merged.labels,
-        merged_variance=merged.variance,
-        merged_sizes=merged.sizes,
+        merged_labels=merged_labels,
+        merged_variance=merged_variance,
+        merged_sizes=merged_sizes,
     )
+
+
+def _project(points, rays, merged, index, cfg: KDEConfig, tile):
+    """kde_pipeline's plane stage on the merged clusters: the plane fit,
+    variance_optimization's gates, the optional hole fill and the depth
+    bilateral.  Returns (plane_fitted, optimized)."""
+    rep = merged.rep
+    plane_fitted = plane.set_pseudo_depth_map(
+        points, rays, merged.nd_map, merged.labels, merged.variance,
+        index=index, rep=rep,
+    )
+    # inf disables the plane-confidence gate (and skips the residual):
+    # exact reference behaviour
+    if math.isinf(cfg.max_plane_residual):
+        resid = None
+    else:
+        resid = plane.plane_fit_residual(points, plane_fitted, index=index, rep=rep)
+    optimized = plane.variance_optimization(
+        points,
+        plane_fitted,
+        merged.labels,
+        merged.variance,
+        merged.sizes,
+        min_cluster_size=cfg.min_cluster_size,
+        agree_tight=cfg.agree_tight,
+        agree_loose=cfg.agree_loose,
+        fit_residual=resid,
+        max_fit_residual=cfg.max_plane_residual,
+        index=index,
+        rep=rep,
+    )
+    if cfg.fill_holes > 0:
+        # per-pixel cluster trust: variance_optimization's gates
+        cols = [merged.variance[..., None], merged.sizes.to(torch.float32)[..., None]]
+        if resid is not None:
+            cols.append(resid[..., None])
+        g = plane.by_merged_label(torch.cat(cols, dim=-1), index, rep)
+        trust = (
+            (merged.labels > -1)
+            & (torch.clamp_max(g[..., 0], 1.0) > plane.COS_PI_8)
+            & (g[..., 1] > cfg.min_cluster_size)
+        )
+        if resid is not None:
+            trust = trust & (g[..., 2] < cfg.max_plane_residual)
+        fill = plane.plane_hole_fill if tile is None else tile.plane_hole_fill
+        optimized = fill(
+            optimized, rays, merged.labels, merged.nd_map, trust,
+            points[..., 2] <= plane.VALID_DEPTH_MM, cfg.fill_holes,
+        )
+    if tile is None:
+        optimized = plane.depth_bilateral(optimized, rays, cfg.projection)
+    else:
+        optimized = tile.depth_bilateral(optimized, rays, cfg.projection)
+    return plane_fitted, optimized
 
 
 def _ers_front_end(depth, points, color, cfg):

@@ -8,6 +8,9 @@ loop (main.cpp:86-116); this runner generalises it:
   * folds the temporal DepthBuffer (core/buffer2d.py) and the mean 3-D
     error against it (utils/metrics.py) over the chunk's frames in order,
     on the device: the host reads two scalars a chunk, never a frame;
+  * runs the KDE and the fold as one compiled step (core/jit.py, the JAX
+    package's jitted step, streaming.py:49): on the card each chunk shape
+    is captured once into a CUDA graph and replayed;
   * reads chunk N's scalars back only after chunk N+1 is enqueued, so the
     host's staging and dispatch of the next chunk overlap the device's
     work on this one;
@@ -17,7 +20,7 @@ loop (main.cpp:86-116); this runner generalises it:
 
 On the card each chunk's frames are staged in pinned host memory and
 copied on a copy stream with non_blocking=True; the compute stream waits on
-the copy's event.  A staging buffer is refilled only after the event of
+the copy's event before the step copies them into its graph's inputs.  A staging buffer is refilled only after the event of
 its previous copy has completed (two buffers take turns).
 """
 
@@ -28,7 +31,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from kinectdepthmapenhancement_tpu_torch.core import buffer2d
+from kinectdepthmapenhancement_tpu_torch.core import buffer2d, jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import Intrinsics, projective_to_real
 from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
 from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
@@ -54,6 +57,10 @@ def _chunk_step(buf: buffer2d.DepthBuffer, depths: torch.Tensor, color: torch.Te
         err_sum = err_sum + err * n.to(torch.float32)
         n_sum = n_sum + n
     return buf, pts, err_sum, n_sum
+
+
+# the compiled step: one graph per (chunk shape, intr, cfg, kde_only)
+_step = jit.jit(_chunk_step)
 
 
 class _Stager:
@@ -145,7 +152,7 @@ def run_stream(
         if k not in colors:
             colors[k] = c.expand(k, -1, -1, -1).contiguous()
         start = state.frame_index + sum(e[2] for e in inflight)
-        state.buffer, pts, err_sum, n_sum = _chunk_step(
+        state.buffer, pts, err_sum, n_sum = _step(
             state.buffer, depths, colors[k], intr, cfg, kde_only)
         if on_outputs is not None:
             on_outputs(start, pts)

@@ -41,6 +41,7 @@ import torch
 
 from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/nasp.cu"
@@ -80,8 +81,8 @@ def cand_grid(rows: int, cols: int, offs, device) -> torch.Tensor:
     neighbours (-9 outside the grid)."""
     cy = torch.arange(rows, dtype=torch.int32, device=device)[:, None, None]
     cx = torch.arange(cols, dtype=torch.int32, device=device)[None, :, None]
-    dy = torch.tensor([o[0] for o in offs], dtype=torch.int32, device=device)
-    dx = torch.tensor([o[1] for o in offs], dtype=torch.int32, device=device)
+    dy = constant(tuple(o[0] for o in offs), torch.int32, device)
+    dx = constant(tuple(o[1] for o in offs), torch.int32, device)
     ny, nx = cy + dy, cx + dx
     in_grid = (ny >= 0) & (ny < rows) & (nx >= 0) & (nx < cols)
     return torch.where(in_grid, ny * cols + nx, torch.full_like(ny, -9))

@@ -25,6 +25,8 @@ from typing import NamedTuple, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
+
 Offset = Union[int, torch.Tensor]
 
 
@@ -69,6 +71,8 @@ def _take(tbl: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor, batched: bool) 
 
 
 def _as_index(x: Offset, device) -> torch.Tensor:
+    if isinstance(x, int):
+        return constant(x, torch.int64, device)
     return torch.as_tensor(x, dtype=torch.int64, device=device)
 
 

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.config import NormalParams
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import cuda_cov, cuda_dt, integral, stencil
 
 BAD = -1.0
@@ -200,7 +201,7 @@ def _final_flip(normal: torch.Tensor) -> torch.Tensor:
     """(-x, y, -z) for every pixel with any component != -1
     (computeRestNormal tail, NormalMapGenerator.cu:347-353)."""
     valid = (normal != BAD).any(dim=-1)
-    sign = torch.tensor([-1.0, 1.0, -1.0], dtype=normal.dtype, device=normal.device)
+    sign = constant((-1.0, 1.0, -1.0), normal.dtype, normal.device)
     return torch.where(valid[..., None], normal * sign, normal)
 
 
@@ -219,7 +220,7 @@ def bilateral_normals(vertices_m: torch.Tensor) -> torch.Tensor:
     """computeNormalBilateralGPU (NormalMapGenerator.cu:355-395): the
     one-pixel cross product, sign-flipped, (-1,-1,-1) where z == 0."""
     n, _, _ = _cross_product_normal(vertices_m)
-    flip = n * torch.tensor([-1.0, 1.0, -1.0], dtype=n.dtype, device=n.device)
+    flip = n * constant((-1.0, 1.0, -1.0), n.dtype, n.device)
     bad = vertices_m[..., 2] == 0.0
     return torch.where(bad[..., None], torch.full_like(flip, BAD), flip)
 
@@ -362,7 +363,7 @@ def cm_normals(
     )
     _, vec = smallest_eigenvector(cov)
     ez_neg = vec[..., 2] < 0.0
-    flip_y = torch.tensor([1.0, -1.0, 1.0], dtype=vec.dtype, device=dev)
+    flip_y = constant((1.0, -1.0, 1.0), vec.dtype, dev)
     stored = torch.where(ez_neg[..., None], vec * flip_y, vec * -flip_y)
     bad = in_border | (smoothing <= 2.0) | (cont == 0)
     return torch.where(bad[..., None], torch.full_like(stored, BAD), stored)

@@ -16,8 +16,9 @@ NormalAdaptiveSuperpixel in the reference).  NASP:
   * later iterations (SLICParams.iterations > 1): the global route's
     assignment, then the update on the capped route (cell-local at r = 5)
     when every label lies in its pixel's [-5, 4]^2 cell neighbourhood
-    (labels_within_cap, checked on the device, branched on the host), on
-    the global index otherwise or with locality="global".  The JAX
+    (labels_within_cap, checked on the device, branched on the host, or
+    in a jit call on the device: with_label_index), on the global index
+    otherwise or with locality="global".  The JAX
     package's capped assignment (a band-space sweep over 289 enlarged
     offsets) gives the global sweep's labels; on an H100 it took 1.8x
     the global sweep's time, so the port sweeps the global way;
@@ -85,6 +86,8 @@ import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, SLICParams
+from kinectdepthmapenhancement_tpu_torch.core import jit
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, stencil, tables
 
 INVALID_NORMAL = -1.0
@@ -434,17 +437,23 @@ def labels_within_cap(
     return ok.reshape(labels.shape[0], -1).all(dim=1)
 
 
-def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int,
-                tile: Optional[CellTile] = None) -> bool:
-    """Host branch on labels_within_cap: True only when every frame of the
-    batch holds the invariant (a host sync).  On a tile the frames' verdicts
-    are the tiles' combined over the group (a frame fails when any tile of
-    it fails), so every rank of the group reads the same verdict, the one
-    of the whole frames, and takes the same branch."""
+def _cap_verdict(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int,
+                 tile: Optional[CellTile] = None) -> torch.Tensor:
+    """0-dim bool on the labels' device: every frame of the batch holds
+    labels_within_cap's invariant.  On a tile the frames' verdicts are the
+    tiles' combined over the group (a frame fails when any tile of it
+    fails), so every rank of the group reads the same verdict, the one of
+    the whole frames, and takes the same branch."""
     ok = labels_within_cap(labels, grid, cap, h, w, x0=0 if tile is None else tile.x0)
     if tile is not None:
         ok = tile.sum_counts((~ok).to(torch.float32)) == 0.0
-    return bool(ok.all())
+    return ok.all()
+
+
+def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int,
+                tile: Optional[CellTile] = None) -> bool:
+    """The eager call's host branch on _cap_verdict (a host sync)."""
+    return bool(_cap_verdict(labels, grid, cap, h, w, tile))
 
 
 def _stats_impl_on(stats_impl: str) -> bool:
@@ -480,44 +489,75 @@ def cell_index(
     return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums, tile=tile)
 
 
+def with_capped_index(
+    fn: Callable[[LabelIndex], object], labels: torch.Tensor, grid: GridParams, cap: int, *,
+    stats_impl: str = "auto", locality: str = "auto", tile: Optional[CellTile] = None,
+):
+    """fn(index) on the cell-local index at r = cap when every label lies in
+    its pixel's [-cap, cap-1]^2 cell neighbourhood (unchecked with
+    locality="cell"), on the global one otherwise, with locality="global",
+    or when the grid does not divide the frame: the JAX package's lax.cond
+    (slic.py:1436-1478, pipelines.py:232-260).  An eager call reads the
+    verdict (_cap_verdict) on the host, one sync; inside a jit call
+    (core/jit.py) jit.cond takes it on the device, a conditional node with
+    fn on each index as its branches, so fn must then return tensors.
+    Labels agree exactly on either route; sums differ in order only.  With
+    a tile the labels are the tile's, the frame tile.width wide, and the
+    verdict the group's."""
+    h, w = labels.shape[-2:]
+    w = w if tile is None else tile.width
+    kernel_sums = _stats_impl_on(stats_impl)
+
+    def cell():
+        return fn(_CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile))
+
+    def whole():
+        return fn(_GlobalIndex(labels, grid.num_clusters, tile=tile))
+
+    if not grid_divides(grid, h, w) or locality == "global":
+        return whole()
+    if locality == "cell":
+        return cell()
+    if jit.tracing():
+        return jit.cond(_cap_verdict(labels, grid, cap, h, w, tile), cell, whole)
+    return cell() if _within_cap(labels, grid, cap, h, w, tile) else whole()
+
+
 def capped_index(
     labels: torch.Tensor, grid: GridParams, cap: int, *, stats_impl: str = "auto",
     locality: str = "auto", tile: Optional[CellTile] = None,
 ) -> LabelIndex:
-    """The cell-local index at r = cap when every label lies in its pixel's
-    [-cap, cap-1]^2 cell neighbourhood (labels_within_cap on the device,
-    read on the host: one sync; unchecked with locality="cell"), the global
-    one otherwise, with locality="global", or when the grid does not divide
-    the frame.  The JAX package branches the same way in a lax.cond
-    (slic.py:1436-1478, pipelines.py:232-260).  Labels agree exactly on
-    either route; sums differ in order only.  With a tile the labels are
-    the tile's, the frame tile.width wide, and the verdict the group's."""
-    h, w = labels.shape[-2:]
-    w = w if tile is None else tile.width
-    kernel_sums = _stats_impl_on(stats_impl)
-    if grid_divides(grid, h, w) and locality != "global" and (
-        locality == "cell" or _within_cap(labels, grid, cap, h, w, tile)
-    ):
-        return _CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile)
-    return _GlobalIndex(labels, grid.num_clusters, tile=tile)
+    """with_capped_index's index itself, for an eager call (an index is no
+    tensor, so inside a jit call a checked route raises)."""
+    return with_capped_index(lambda index: index, labels, grid, cap, stats_impl=stats_impl,
+                             locality=locality, tile=tile)
+
+
+def with_label_index(
+    fn: Callable[[LabelIndex], object], labels: torch.Tensor, grid: GridParams,
+    params: SLICParams, variant: str = "nasp", tile: Optional[CellTile] = None,
+):
+    """fn(index) on the index over SLIC labels of `params` that an update,
+    CCL or the plane stage takes: after one iteration cell_index's (r = 4
+    for NASP, 2 for SP / DASP); after later iterations with_capped_index's
+    at the variant's cap (5 for NASP, 3 for SP / DASP), whose route a jit
+    call takes on the device.  KDE's CCL and plane stage take it as the JAX
+    package's _with_local_index does for its multi-iteration pipelines.
+    With a tile (a CellTile) the labels are the tile's and every rank of
+    its group calls it."""
+    _, neighborhood, cap = _variant(variant)
+    if params.iterations == 1:
+        return fn(cell_index(labels, grid, neighborhood, params.stats_impl, tile))
+    return with_capped_index(fn, labels, grid, cap, stats_impl=params.stats_impl,
+                             locality=params.locality, tile=tile)
 
 
 def label_index(
     labels: torch.Tensor, grid: GridParams, params: SLICParams, variant: str = "nasp",
     tile: Optional[CellTile] = None,
 ) -> LabelIndex:
-    """The index over SLIC labels of `params` that an update, CCL or the
-    plane stage takes: after one iteration cell_index's (r = 4 for NASP,
-    2 for SP / DASP); after later iterations capped_index's at the
-    variant's cap (5 for NASP, 3 for SP / DASP).  KDE's CCL and plane stage
-    take it as the JAX package's _with_local_index does for its
-    multi-iteration pipelines.  With a tile (a CellTile) the labels are
-    the tile's and every rank of its group calls it."""
-    _, neighborhood, cap = _variant(variant)
-    if params.iterations == 1:
-        return cell_index(labels, grid, neighborhood, params.stats_impl, tile)
-    return capped_index(labels, grid, cap, stats_impl=params.stats_impl,
-                        locality=params.locality, tile=tile)
+    """with_label_index's index itself, for an eager call."""
+    return with_label_index(lambda index: index, labels, grid, params, variant, tile)
 
 
 # ----------------------------------------------------------------- seeding
@@ -844,8 +884,8 @@ def _assign_global(
     bd = torch.full((b, h, w), float("inf"), dtype=torch.float32, device=dev)
     bl = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
     for chunk in _chunks(cuda_nasp.candidate_offsets(r), b * h * w):
-        dy = torch.tensor([o[0] for o in chunk], dtype=torch.int32, device=dev).reshape(1, -1, 1, 1)
-        dx = torch.tensor([o[1] for o in chunk], dtype=torch.int32, device=dev).reshape(1, -1, 1, 1)
+        dy = constant(tuple(o[0] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
+        dx = constant(tuple(o[1] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
         rcx, rcy = cur_cx + dx, cur_cy + dy
         in_grid = (rcx >= 0) & (rcx < grid.cols) & (rcy >= 0) & (rcy < grid.rows)
         rid = torch.where(in_grid, rcy * grid.cols + rcx, 0)
@@ -1108,8 +1148,8 @@ def segment(
     updates on the capped route (cell-local sums at r = 5 for NASP, 3 for SP
     / DASP) while every label lies in its pixel's [-cap, cap-1]^2 cell
     neighbourhood, on the global index otherwise: the JAX lax.cond becomes
-    labels_within_cap on the device and a host branch (label_index), for
-    the whole batch (one frame off the cap sends the batch to the global
+    labels_within_cap on the device and a host branch, or in a jit call a
+    conditional node (with_label_index), for the whole batch (one frame off the cap sends the batch to the global
     route).  The two updates sum in another order, so a later sweep can move
     a pixel at a distance near-tie.  locality="cell" skips the check,
     "global" takes the global index.  A single-iteration call makes no host
@@ -1264,7 +1304,7 @@ def later_iteration(
 ):
     """One later iteration (assign, update) of a variant from the state
     (labels, distance, clusters): the global route's sweep, then the update
-    on label_index's index (see segment).  color_f f32 [B, H, W, 3].  With
+    on with_label_index's index (see segment).  color_f f32 [B, H, W, 3].  With
     a tile (NASP only) the frames are the tile's, the sweep reads global
     columns and the index is the tile group's (label_index)."""
     b, h, w = labels.shape
@@ -1277,6 +1317,7 @@ def later_iteration(
     frame = (color_f, points, normals)
     labels, distance = _assign_global(
         labels, distance, clusters, *frame, grid, params, s_scale, variant, x0=x0)
-    idx = label_index(labels, grid, params, variant, tile=tile)
-    clusters = _update(variant, idx, clusters, *frame, params, window_range, h, w)
+    clusters = with_label_index(
+        lambda idx: _update(variant, idx, clusters, *frame, params, window_range, h, w),
+        labels, grid, params, variant, tile=tile)
     return labels, distance, clusters

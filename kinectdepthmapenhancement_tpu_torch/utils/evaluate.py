@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from kinectdepthmapenhancement_tpu_torch.core import buffer2d
+from kinectdepthmapenhancement_tpu_torch.core import buffer2d, jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import (
     Intrinsics,
     default_kinect_intrinsics,
@@ -53,20 +53,23 @@ def method_runs(
     plane_merge: bool = False,
 ) -> Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]:
     """evaluate()'s rows, in order: name -> fn(depth, color) returning the
-    method's point map [H, W, 3] (mm) on the inputs' device."""
+    method's point map [H, W, 3] (mm) on the inputs' device.  The input,
+    JBF, MRF and every KDE row are compiled calls (core/jit.py), as the JAX
+    package jits each row; the RGBF, SPDSP and TOF rows (EAGER_ROWS) stay
+    eager calls until their pipelines take the cap checks on the device."""
     kde_cfg = KDEConfig() if grid is None else dataclasses.replace(KDEConfig(), grid=grid)
     rgbf_cfg = RGBFConfig() if grid is None else dataclasses.replace(RGBFConfig(), grid=grid)
     spdsp_cfg = SPDSPConfig() if grid is None else dataclasses.replace(SPDSPConfig(), grid=grid)
     tof_cfg = TOFConfig() if grid is None else dataclasses.replace(TOFConfig(), grid=grid)
 
     def kde(cfg):
-        return lambda dd, cc: pipelines.kde_pipeline(dd, cc, intr, cfg).optimized_points
+        return jit.jit(lambda dd, cc: pipelines.kde_pipeline(dd, cc, intr, cfg).optimized_points)
 
     # each run takes (depth, color), so time_pipeline can feed fresh inputs
     runs = {
-        "input": lambda dd, cc: projective_to_real(dd, intr),
-        "jbf": lambda dd, cc: projective_to_real(pipelines.jbf_pipeline(dd, cc), intr),
-        "mrf": lambda dd, cc: projective_to_real(pipelines.mrf_pipeline(dd, cc), intr),
+        "input": jit.jit(lambda dd, cc: projective_to_real(dd, intr)),
+        "jbf": jit.jit(lambda dd, cc: projective_to_real(pipelines.jbf_pipeline(dd, cc), intr)),
+        "mrf": jit.jit(lambda dd, cc: projective_to_real(pipelines.mrf_pipeline(dd, cc), intr)),
         "rgbf": lambda dd, cc: projective_to_real(pipelines.rgbf_pipeline(
             dd, projective_to_real(dd, intr), cc, rgbf_cfg).refined_depth, intr),
         "kde": kde(kde_cfg),
@@ -84,6 +87,10 @@ def method_runs(
         runs["tof"] = lambda dd, cc: pipelines.tof_pipeline(
             dd, projective_to_real(dd, intr), cc, intr, tof_cfg).plane_fitted
     return runs
+
+
+# method_runs' rows that run eagerly (their cap checks read on the host)
+EAGER_ROWS = ("rgbf", "spdsp", "tof")
 
 
 def evaluate(
@@ -112,7 +119,8 @@ def evaluate(
     pass the confidence gates, which on far-range banded depth needs the
     plane merge).  Each method is timed by time_pipeline on inputs jittered
     by 1e-3 mm (fresh for every call) and scored on one more call on the
-    frame itself; figure_path writes the montage of the depth renders."""
+    frame itself, each a compiled call but for EAGER_ROWS'; figure_path
+    writes the montage of the depth renders."""
     dev = resolve_device(device)
     h, w = depth.shape
     if intr is None:
@@ -139,7 +147,8 @@ def evaluate(
     depth_renders = {}
     with torch.inference_mode():
         for name, fn in runs.items():
-            stats = time_pipeline(fn, make_args, iters=timing_iters)
+            stats = time_pipeline(fn, make_args, iters=timing_iters,
+                                  compiled=name not in EAGER_ROWS)
             pts = fn(d, c)
             err, n = metrics.mean_3d_error(pts, gt_pts)
             rmse = metrics.depth_rmse(pts[..., 2], gt)

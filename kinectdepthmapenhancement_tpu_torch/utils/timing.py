@@ -1,6 +1,6 @@
 """Timing: a pipeline's wall time on fresh inputs (time_pipeline, on any
-device), call time on the card with CUDA events and device time with the
-profiler.
+device, of the compiled call), call time on the card with CUDA events and
+device time with the profiler.
 
 PyTorch launches return before the device finishes, so a host clock without
 a synchronise measures the enqueue.  cuda_ms brackets each call with CUDA
@@ -23,23 +23,34 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from kinectdepthmapenhancement_tpu_torch.core import jit
+
 
 def time_pipeline(
     fn: Callable,
     make_args: Callable[[int], Sequence],
     *,
     iters: int = 5,
+    compiled: bool = True,
 ) -> Dict[str, float]:
     """{"median_s", "min_s", "fps"} of fn(*make_args(i)) over `iters` timed
     calls after one warm-up call (i == -1).
 
-    make_args(i) returns fresh inputs for call i, already on the device;
-    they are built before the clock starts.  The clock stops when the sum
-    of fn's output (a tensor) has been read back to the host, so a call on
-    the card is timed to its completion (the JAX package's
-    utils/timing.py:21-44 does the same)."""
+    As the JAX package's utils/timing.py:21-44 does, the call timed is
+    jit(lambda *a: torch.sum(fn(*a))) (core/jit.py): on the card the
+    warm-up call captures it and every timed call replays its graph;
+    compiled=False times the eager call instead (the pipelines whose slice
+    has not been made capturable yet).  make_args(i) returns fresh inputs
+    for call i, already on the device; they are built before the clock
+    starts.  The clock stops when the sum has been read back to the host,
+    so a call on the card is timed to its completion."""
+    def summed(*args):
+        return torch.sum(fn(*args))
+
+    red = jit.jit(summed) if compiled else summed
+
     def run(args) -> float:
-        return float(torch.sum(fn(*args)))
+        return float(red(*args))
 
     run(make_args(-1))
     times = []

@@ -1457,3 +1457,114 @@ def test_nasp_kernels_on_uneven_cell_aligned_tiles(frame640, c0, tc):
         assert torch.equal(g, cuda_nasp.label_cell_gather_plain(lab_t, tab, **cell, **tile))
         assert torch.equal(g, _tile_cols(cuda_nasp.label_cell_gather(labels, tab, **cell),
                                          c0, tc, cw))
+
+
+# ---- the compiled call (core/jit.py): replays bitwise the eager call
+
+def _iter3(cfg, locality):
+    return dataclasses.replace(cfg, nasp=dataclasses.replace(
+        cfg.nasp, iterations=3, locality=locality))
+
+
+def _jit_configs():
+    base = dataclasses.replace(KDEConfig(), grid=GRID)
+
+    def nm(method):
+        return dataclasses.replace(base, normals=dataclasses.replace(base.normals, method=method))
+
+    return {
+        "default": base, "sdc": nm("sdc"), "bilateral": nm("bilateral"),
+        "plane_merge_fill": dataclasses.replace(base, plane_merge=True, fill_holes=4),
+        "iter3_auto": _iter3(base, "auto"), "iter3_global": _iter3(base, "global"),
+        "grid5x6": dataclasses.replace(base, grid=GridParams(5, 6)),
+    }
+
+
+JIT_CONFIGS = _jit_configs()
+
+
+def _replays_equal_eager(fn, args):
+    """fn through jit twice against the eager fn(*args): each replay's every
+    field bitwise the eager call's, and the two replays' outputs other
+    tensors (no later replay overwrites an earlier output)."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    jit.clear()
+    try:
+        eager = fn(*args)
+        f = jit.jit(fn)
+        a, b = f(*args), f(*args)
+        torch.cuda.synchronize()
+        assert jit.stats == {"captures": 1, "replays": 2}
+        for k in eager._fields:
+            want, ga, gb = getattr(eager, k), getattr(a, k), getattr(b, k)
+            assert torch.equal(ga, want) and torch.equal(gb, want), k
+            assert ga.data_ptr() != gb.data_ptr(), k
+        return jit.keys()[0]
+    finally:
+        jit.clear()
+
+
+@pytest.mark.parametrize("name", list(JIT_CONFIGS))
+def test_jit_replay_equals_eager(inputs, name):
+    key = _replays_equal_eager(
+        kde_pipeline, (inputs["depth"], inputs["color"], inputs["intr"], JIT_CONFIGS[name]))
+    assert key["conds"] == (3 if name == "iter3_auto" else 0)
+
+
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_jit_replay_equals_eager_at_640x480(dev, bsz):
+    h, w = FULL["h"], FULL["w"]
+    intr = default_kinect_intrinsics(w, h)
+    scenes = [make_noisy_scene(h, w, intr, seed=s) for s in range(bsz)]
+    c = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    d = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    if bsz == 1:
+        c, d = c[0], d[0]
+    _replays_equal_eager(kde_pipeline, (d, c, intr, KDEConfig()))
+
+
+def test_capped_index_device_branch_both_ways(dev):
+    """A jitted with_capped_index takes the conditional node's IF branch on
+    labels that hold the cap and its ELSE branch on labels that break it,
+    each bitwise the eager host branch, each counted on the device."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    grid = GridParams(12, 16)  # 8-px cells: a 64-px move breaks the cap of 5
+    labels = slic.init_labels(grid, H, W, dev).expand(2, H, W).contiguous()
+    broken = labels.clone()
+    broken[:, : H // 2] = torch.roll(labels[:, : H // 2], shifts=W // 2, dims=-1)
+    feats = torch.rand((2, H, W, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    table = torch.rand((2, grid.num_clusters, 2), generator=torch.Generator().manual_seed(1))
+    table = table.to(dev)
+
+    def capped(lab, x):
+        return slic.with_capped_index(
+            lambda idx: (idx.segment_sum(x, lab >= 0), idx.gather(table), idx.counts()),
+            lab, grid, 5)
+
+    assert slic._within_cap(labels, grid, 5, H, W) and not slic._within_cap(broken, grid, 5, H, W)
+    jit.clear()
+    try:
+        f = jit.jit(capped)
+        for lab in (labels, broken, labels):
+            got, want = f(lab, feats), capped(lab, feats)
+            assert all(torch.equal(g, e) for g, e in zip(got, want))
+        assert jit.keys()[0]["taken"] == [[2, 1]]
+    finally:
+        jit.clear()
+
+
+def test_jit_of_a_host_read_raises(dev):
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    def host_read(x):
+        return x * x.sum().item()
+
+    x = torch.ones(8, device=dev)
+    jit.clear()
+    with pytest.raises(Exception):
+        jit.jit(host_read)(x)
+    assert jit.stats["captures"] == 0
+    assert torch.equal(jit.jit(lambda y: y * 2.0)(x), x * 2.0)  # the card runs on
+    jit.clear()
