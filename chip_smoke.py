@@ -168,10 +168,17 @@ Phases (each prints its results; any failure exits non-zero):
      and bilateral normals, the 424x512 Kinect v2 frames) and the JBF and
      MRF baselines at B=1 and B=4 through jit, the replay bitwise the
      eager call, every kernel of the eager call in the capture's launches
-     and in a profiled replay, eager against replay ms, capture ms, pool
-     and busy share; the conditional node taken both ways; run_stream at
-     batch 1, 4 and 8 and a resumed run; a host read under jit raising.
-     `python3 chip_smoke.py --phase12` runs phases 1, 2 and 12 alone;
+     and in a profiled replay (as often as eagerly), eager against replay
+     ms, capture ms, pool and busy share; rgbf_pipeline, spdsp_pipeline
+     and tof_pipeline likewise at B=1 and B=4 (0, 9 and 9 conds) and TOF
+     on the 424x512 frame (0); the conditional node taken both ways, on
+     NASP labels and on the ERS labels' index; the SPDSP and TOF replays
+     against the JAX package's outputs; run_stream at batch 1, 4 and 8 and
+     a resumed run; the compiled Buffer2D fold and evaluate_tum's jitted
+     step bitwise the eager fold; a host read under jit raising.
+     Phase 12 runs in a process of its own (`python3 chip_smoke.py
+     --phase12`, which alone runs phases 1, 2 without the SASS counts,
+     and 12);
   9. print the kernels JSON line (one entry per TPU kernel of the repo,
      each with its forms and their launches by path, and its launches on
      phase 10's and phase 11's paths), then {"ok": true, "device": ...}
@@ -698,14 +705,20 @@ def phase12(dev, smi: str) -> dict:
     launches every kernel the eager call launches, the replay is bitwise
     the eager call's and a second replay's outputs are other tensors with
     the same bits, every kernel the eager call runs is in a profiled
-    replay by name, with the replay's device busy share; eager against
-    replay ms (CUDA events, median of 5), capture ms and the graph's pool;
-    JBF and MRF likewise; (b) the conditional taken both ways: a jitted
-    with_capped_index on labels that hold the cap and on labels that break
-    it, bitwise the eager host branch each way, each branch counted on the
-    device; (c) run_stream at batch 1, 4 and 8, every chunk bitwise
-    kde_pipeline's, frames/s, and a run stopped at 16 frames and resumed
-    from its checkpoint equal to the uninterrupted one; (d) a function
+    replay by name and as often as the eager call launched it, with the
+    replay's device busy share; eager against replay ms (CUDA events,
+    median of 5), capture ms and the graph's pool; JBF and MRF likewise;
+    (e) RGBF, SPDSP and TOF likewise at 640x480, B=1 and B=4, and TOF at
+    424x512 B=1, holding 0, 9, 9 and 0 conds; (b) the conditional taken
+    both ways: a jitted with_capped_index on labels that hold the cap and
+    on labels that break it, bitwise the eager host branch each way, each
+    branch counted on the device; (f) the same for SPDSP's ERS labels'
+    index (pipelines._with_local_index), and the SPDSP and TOF replays at
+    B=1 through golden.dasp_jax_gates; (c) run_stream at batch 1, 4 and 8,
+    every chunk bitwise kde_pipeline's, frames/s, and a run stopped at 16
+    frames and resumed from its checkpoint equal to the uninterrupted one;
+    (g) buffer2d.accumulate over 32 frames and evaluate_tum's jitted
+    update step folded over them, bitwise the eager fold; (d) a function
     that reads a tensor on the host raises under jit, and a replay still
     runs after it.  Returns the numbers it prints."""
     import numpy as np
@@ -717,12 +730,16 @@ def phase12(dev, smi: str) -> dict:
     from kinectdepthmapenhancement_tpu_torch.core.camera import (
         default_kinect_intrinsics, projective_to_real,
     )
-    from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
+    from kinectdepthmapenhancement_tpu_torch.core import buffer2d
+    from kinectdepthmapenhancement_tpu_torch.core.config import (
+        KDEConfig, RGBFConfig, SPDSPConfig, TOFConfig,
+    )
     from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu_torch.models import pipelines, streaming
     from kinectdepthmapenhancement_tpu_torch.ops import (
-        cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, slic,
+        cuda_bilateral, cuda_cov, cuda_dt, cuda_gradient, cuda_nasp, plane, slic,
     )
+    from kinectdepthmapenhancement_tpu_torch.utils import golden
     from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
 
     t_phase = time.perf_counter()
@@ -752,7 +769,8 @@ def phase12(dev, smi: str) -> dict:
 
     def replay_profile(fn):
         """One profiled call of fn (a replay): the port's kernels in its
-        device trace by counter name, its device activities and busy
+        device trace by counter name and how often each ran, its device
+        activities and busy
         share (the union of their intervals over their span); None when
         the trace holds no device activity."""
         torch.cuda.synchronize()
@@ -765,11 +783,12 @@ def phase12(dev, smi: str) -> dict:
                 if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()]
         if not acts:
             return None
-        names = set()
+        launched = {}
         for ev in acts:
             m = PORT_KERNEL.match(ev.name())
             if m and m.group(1) in KERNEL_COUNTER:
-                names.add(KERNEL_COUNTER[m.group(1)])
+                name = KERNEL_COUNTER[m.group(1)]
+                launched[name] = launched.get(name, 0) + 1
         busy_ns, end = 0, None
         spans = sorted((ev.start_ns(), ev.end_ns()) for ev in acts)
         for a, b in spans:
@@ -778,7 +797,7 @@ def phase12(dev, smi: str) -> dict:
             elif b > end:
                 busy_ns, end = busy_ns + b - end, b
         span_ms = (end - spans[0][0]) / 1e6
-        return {"kernels": sorted(names), "activities": len(acts),
+        return {"kernels": sorted(launched), "launches": launched, "activities": len(acts),
                 "busy_ms": busy_ns / 1e6, "wall_ms": wall_ms, "span_ms": span_ms,
                 "busy_share": busy_ns / 1e6 / span_ms}
 
@@ -790,22 +809,25 @@ def phase12(dev, smi: str) -> dict:
         fa, fb = fields(a), fields(b)
         return [k for k in fa if not torch.equal(fa[k], fb[k])]
 
-    kept = []  # every jitted call of (a), alive until (a) ends
+    kept = []  # every jitted call of (a) and (e), alive until (e) ends
+    outs = {}  # each held call's first replay, by tag
 
     def hold(tag, fn, args):
         """fn through jit against the eager fn(*args): launches, bits,
-        aliasing, kernels in a profiled replay, times.  Returns the row.
-        The graph stays alive until the caller clears it: on an H100
-        under torch 2.11 the profiler has named a replay's kernels
-        wrongly after an earlier graph was destroyed."""
+        aliasing, kernels in a profiled replay (each as often as the eager
+        call launched it), times.  Returns the row.  The graph stays alive
+        until the caller clears it: on an H100 under torch 2.11 the
+        profiler has named a replay's kernels wrongly after an earlier
+        graph was destroyed."""
         reset_counts()
         eager = fn(*args)
         torch.cuda.synchronize()
-        ran = {k for k, n in counts().items() if n}
+        eager_launches = {k: n for k, n in counts().items() if n}
+        ran = set(eager_launches)
         reset_counts()
         f = jit.jit(fn)
         kept.append(f)
-        got = f(*args)
+        got = outs[tag] = f(*args)
         torch.cuda.synchronize()
         captured = counts()
         missing = [k for k in ran if not captured[k]]
@@ -825,22 +847,27 @@ def phase12(dev, smi: str) -> dict:
         for _ in range(3):  # a trace may come back short of device records
             prof = replay_profile(lambda: f(*args))
             absent = sorted(ran - set(prof["kernels"] if prof else ()))
-            if prof and not absent:
+            if prof and not absent and prof["launches"] == eager_launches:
                 break
-            print(f"phase 12 {tag}: a profiled replay without {absent or 'device activity'}; "
-                  f"branches taken {f.info()[0]['taken']}")
+            print(f"phase 12 {tag}: a profiled replay without {absent or 'device activity'} "
+                  f"or with other launches ({prof and prof['launches']} against the eager "
+                  f"{eager_launches}); branches taken {f.info()[0]['taken']}")
         if not prof:
             _fail(f"phase 12 {tag}: three profiled replays held no device activity")
         if absent:
             _fail(f"phase 12 {tag}: kernels of the eager call absent from a profiled replay: "
                   f"{absent} (trace: {prof['kernels']})")
+        if prof["launches"] != eager_launches:
+            _fail(f"phase 12 {tag}: a replay launched {prof['launches']}, the eager call "
+                  f"{eager_launches}")
         eager_ms = cuda_ms(lambda: fn(*args), warmup=1, iters=5)
         replay_ms = cuda_ms(lambda: f(*args), warmup=1, iters=5)
         (key,) = f.info()
         row = {"eager_ms": eager_ms, "replay_ms": replay_ms, "capture_ms": key["capture_ms"],
                "warmup_ms": key["warmup_ms"], "pool_mb": key["pool_bytes"] / 2**20,
                "segments": key["segments"], "conds": key["conds"], "taken": key["taken"],
-               "kernels": prof["kernels"], "activities": prof["activities"],
+               "kernels": prof["kernels"], "launches": prof["launches"],
+               "activities": prof["activities"],
                "busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
                "span_ms": prof["span_ms"], "busy_share": prof["busy_share"]}
         print(f"phase 12 {tag}: replay bitwise the eager call (2 replays, no alias); "
@@ -850,7 +877,8 @@ def phase12(dev, smi: str) -> dict:
               f"taken {key['taken']}; profiled replay: {prof['activities']} device activities, "
               f"busy {prof['busy_ms']:.3f} ms of their {prof['span_ms']:.3f} ms span "
               f"({100 * prof['busy_share']:.1f}%; the profiled call's wall "
-              f"{prof['wall_ms']:.3f} ms), kernels {prof['kernels']} [{smi}]")
+              f"{prof['wall_ms']:.3f} ms), kernel launches {prof['launches']} (as eager) "
+              f"[{smi}]")
         return row
 
     base = KDEConfig()
@@ -887,7 +915,89 @@ def phase12(dev, smi: str) -> dict:
         for bsz in (1, 4):
             d, c = (depth4[0], color4[0]) if bsz == 1 else (depth4, color4)
             rows[f"{name} B={bsz}"] = hold(f"{name} B={bsz}", fn, (d, c))
+
+    # (e) RGBF, SPDSP and TOF (default configs) through jit at 640x480, B=1
+    # and B=4, and TOF on the 424x512 frame at B=1, the raw points passed
+    # in as the JAX CLI passes them: 0 conds for RGBF (one SLIC iteration
+    # each), 9 for SPDSP and TOF (four later iterations a SLIC and the ERS
+    # labels' index), 0 for TOF where the grid does not divide the frame
+    raw4, vraw4 = projective_to_real(depth4, intr), projective_to_real(vdepth4, intr_v2)
+    dasp_cases = {
+        "rgbf": (pipelines.rgbf_pipeline, (RGBFConfig(),), 0),
+        "spdsp": (pipelines.spdsp_pipeline, (intr, SPDSPConfig()), 9),
+        "tof": (pipelines.tof_pipeline, (intr, TOFConfig()), 9),
+    }
+    want = {"tof v2 424x512 B=1": 0}
+    for name, (fn, rest, want_conds) in dasp_cases.items():
+        for bsz in (1, 4):
+            d, p_, c = (depth4[0], raw4[0], color4[0]) if bsz == 1 else (depth4, raw4, color4)
+            rows[f"{name} B={bsz}"] = hold(f"{name} B={bsz}", fn, (d, p_, c) + rest)
+            want[f"{name} B={bsz}"] = want_conds
+    rows["tof v2 424x512 B=1"] = hold("tof v2 424x512 B=1", pipelines.tof_pipeline, (
+        vdepth4[0], vraw4[0], vcolor4[0], intr_v2, TOFConfig()))
+    conds = {tag: rows[tag]["conds"] for tag in want}
+    if conds != want:
+        _fail(f"phase 12 (e): conds {conds}, not {want}")
+    print(f"phase 12 (e): conds {conds}; pools " + ", ".join(
+        f"{tag} {rows[tag]['pool_mb']:.1f} MiB" for tag in conds)
+        + f"; device memory reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB [{smi}]")
     kept.clear()
+    jit.clear()
+
+    # (f) the ERS labels' index both ways: _with_local_index on one SPDSP
+    # call's refined labels (they hold cap 4) and on the same labels with
+    # the top half of every frame moved by half the frame (far outside
+    # it); and the replays of SPDSP and TOF at B=1 against the JAX
+    # package's committed outputs of the frame
+    sp_cfg = SPDSPConfig()
+    ref = pipelines.spdsp_pipeline(depth4, raw4, color4, intr, sp_cfg)
+    ers_lab = ref.refined_labels
+    ers_broken = ers_lab.clone()
+    ers_broken[:, :240] = torch.roll(ers_lab[:, :240], shifts=320, dims=-1)
+    ers_pts = projective_to_real(ref.refined_depth, intr)
+    del ref
+
+    def local_planes(labels, pts):
+        return pipelines._with_local_index(
+            lambda idx: plane.pca_planes(pts, labels, sp_cfg.grid.num_clusters, index=idx),
+            labels, sp_cfg)
+
+    verdicts = [slic._within_cap(lab_, sp_cfg.grid, pipelines._LOCAL_CAP, 480, 640)
+                for lab_ in (ers_lab, ers_broken)]
+    if verdicts != [True, False]:
+        _fail(f"phase 12 (f): the ERS labels' verdicts read {verdicts}, not [True, False]")
+    f_local = jit.jit(local_planes)
+    local_ms = {}
+    for tag, labels in (("holds the cap", ers_lab), ("breaks the cap", ers_broken)):
+        got, eager = f_local(labels, ers_pts), local_planes(labels, ers_pts)
+        diff = [k for k in got._fields if not torch.equal(getattr(got, k), getattr(eager, k))]
+        if diff:
+            _fail(f"phase 12 (f): ERS labels that {tag}: {diff} differ from the host branch")
+        local_ms[tag] = cuda_ms(lambda: f_local(labels, ers_pts), warmup=1, iters=5)
+    (key,) = f_local.info()
+    if key["conds"] != 1 or key["taken"] != [[1 + 6, 1 + 6]]:
+        _fail(f"phase 12 (f): {key['conds']} conds, branches taken {key['taken']}, not one "
+              "cond taken IF and ELSE 7 times each")
+    print(f"phase 12 (f): the ERS labels' index took IF on labels that hold cap 4 and ELSE on "
+          f"labels that break it ({key['taken']} [IF, ELSE] on the device), each bitwise the "
+          f"host branch; replay {local_ms['holds the cap']:.3f} / "
+          f"{local_ms['breaks the cap']:.3f} ms, pool {key['pool_bytes'] / 2**20:.1f} MiB "
+          f"[{smi}]")
+    del f_local
+    dasp_want = golden.load_dasp("640x480")
+    jax_gates = {}
+    for name in ("spdsp", "tof"):
+        got1 = {k: v.cpu().numpy() for k, v in outs[f"{name} B=1"]._asdict().items()}
+        gates = golden.dasp_jax_gates(name, got1, dasp_want)
+        for gname, (val, lim, ok) in gates.items():
+            print(f"phase 12 (f) {name} replay B=1 {gname:28s} {val:.6g} (limit {lim}) "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not gates or golden.failures(gates):
+            _fail(f"phase 12 (f): the {name} replay against the JAX package: "
+                  f"{golden.failures(gates) or 'no gate'}")
+        jax_gates[name] = {g: v[0] for g, v in gates.items()}
+    outs.clear()
+    jit.clear()
 
     # (b) the conditional both ways: with_capped_index on three-iteration
     # labels (they hold the cap) and on the same labels with the top half
@@ -977,6 +1087,51 @@ def phase12(dev, smi: str) -> dict:
     streams = jit.keys()
     jit.clear()
 
+    # (g) the Buffer2D fold: the compiled accumulate over the 32 frames (one
+    # graph for N = 32) and evaluate_tum's jitted update step folded over
+    # them, each bitwise the eager fold of buffer2d.update
+    buf0 = buffer2d.init(480, 640, dev)
+    eager_fold = buf0
+    for fr in frames_dev:
+        eager_fold = buffer2d.update(eager_fold, fr)
+    got, again = buffer2d.accumulate(buf0, frames_dev), buffer2d.accumulate(buf0, frames_dev)
+    step = jit.jit(buffer2d.update)
+
+    def step_fold():
+        b = buf0
+        for fr in frames_dev:
+            b = step(b, fr)
+        return b
+
+    folded = step_fold()
+    for tag, out_ in (("accumulate", got), ("accumulate, a second replay", again),
+                      ("the jitted step's fold", folded)):
+        if same(out_, eager_fold):
+            _fail(f"phase 12 (g): {tag} differs from the eager fold in {same(out_, eager_fold)}")
+    if got.depth.data_ptr() == again.depth.data_ptr() or len(step.info()) != 1:
+        _fail("phase 12 (g): two replays of accumulate share a tensor, or the step holds "
+              f"{len(step.info())} graphs, not one")
+    fold = {"accumulate": buffer2d.accumulate.info(), "step": step.info()}
+    fold_ms = {"eager_fold": cuda_ms(lambda: buffer2d.accumulate.fn(buf0, frames_dev),
+                                     warmup=1, iters=5),
+               "accumulate_replay": cuda_ms(lambda: buffer2d.accumulate(buf0, frames_dev),
+                                            warmup=1, iters=5),
+               "step_fold": cuda_ms(step_fold, warmup=1, iters=5)}
+    prof = replay_profile(lambda: buffer2d.accumulate(buf0, frames_dev))
+    if not prof:
+        _fail("phase 12 (g): a profiled replay of accumulate held no device activity")
+    fold.update(ms=fold_ms, busy_share=prof["busy_share"], activities=prof["activities"])
+    (acc,) = fold["accumulate"]
+    print(f"phase 12 (g): accumulate over 32 frames (two replays) and the jitted step's fold "
+          f"bitwise the eager fold; eager {fold_ms['eager_fold']:.3f} ms, replay "
+          f"{fold_ms['accumulate_replay']:.3f} ms, the step's fold "
+          f"{fold_ms['step_fold']:.3f} ms (32 replays) (CUDA events, median of 5); warm-up "
+          f"{acc['warmup_ms']:.1f} ms, capture {acc['capture_ms']:.1f} ms, pool "
+          f"{acc['pool_bytes'] / 2**20:.1f} MiB; profiled replay: {prof['activities']} "
+          f"device activities, busy {100 * prof['busy_share']:.1f}% of their span [{smi}]")
+    del step
+    jit.clear()
+
     # (d) a host read inside a jit call raises; the card runs on
     def host_read(x):
         return x * x.sum().item()
@@ -992,7 +1147,8 @@ def phase12(dev, smi: str) -> dict:
     kept.clear()
     print(f"phase 12: a host read under jit raised ({raised}); the default config replays "
           f"bitwise after it")
-    out = {"rows": rows, "cond_ms": cond_rows, "stream_fps": stream_rows,
+    out = {"rows": rows, "cond_ms": cond_rows, "ers_cond_ms": local_ms,
+           "dasp_jax_gates": jax_gates, "fold": fold, "stream_fps": stream_rows,
            "stream_keys": streams, "raised": raised,
            "after_failed_capture_replay_ms": after["replay_ms"], "jit_stats": dict(jit.stats),
            "seconds": time.perf_counter() - t_phase}
@@ -1058,16 +1214,16 @@ def main() -> int:
             if src == "jbf.cu" and entry and "jbf_kernelILi2E" not in entry:
                 continue  # the radii the path does not run
             print(f"  {src}: {ln.strip()}")
+    if sys.argv[1:] == ["--phase12"]:  # phase 12 alone, or main's phase 12 process
+        phase12(dev, smi)
+        print(f"phase 12 alone: ok, {time.perf_counter() - t_start:.1f} s [{smi}]")
+        return 0
     # issued instructions a tap of the JBF's and the gradient's path
     # instantiations on their fast path (the JBF's two passes together)
     tap_instr = {k: kernel_variants.tap_instructions(info["path"], k)
                  for k in kernel_variants.TAP_KERNELS}
     print("sass instructions a tap: " + "  ".join(
         f"{k} {n:.2f}" for k, n in tap_instr.items()))
-    if sys.argv[1:] == ["--phase12"]:  # phase 12 alone (not the smoke run)
-        phase12(dev, smi)
-        print(f"phase 12 alone: ok, {time.perf_counter() - t_start:.1f} s [{smi}]")
-        return 0
 
     # ---- inputs at the 640x480 KDE path's shapes, B=1 and B=4
     h, w = 480, 640
@@ -2872,6 +3028,17 @@ def main() -> int:
     if not text.startswith("runtime\n") or "\nerror\n" not in text:
         _fail("evaluate --full: the report is malformed")
     print_rows("eval.full", full)
+    # the RGBF, SPDSP and TOF rows time a replay: their eager calls timed
+    # the same way beside them
+    runs_full = kev.method_runs(intr, include_sp_methods=True)
+    d_e, c_e = torch.from_numpy(noisy_e).to(dev), torch.from_numpy(color_e).to(dev)
+    for name in ("rgbf", "spdsp", "tof"):
+        with torch.inference_mode():
+            st = kev.time_pipeline(runs_full[name].fn, lambda i: (d_e, c_e), iters=3,
+                                   compiled=False)
+        eval_out.setdefault("eager_ms", {})[name] = st["median_s"] * 1e3
+        print(f"eval.full {name}: the row's replay {full[name]['time_ms']:.3f} ms, its eager "
+              f"call {st['median_s'] * 1e3:.3f} ms (time_pipeline, median of 3) [{smi}]")
     jfull = golden.load_jax_640x480()
     jz = {"jbf": jfull["jbf"], "kde": jfull["optimized_points"][..., 2],
           "mrf": golden.load_jax_mrf_640x480(),
@@ -3332,8 +3499,20 @@ def main() -> int:
     print("parallel paths: " + json.dumps({"checks": p11_checks, "launches": {
         k: v for k, v in path_counts.items() if k.startswith("p11.")}}, default=str))
 
-    # ---- phase 12: the compiled call (core/jit.py), before phase 9's summary
-    phase12(dev, smi)
+    # ---- phase 12: the compiled call (core/jit.py), before phase 9's summary,
+    # in a process of its own: once this process had built and destroyed
+    # graphs with conditional nodes (phases 8 and 10), the profiler named
+    # the kernels of a later replay wrongly (ones in a conditional body
+    # under another kernel's name), though the replay was bitwise the eager
+    # call
+    jit.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 12 in a process of its own; this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card", flush=True)
+    p12 = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase12"],
+                         timeout=900)
+    if p12.returncode != 0:
+        _fail(f"phase 12 exited {p12.returncode}")
 
     # ---- phase 9: summary lines, one JSON entry per TPU kernel; a second
     # form of a kernel (colour-only gradient, analyze-mode sums, the shapes

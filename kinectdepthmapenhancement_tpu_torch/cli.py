@@ -12,15 +12,14 @@ PyTorch counterpart of the JAX package's cli.py.
       [--timing-iters N] [--figure cmp.png] [--device cuda]
 
 `enhance` reads a cv::FileStorage XML depth ("depth" node, mm) and a colour
-image, runs one pipeline (jbf, mrf and kde as compiled calls,
-core/jit.py), writes the refined depth back as FileStorage XML and
-optional PLY / PNG renders.  The work after the file reads is
-`enhance`, a function of arrays.  `evaluate` times every method on one
-frame and writes its mean 3-D error against ground truth
-(utils/evaluate.py, the evaluation.txt layout): on the 640x480 test scene,
-or with --tum on a TUM RGB-D sequence against the pseudo-ground truth its
-depth frames fold to.  Both run on the card unless --device says
-otherwise; without a card "cuda" raises.
+image, runs one pipeline (a compiled call, core/jit.py), writes the
+refined depth back as FileStorage XML and optional PLY / PNG renders.
+The work after the file reads is `enhance`, a function of arrays.
+`evaluate` times every method on one frame and writes its mean 3-D error
+against ground truth (utils/evaluate.py, the evaluation.txt layout): on
+the 640x480 test scene, or with --tum on a TUM RGB-D sequence against the
+pseudo-ground truth its depth frames fold to.  Both run on the card
+unless --device says otherwise; without a card "cuda" raises.
 """
 
 from __future__ import annotations
@@ -51,11 +50,9 @@ from kinectdepthmapenhancement_tpu_torch.utils import visualize
 PIPELINES = ("jbf", "mrf", "rgbf", "kde", "spdsp", "tof")
 
 
-# the pipelines enhance runs as compiled calls (core/jit.py), as the JAX
-# package's cli.py:57-90 jits them; RGBF, SPDSP and TOF stay eager calls
-# until their cap checks run on the device
-_COMPILED = {"jbf": jit.jit(pipelines.jbf_pipeline), "mrf": jit.jit(pipelines.mrf_pipeline),
-             "kde": jit.jit(pipelines.kde_pipeline)}
+# the pipelines enhance runs, each a compiled call (core/jit.py) as the JAX
+# package's cli.py:57-95 jits them
+_COMPILED = {name: jit.jit(getattr(pipelines, f"{name}_pipeline")) for name in PIPELINES}
 
 
 class Enhanced(NamedTuple):
@@ -81,8 +78,10 @@ def enhance(depth: np.ndarray, color: np.ndarray, pipeline: str = "kde", *, devi
         refined = _COMPILED[pipeline](d, c)
         points = projective_to_real(refined, intr)
     elif pipeline == "rgbf":
-        refined = pipelines.rgbf_pipeline(d, projective_to_real(d, intr), c,
-                                          RGBFConfig()).refined_depth
+        # the raw points are computed outside the call and passed in, as
+        # the JAX CLI does
+        refined = _COMPILED["rgbf"](d, projective_to_real(d, intr), c,
+                                    RGBFConfig()).refined_depth
         points = projective_to_real(refined, intr)
     elif pipeline == "kde":
         cfg = KDEConfig()
@@ -93,12 +92,12 @@ def enhance(depth: np.ndarray, color: np.ndarray, pipeline: str = "kde", *, devi
             written = visualize.dump_kde_debug(debug_dir, res, c, cfg.grid.num_clusters)
             print(f"wrote {len(written)} debug renders to {debug_dir}")
     elif pipeline == "spdsp":
-        points = pipelines.spdsp_pipeline(d, projective_to_real(d, intr), c, intr,
-                                          SPDSPConfig()).optimized_points
+        points = _COMPILED["spdsp"](d, projective_to_real(d, intr), c, intr,
+                                    SPDSPConfig()).optimized_points
         refined = points[..., 2]
     elif pipeline == "tof":
-        points = pipelines.tof_pipeline(d, projective_to_real(d, intr), c, intr,
-                                        TOFConfig()).plane_fitted
+        points = _COMPILED["tof"](d, projective_to_real(d, intr), c, intr,
+                                  TOFConfig()).plane_fitted
         refined = points[..., 2]
     else:
         raise ValueError(f"unknown pipeline {pipeline!r}")

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 
 
@@ -55,10 +56,12 @@ def update(buf: DepthBuffer, depth: torch.Tensor) -> DepthBuffer:
     return DepthBuffer(depth=new_d, weight=new_w)
 
 
+@jit.jit
 def accumulate(buf: DepthBuffer, frames: torch.Tensor) -> DepthBuffer:
     """Fold a stack of frames [N, H, W] through `update` in order (the
     capture loop, main.cpp:86-116, runs 1000 live frames through
-    Buffer2D::updateData)."""
+    Buffer2D::updateData).  A compiled call (core/jit.py), as the JAX
+    package's @jax.jit lax.scan is: on the card one graph per N."""
     for frame in frames:
         buf = update(buf, frame)
     return buf

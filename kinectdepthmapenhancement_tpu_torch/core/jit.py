@@ -1,7 +1,7 @@
 """The compiled call: jit(fn), the counterpart of jax.jit as the JAX package
-uses it (cli.py:57-90, models/streaming.py:49, utils/timing.py:29,
-utils/evaluate.py:134), and cond, the counterpart of lax.cond
-(ops/slic.py:1451 and :1467, models/pipelines.py:255).
+uses it (cli.py:57-95, models/streaming.py:49, utils/timing.py:29,
+utils/evaluate.py:134 and :188, core/buffer2d.py:58), and cond, the
+counterpart of lax.cond (ops/slic.py:1451 and :1467, models/pipelines.py:255).
 
 jit(fn) returns a callable.  On CUDA tensors a call is keyed on fn, its
 static arguments (every argument leaf that is not a tensor: KDEConfig and

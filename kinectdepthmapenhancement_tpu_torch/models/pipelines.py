@@ -296,17 +296,24 @@ def rgbf_pipeline(
 _LOCAL_CAP = 4  # cell-locality cap of ERS-refined labels (checked on the device)
 
 
-def _local_index(labels: torch.Tensor, cfg) -> slic.LabelIndex:
-    """The label index over ERS-refined labels (JAX pipelines.py:232-260):
-    cell-local at r = 4 when every label lies in its pixel's [-4, 3]^2 cell
-    neighbourhood (ERS only swaps labels within a 7 px window of 5-iteration
-    DASP labels, so in practice it does), the global one otherwise; the JAX
-    lax.cond becomes a device check read on the host (one sync).  Follows
-    cfg.depth_slic's stats_impl and locality ("cell" skips the check,
-    "global" takes the global index)."""
+def _with_local_index(fn, labels: torch.Tensor, cfg):
+    """fn(index) over ERS-refined labels (JAX pipelines.py:232-260): the
+    cell-local index at r = 4 when every label lies in its pixel's [-4, 3]^2
+    cell neighbourhood (ERS only swaps labels within a 7 px window of
+    5-iteration DASP labels, so in practice it does), the global one
+    otherwise.  The JAX lax.cond is slic.with_capped_index's: a device check
+    read on the host (one sync) when eager, a conditional node with fn on
+    each index as its branches in a jit call, so fn returns tensors only.
+    Follows cfg.depth_slic's stats_impl and locality ("cell" skips the
+    check, "global" takes the global index)."""
     p = cfg.depth_slic
-    return slic.capped_index(labels, cfg.grid, _LOCAL_CAP, stats_impl=p.stats_impl,
-                             locality=p.locality)
+    return slic.with_capped_index(fn, labels, cfg.grid, _LOCAL_CAP, stats_impl=p.stats_impl,
+                                  locality=p.locality)
+
+
+def _local_index(labels: torch.Tensor, cfg) -> slic.LabelIndex:
+    """_with_local_index's index itself, for an eager call."""
+    return _with_local_index(lambda index: index, labels, cfg)
 
 
 def spdsp_pipeline(
@@ -323,28 +330,35 @@ def spdsp_pipeline(
     The plane-confidence gate (spec extension, SPDSPConfig): a cluster's
     plane is trusted only when its fit thickness sqrt(smallest eigenvalue)
     is below max_plane_residual of the centroid depth; inf disables the gate
-    and skips its gather (the reference's behaviour).  Host syncs: one cap
-    check per later SLIC iteration (8) and one for the ERS labels' index."""
+    and skips its gather (the reference's behaviour).  An eager call reads
+    one cap check per later SLIC iteration (8) and one for the ERS labels'
+    index on the host; a jit call (core/jit.py) reads none: each is a
+    conditional node."""
     batched, (depth, points, color) = _batch(depth, points, color)
     h, w = depth.shape[-2:]
     rays = normalized_rays(intr, h, w, depth.device)
     k = cfg.grid.num_clusters
     _, _, refined = _ers_front_end(depth, points, color, cfg)
     rpoints = projective_to_real(refined.depth, intr)
-    with record_function("spdsp.planes"):
-        index = _local_index(refined.labels, cfg)
+
+    def fit_and_project(index):
+        """The planes, the plane-fitted points and the gate map, or () in
+        its place when max_plane_residual is inf (JAX :288-305)."""
         planes = plane.pca_planes(rpoints, refined.labels, k, index=index)
         plane_fitted = plane.set_pseudo_depth_cluster(
             rpoints, rays, planes.nd, refined.labels, strict=False, index=index)
-        plane_ok = None
-        if not math.isinf(cfg.max_plane_residual):
-            resid_rel = torch.sqrt(torch.clamp_min(planes.eigenvalues, 0.0)) / torch.clamp_min(
-                planes.centers[..., 2].abs(), 1.0)
-            okf = (resid_rel < cfg.max_plane_residual).to(torch.float32)
-            plane_ok = index.gather(okf[..., None])[..., 0] > 0.0
+        if math.isinf(cfg.max_plane_residual):
+            return planes, plane_fitted, ()
+        resid_rel = torch.sqrt(torch.clamp_min(planes.eigenvalues, 0.0)) / torch.clamp_min(
+            planes.centers[..., 2].abs(), 1.0)
+        okf = (resid_rel < cfg.max_plane_residual).to(torch.float32)
+        return planes, plane_fitted, (index.gather(okf[..., None])[..., 0] > 0.0,)
+
+    with record_function("spdsp.planes"):
+        planes, plane_fitted, gate = _with_local_index(fit_and_project, refined.labels, cfg)
     with record_function("spdsp.mrf"):
         optimized = plane.mrf_optimization(
-            rpoints, plane_fitted, rays, cfg.projection, gate_mask=plane_ok)
+            rpoints, plane_fitted, rays, cfg.projection, gate_mask=gate[0] if gate else None)
     result = SPDSPResult(
         optimized_points=optimized,
         plane_fitted=plane_fitted,
@@ -366,21 +380,27 @@ def tof_pipeline(
     SPDSP's front end and planes, keeps the smallest eigenvalue, merges with
     the PCA predicate (ccl.merge_pca), and projects WITHOUT iterative
     optimisation (the reference's optimisation kernels are commented out,
-    so optimized_points are the refined points)."""
+    so optimized_points are the refined points).  Host syncs as SPDSP's."""
     batched, (depth, points, color) = _batch(depth, points, color)
     h, w = depth.shape[-2:]
     rays = normalized_rays(intr, h, w, depth.device)
     k = cfg.grid.num_clusters
     _, _, refined = _ers_front_end(depth, points, color, cfg)
     rpoints = projective_to_real(refined.depth, intr)
-    with record_function("tof.planes"):
-        index = _local_index(refined.labels, cfg)
+
+    def fit_merge_project(index):
+        """The planes, their PCA merge and the plane-fitted points (JAX
+        :343-356)."""
         planes = plane.pca_planes(rpoints, refined.labels, k, index=index)
         merged = ccl.merge_pca(
             refined.labels, planes.nd, planes.centers, planes.eigenvalues, cfg.ccl_pca,
             index=index)
         plane_fitted = plane.set_pseudo_depth_cluster(
             rpoints, rays, planes.nd, refined.labels, strict=True, index=index)
+        return planes, merged, plane_fitted
+
+    with record_function("tof.planes"):
+        _, merged, plane_fitted = _with_local_index(fit_merge_project, refined.labels, cfg)
     result = TOFResult(
         optimized_points=rpoints,
         plane_fitted=plane_fitted,

@@ -37,6 +37,7 @@ import torch
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.config import ProjectionParams
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
 from kinectdepthmapenhancement_tpu_torch.ops.normals import smallest_eigenvector
 from kinectdepthmapenhancement_tpu_torch.ops.slic import LabelIndex
@@ -385,7 +386,7 @@ def pca_planes(
     vec = torch.where((d_signed < 0)[..., None], -vec, vec)
     valid = count >= 3
     nd = torch.cat([vec, d_signed.abs()[..., None]], dim=-1)
-    sentinel = torch.tensor([5.0, 5.0, 5.0, 0.0], dtype=nd.dtype, device=nd.device)
+    sentinel = constant((5.0, 5.0, 5.0, 0.0), nd.dtype, nd.device)
     return PCAPlanes(
         nd=torch.where(valid[..., None], nd, sentinel),
         centers=torch.where(valid[..., None], mean, 0.0),

@@ -1159,7 +1159,8 @@ def segment(
     [B, H, W, 3].  seeds: optional [K, 2] or [B, K, 2] (x, y) override of the
     sampled seeds — the gradient argmin has near-ties whose winner depends on
     float rounding, so tests inject the JAX package's seeds to compare
-    everything downstream exactly."""
+    everything downstream exactly; inside a jit call (core/jit.py) they
+    must be a tensor on the frames' device."""
     seed_window, neighborhood, _ = _variant(variant)
     if params.locality not in ("auto", "cell", "global"):
         raise ValueError(f"locality must be 'auto', 'cell' or 'global', got {params.locality!r}")
@@ -1175,6 +1176,11 @@ def segment(
     if seeds is None:
         seeds = _compute_seeds(color_f, normals, grid, h, w, seed_window)
     else:
+        if jit.tracing() and not (isinstance(seeds, torch.Tensor)
+                                  and seeds.device == color.device):
+            raise TypeError("segment: inside a jit call the seeds must be a tensor on the "
+                            f"frames' device ({color.device}); host data cannot be captured, "
+                            "so pass a device tensor")
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=color.device)
         if seeds.dim() == 2:
             seeds = seeds.expand(b, -1, -1)

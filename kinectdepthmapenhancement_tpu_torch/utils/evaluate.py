@@ -53,10 +53,9 @@ def method_runs(
     plane_merge: bool = False,
 ) -> Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]:
     """evaluate()'s rows, in order: name -> fn(depth, color) returning the
-    method's point map [H, W, 3] (mm) on the inputs' device.  The input,
-    JBF, MRF and every KDE row are compiled calls (core/jit.py), as the JAX
-    package jits each row; the RGBF, SPDSP and TOF rows (EAGER_ROWS) stay
-    eager calls until their pipelines take the cap checks on the device."""
+    method's point map [H, W, 3] (mm) on the inputs' device.  Every row is
+    a compiled call (core/jit.py), as the JAX package jits each row; the
+    RGBF, SPDSP and TOF rows take the raw points inside the call."""
     kde_cfg = KDEConfig() if grid is None else dataclasses.replace(KDEConfig(), grid=grid)
     rgbf_cfg = RGBFConfig() if grid is None else dataclasses.replace(RGBFConfig(), grid=grid)
     spdsp_cfg = SPDSPConfig() if grid is None else dataclasses.replace(SPDSPConfig(), grid=grid)
@@ -70,8 +69,8 @@ def method_runs(
         "input": jit.jit(lambda dd, cc: projective_to_real(dd, intr)),
         "jbf": jit.jit(lambda dd, cc: projective_to_real(pipelines.jbf_pipeline(dd, cc), intr)),
         "mrf": jit.jit(lambda dd, cc: projective_to_real(pipelines.mrf_pipeline(dd, cc), intr)),
-        "rgbf": lambda dd, cc: projective_to_real(pipelines.rgbf_pipeline(
-            dd, projective_to_real(dd, intr), cc, rgbf_cfg).refined_depth, intr),
+        "rgbf": jit.jit(lambda dd, cc: projective_to_real(pipelines.rgbf_pipeline(
+            dd, projective_to_real(dd, intr), cc, rgbf_cfg).refined_depth, intr)),
         "kde": kde(kde_cfg),
     }
     if fill_steps > 0:
@@ -82,15 +81,11 @@ def method_runs(
             runs["kde_pm_fill"] = kde(dataclasses.replace(
                 kde_cfg, plane_merge=True, fill_holes=fill_steps))
     if include_sp_methods:
-        runs["spdsp"] = lambda dd, cc: pipelines.spdsp_pipeline(
-            dd, projective_to_real(dd, intr), cc, intr, spdsp_cfg).optimized_points
-        runs["tof"] = lambda dd, cc: pipelines.tof_pipeline(
-            dd, projective_to_real(dd, intr), cc, intr, tof_cfg).plane_fitted
+        runs["spdsp"] = jit.jit(lambda dd, cc: pipelines.spdsp_pipeline(
+            dd, projective_to_real(dd, intr), cc, intr, spdsp_cfg).optimized_points)
+        runs["tof"] = jit.jit(lambda dd, cc: pipelines.tof_pipeline(
+            dd, projective_to_real(dd, intr), cc, intr, tof_cfg).plane_fitted)
     return runs
-
-
-# method_runs' rows that run eagerly (their cap checks read on the host)
-EAGER_ROWS = ("rgbf", "spdsp", "tof")
 
 
 def evaluate(
@@ -119,8 +114,8 @@ def evaluate(
     pass the confidence gates, which on far-range banded depth needs the
     plane merge).  Each method is timed by time_pipeline on inputs jittered
     by 1e-3 mm (fresh for every call) and scored on one more call on the
-    frame itself, each a compiled call but for EAGER_ROWS'; figure_path
-    writes the montage of the depth renders."""
+    frame itself, each a compiled call; figure_path writes the montage of
+    the depth renders."""
     dev = resolve_device(device)
     h, w = depth.shape
     if intr is None:
@@ -147,8 +142,7 @@ def evaluate(
     depth_renders = {}
     with torch.inference_mode():
         for name, fn in runs.items():
-            stats = time_pipeline(fn, make_args, iters=timing_iters,
-                                  compiled=name not in EAGER_ROWS)
+            stats = time_pipeline(fn, make_args, iters=timing_iters)
             pts = fn(d, c)
             err, n = metrics.mean_3d_error(pts, gt_pts)
             rmse = metrics.depth_rmse(pts[..., 2], gt)
@@ -188,7 +182,9 @@ def evaluate_tum(
     capture protocol (main.cpp:86-116): fold the sequence's first `frames`
     depth frames through the Buffer2D gated weighted average into a
     temporally averaged pseudo-ground truth, then run every method on one
-    frame (eval_index, the middle one by default) against it."""
+    frame (eval_index, the middle one by default) against it.  The fold
+    steps through jit(buffer2d.update), one graph for the sequence's frame
+    shape, as the JAX package's step is jitted."""
     dev = resolve_device(device)
     seq = TUMSequence(root)
     if len(seq) == 0:
@@ -196,8 +192,9 @@ def evaluate_tum(
     n = min(frames, len(seq))
     h, w = seq[0].depth.shape
     buf = buffer2d.init(h, w, device=dev)
+    step = jit.jit(buffer2d.update)
     for i in range(n):
-        buf = buffer2d.update(buf, torch.from_numpy(seq[i].depth).to(dev))
+        buf = step(buf, torch.from_numpy(seq[i].depth).to(dev))
     gt = buf.depth.cpu().numpy()
     fr = seq[eval_index if eval_index is not None else n // 2]
     return evaluate(

@@ -39,11 +39,11 @@ def time_pipeline(
     As the JAX package's utils/timing.py:21-44 does, the call timed is
     jit(lambda *a: torch.sum(fn(*a))) (core/jit.py): on the card the
     warm-up call captures it and every timed call replays its graph;
-    compiled=False times the eager call instead (the pipelines whose slice
-    has not been made capturable yet).  make_args(i) returns fresh inputs
-    for call i, already on the device; they are built before the clock
-    starts.  The clock stops when the sum has been read back to the host,
-    so a call on the card is timed to its completion."""
+    compiled=False times the eager call instead, host work and syncs
+    included.  make_args(i) returns fresh inputs for call i, already on
+    the device; they are built before the clock starts.  The clock stops
+    when the sum has been read back to the host, so a call on the card is
+    timed to its completion."""
     def summed(*args):
         return torch.sum(fn(*args))
 

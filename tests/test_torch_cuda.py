@@ -48,8 +48,12 @@ The tiled route's forms: the seed gradient on 5-column haloed width tiles
 of a 424x512 Kinect v2 frame (x = 2 and 4) bitwise its plain version and
 the whole frame's columns, and the four cell kernels on the uneven
 cell-aligned tiles of x = 8 at 640x480 (3 and 2 cells) against their plain
-versions and the full frame's cells.  chip_smoke.py runs the same checks
-at the 640x480 path's shapes.
+versions and the full frame's cells.  The compiled call (core/jit.py):
+every KDE config, RGBF, SPDSP and TOF (at 96x128 and 640x480) replayed
+twice, bitwise the eager call, no output shared; NASP's and the ERS
+labels' cap checks taken both ways as conditional nodes; a host read and
+a host-data seed override under jit raising.  chip_smoke.py runs the
+same checks at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -1568,3 +1572,93 @@ def test_jit_of_a_host_read_raises(dev):
     assert jit.stats["captures"] == 0
     assert torch.equal(jit.jit(lambda y: y * 2.0)(x), x * 2.0)  # the card runs on
     jit.clear()
+
+
+def _dasp_case(name, h, w, dev):
+    """(fn, args) of rgbf / spdsp / tof_pipeline on make_noisy_scene(h, w,
+    seed=0) on the card with its raw points: grid 3x4 at 96x128, the
+    default config at 640x480."""
+    from kinectdepthmapenhancement_tpu_torch.core.config import (
+        RGBFConfig, SPDSPConfig, TOFConfig,
+    )
+    from kinectdepthmapenhancement_tpu_torch.models import pipelines
+
+    intr = default_kinect_intrinsics(w, h)
+    color, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
+    c, d = torch.from_numpy(color).to(dev), torch.from_numpy(noisy).to(dev)
+    cfg = {"rgbf": RGBFConfig(), "spdsp": SPDSPConfig(), "tof": TOFConfig()}[name]
+    if h == H:
+        cfg = dataclasses.replace(cfg, grid=GRID)
+    rest = (cfg,) if name == "rgbf" else (intr, cfg)
+    return getattr(pipelines, f"{name}_pipeline"), (d, projective_to_real(d, intr), c) + rest
+
+
+@pytest.mark.parametrize("size", ["96x128", "640x480"])
+@pytest.mark.parametrize("name", ["rgbf", "spdsp", "tof"])
+def test_jit_dasp_pipelines_replay_equals_eager(dev, name, size):
+    """RGBF, SPDSP and TOF through jit, replayed twice, bitwise the eager
+    call with no output shared: RGBF holds no cond, SPDSP and TOF nine
+    (four later iterations of each SLIC and the ERS labels' index)."""
+    h, w = (H, W) if size == "96x128" else (FULL["h"], FULL["w"])
+    key = _replays_equal_eager(*_dasp_case(name, h, w, dev))
+    assert key["conds"] == (0 if name == "rgbf" else 9)
+
+
+def test_ers_index_device_branch_both_ways(dev):
+    """SPDSP's ERS-index cond (pipelines._with_local_index) under jit takes
+    IF on labels within cap 4 and ELSE on labels that break it, each
+    bitwise the eager host branch, each counted on the device."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.core.config import SPDSPConfig
+    from kinectdepthmapenhancement_tpu_torch.models import pipelines
+    from kinectdepthmapenhancement_tpu_torch.ops import plane
+
+    grid = GridParams(12, 16)  # 8-px cells: a 64-px move breaks the cap of 4
+    cfg = dataclasses.replace(SPDSPConfig(), grid=grid)
+    labels = slic.init_labels(grid, H, W, dev).expand(2, H, W).contiguous()
+    broken = labels.clone()
+    broken[:, : H // 2] = torch.roll(labels[:, : H // 2], shifts=W // 2, dims=-1)
+    intr = default_kinect_intrinsics(W, H)
+    depth = torch.stack([torch.from_numpy(make_noisy_scene(H, W, intr, seed=s)[1])
+                         for s in (0, 3)]).to(dev)
+    points = projective_to_real(depth, intr)
+
+    def planes(lab, pts):
+        return pipelines._with_local_index(
+            lambda idx: plane.pca_planes(pts, lab, grid.num_clusters, index=idx), lab, cfg)
+
+    jit.clear()
+    try:
+        f = jit.jit(planes)
+        for lab in (labels, broken, labels):
+            got, want = f(lab, points), planes(lab, points)
+            assert all(torch.equal(g, e) for g, e in zip(got, want))
+        assert jit.keys()[0]["conds"] == 1 and jit.keys()[0]["taken"] == [[2, 1]]
+    finally:
+        jit.clear()
+
+
+def test_jit_of_a_host_seed_override_raises(dev):
+    """slic.segment's seed override of host data raises inside a jit call;
+    the same seeds as a tensor on the card replay bitwise the eager call."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.core.config import RGBFConfig
+
+    intr = default_kinect_intrinsics(W, H)
+    color, noisy, _ = make_noisy_scene(H, W, intr, seed=0)
+    c = torch.from_numpy(color).to(dev)[None]
+    p = projective_to_real(torch.from_numpy(noisy).to(dev)[None], intr)
+    params = RGBFConfig().color_slic
+    seeds = slic.segment(c, p, grid=GRID, params=params, variant="dasp").clusters.xy[0]
+
+    def seg(s):
+        return lambda cc, pp: slic.segment(cc, pp, grid=GRID, params=params, variant="dasp",
+                                           seeds=s).labels
+
+    jit.clear()
+    try:
+        with pytest.raises(TypeError, match="device tensor"):
+            jit.jit(seg(seeds.tolist()))(c, p)
+        assert torch.equal(jit.jit(seg(seeds))(c, p), seg(seeds)(c, p))
+    finally:
+        jit.clear()

@@ -8,14 +8,18 @@ makes torch.tensor, torch.as_tensor of non-tensor data, the host reads of
 a tensor and boolean-mask indexing raise) the SECOND of two calls of each
 of the slice's paths runs at 96x128 and is bitwise equal to the first,
 unguarded one.  The first call builds the constants the ops keep per
-device (core/device.constant); the second builds none.  The three-
-iteration configs run with locality "cell" and "global": "auto" reads the
-cap verdict on the host in an eager call, and a jit call takes it on the
-device (tests/test_torch_cuda.py and chip_smoke.py's phase 12 hold that on
-the card).  Also: the jit key separates what must be captured apart, jit
-on CPU tensors is fn's own call, jit.cond's eager branch, and the
-timing / evaluation harnesses keep their outputs.  Every comparison is
-bitwise.
+device (core/device.constant); the second builds none.  The paths: every
+KDE config, JBF, MRF, the stream's chunk step, RGBF, SPDSP and TOF, and
+the Buffer2D fold (buffer2d.accumulate and evaluate_tum's jitted step).
+The three-iteration KDE configs, SPDSP and TOF run with locality "cell"
+and "global": "auto" reads the cap verdict on the host in an eager call,
+and a jit call takes it on the device (tests/test_torch_cuda.py and
+chip_smoke.py's phase 12 hold that on the card).  Also: the jit key
+separates what must be captured apart, jit on CPU tensors is fn's own
+call, jit.cond's eager branch, _with_local_index's routes, a host-data
+seed override raising under tracing, and the timing / evaluation
+harnesses keep their outputs, every evaluate row a compiled call.  Every
+comparison is bitwise.
 """
 
 import contextlib
@@ -26,11 +30,20 @@ import pytest
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core import buffer2d, device, jit
-from kinectdepthmapenhancement_tpu_torch.core.camera import default_kinect_intrinsics
-from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
+from kinectdepthmapenhancement_tpu_torch.core.camera import (
+    default_kinect_intrinsics,
+    projective_to_real,
+)
+from kinectdepthmapenhancement_tpu_torch.core.config import (
+    GridParams,
+    KDEConfig,
+    RGBFConfig,
+    SPDSPConfig,
+    TOFConfig,
+)
 from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
 from kinectdepthmapenhancement_tpu_torch.models import pipelines, streaming
-from kinectdepthmapenhancement_tpu_torch.ops import slic
+from kinectdepthmapenhancement_tpu_torch.ops import plane, slic
 from kinectdepthmapenhancement_tpu_torch.utils import evaluate, timing
 
 torch.set_num_threads(2)
@@ -182,6 +195,108 @@ def test_chunk_step_second_call_makes_no_host_access(frames, kde_only):
     _assert_equal(second, first)
 
 
+def _dasp(cfg, locality):
+    """cfg at grid 3x4 with both SLICs' locality set."""
+    return dataclasses.replace(cfg, grid=GridParams(3, 4), **{
+        f: dataclasses.replace(getattr(cfg, f), locality=locality)
+        for f in ("color_slic", "depth_slic")})
+
+
+# RGBF runs one SLIC iteration each (no cap check); SPDSP and TOF run four
+# later iterations a SLIC and the ERS labels' index, each checked on "auto"
+DASP_CASES = {
+    "rgbf": (pipelines.rgbf_pipeline, _dasp(RGBFConfig(), "auto")),
+    **{f"{name}_{loc}": (fn, _dasp(cfg, loc))
+       for name, fn, cfg in (("spdsp", pipelines.spdsp_pipeline, SPDSPConfig()),
+                             ("tof", pipelines.tof_pipeline, TOFConfig()))
+       for loc in ("cell", "global")},
+}
+
+
+@pytest.mark.parametrize("name", list(DASP_CASES))
+def test_dasp_pipelines_second_call_make_no_host_access(frames, name):
+    fn, cfg = DASP_CASES[name]
+    depth, color = frames[0][:1], frames[1][:1]
+    args = (depth, projective_to_real(depth, INTR), color) + (
+        (cfg,) if fn is pipelines.rgbf_pipeline else (INTR, cfg))
+    first = fn(*args)
+    with capture_guard():
+        second = fn(*args)
+    _assert_equal(second, first)
+
+
+@pytest.mark.parametrize("path", ["accumulate", "fold_step"])
+def test_buffer_fold_second_call_makes_no_host_access(frames, path):
+    """buffer2d.accumulate (a compiled call) and evaluate_tum's jitted
+    update step, each bitwise the eager fold of buffer2d.update."""
+    stack = torch.cat([frames[0], frames[0].flip(0) + 0.5])
+    want = buffer2d.init(H, W)
+    for frame in stack:
+        want = buffer2d.update(want, frame)
+    if path == "accumulate":
+        def fold():
+            return buffer2d.accumulate(buffer2d.init(H, W), stack)
+    else:
+        step = jit.jit(buffer2d.update)
+
+        def fold():
+            buf = buffer2d.init(H, W)
+            for frame in stack:
+                buf = step(buf, frame)
+            return buf
+    first = fold()
+    with capture_guard():
+        second = fold()
+    _assert_equal(first, want)
+    _assert_equal(second, want)
+
+
+@pytest.mark.parametrize("holds", [True, False], ids=["holds_cap", "breaks_cap"])
+def test_with_local_index_gives_local_index_routes(frames, holds):
+    """pipelines._with_local_index(fn, ...) is fn on _local_index's route,
+    bitwise: the cell-local index at r = 4 on labels within the cap, the
+    global one on labels that break it."""
+    grid = GridParams(12, 16)  # 8-px cells: a roll by 64 px is 8 cells
+    cfg = dataclasses.replace(SPDSPConfig(), grid=grid)
+    labels = slic.init_labels(grid, H, W).expand(2, H, W).contiguous()
+    if not holds:
+        labels = labels.clone()
+        labels[:, : H // 2] = torch.roll(labels[:, : H // 2], shifts=W // 2, dims=-1)
+    points = projective_to_real(frames[0], INTR)
+
+    def fit(index):
+        return plane.pca_planes(points, labels, grid.num_clusters, index=index)
+
+    index = pipelines._local_index(labels, cfg)
+    assert type(index) is (slic._CellIndex if holds else slic._GlobalIndex)
+    _assert_equal(pipelines._with_local_index(fit, labels, cfg), fit(index))
+
+
+def test_segment_refuses_host_seeds_under_tracing(frames, monkeypatch):
+    """A seed override of host data cannot be captured: inside a jit call
+    segment raises; eager, it equals the same seeds as a tensor, which
+    pass through a jit call unchanged."""
+    color = frames[1][:1]
+    points = projective_to_real(frames[0][:1], INTR)
+    params = RGBFConfig().color_slic
+    seeds = slic.segment(color, points, grid=BASE.grid, params=params,
+                         variant="dasp").clusters.xy[0].tolist()
+
+    def run(s):
+        return slic.segment(color, points, grid=BASE.grid, params=params, variant="dasp",
+                            seeds=s)
+
+    want = run(torch.tensor(seeds, dtype=torch.int32))
+    _assert_equal(run(seeds), want)
+    monkeypatch.setattr(jit, "_mode", "warmup")
+    assert jit.tracing()
+    with pytest.raises(TypeError, match="device tensor"):
+        run(seeds)
+    with pytest.raises(TypeError, match="device tensor"):
+        run(np.asarray(seeds))
+    _assert_equal(run(torch.tensor(seeds, dtype=torch.int32)), want)
+
+
 def test_key_separates_configs_shapes_dtypes_and_devices():
     x = torch.zeros((2, 8, 8))
 
@@ -270,5 +385,8 @@ def test_evaluate_keeps_its_rows_and_keys(frames):
     assert list(rows) == ["input", "jbf", "mrf"]
     for r in rows.values():
         assert set(r) == {"time_ms", "mean_3d_error_mm", "rmse_mm", "valid_px"}
-    runs = evaluate.method_runs(INTR, BASE.grid, include_sp_methods=True)
-    assert [n for n in runs if n in evaluate.EAGER_ROWS] == ["rgbf", "spdsp", "tof"]
+    runs = evaluate.method_runs(INTR, BASE.grid, include_sp_methods=True, fill_steps=4,
+                                plane_merge=True)
+    assert list(runs) == ["input", "jbf", "mrf", "rgbf", "kde", "kde_fill", "kde_pm",
+                          "kde_pm_fill", "spdsp", "tof"]
+    assert all(isinstance(fn, jit._Jitted) for fn in runs.values())  # every row compiled
