@@ -342,16 +342,20 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np, v2_np) -> dict:
 
     mods = (cuda_bilateral, cuda_dt, cuda_cov, cuda_gradient)
 
-    def counted(fn):
-        """fn() from launch counts and forms at 0 -> (its output, the
-        launches by kernel, the launches by form as the wrappers record
-        them)."""
+    def zero():
+        """Launch counts and forms at 0."""
         for m in mods + (cuda_nasp,):
             m.launch_forms.clear()
         for m in mods:
             m.launches = 0
         for k in cuda_nasp.launches:
             cuda_nasp.launches[k] = 0
+
+    def counted(fn):
+        """fn() from launch counts and forms at 0 -> (its output, the
+        launches by kernel, the launches by form as the wrappers record
+        them)."""
+        zero()
         out = fn()
         torch.cuda.synchronize()
         c = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
@@ -372,6 +376,8 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np, v2_np) -> dict:
            "expect": {}, "out": {}, "ms": {}}
     if n == 8:
         _phase11_tiled(res, mesh, {"split": (depth, color, intr)}, cfg, counted)
+        _phase11_compiled(res, {"split default B=4": (mesh, cfg, intr, depth, color)}, zero,
+                          counted)
         return res
 
     def path(tag, m, fn, form=None):
@@ -404,7 +410,9 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np, v2_np) -> dict:
     banded = tuple(torch.from_numpy(a).to(mesh.device) for a in banded_np)
     _phase11_configs(res, mesh, {"noisy": (depth, color), "banded": banded}, intr, counted)
     if n == 2:
-        step = sharding.sharded_kde_step(mesh, intr, cfg)
+        # the eager steps (the compiled call's function, step.fn); part (d)
+        # below runs them compiled
+        step = sharding.sharded_kde_step(mesh, intr, cfg).fn
         path("spatial step data1 x2", mesh,
              lambda: step(mesh.width_tile(depth), mesh.width_tile(color)), f"jbf:w{w // n + 4}")
         res["ms"]["spatial step gloo data1 x2 B=4"] = cuda_ms(
@@ -412,11 +420,105 @@ def _phase11_rank(depth_np, color_np, crop_w: int, banded_np, v2_np) -> dict:
         mesh_d = make_mesh(n, spatial=1, device="cuda")
         b = depth.shape[0] // mesh_d.data
         rows = slice(mesh_d.d * b, (mesh_d.d + 1) * b)
-        step_d = sharding.sharded_kde_step(mesh_d, intr, cfg)
+        step_d = sharding.sharded_kde_step(mesh_d, intr, cfg).fn
         path("data step data2 x1", mesh_d, lambda: step_d(depth[rows], color[rows]))
+        cases = {"640 default B=4": (mesh, cfg, intr, depth, color),
+                 "640 default B=1": (mesh, cfg, intr, depth[:1], color[:1]),
+                 "data2 x1 default B=4": (mesh_d, cfg, intr, depth, color)}
+    else:
+        iter3 = phase11_configs()["iter3"][0]
+        cases = {"640 default B=4": (mesh, cfg, intr, depth, color),
+                 "640 iter3 B=4": (mesh, iter3, intr, depth, color),
+                 "v2 default B=4": (mesh, cfg, default_kinect_intrinsics(vd.shape[2], vd.shape[1]),
+                                    vd, vc)}
+    _phase11_compiled(res, cases, zero, counted)
     if res["rank"] != 0:
         res["out"] = {}
     return res
+
+
+# each compiled case of phase 11 (d): the host steps of a replay (the eager
+# step's collectives, TILED_CASE_PATHS and tests/test_torch_tiled_configs.py)
+# and its host branches (the capped route's two later updates and the label
+# index; no conditional node on any of these paths)
+COMPILED_CASE_STEPS = {
+    "640 default B=4": (14, 0), "640 default B=1": (14, 0), "data2 x1 default B=4": (0, 0),
+    "640 iter3 B=4": (25, 3), "v2 default B=4": (18, 0), "split default B=4": (16, 0),
+}
+
+
+def _phase11_compiled(res, cases, zero, counted) -> None:
+    """Phase 11 (d), the compiled step, on one gloo rank: each case (tag:
+    mesh, config, intrinsics, the global batch's depth and colour) through
+    sharding.sharded_kde_step.  The eager step (step.fn) from launch counts
+    at 0 with its collectives; the first compiled call (warm-up and
+    capture) with the counts zeroed as its capture begins (jit.capture_hooks),
+    so they count the capture alone; two replays, each bitwise the eager
+    step's block, no output shared, their host steps (jit.stats) and the
+    launches they make from Python (none); replay 1 gathered over the world
+    and, on rank 0, held bitwise against kde_pipeline on the same frames;
+    eager and replay ms (CUDA events, median of 5; every rank times the
+    same calls, each a collective), warm-up and capture ms, the pool, the
+    pieces, host steps and host branches with their branches taken; rank 0
+    profiles one replay (the others replay beside it).  jit.clear() and
+    torch.cuda.empty_cache() after each case.  Results go in
+    res["compiled"]."""
+    import torch
+
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
+    from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
+    from kinectdepthmapenhancement_tpu_torch.parallel import sharding
+    from kinectdepthmapenhancement_tpu_torch.utils.timing import cuda_ms
+
+    out = res["compiled"] = {}
+    torch.cuda.empty_cache()  # (b)'s cached blocks: each case's pool and warm-up need room
+    for tag, (m, cfg, intr, depth, color) in cases.items():
+        b = depth.shape[0] // m.data
+        rows = slice(m.d * b, (m.d + 1) * b)
+        blocks = (m.width_tile(depth[rows]), m.width_tile(color[rows]))
+        step = sharding.sharded_kde_step(m, intr, cfg)
+        mesh_mod.collectives = 0
+        eager, eager_counts, _ = counted(lambda: step.fn(*blocks))
+        run = {"collectives": mesh_mod.collectives, "eager_counts": eager_counts,
+               "block": tuple(eager.shape)}
+        jit.capture_hooks.append(zero)
+        try:
+            first, run["capture_counts"], _ = counted(lambda: step(*blocks))
+        finally:
+            jit.capture_hooks.remove(zero)
+        zero()
+        replays, host_steps = [], []
+        for _ in range(2):
+            before = jit.stats["host_steps"]
+            replays.append(step(*blocks))
+            torch.cuda.synchronize()
+            host_steps.append(jit.stats["host_steps"] - before)
+        _, run["replay_counts"], _ = counted(lambda: None)
+        run["host_steps"] = host_steps
+        run["bitwise"] = all(torch.equal(x, eager) for x in [first] + replays)
+        run["aliased"] = replays[0].data_ptr() == replays[1].data_ptr()
+        run["route"] = getattr(step, "route", "data")
+        full = sharding.gather_global(replays[0], m)
+        if m.rank == 0:
+            want = kde_pipeline(depth[:m.data * b].contiguous(), color[:m.data * b].contiguous(),
+                                intr, cfg).optimized_points
+            run["gathered_bitwise"] = torch.equal(full, want)
+        run["eager_ms"] = cuda_ms(lambda: step.fn(*blocks), warmup=1, iters=5)
+        run["replay_ms"] = cuda_ms(lambda: step(*blocks), warmup=1, iters=5)
+        if m.rank == 0:
+            run["profile"] = _replay_profile(lambda: step(*blocks))
+        else:
+            step(*blocks)
+            torch.cuda.synchronize()
+        (info,) = step.info()
+        run.update({k: info[k] for k in ("warmup_ms", "capture_ms", "pieces", "conds",
+                                         "host_branches", "host_taken")})
+        run["pool_mib"] = info["pool_bytes"] / 2**20
+        out[tag] = run
+        del step, eager, first, replays, full
+        jit.clear()
+        torch.cuda.empty_cache()
 
 
 # the cell kernels' launch forms on the tiled route (cuda_nasp.launch_forms):
@@ -698,6 +800,44 @@ KERNEL_COUNTER = {
 }
 
 
+def _replay_profile(fn):
+    """One profiled call of fn (a replay): the port's kernels in its
+    device trace by counter name and how often each ran, its device
+    activities and busy share (the union of their intervals over their
+    span); None when the trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [ev for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()]
+    if not acts:
+        return None
+    launched = {}
+    for ev in acts:
+        m = PORT_KERNEL.match(ev.name())
+        if m and m.group(1) in KERNEL_COUNTER:
+            name = KERNEL_COUNTER[m.group(1)]
+            launched[name] = launched.get(name, 0) + 1
+    busy_ns, end = 0, None
+    spans = sorted((ev.start_ns(), ev.end_ns()) for ev in acts)
+    for a, b in spans:
+        if end is None or a >= end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    span_ms = (end - spans[0][0]) / 1e6
+    return {"kernels": sorted(launched), "launches": launched, "activities": len(acts),
+            "busy_ms": busy_ns / 1e6, "wall_ms": wall_ms, "span_ms": span_ms,
+            "busy_share": busy_ns / 1e6 / span_ms}
+
+
 def phase12(dev, smi: str) -> dict:
     """Phase 12: the compiled call (core/jit.py) on the card.  (a) each of
     the slice's kde_pipeline configs at 640x480 (and the 424x512 Kinect v2
@@ -723,8 +863,6 @@ def phase12(dev, smi: str) -> dict:
     runs after it.  Returns the numbers it prints."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kinectdepthmapenhancement_tpu_torch.core import jit
     from kinectdepthmapenhancement_tpu_torch.core.camera import (
@@ -766,40 +904,6 @@ def phase12(dev, smi: str) -> dict:
 
     intr, depth4, color4, scenes = frames(480, 640)
     intr_v2, vdepth4, vcolor4, _ = frames(424, 512)
-
-    def replay_profile(fn):
-        """One profiled call of fn (a replay): the port's kernels in its
-        device trace by counter name and how often each ran, its device
-        activities and busy
-        share (the union of their intervals over their span); None when
-        the trace holds no device activity."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        acts = [ev for ev in prof.profiler.kineto_results.events()
-                if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()]
-        if not acts:
-            return None
-        launched = {}
-        for ev in acts:
-            m = PORT_KERNEL.match(ev.name())
-            if m and m.group(1) in KERNEL_COUNTER:
-                name = KERNEL_COUNTER[m.group(1)]
-                launched[name] = launched.get(name, 0) + 1
-        busy_ns, end = 0, None
-        spans = sorted((ev.start_ns(), ev.end_ns()) for ev in acts)
-        for a, b in spans:
-            if end is None or a >= end:
-                busy_ns, end = busy_ns + b - a, b
-            elif b > end:
-                busy_ns, end = busy_ns + b - end, b
-        span_ms = (end - spans[0][0]) / 1e6
-        return {"kernels": sorted(launched), "launches": launched, "activities": len(acts),
-                "busy_ms": busy_ns / 1e6, "wall_ms": wall_ms, "span_ms": span_ms,
-                "busy_share": busy_ns / 1e6 / span_ms}
 
     def fields(out):
         return out._asdict() if hasattr(out, "_asdict") else {"out": out}
@@ -845,7 +949,7 @@ def phase12(dev, smi: str) -> dict:
         if alias:
             _fail(f"phase 12 {tag}: two replays return the same tensors for {alias}")
         for _ in range(3):  # a trace may come back short of device records
-            prof = replay_profile(lambda: f(*args))
+            prof = _replay_profile(lambda: f(*args))
             absent = sorted(ran - set(prof["kernels"] if prof else ()))
             if prof and not absent and prof["launches"] == eager_launches:
                 break
@@ -863,6 +967,10 @@ def phase12(dev, smi: str) -> dict:
         eager_ms = cuda_ms(lambda: fn(*args), warmup=1, iters=5)
         replay_ms = cuda_ms(lambda: f(*args), warmup=1, iters=5)
         (key,) = f.info()
+        if key["pieces"] != 1 or key["host_steps"] or key["host_branches"]:
+            _fail(f"phase 12 {tag}: {key['pieces']} pieces, {key['host_steps']} host steps, "
+                  f"{key['host_branches']} host branches: a call with no collective is one "
+                  "graph, its conds conditional nodes")
         row = {"eager_ms": eager_ms, "replay_ms": replay_ms, "capture_ms": key["capture_ms"],
                "warmup_ms": key["warmup_ms"], "pool_mb": key["pool_bytes"] / 2**20,
                "segments": key["segments"], "conds": key["conds"], "taken": key["taken"],
@@ -1117,7 +1225,7 @@ def phase12(dev, smi: str) -> dict:
                "accumulate_replay": cuda_ms(lambda: buffer2d.accumulate(buf0, frames_dev),
                                             warmup=1, iters=5),
                "step_fold": cuda_ms(step_fold, warmup=1, iters=5)}
-    prof = replay_profile(lambda: buffer2d.accumulate(buf0, frames_dev))
+    prof = _replay_profile(lambda: buffer2d.accumulate(buf0, frames_dev))
     if not prof:
         _fail("phase 12 (g): a profiled replay of accumulate held no device activity")
     fold.update(ms=fold_ms, busy_share=prof["busy_share"], activities=prof["activities"])
@@ -3266,8 +3374,10 @@ def main() -> int:
         default=float))
 
     # ---- phase 11: the multi-process layer (parallel/) at 640x480 (runs
-    # before phase 9's summary): (a) world size 1 over NCCL in this process;
-    # (b) gloo ranks sharing the one card, world 2 and 4; (c) the dryrun.
+    # before phase 9's summary): (a) world size 1 over NCCL in this process,
+    # the step compiled; (b) gloo ranks sharing the one card, world 2, 4 and
+    # 8; (c) the dryrun (the compiled step); (d) in (b)'s ranks, the
+    # compiled step (sharding.sharded_kde_step) against the eager one.
     # One card measures no scaling: every time here is a path's cost
     import socket
 
@@ -3302,10 +3412,27 @@ def main() -> int:
         gc = multihost.local_batch_to_global(mesh, list(color4), extra_dims=1)
         if (gd.size, gd.offset, gd.local.device) != (4, 0, mesh.device):
             _fail(f"phase 11 (a): global batch {gd.size} at {gd.offset} on {gd.local.device}")
+        # the compiled step: its first call's capture (the counts zeroed as
+        # the capture begins) launches what the eager step launches, and it
+        # and a replay are bitwise phase 4's kde_pipeline at B=4
         step = sharding.sharded_kde_step(mesh, intr, cfg)
-        out1 = drive("p11.world1 nccl step", lambda: step(gd.local, gc.local), all_kernels)
-        if not torch.equal(out1, res4.optimized_points):
-            _fail("phase 11 (a): the data-parallel step differs from kde_pipeline at B=4")
+        drive("p11.world1 nccl eager step", lambda: step.fn(gd.local, gc.local), all_kernels)
+        jit.capture_hooks.append(reset_counts)
+        try:
+            out1 = drive("p11.world1 nccl step", lambda: step(gd.local, gc.local), all_kernels)
+        finally:
+            jit.capture_hooks.remove(reset_counts)
+        if path_counts["p11.world1 nccl step"] != path_counts["p11.world1 nccl eager step"]:
+            _fail("phase 11 (a): the capture launched "
+                  f"{path_counts['p11.world1 nccl step']}, the eager step "
+                  f"{path_counts['p11.world1 nccl eager step']}")
+        replay1 = step(gd.local, gc.local)
+        (key1,) = step.info()
+        if not (torch.equal(out1, res4.optimized_points)
+                and torch.equal(replay1, res4.optimized_points)):
+            _fail("phase 11 (a): the compiled data-parallel step differs from kde_pipeline at B=4")
+        if (key1["host_steps"], key1["pieces"], jit.stats["host_steps"]) != (0, 1, 0):
+            _fail(f"phase 11 (a): the world-1 step holds host steps or pieces: {key1}")
         got1 = {f: getattr(res4, f)[0].cpu().numpy() for f in res4._fields}
         got1["optimized_points"] = out1[0].cpu().numpy()
         gates = golden.kde_gates(got1, golden.load_jax_640x480())
@@ -3328,6 +3455,12 @@ def main() -> int:
             "global_mean": float(gmean), "jbf_sharded bitwise": True}
         p11_ms["world1 nccl step B=4"] = cuda_ms(lambda: step(gd.local, gc.local),
                                                  warmup=1, iters=5)
+        p11_ms["world1 nccl eager step B=4"] = cuda_ms(lambda: step.fn(gd.local, gc.local),
+                                                       warmup=1, iters=5)
+        p11_checks["world1 nccl"]["compiled"] = {
+            k: key1[k] for k in ("warmup_ms", "capture_ms", "pool_bytes", "pieces", "host_steps")}
+        del step, out1, replay1
+        jit.clear()
         p11_ms["bare kde_pipeline B=4"] = cuda_ms(lambda: kde_pipeline(depth4, color4, intr, cfg),
                                                   warmup=1, iters=5)
         p11_ms["exchange_width nccl x1 (colour halo 4, B=1)"] = cuda_ms(
@@ -3356,6 +3489,12 @@ def main() -> int:
     banded = [make_banded_scene(h, w, intr, seed=s, hole_fraction=0.15) for s in range(4)]
     banded_np = (np.stack([b_[1] for b_ in banded]), np.stack([b_[0] for b_ in banded]))
     p11_configs: dict = {}
+    # the ranks share the card with this process: hand them its cached
+    # memory (phase 10's graphs and batches left tens of GiB reserved)
+    jit.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 11 (b): this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+          "reserved on the card", flush=True)
     for n in (2, 4, 8):
         ranks = multihost.spawn(_phase11_rank, n,
                                 args=(depth_np, color_np, crop_w, banded_np, v2_np),
@@ -3484,13 +3623,67 @@ def main() -> int:
                       + "; ms (CUDA events, median of 5) " + json.dumps(v["ms"]))
         print(f"phase 11 (b) world {n} on {[r['device'] for r in ranks]}: "
               f"{time.perf_counter() - t_phase11:.1f} s")
+        # (d) the compiled step: bits, host steps and branches, launches,
+        # times and pools by rank
+        for r in ranks:
+            for tag, run in r["compiled"].items():
+                key = f"p11.compiled x{n} {tag} rank{r['rank']}"
+                path_counts[key] = run["capture_counts"]
+                want_steps, want_branches = COMPILED_CASE_STEPS[tag]
+                wrong = []
+                if not run["bitwise"] or run["aliased"] or run.get("gathered_bitwise") is False:
+                    wrong.append(f"bits: bitwise {run['bitwise']}, aliased {run['aliased']}, "
+                                 f"gathered {run.get('gathered_bitwise')}")
+                if run["collectives"] != want_steps or run["host_steps"] != [want_steps] * 2:
+                    wrong.append(f"{run['collectives']} collectives eager, host steps a replay "
+                                 f"{run['host_steps']}, not {want_steps}")
+                if run["capture_counts"] != run["eager_counts"]:
+                    wrong.append(f"the capture launched {run['capture_counts']}, the eager "
+                                 f"step {run['eager_counts']}")
+                if any(run["replay_counts"].values()):
+                    wrong.append(f"a replay launched from Python: {run['replay_counts']}")
+                taken = run["host_taken"]
+                if (run["host_branches"] != want_branches or run["conds"]
+                        or any(t != [taken[0][0], 0] or not t[0] for t in taken)):
+                    wrong.append(f"{run['host_branches']} host branches taken {taken}, "
+                                 f"{run['conds']} conds; want {want_branches} taken IF alone")
+                prof = run.get("profile")
+                eager_nz = {k: v for k, v in run["eager_counts"].items() if v}
+                if prof and prof["launches"] != eager_nz:
+                    wrong.append(f"a profiled replay launched {prof['launches']}, the eager "
+                                 f"step {eager_nz}")
+                if wrong:
+                    _fail(f"phase 11 (d): {key}: " + "; ".join(wrong))
+                p11_checks[f"gloo {key}"] = {
+                    "bitwise": True, "route": run["route"], "host_steps": run["host_steps"],
+                    "host_branches": taken, "launches": run["capture_counts"]}
+                p11_ms[f"compiled x{n} rank{r['rank']} {tag} eager"] = run["eager_ms"]
+                p11_ms[f"compiled x{n} rank{r['rank']} {tag} replay"] = run["replay_ms"]
+                if r["rank"] == 0:
+                    print(f"phase 11 (d) x{n} {tag}: profiled replay on rank 0: " + (
+                        "no device activity in the trace (CUPTI beside the other ranks)"
+                        if not prof else
+                        f"{prof['activities']} device activities, kernels {prof['launches']} "
+                        f"(as the eager step), busy {prof['busy_ms']:.3f} ms of "
+                        f"{prof['span_ms']:.3f} ms"))
+            print(f"phase 11 (d) compiled step x{n} rank {r['rank']} on {smi}: " + "; ".join(
+                f"{tag}: replays bitwise the eager step, eager {run['eager_ms']:.3f} ms, replay "
+                f"{run['replay_ms']:.3f} ms (CUDA events, median of 5), warm-up "
+                f"{run['warmup_ms']:.1f} ms, capture {run['capture_ms']:.1f} ms, pool "
+                f"{run['pool_mib']:.1f} MiB, {run['pieces']} pieces, {run['host_steps'][0]} "
+                f"host steps a replay ({run['collectives']} collectives eager), "
+                f"{run['host_branches']} host branches taken {run['host_taken']}"
+                for tag, run in r["compiled"].items()))
+        print(f"phase 11 (d) world {n}: {time.perf_counter() - t_phase11:.1f} s")
 
     # (c) the dryrun: one rank over NCCL, four gloo ranks sharing the card
     for n, backend in ((1, None), (4, "gloo")):
         t0 = time.perf_counter()
         dry = sharding.dryrun(n, backend=backend)
         p11_ms[f"dryrun({n}) {backend or 'nccl'} wall"] = (time.perf_counter() - t0) * 1e3
-        if "parity=ok" not in dry["line"] or dry["jbf_launches"] != [1] * n:
+        # the compiled step's two calls launch the JBF twice from Python on
+        # each rank: in its warm-up and its capture (the replay, none)
+        if "parity=ok" not in dry["line"] or dry["jbf_launches"] != [2] * n:
             _fail(f"phase 11 (c): dryrun({n}): {dry}")
         p11_checks[f"dryrun({n})"] = dry
     print(f"phase 11: {time.perf_counter() - t_phase11:.1f} s")

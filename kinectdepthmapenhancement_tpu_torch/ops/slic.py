@@ -50,8 +50,9 @@ at the tile's global columns and every update takes the global index,
 whose float sums run on the group's gathered features as one whole-frame
 product (CellTile.gather_width).  Later iterations sweep the tile's pixels
 at their global columns; the cap check's per-frame verdicts are combined
-over the group before the host reads them (every rank takes the same
-branch), and off the cap the global index takes over as above.
+over the group by a host step before the host reads them (every rank
+takes the same branch; in a jit call a host branch), and off the cap the
+global index takes over as above.
 
 SP and DASP (the colour and depth SLICs of RGBF, SPDSP and TOF) seed from
 the colour form of the seed gradient (window 16 / 4) and run every
@@ -170,6 +171,9 @@ class CellTile(Protocol):
     # integer-valued f32 counts (< 2^24) of every tile -> their sum (exact,
     # so the same in any order)
     sum_counts: Callable[[torch.Tensor], torch.Tensor]
+    # bool [B] of every tile -> 0-dim bool: every element holds on every
+    # tile (a host step, whose verdict a jit.cond reads on the host)
+    all_true: Callable[[torch.Tensor], torch.Tensor]
     # [B, H, ws, ...] of every tile -> the frames [B, H, width, ...]
     gather_width: Callable[[torch.Tensor], torch.Tensor]
     # (x [B, H, ws, ...], radius) -> (x with radius columns of the
@@ -442,18 +446,17 @@ def _cap_verdict(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: in
     """0-dim bool on the labels' device: every frame of the batch holds
     labels_within_cap's invariant.  On a tile the frames' verdicts are the
     tiles' combined over the group (a frame fails when any tile of it
-    fails), so every rank of the group reads the same verdict, the one of
-    the whole frames, and takes the same branch."""
+    fails: CellTile.all_true, a host step), so every rank of the group
+    reads the same verdict, the one of the whole frames, and takes the
+    same branch."""
     ok = labels_within_cap(labels, grid, cap, h, w, x0=0 if tile is None else tile.x0)
-    if tile is not None:
-        ok = tile.sum_counts((~ok).to(torch.float32)) == 0.0
-    return ok.all()
+    return ok.all() if tile is None else tile.all_true(ok)
 
 
-def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int,
-                tile: Optional[CellTile] = None) -> bool:
-    """The eager call's host branch on _cap_verdict (a host sync)."""
-    return bool(_cap_verdict(labels, grid, cap, h, w, tile))
+def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int) -> bool:
+    """The eager call's host branch on _cap_verdict (a host sync) off a
+    tile (on a tile the verdict comes out of a host step: jit.cond)."""
+    return bool(_cap_verdict(labels, grid, cap, h, w))
 
 
 def _stats_impl_on(stats_impl: str) -> bool:
@@ -503,7 +506,9 @@ def with_capped_index(
     fn on each index as its branches, so fn must then return tensors.
     Labels agree exactly on either route; sums differ in order only.  With
     a tile the labels are the tile's, the frame tile.width wide, and the
-    verdict the group's."""
+    verdict the group's, made by a host step that the jit.cond reads on
+    the host (a host branch inside a jit call: the branches gather over the
+    group)."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
@@ -518,9 +523,9 @@ def with_capped_index(
         return whole()
     if locality == "cell":
         return cell()
-    if jit.tracing():
+    if jit.tracing() or tile is not None:
         return jit.cond(_cap_verdict(labels, grid, cap, h, w, tile), cell, whole)
-    return cell() if _within_cap(labels, grid, cap, h, w, tile) else whole()
+    return cell() if _within_cap(labels, grid, cap, h, w) else whole()
 
 
 def capped_index(
@@ -1231,7 +1236,7 @@ def _tile_clusters(color_f, points, normals, grid: GridParams, h: int, w: int,
         csub = _subgrid_extract(color_f, grid_t, h, ws, window)
         nsub = _subgrid_extract(normals, grid_t, h, ws, window)
         seeds = _sample_seeds_subgrid(_gradient(csub, nsub, "tile"), grid_t, h, ws, window)
-        shift = torch.tensor([tile.x0, 0], dtype=torch.int32, device=seeds.device)
+        shift = constant((tile.x0, 0), torch.int32, seeds.device)
         # one gather of the tile's rows: rgb, centre, normal, global (x, y)
         rows_t = torch.cat([_at_pixels(planes, seeds[..., 0], seeds[..., 1]),
                             (seeds + shift).to(torch.float32)], dim=-1)

@@ -16,6 +16,8 @@ takes a halo filled with its out-of-image value (exchange_width's
 the tile's edge is then the frame's, for replicate pads and +inf
 borders).  retile moves columns between two tilings of the same frames
 (the data tiles and the cell-aligned ones of the tiled KDE route).
+Each exchange is one host step of core/jit.py (the strips' transfer; the
+cutting and concatenation around it are ordinary ops).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.parallel.mesh import (
     Mesh, all_gather_x, note_collective, wire,
 )
@@ -41,25 +44,32 @@ def exchange_width(x: torch.Tensor, radius: int, mesh: Mesh, fill: float = 0) ->
     zeros = torch.full_like(x[:, :, :radius], fill)
     from_left, from_right = zeros, zeros
     if mesh.x > 1:
-        group = mesh.x_group
-        ops, recv = [], {}
-        # one message each way per neighbour, posted in the same order on
-        # both sides: my right strip becomes my right neighbour's left
-        # halo, my left strip my left neighbour's right halo
-        for side, peer_s, strip in (("left", mesh.s - 1, x[:, :, :radius]),
-                                    ("right", mesh.s + 1, x[:, :, ws - radius:])):
-            if not 0 <= peer_s < mesh.x:
-                continue
-            peer = mesh.x_ranks[peer_s]
-            send = wire(strip.contiguous(), group)
-            recv[side] = torch.empty_like(send)
-            ops.append(dist.P2POp(dist.isend, send, peer, group))
-            ops.append(dist.P2POp(dist.irecv, recv[side], peer, group))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        # my left strip becomes my left neighbour's right halo, my right
+        # strip my right neighbour's left halo
+        sides = [(side, mesh.x_ranks[peer_s], strip.contiguous())
+                 for side, peer_s, strip in (("left", mesh.s - 1, x[:, :, :radius]),
+                                             ("right", mesh.s + 1, x[:, :, ws - radius:]))
+                 if 0 <= peer_s < mesh.x]
+
+        def exchange(*strips):
+            group = mesh.x_group
+            ops, recv = [], []
+            # one message each way per neighbour, posted in the same order
+            # on both sides
+            for (_, peer, _), strip in zip(sides, strips):
+                send = wire(strip, group)
+                recv.append(torch.empty_like(send))
+                ops.append(dist.P2POp(dist.isend, send, peer, group))
+                ops.append(dist.P2POp(dist.irecv, recv[-1], peer, group))
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            return recv
+
+        got = dict(zip((side for side, _, _ in sides),
+                       jit.collective(exchange, *(strip for _, _, strip in sides))))
         note_collective()
-        from_left = recv["left"].to(x.device) if "left" in recv else zeros
-        from_right = recv["right"].to(x.device) if "right" in recv else zeros
+        from_left = got.get("left", zeros)
+        from_right = got.get("right", zeros)
     return torch.cat([from_left, x, from_right], dim=2)
 
 
@@ -121,15 +131,14 @@ def retile(x: torch.Tensor, src: Sequence[Tuple[int, int]], dst: Sequence[Tuple[
         raise ValueError(f"a tile {x.shape[2]} wide; rank {mesh.s}'s source tile is {width}")
     if mesh.x == 1:
         return x
-    group = mesh.x_group
-    ops, pieces = [], []
+    # my columns that each peer holds in dst, and each peer's columns that
+    # I hold: the pieces of my dst tile in column order, my own kept
+    sends, recvs, pieces = [], [], []
     for peer_s in range(mesh.x):
-        # my columns that peer_s holds in dst, and its columns that I hold
         p0, pw = dst[peer_s]
         lo, hi = max(x0, p0), min(x0 + width, p0 + pw)
         if peer_s != mesh.s and hi > lo:
-            send = wire(x[:, :, lo - x0:hi - x0].contiguous(), group)
-            ops.append(dist.P2POp(dist.isend, send, mesh.x_ranks[peer_s], group))
+            sends.append((mesh.x_ranks[peer_s], x[:, :, lo - x0:hi - x0].contiguous()))
         q0, qw = src[peer_s]
         lo, hi = max(q0, y0), min(q0 + qw, y0 + width_y)
         if hi <= lo:
@@ -138,14 +147,26 @@ def retile(x: torch.Tensor, src: Sequence[Tuple[int, int]], dst: Sequence[Tuple[
             pieces.append(x[:, :, lo - x0:hi - x0])
         else:
             shape = (x.shape[0], x.shape[1], hi - lo) + tuple(x.shape[3:])
-            recv = wire(torch.empty(shape, dtype=x.dtype, device=x.device), group)
-            ops.append(dist.P2POp(dist.irecv, recv, mesh.x_ranks[peer_s], group))
-            pieces.append(recv)
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            recvs.append((mesh.x_ranks[peer_s], shape))
+            pieces.append(len(recvs) - 1)  # the step's output of that index
+
+    def move(_, *send_tiles):
+        group = mesh.x_group
+        ops, got = [], []
+        for (peer, _), tile in zip(sends, send_tiles):
+            ops.append(dist.P2POp(dist.isend, wire(tile, group), peer, group))
+        for peer, shape in recvs:
+            got.append(wire(torch.empty(shape, dtype=x.dtype, device=x.device), group))
+            ops.append(dist.P2POp(dist.irecv, got[-1], peer, group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return got
+
+    # x first: the step's device, whatever this rank sends
+    got = jit.collective(move, x, *(tile for _, tile in sends))
     note_collective()
-    out = torch.cat([piece.to(x.device) for piece in pieces], dim=2)
+    out = torch.cat([got[p] if isinstance(p, int) else p for p in pieces], dim=2)
     if out.shape[2] != width_y:
         raise ValueError(f"the source tiles cover {out.shape[2]} of the {width_y} columns of "
                          f"rank {mesh.s}'s destination tile")

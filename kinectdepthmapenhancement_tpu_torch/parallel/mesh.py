@@ -21,7 +21,10 @@ where a data tile splits a cell); Mesh.tile_spans gives every rank's
 (padded to the widest, then cut in 'x' order).  gather_cells puts the
 group's per-cell pieces back in cell order.  `collectives` counts the
 collective calls over a process group (each exchange or gather here and
-in halo.py).
+in halo.py).  Each collective is one host step of core/jit.py (its
+transfer, under gloo through host memory; the padding, cutting and
+concatenation around it are ordinary ops), so a compiled call replays its
+graph pieces with the collectives run between them.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
 
 collectives = 0  # collective calls since the last reset (chip_smoke.py reads it)
@@ -125,9 +129,10 @@ def note_collective() -> None:
 def all_gather_x(t: torch.Tensor, mesh: Mesh, dim: int = 2,
                  sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The 'x' group's pieces of t concatenated along `dim` in 'x' order
-    (dist.all_gather over the group); t itself at x == 1.  The pieces are
-    of one shape, or `sizes` gives every rank's extent along `dim`: each
-    piece is then padded to the largest and cut back after the gather."""
+    (dist.all_gather over the group, one host step of core/jit.py); t
+    itself at x == 1.  The pieces are of one shape, or `sizes` gives every
+    rank's extent along `dim`: each piece is then padded to the largest and
+    cut back after the gather."""
     if mesh.x == 1:
         return t
     if sizes is not None and sizes[mesh.s] != t.shape[dim]:
@@ -137,14 +142,38 @@ def all_gather_x(t: torch.Tensor, mesh: Mesh, dim: int = 2,
         pad = list(t.shape)
         pad[dim] = max(sizes) - t.shape[dim]
         t = torch.cat([t, t.new_zeros(pad)], dim=dim)
-    group = mesh.x_group
-    mine = wire(t.contiguous(), group)
-    parts = [torch.empty_like(mine) for _ in range(mesh.x)]
-    dist.all_gather(parts, mine, group=group)
+
+    def gather(mine):
+        mine = wire(mine, mesh.x_group)
+        parts = [torch.empty_like(mine) for _ in range(mesh.x)]
+        dist.all_gather(parts, mine, group=mesh.x_group)
+        return parts
+
+    parts = jit.collective(gather, t.contiguous())
     note_collective()
     if sizes is not None:
         parts = [part.narrow(dim, 0, n) for part, n in zip(parts, sizes)]
-    return torch.cat(parts, dim=dim).to(t.device)
+    return torch.cat(parts, dim=dim)
+
+
+def all_x(ok: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """0-dim bool: every element of ok holds on every rank of the 'x' group
+    (ok.all() at x == 1).  One host step: each rank's ok.all() gathered
+    over the group (dist.all_gather) and combined there, so under gloo the
+    verdict is on the host, and a jit.cond on it reads it there."""
+    if mesh.x == 1:
+        return ok.all()
+    mine = ok.all().reshape(1).to(torch.uint8)  # gloo carries no bool
+
+    def verdict(mine):
+        mine = wire(mine, mesh.x_group)
+        parts = [torch.empty_like(mine) for _ in range(mesh.x)]
+        dist.all_gather(parts, mine, group=mesh.x_group)
+        return [torch.cat(parts).to(torch.bool).all()]
+
+    (out,) = jit.collective(verdict, mine)
+    note_collective()
+    return out
 
 
 def gather_cells(x: torch.Tensor, mesh: Mesh,

@@ -45,9 +45,14 @@ PyTorch has no such partitioner, so the two regimes are written out:
         group, and each rank keeps its own width slice.
 
 Either way the output is bitwise equal to kde_pipeline on the same frames.
-`dryrun(n)` is the counterpart of the JAX dryrun and of
+sharded_kde_step returns the step as a compiled call (core/jit.py), as the
+JAX package jits it: on the card each rank captures its step once per
+shape and replays it, every collective a host step between graph pieces
+(the transfer on the host under gloo) and, on the tiled route, every cap
+check a host branch on the group's verdict; on CPU tensors the step runs
+eagerly.  `dryrun(n)` is the counterpart of the JAX dryrun and of
 __graft_entry__.dryrun_multichip: n spawned ranks run one step on 96x128
-frames and rank 0 holds it against an unsharded kde_pipeline.
+frames and rank 0 holds it against an unsharded, compiled kde_pipeline.
 """
 
 from __future__ import annotations
@@ -59,17 +64,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import Intrinsics, default_kinect_intrinsics
 from kinectdepthmapenhancement_tpu_torch.core.config import (
     GridParams, KDEConfig, NormalParams, ProjectionParams,
 )
+from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.models.pipelines import (
     KDEResult, _kde_from_jbf, kde_pipeline,
 )
 from kinectdepthmapenhancement_tpu_torch.ops import cuda_bilateral, slic
 from kinectdepthmapenhancement_tpu_torch.parallel import halo, multihost
 from kinectdepthmapenhancement_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_x, gather_cells, make_mesh, wire,
+    Mesh, all_gather_x, all_x, gather_cells, make_mesh, wire,
 )
 from kinectdepthmapenhancement_tpu_torch.parallel.stencil_shard import (
     depth_bilateral_sharded, jbf_sharded, normals_halo, normals_sharded,
@@ -130,7 +137,7 @@ class WidthTile:
         local = (x.long() - self.x0).clamp(0, ws - 1)
         mine = flat[torch.arange(b, device=img.device)[:, None], y.long() * ws + local]
         every = all_gather_x(mine[None], self.mesh, dim=0)  # [x, B, N, ...]
-        starts = torch.tensor([x0 for x0, _ in self.spans[1:]], device=x.device)
+        starts = constant(tuple(x0 for x0, _ in self.spans[1:]), torch.int64, x.device)
         owner = torch.bucketize(x.long().contiguous(), starts, right=True)
         owner = owner.reshape((1,) + tuple(x.shape) + (1,) * (mine.dim() - 2))
         return torch.gather(every, 0, owner.expand((1,) + tuple(mine.shape)))[0]
@@ -144,6 +151,11 @@ class WidthTile:
         counts x (< 2^24: exact, the same in any order), gathered and added
         in 'x' order."""
         return all_gather_x(x[None], self.mesh, dim=0).sum(dim=0)
+
+    def all_true(self, ok: torch.Tensor) -> torch.Tensor:
+        """0-dim bool: every element of every rank's ok holds (mesh.all_x,
+        one host step)."""
+        return all_x(ok, self.mesh)
 
     def haloed(self, x: torch.Tensor, radius: int):
         """(x [B, H, ws, ...] with `radius` columns of its neighbours each
@@ -279,33 +291,40 @@ def spatial_kde(depth_t: torch.Tensor, color_t: torch.Tensor, mesh: Mesh, intr: 
 
 
 def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
-    """Returns the batched KDE step on this rank's local blocks: depth f32
-    [b, H, ws] and color u8 [b, H, ws, 3] on mesh.device -> optimized points
-    f32 [b, H, ws, 3], where b is this data row's frames and ws = W / x its
-    width tile (the whole width at x == 1).  The layout of the JAX step's
-    P("data", None, "x", None) output.  Every rank of the mesh calls it.
-    At 'x' > 1 the step records the route its last call took in
-    `step.route` (spatial_route)."""
+    """Returns the batched KDE step on this rank's local blocks as a
+    compiled call (core/jit.py; the JAX step is a jax.jit in both regimes):
+    depth f32 [b, H, ws] and color u8 [b, H, ws, 3] on mesh.device ->
+    optimized points f32 [b, H, ws, 3], where b is this data row's frames
+    and ws = W / x its width tile (the whole width at x == 1).  The layout
+    of the JAX step's P("data", None, "x", None) output.  Every rank of the
+    mesh calls it.  On the card each rank's first call of a shape captures
+    its step and later calls replay it: at 'x' > 1 with every collective a
+    host step between graph pieces and the tiled route's cap checks host
+    branches.  At 'x' > 1 every call records the route it takes in
+    `step.route` (spatial_route, from the shapes)."""
 
-    def check(depth_b, color_b):
+    def prologue(depth_b, color_b):
         for t in (depth_b, color_b):
             if t.device != mesh.device:
                 raise ValueError(f"a block on {t.device}; this rank's device is {mesh.device}")
+        if mesh.x > 1:
+            b, h, ws = depth_b.shape
+            step.route = spatial_route(mesh, cfg, h, ws * mesh.x)
 
     if mesh.x == 1:
         def local_step(depth_b, color_b):
-            check(depth_b, color_b)
             return kde_pipeline(depth_b, color_b, intr, cfg).optimized_points
 
-        return local_step
+        step = jit.jit(local_step, prologue)
+        return step
 
     def spatial_step(depth_t, color_t):
-        check(depth_t, color_t)
-        spatial_step.route, result = spatial_kde(depth_t, color_t, mesh, intr, cfg)
+        _, result = spatial_kde(depth_t, color_t, mesh, intr, cfg)
         return result.optimized_points.contiguous()
 
-    spatial_step.route = None
-    return spatial_step
+    step = jit.jit(spatial_step, prologue)
+    step.route = None
+    return step
 
 
 def gather_global(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -338,8 +357,11 @@ def _dryrun_rank(device) -> dict:
     d_local = multihost.local_batch_to_global(mesh, [depth[mesh.d]])
     c_local = multihost.local_batch_to_global(mesh, [color[mesh.d]], extra_dims=1)
     step = sharded_kde_step(mesh, intr, cfg)
+    blocks = (mesh.width_tile(d_local.local), mesh.width_tile(c_local.local))
     before = cuda_bilateral.launches
-    out = step(mesh.width_tile(d_local.local), mesh.width_tile(c_local.local))
+    out = step(*blocks)
+    if not torch.equal(step(*blocks), out):  # on the card a replay of the first call
+        raise RuntimeError("dryrun: the step's second call differs from its first")
     launches = cuda_bilateral.launches - before
     route = getattr(step, "route", "data")
     full = gather_global(out, mesh)
@@ -347,8 +369,9 @@ def _dryrun_rank(device) -> dict:
         raise RuntimeError(f"dryrun: output {tuple(full.shape)}, want {(batch, h, w, 3)}")
     line = None
     if mesh.rank == 0:
-        want = kde_pipeline(torch.from_numpy(depth).to(mesh.device),
-                            torch.from_numpy(color).to(mesh.device), intr, cfg).optimized_points
+        single = jit.jit(kde_pipeline)  # the JAX dryrun jits its unsharded reference
+        want = single(torch.from_numpy(depth).to(mesh.device),
+                      torch.from_numpy(color).to(mesh.device), intr, cfg).optimized_points
         if not torch.equal(full, want):
             bad = int((full != want).any(-1).sum())
             raise RuntimeError(f"dryrun: the sharded step differs from kde_pipeline on {bad} "
@@ -361,10 +384,13 @@ def _dryrun_rank(device) -> dict:
 
 def dryrun(n_devices: int, device=None, backend: Optional[str] = None,
            store_dir: Optional[str] = None) -> dict:
-    """One sharded KDE step on `n_devices` spawned ranks (multihost.spawn)
-    on tiny shapes, held bitwise against an unsharded kde_pipeline on rank
-    0; prints rank 0's "dryrun_multichip ok: ... parity=ok" line and
-    returns it with each rank's JBF launches.  The ranks run on the card by
+    """The compiled sharded KDE step on `n_devices` spawned ranks
+    (multihost.spawn) on tiny shapes, called twice (on the card a capture,
+    then a replay) and held bitwise against an unsharded, compiled
+    kde_pipeline on rank 0; prints rank 0's "dryrun_multichip ok: ...
+    parity=ok" line and returns it with each rank's JBF launches over the
+    two calls (on the card the warm-up's and the capture's: a replay
+    launches nothing from Python).  The ranks run on the card by
     default (NCCL, one card a rank: more ranks than cards raise, no silent
     pass); backend="gloo" lets ranks share a card (rank r on card r modulo
     the count), device="cpu" runs them on the CPU under gloo."""

@@ -1066,29 +1066,32 @@ def _parallel_world1():
     color = multihost.local_batch_to_global(mesh, [s[0] for s in scenes], extra_dims=1).local
     cfg = dataclasses.replace(KDEConfig(), grid=GRID)
     before = cuda_bilateral.launches
-    step = sharding.sharded_kde_step(mesh, intr, cfg)(depth, color)
+    compiled = sharding.sharded_kde_step(mesh, intr, cfg)
+    step = compiled(depth, color)  # its warm-up and capture: two JBF launches
+    again = compiled(depth, color)  # a replay: none from Python
     mid = cuda_bilateral.launches
     jbf = jbf_sharded(depth, color, mesh, cfg.jbf)
     return {"backend": torch.distributed.get_backend(), "device": str(mesh.device),
-            "step": step.cpu(), "jbf": jbf.cpu(),
+            "step": step.cpu(), "again": again.cpu(), "jbf": jbf.cpu(),
             "launches": (mid - before, cuda_bilateral.launches - mid)}
 
 
 def test_parallel_world1_nccl_on_the_card(dev, tmp_path):
-    """World size 1 over NCCL (one spawned rank on the card): the
-    data-parallel step bitwise kde_pipeline at B=2, jbf_sharded bitwise the
-    unsharded JBF, one JBF launch each."""
+    """World size 1 over NCCL (one spawned rank on the card): the compiled
+    data-parallel step bitwise kde_pipeline at B=2 on its first call and on
+    a replay (two JBF launches from Python: the warm-up's and the
+    capture's), jbf_sharded bitwise the unsharded JBF with one launch."""
     from kinectdepthmapenhancement_tpu_torch.parallel import multihost
 
     (got,) = multihost.spawn(_parallel_world1, 1, store_dir=str(tmp_path), timeout_s=120)
-    assert (got["backend"], got["device"], got["launches"]) == ("nccl", "cuda:0", (1, 1))
+    assert (got["backend"], got["device"], got["launches"]) == ("nccl", "cuda:0", (2, 1))
     intr = default_kinect_intrinsics(W, H)
     scenes = [make_noisy_scene(H, W, intr, seed=s) for s in (0, 3)]
     depth = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
     color = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
     cfg = dataclasses.replace(KDEConfig(), grid=GRID)
     want = kde_pipeline(depth, color, intr, cfg).optimized_points
-    assert torch.equal(got["step"], want.cpu())
+    assert torch.equal(got["step"], want.cpu()) and torch.equal(got["again"], want.cpu())
     assert torch.equal(got["jbf"], bilateral.joint_bilateral_filter(depth, color).cpu())
 
 
@@ -1499,7 +1502,7 @@ def _replays_equal_eager(fn, args):
         f = jit.jit(fn)
         a, b = f(*args), f(*args)
         torch.cuda.synchronize()
-        assert jit.stats == {"captures": 1, "replays": 2}
+        assert jit.stats == {"captures": 1, "replays": 2, "host_steps": 0}
         for k in eager._fields:
             want, ga, gb = getattr(eager, k), getattr(a, k), getattr(b, k)
             assert torch.equal(ga, want) and torch.equal(gb, want), k
@@ -1662,3 +1665,165 @@ def test_jit_of_a_host_seed_override_raises(dev):
         assert torch.equal(jit.jit(seg(seeds))(c, p), seg(seeds)(c, p))
     finally:
         jit.clear()
+
+
+def _through_host(x):
+    """A host step's function: x read on the host, doubled there."""
+    return [x.cpu() * 2.0]
+
+
+def test_jit_host_steps_between_graph_pieces(dev):
+    """Two host steps (jit.collective) moving tensors through the CPU split
+    a jit call into three graph pieces: two replays on new inputs are
+    bitwise the eager call, each runs both steps, and the eager call counts
+    its steps too."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    def fn(x):
+        (z,) = jit.collective(_through_host, x + 1.0)
+        (y,) = jit.collective(_through_host, z * 3.0)
+        return y - x, z
+
+    x = torch.rand(3, 1000, generator=torch.Generator().manual_seed(0)).to(dev)
+    jit.clear()
+    try:
+        f = jit.jit(fn)
+        for arg in (x, x * 2.0, x - 5.0):
+            before = jit.stats["host_steps"]
+            want = fn(arg)
+            eager_steps = jit.stats["host_steps"] - before
+            got = f(arg)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, e) for g, e in zip(got, want))
+            assert eager_steps == 2
+        (key,) = jit.keys()
+        assert (key["pieces"], key["host_steps"], key["conds"], key["host_branches"]) == (3, 2, 0, 0)
+        # 3 eager calls, the warm-up's 2 and 3 replays: none in the capture
+        assert jit.stats == {"captures": 1, "replays": 3, "host_steps": 3 * 2 + 2 + 3 * 2}
+    finally:
+        jit.clear()
+
+
+@pytest.mark.parametrize("verdict", ["host_step", "device"])
+def test_jit_cond_with_host_steps_is_a_host_branch(dev, verdict):
+    """A jit.cond whose IF branch makes a host step is a host branch: taken
+    both ways, bitwise the eager call each way, its branches counted on the
+    host, one host step more on the IF way.  The pred comes out of a host
+    step (the host keeps its value) or off the card (read at replay)."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    def fn(x, t):
+        if verdict == "host_step":
+            (pred,) = jit.collective(lambda p: [(p.cpu() > 0).all()], t)
+        else:
+            pred = (t > 0).all()
+        return jit.cond(pred, lambda a: jit.collective(_through_host, a + 1.0)[0],
+                        lambda a: a - 1.0, x)
+
+    x = torch.rand(2, 500, generator=torch.Generator().manual_seed(1)).to(dev)
+    pos, neg = torch.ones(4, device=dev), -torch.ones(4, device=dev)
+    jit.clear()
+    try:
+        f = jit.jit(fn)
+        steps = []
+        for t in (pos, neg, pos):
+            want = fn(x, t)
+            before = jit.stats["host_steps"]
+            got = f(x, t)
+            torch.cuda.synchronize()
+            steps.append(jit.stats["host_steps"] - before)
+            assert torch.equal(got, want)
+        (key,) = jit.keys()
+        assert key["host_branches"] == 1 and key["conds"] == 0
+        assert key["host_taken"] == [[2, 1]]
+        own = int(verdict == "host_step")  # the verdict's own step
+        # the first call warms up (the verdict's step and both branches')
+        # and replays; the capture runs none
+        assert steps == [2 * own + 2, own, own + 1]
+    finally:
+        jit.clear()
+
+
+def test_jit_cond_without_host_step_stays_a_conditional_node(dev):
+    """In a call with a host step, a cond whose branches make none is still
+    a conditional node, taken on the device both ways."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    def fn(x, t):
+        (y,) = jit.collective(_through_host, x)
+        return jit.cond((t > 0).all(), lambda a: a + 1.0, lambda a: a - 1.0, y)
+
+    x = torch.rand(2, 500, generator=torch.Generator().manual_seed(2)).to(dev)
+    pos, neg = torch.ones(4, device=dev), -torch.ones(4, device=dev)
+    jit.clear()
+    try:
+        f = jit.jit(fn)
+        for t in (pos, neg, pos):
+            assert torch.equal(f(x, t), fn(x, t))
+        (key,) = jit.keys()
+        assert (key["conds"], key["host_branches"], key["pieces"]) == (1, 0, 2)
+        assert key["taken"] == [[2, 1]]
+    finally:
+        jit.clear()
+
+
+def _compiled_step_ranks():
+    """Two gloo ranks sharing the card: the compiled sharded KDE step at
+    data 1 x x 2 (the tiled route) and data 2 x x 1 on two 96x128 frames,
+    each against its eager step (step.fn): bits of the capture's call and a
+    replay, the replay's host steps and the eager step's collectives, and
+    the replay gathered."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.parallel import mesh as mesh_mod
+    from kinectdepthmapenhancement_tpu_torch.parallel import sharding
+    from kinectdepthmapenhancement_tpu_torch.parallel.mesh import make_mesh
+
+    intr = default_kinect_intrinsics(W, H)
+    scenes = [make_noisy_scene(H, W, intr, seed=s) for s in (0, 3)]
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    out = {}
+    for name, spatial in (("x2", 2), ("data2", 1)):
+        mesh = make_mesh(2, spatial=spatial, device="cuda")
+        depth = torch.from_numpy(np.stack([s[1] for s in scenes])).to(mesh.device)
+        color = torch.from_numpy(np.stack([s[0] for s in scenes])).to(mesh.device)
+        b = depth.shape[0] // mesh.data
+        rows = slice(mesh.d * b, (mesh.d + 1) * b)
+        blocks = (mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
+        step = sharding.sharded_kde_step(mesh, intr, cfg)
+        mesh_mod.collectives = 0
+        eager = step.fn(*blocks)
+        collectives = mesh_mod.collectives
+        first = step(*blocks)
+        before = jit.stats["host_steps"]
+        again = step(*blocks)
+        torch.cuda.synchronize()
+        out[name] = {"bitwise": torch.equal(first, eager) and torch.equal(again, eager),
+                     "host_steps": jit.stats["host_steps"] - before, "collectives": collectives,
+                     "jitted": isinstance(step, jit._Jitted),
+                     "gathered": sharding.gather_global(again, mesh).cpu()}
+        jit.clear()
+    return out
+
+
+def test_compiled_step_on_gloo_ranks_sharing_the_card(dev, tmp_path):
+    """sharded_kde_step compiled on two gloo ranks sharing the card, at
+    96x128 (grid 3x4): at x = 2 (the tiled route: 14 collectives, each a
+    host step of the replay) and at data 2 x x 1 (none), the capture's call
+    and a replay bitwise the eager step on every rank, the replay gathered
+    bitwise kde_pipeline on the card."""
+    from kinectdepthmapenhancement_tpu_torch.parallel import multihost
+
+    ranks = multihost.spawn(_compiled_step_ranks, 2, device="cuda", backend="gloo",
+                            store_dir=str(tmp_path), timeout_s=240)
+    intr = default_kinect_intrinsics(W, H)
+    scenes = [make_noisy_scene(H, W, intr, seed=s) for s in (0, 3)]
+    depth = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    color = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    cfg = dataclasses.replace(KDEConfig(), grid=GRID)
+    want = kde_pipeline(depth, color, intr, cfg).optimized_points.cpu()
+    for r in ranks:
+        for name, steps in (("x2", 14), ("data2", 0)):
+            got = r[name]
+            assert got["jitted"] and got["bitwise"], (name, got)
+            assert got["host_steps"] == got["collectives"] == steps, (name, got)
+            assert torch.equal(got["gathered"], want), name

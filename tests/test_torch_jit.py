@@ -17,8 +17,10 @@ and a jit call takes it on the device (tests/test_torch_cuda.py and
 chip_smoke.py's phase 12 hold that on the card).  Also: the jit key
 separates what must be captured apart, jit on CPU tensors is fn's own
 call, jit.cond's eager branch, _with_local_index's routes, a host-data
-seed override raising under tracing, and the timing / evaluation
-harnesses keep their outputs, every evaluate row a compiled call.  Every
+seed override raising under tracing, jit.collective on CPU tensors (fn's
+own call; a cond on its verdict reads the host's value), and the timing
+/ evaluation harnesses keep their outputs, every evaluate row a compiled
+call.  Every
 comparison is bitwise.
 """
 
@@ -89,13 +91,13 @@ def _is_mask(index) -> bool:
 
 
 @contextlib.contextmanager
-def capture_guard():
+def capture_guard(host_steps: bool = False):
     """Raise on what a CUDA graph cannot hold: a tensor built from host data
     (torch.tensor, torch.as_tensor of non-tensor data), a read of a
     tensor on the host (item, bool, int, float, index, tolist, cpu, numpy)
     and boolean-mask indexing (its shape is the mask's count, a host
-    read)."""
-    mp = pytest.MonkeyPatch()
+    read).  host_steps=True lifts the guard inside jit.collective, a host
+    step (the multi-process paths' collectives), and nowhere else."""
     as_tensor = torch.as_tensor
     getitem, setitem = torch.Tensor.__getitem__, torch.Tensor.__setitem__
 
@@ -114,13 +116,26 @@ def capture_guard():
             raise HostAccess("boolean-mask indexing inside the capture guard")
         return setitem(self, index, value)
 
-    mp.setattr(torch, "tensor", _refuse("torch.tensor"))
-    mp.setattr(torch, "as_tensor", guarded_as_tensor)
+    patches = [(torch, "tensor", _refuse("torch.tensor")), (torch, "as_tensor", guarded_as_tensor)]
     for name in ("item", "__bool__", "__int__", "__float__", "__index__", "tolist", "cpu",
                  "numpy"):
-        mp.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
-    mp.setattr(torch.Tensor, "__getitem__", guarded_getitem)
-    mp.setattr(torch.Tensor, "__setitem__", guarded_setitem)
+        patches.append((torch.Tensor, name, _refuse(f"Tensor.{name}")))
+    patches += [(torch.Tensor, "__getitem__", guarded_getitem),
+                (torch.Tensor, "__setitem__", guarded_setitem)]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    if host_steps:
+        collective = jit.collective
+
+        def lifted(fn, *tensors):
+            with pytest.MonkeyPatch.context() as inner:
+                for obj, name, value in originals:
+                    inner.setattr(obj, name, value)
+                return collective(fn, *tensors)
+
+        patches.append((jit, "collective", lifted))
+    mp = pytest.MonkeyPatch()
+    for obj, name, value in patches:
+        mp.setattr(obj, name, value)
     try:
         yield
     finally:
@@ -329,7 +344,7 @@ def test_jit_on_cpu_tensors_is_the_call_itself(frames):
     jit.clear()
     f = jit.jit(pipelines.kde_pipeline)
     _assert_equal(f(depth, color, INTR, BASE), pipelines.kde_pipeline(depth, color, INTR, BASE))
-    assert jit.stats == {"captures": 0, "replays": 0} and jit.keys() == []
+    assert jit.stats == {"captures": 0, "replays": 0, "host_steps": 0} and jit.keys() == []
     assert not jit.tracing()
 
 
@@ -356,6 +371,37 @@ def test_cond_eager_branch_and_capped_index_routes():
         assert type(idx) is route
         got = slic.with_capped_index(sums, lab, grid, 5)
         assert torch.equal(got, sums(idx))
+
+
+def test_collective_on_cpu_tensors_is_fns_own_call():
+    """jit.collective on CPU tensors calls fn once on the same tensors and
+    returns its outputs as a list, a host step counted; a cond on a
+    one-element bool that fn returned reads the value the step kept, no
+    tensor (so the capture guard lets it pass), and a cond on any other
+    pred reads the tensor (the guard refuses it)."""
+    seen = []
+    x = torch.arange(4.0)
+
+    def fn(a):
+        seen.append(a)
+        return a * 2.0, (a > 1.0).all()
+
+    jit.clear()
+    doubled, verdict = jit.collective(fn, x)
+    assert len(seen) == 1 and seen[0] is x and jit.stats["host_steps"] == 1
+    assert torch.equal(doubled, x * 2.0) and not bool(verdict)
+    with capture_guard():
+        got = jit.cond(verdict, lambda a: a + 1.0, lambda a: a - 1.0, x)
+        with pytest.raises(HostAccess):
+            jit.cond(x.sum() > 0, lambda a: a + 1.0, lambda a: a - 1.0, x)
+    assert torch.equal(got, x - 1.0)
+    with capture_guard(), pytest.raises(HostAccess):
+        jit.collective(lambda a: [a.cpu()], x)  # no host access outside host_steps=True
+    with capture_guard(host_steps=True):
+        (back,) = jit.collective(lambda a: [torch.tensor(a.tolist())], x)
+    assert torch.equal(back, x)
+    jit.clear()
+    assert jit.stats["host_steps"] == 0
 
 
 def test_device_constants_are_cached_per_value_dtype_and_device():

@@ -18,7 +18,11 @@ and 64 / 32 / 32 / 32 px); its replicated route, asked for by name, on the
 grid 5x6 and 126-column frames too; the uneven gathers (halo.gather_width,
 mesh.gather_cells) and halo.retile between the data and the cell-aligned
 tiles, exact; tests/test_torch_tiled_configs.py holds the tiled route under
-the other configs.
+the other configs.  The compiled step (sharded_kde_step, a core/jit.py
+call): its second call, under tests/test_torch_jit.py's capture_guard with
+host access allowed only inside a host step, bitwise its first, one host
+step a collective, at data 2 x x 2, data 1 x x 4 and data 4 x x 1, on the
+grid 5x6 frames and on split cells.
 Against the JAX package (tests/golden/parallel_jax_seed0.npz, written by
 gen_torch_fixtures.py parallel): jbf_sharded within 2e-5 relative, the
 no-support zeros equal (the FMA contraction on a uniform-random depth
@@ -40,6 +44,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from gen_torch_fixtures import parallel_jbf_inputs, parallel_kde_inputs
+from test_torch_jit import capture_guard
+from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import (
     default_kinect_intrinsics,
     projective_to_real,
@@ -186,6 +192,26 @@ def _uneven_round_trips(mesh):
                                  frame[:, :, ::32])}
 
 
+# the tiled cases whose compiled step is held to its first call too: NASP's
+# global route (the grid does not divide the frame) and cell-aligned tiles
+COMPILED_TILED = ("grid5x6_data1_x4", "split4x5_x4")
+
+
+def _second_call(step, blocks, first):
+    """The compiled step's second call on the same blocks, under
+    tests/test_torch_jit.py's capture_guard with host access allowed inside
+    a host step only (on the card the call replays a capture; on the CPU it
+    runs eagerly): whether it is bitwise the first call's output, its host
+    steps (jit.stats) and its collectives (mesh.collectives)."""
+    mesh_mod.collectives = 0
+    before = jit.stats["host_steps"]
+    with capture_guard(host_steps=True):
+        again = step(*blocks)
+    return {"bitwise": torch.equal(again, first), "host_steps": jit.stats["host_steps"] - before,
+            "collectives": mesh_mod.collectives, "jitted": isinstance(step, jit._Jitted),
+            "route": getattr(step, "route", None)}
+
+
 def _rank_checks():
     """Every multi-rank check, on each of WORLD gloo ranks on the CPU; the
     full-width results gathered on every rank."""
@@ -214,9 +240,11 @@ def _rank_checks():
         b = depth.shape[0] // mesh.data
         rows = slice(mesh.d * b, (mesh.d + 1) * b)
         step = sharding.sharded_kde_step(mesh, intr, cfg)
-        local = step(mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
+        blocks = (mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
+        local = step(*blocks)
         out[f"kde {name}"] = (tuple(local.shape), sharding.gather_global(local, mesh),
                               getattr(step, "route", None))
+        out[f"compiled {name}"] = _second_call(step, blocks, local)
         if spatial > 1:
             out[f"tiled {name}"] = _spatial_fields(mesh, depth, color, intr, cfg)
     mesh = make_mesh(WORLD, spatial=2, device="cpu")
@@ -228,6 +256,10 @@ def _rank_checks():
         out[f"tiled {name}"] = _spatial_fields(mesh, depth_c, color_c, intr_c, cfg_c)
         if name.startswith("split"):
             out[f"round trips x{x}"] = _uneven_round_trips(mesh)
+        if name in COMPILED_TILED:
+            step = sharding.sharded_kde_step(mesh, intr_c, cfg_c)
+            blocks = (mesh.width_tile(depth_c), mesh.width_tile(color_c))
+            out[f"compiled {name}"] = _second_call(step, blocks, step(*blocks))
     return out
 
 
@@ -308,6 +340,29 @@ def test_sharded_kde_step_bitwise(ranks, kde_want, name):
         assert shape == block
         assert route == (None if name == "data4_x1" else "tiled")
         assert torch.equal(got, want)
+
+
+# collectives (and host steps) a call of each compiled step: the default
+# config's tiled step 14, on NASP's global route 18, on split cells 16, the
+# data-parallel step none
+COMPILED_COLLECTIVES = {"data2_x2": 14, "data1_x4": 14, "data4_x1": 0,
+                        "grid5x6_data1_x4": 18, "split4x5_x4": 16}
+
+
+@pytest.mark.parametrize("name", list(COMPILED_COLLECTIVES))
+def test_compiled_step_second_call_under_capture_guard(ranks, name):
+    """sharding.sharded_kde_step is a compiled call (jit._Jitted) in both
+    regimes; on every rank its second call, run under the capture guard
+    with host access allowed only inside a host step (jit.collective), is
+    bitwise its first, and makes one host step per collective: every host
+    read and host-to-card copy of the sharded paths sits in a host step, so
+    on the card the call replays its capture with the collectives between
+    graph pieces.  The data-parallel step (data 4 x x 1) makes none."""
+    for r in ranks:
+        got = r[f"compiled {name}"]
+        assert got["jitted"] and got["bitwise"], got
+        assert got["host_steps"] == got["collectives"] == COMPILED_COLLECTIVES[name], got
+        assert got["route"] == (None if name == "data4_x1" else "tiled"), got
 
 
 def _rows_want(x, intr, cfg, depth, color):
@@ -432,9 +487,15 @@ def test_single_process_mesh_and_step():
     depth, color = _jbf_input()
     assert torch.equal(jbf_sharded(depth, color, mesh), bilateral.joint_bilateral_filter(depth, color))
     intr, cfg, depth4, color4 = _kde_input()
-    got = sharding.sharded_kde_step(mesh, intr, cfg)(depth4[:1], color4[:1])
+    step = sharding.sharded_kde_step(mesh, intr, cfg)
+    got = step(depth4[:1], color4[:1])
+    assert isinstance(step, jit._Jitted) and not hasattr(step, "route")
     assert torch.equal(got, kde_pipeline(depth4[:1], color4[:1], intr, cfg).optimized_points)
     assert torch.equal(sharding.gather_global(got, mesh), got)
+    # the spatial regime's step is a compiled call too, its route read from
+    # the shapes at each call (none made here: this process has no group)
+    spatial = sharding.sharded_kde_step(dataclasses.replace(mesh, x=2), intr, cfg)
+    assert isinstance(spatial, jit._Jitted) and spatial.route is None
 
 
 def test_rejections():

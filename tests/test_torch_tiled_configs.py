@@ -33,7 +33,11 @@ against the same fixture's iter3, whose JAX run took the capped route: the
 global index sums in another order), and golden.plane_stage_gates with the
 merged labels equal against kde_jax_planes_seed0.npz's cm_pm_fill.  The
 unsharded tests inject the JAX seeds; the tiled step computes its own, so
-these gates read the port's own seeds.  No fixture holds "all".
+these gates read the port's own seeds.  No fixture holds "all".  The
+compiled step (sharded_kde_step) of iter3, iter3_global and "all" at data
+1 x x 4: its second call, under tests/test_torch_jit.py's capture_guard
+with host access allowed only inside a host step, bitwise its first, one
+host step a collective.
 """
 
 import dataclasses
@@ -44,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from gen_torch_fixtures import parallel_kde_inputs
+from test_torch_parallel import _second_call
 from kinectdepthmapenhancement_tpu_torch.core.camera import default_kinect_intrinsics
 from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
 from kinectdepthmapenhancement_tpu_torch.core.testdata import make_banded_scene, make_noisy_scene
@@ -101,6 +106,11 @@ def _frames(scene):
             torch.from_numpy(np.stack([s[0] for s in scenes])), scenes[0][2])
 
 
+# the configs whose compiled step (data 1 x x 4) is held to its first call
+# too: the later iterations' cap checks, host branches in a jit call
+COMPILED = ("iter3", "iter3_global", "all")
+
+
 def _rank_checks():
     """Every config at every mesh on each of WORLD gloo ranks on the CPU:
     (route, collectives, every field's global batch, the tables equal on
@@ -128,6 +138,13 @@ def _rank_checks():
                     same = same and all(torch.equal(r, row[0]) for r in row)
                     got[f] = torch.cat(every[::mesh.x], dim=0)
             out[(mesh_name, name)] = (route, made, got, same)
+            if mesh_name == "data1_x4" and name in COMPILED:
+                step = sharding.sharded_kde_step(mesh, INTR, cfg)
+                blocks = (mesh.width_tile(depth[rows]), mesh.width_tile(color[rows]))
+                first = step(*blocks)
+                out[("compiled", name)] = _second_call(step, blocks, first)
+                out[("compiled", name)]["first_is_spatial_kde"] = torch.equal(
+                    first, res.optimized_points)
     return out
 
 
@@ -219,14 +236,30 @@ def test_collectives_a_step(ranks):
     features, plus the two lookups (+ 5), and the final global index
     gathers the labels and the residual's features (+ 1 over the cell
     index's one gather)."""
-    made = {k: v[1] for k, v in ranks[0].items()}
+    made = {k: v[1] for k, v in ranks[0].items() if k[0] in MESHES}
     for r in ranks[1:]:
-        assert {k: v[1] for k, v in r.items()} == made
+        assert {k: v[1] for k, v in r.items() if k[0] in MESHES} == made
     print("collectives a tiled step:", made)
     want = {"bilateral": 14, "sdc": 15, "plane_merge_fill": 16, "iter3": 25,
             "iter3_global": 25, "all": 28}
     for mesh_name in MESHES:
         assert {name: made[(mesh_name, name)] for name in CONFIGS} == want, mesh_name
+
+
+@pytest.mark.parametrize("name", COMPILED)
+def test_compiled_step_second_call_under_capture_guard(ranks, name):
+    """The compiled step (sharded_kde_step) of the three-iteration configs
+    at data 1 x x 4: on every rank its first call equals the tiled route's
+    (spatial_kde) output, and its second, under the capture guard with host
+    access allowed only inside a host step, is bitwise the first with one
+    host step per collective (25, 25 and 28): the cap checks' verdicts come
+    out of a host step, which is where the host reads them."""
+    want = {"iter3": 25, "iter3_global": 25, "all": 28}[name]
+    for r in ranks:
+        got = r[("compiled", name)]
+        assert got["jitted"] and got["bitwise"] and got["first_is_spatial_kde"], got
+        assert got["host_steps"] == got["collectives"] == want, got
+        assert got["route"] == "tiled", got
 
 
 def _frame0(result, i=0):
