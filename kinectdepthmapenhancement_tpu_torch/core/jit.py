@@ -41,10 +41,22 @@ did) and runs one branch.  A call with no host step replays as it did
 without them.
 
 The kernel wrappers' launch counters count in Python, so they count the
-warm-up and the capture, not the replays: a profiled replay shows the
-kernels by name.  `stats` counts captures, replays and host steps run;
-`keys()` gives each key's capture ms, pool bytes, segments, conds, pieces,
-host steps and host branches.
+warm-up and the capture, not the replays.  The replays' kernels are
+counted from the graphs: at each capture, csrc/graph.cu counts the kernel
+nodes of every segment and every conditional body (kde_stamp nodes left
+out, so the count is the same with telemetry on or off), and each replay
+adds its key's kernels to `stats["kernels_replayed"]`, a body by the
+branch taken (a host branch's at once, a conditional node's, which only
+the device knows, when keys() reads its branches taken).  `stats` counts
+captures, replays, host steps run and kernels replayed; `keys()` gives
+each key's capture ms, pool bytes, segments, conds, pieces, host steps,
+host branches and kernels.
+
+Telemetry (utils/telemetry.py), when on: a call's host path is the spans
+jit.key, jit.copy_in, jit.launch (the pieces and host steps) and
+jit.clone; each replay's kernels are the counter sample "jit.kernels"; a
+capture made while it is on holds a jit.graph stamp at its start and its
+end, and the stages' stamps between them.
 """
 
 from __future__ import annotations
@@ -60,10 +72,11 @@ import torch.utils._pytree as pytree
 from torch.utils.weak import WeakIdKeyDictionary
 
 from kinectdepthmapenhancement_tpu_torch import _build
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
-# captures, replays and host steps run since the last clear() (chip_smoke.py
-# prints them)
-stats = {"captures": 0, "replays": 0, "host_steps": 0}
+# captures, replays, host steps run and kernels replayed since the last
+# clear() (chip_smoke.py prints them)
+stats = {"captures": 0, "replays": 0, "host_steps": 0, "kernels_replayed": 0}
 
 _mode: Optional[str] = None  # None (eager), "warmup" or "capture"
 _active: Optional["_Capture"] = None  # the call warming up or capturing
@@ -189,6 +202,36 @@ class _Piece:
         self.conds: List[tuple] = []  # (pred, IF body, ELSE body)
         self.exec = None
         self.taken = None  # [conds, 2] i32 on the device: [IF, ELSE] taken
+        self.kernels = 0   # a replay's kernels outside the conds' bodies
+        self.bodies: List[List[int]] = []  # each cond's [IF, ELSE] body kernels
+        self.stamps = 0    # kde_stamp nodes, the bodies' included
+        self.settled: List[List[int]] = []  # the branches taken already counted
+
+    def count(self) -> None:
+        """The kernel nodes of the segments and of each body, stamps left
+        out; each cond's kernel that sets its node counts as one."""
+        def kernels(g):
+            k, s = ctypes.c_int(0), ctypes.c_int(0)
+            code = _build.function("kde_graph_count", [_build.PTR] * 3)(
+                g.raw_cuda_graph(), ctypes.byref(k), ctypes.byref(s))
+            _build.check_status("kde_graph_count", code)
+            self.stamps += s.value
+            return k.value - s.value
+
+        self.kernels = sum(kernels(g) for g in self.segments) + len(self.conds)
+        self.bodies = [[kernels(c[1]), kernels(c[2])] for c in self.conds]
+        self.settled = [[0, 0] for _ in self.conds]
+
+    def settle(self) -> int:
+        """The bodies' kernels of the branches taken since the last settle()
+        (a read of the device's counters)."""
+        if not self.conds:
+            return 0
+        taken = self.taken.tolist()
+        n = sum((t[0] - s[0]) * b[0] + (t[1] - s[1]) * b[1]
+                for t, s, b in zip(taken, self.settled, self.bodies))
+        self.settled = taken
+        return n
 
     def instantiate(self, dev) -> None:
         if not self.conds:
@@ -210,13 +253,15 @@ class _Piece:
         self.exec = exec_out.value
         weakref.finalize(self, _destroy_exec, self.exec).atexit = False
 
-    def run(self, dev) -> None:
+    def run(self, dev) -> int:
+        """Replay; returns the kernels launched outside the conds' bodies."""
         if self.exec is None:
             self.segments[0].replay()
         else:
             code = _build.function("kde_graph_launch", [_build.PTR, _build.PTR])(
                 self.exec, torch.cuda.current_stream(dev).cuda_stream)
             _build.check_status("kde_graph_launch", code)
+        return self.kernels
 
 
 class _HostStep:
@@ -228,13 +273,14 @@ class _HostStep:
         self.fn, self.inputs, self.outs = fn, inputs, outs
         self.host: list = [None] * len(outs)
 
-    def run(self, dev) -> None:
+    def run(self, dev) -> int:
         res, self.host = _run_step(self.fn, self.inputs)
         if _specs(res) != _specs(self.outs):
             raise RuntimeError(f"jit: a host step returned {_specs(res)} at replay, "
                                f"{_specs(self.outs)} when captured")
         for buf, r in zip(self.outs, res):
             buf.copy_(r)
+        return 0
 
 
 class _HostBranch:
@@ -247,7 +293,7 @@ class _HostBranch:
         self.items = (if_items, else_items)
         self.taken = [0, 0]  # [IF, ELSE] taken
 
-    def run(self, dev) -> None:
+    def run(self, dev) -> int:
         take = None
         if self.source is not None:
             step, i = self.source
@@ -255,8 +301,7 @@ class _HostBranch:
         if take is None:
             take = bool(self.pred)
         self.taken[0 if take else 1] += 1
-        for item in self.items[0 if take else 1]:
-            item.run(dev)
+        return sum(item.run(dev) for item in self.items[0 if take else 1])
 
 
 def _walk(items) -> list:
@@ -403,6 +448,7 @@ class _Graph:
         args, kwargs = pytree.tree_unflatten(static, spec)
         stream = _side_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        telemetry.prepare(dev)  # the stamps' ring, made before any capture
         t0 = time.perf_counter()
         cap = _Capture()
         with torch.cuda.stream(stream):
@@ -416,7 +462,8 @@ class _Graph:
                     hook()
                 _mode = "capture"
                 cap.begin_segment()
-                out = fn(*args, **kwargs)
+                with telemetry.stage("jit.graph", dev):
+                    out = fn(*args, **kwargs)
                 cap.close_piece()
             except BaseException:
                 cap.abort()
@@ -435,18 +482,28 @@ class _Graph:
         self.steps = [x for x in walked if isinstance(x, _HostStep)]
         self.branches = [x for x in walked if isinstance(x, _HostBranch)]
         for piece in self.pieces:
+            piece.count()
             piece.instantiate(dev)
+        # the graph's kernel nodes, every body's; a replay's, by branch taken
+        self.kernels = sum(p.kernels + sum(map(sum, p.bodies)) for p in self.pieces)
+        self.stamps = sum(p.stamps for p in self.pieces)
+        self.kernels_replayed = 0
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t1) * 1e3
         stats["captures"] += 1
 
     def __call__(self, leaves):
-        for i, buf in zip(self.slots, self.inputs):
-            buf.copy_(leaves[i])
-        for item in self.items:
-            item.run(self.dev)
+        with telemetry.span("jit.copy_in"):
+            for i, buf in zip(self.slots, self.inputs):
+                buf.copy_(leaves[i])
+        with telemetry.span("jit.launch"):
+            n = sum(item.run(self.dev) for item in self.items)
         stats["replays"] += 1
-        out = [x.clone() if isinstance(x, torch.Tensor) else x for x in self.out_leaves]
+        stats["kernels_replayed"] += n
+        self.kernels_replayed += n
+        telemetry.count("jit.kernels", n)
+        with telemetry.span("jit.clone"):
+            out = [x.clone() if isinstance(x, torch.Tensor) else x for x in self.out_leaves]
         return pytree.tree_unflatten(out, self.out_spec)
 
     def info(self) -> dict:
@@ -454,16 +511,24 @@ class _Graph:
         included), pool bytes (the device memory the capture reserved),
         segments, conds (conditional nodes) and each one's branches taken
         [IF, ELSE] so far (read on the host), pieces of graph, host steps
-        (both branches' of a host branch counted) and host branches with
-        their branches taken [IF, ELSE]."""
-        taken = [t for p in self.pieces if p.conds for t in p.taken.tolist()]
+        (both branches' of a host branch counted), host branches with their
+        branches taken [IF, ELSE], kernels (the graph's kernel nodes: every
+        body's, and each conditional node's kernel that sets it; stamps left
+        out), stamps (kde_stamp nodes) and kernels_replayed (the bodies' by
+        the branches taken: reading them adds those to stats too)."""
+        settled = sum(p.settle() for p in self.pieces)
+        self.kernels_replayed += settled
+        stats["kernels_replayed"] += settled
+        taken = [t for p in self.pieces if p.conds for t in p.settled]
         return {"warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
                 "pool_bytes": self.pool_bytes,
                 "segments": sum(len(p.segments) for p in self.pieces),
                 "conds": sum(len(p.conds) for p in self.pieces), "taken": taken,
                 "pieces": len(self.pieces), "host_steps": len(self.steps),
                 "host_branches": len(self.branches),
-                "host_taken": [list(b.taken) for b in self.branches]}
+                "host_taken": [list(b.taken) for b in self.branches],
+                "kernels": self.kernels, "stamps": self.stamps,
+                "kernels_replayed": self.kernels_replayed}
 
 
 def _destroy_exec(exec_handle) -> None:
@@ -494,7 +559,8 @@ class _Jitted:
         if len(devices) != 1 or next(iter(devices)).type != "cuda":
             raise ValueError(f"jit: the tensors of a call lie on {sorted(map(str, devices))}; "
                              "one CUDA device or the CPU")
-        key = key_of(self.fn, args, kwargs)
+        with telemetry.span("jit.key"):
+            key = key_of(self.fn, args, kwargs)
         graph = self.cache.get(key)
         if graph is None:
             graph = self.cache[key] = _Graph(self.fn, leaves, spec, next(iter(devices)))
@@ -524,4 +590,4 @@ def clear() -> None:
         torch.cuda.synchronize()
     for j in list(_jitted):
         j.cache.clear()
-    stats.update(captures=0, replays=0, host_steps=0)
+    stats.update(captures=0, replays=0, host_steps=0, kernels_replayed=0)

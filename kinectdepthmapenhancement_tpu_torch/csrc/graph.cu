@@ -19,6 +19,10 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
+extern "C" const void* kde_stamp_symbol();  // csrc/stamp.cu
+
 namespace {
 
 __global__ void kde_set_condition(cudaGraphConditionalHandle handle, const bool* verdict,
@@ -38,6 +42,41 @@ cudaError_t add_child(cudaGraphNode_t* node, cudaGraph_t graph, cudaGraphNode_t 
   const size_t ndep = dep ? 1 : 0;
   if (n == 0) return cudaGraphAddEmptyNode(node, graph, dep ? &dep : nullptr, ndep);
   return cudaGraphAddChildGraphNode(node, graph, dep ? &dep : nullptr, ndep, child);
+}
+
+// add the kernel nodes of `graph` to *kernels and those that run kde_stamp
+// to *stamps, child graphs' included (a conditional node's bodies are
+// graphs of their own: core/jit.py counts each body where it was captured)
+cudaError_t count_kernels(cudaGraph_t graph, int* kernels, int* stamps) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(graph, nodes.data(), &n);
+  if (err != cudaSuccess) return err;
+  const void* stamp = kde_stamp_symbol();
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(node, &type);
+    if (err != cudaSuccess) return err;
+    if (type == cudaGraphNodeTypeKernel) {
+      ++*kernels;
+      cudaKernelNodeParams p = {};
+      // a kernel of another module (a library's) may give no parameters
+      // here: it is no stamp
+      if (cudaGraphKernelNodeGetParams(node, &p) == cudaSuccess) {
+        if (p.func == stamp) ++*stamps;
+      } else {
+        cudaGetLastError();
+      }
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(node, &child);
+      if (err == cudaSuccess) err = count_kernels(child, kernels, stamps);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -107,4 +146,12 @@ extern "C" int kde_graph_launch(void* exec, void* stream) {
 
 extern "C" int kde_graph_destroy(void* exec) {
   return static_cast<int>(cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec)));
+}
+
+// The kernel nodes of a captured graph (child graphs included) and, of
+// them, the kde_stamp nodes.
+extern "C" int kde_graph_count(void* graph, int* kernels, int* stamps) {
+  *kernels = 0;
+  *stamps = 0;
+  return static_cast<int>(count_kernels(static_cast<cudaGraph_t>(graph), kernels, stamps));
 }

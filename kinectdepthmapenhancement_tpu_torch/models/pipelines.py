@@ -32,7 +32,6 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from kinectdepthmapenhancement_tpu_torch.core.camera import (
     Intrinsics,
@@ -46,6 +45,7 @@ from kinectdepthmapenhancement_tpu_torch.core.config import (
     TOFConfig,
 )
 from kinectdepthmapenhancement_tpu_torch.ops import bilateral, ccl, ers, normals, plane, slic
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 
 class RGBFResult(NamedTuple):
@@ -129,10 +129,10 @@ def kde_pipeline(
     or global); the single-iteration path makes no host sync, and under
     core/jit.py no path does (each cap check a conditional node)."""
     batched, (depth, color) = _batch(depth, color)
-    # record_function names each stage in torch.profiler traces (the JAX
-    # package's named_scope labels); outside a profiler it only opens and
-    # closes a range
-    with record_function("kde.jbf"):
+    # telemetry.stage names each stage in torch.profiler traces (the JAX
+    # package's named_scope labels) and, with telemetry on, stamps its entry
+    # and exit on the card; otherwise it only opens and closes a range
+    with telemetry.stage("kde.jbf", depth):
         jbf_depth = bilateral.joint_bilateral_filter(depth, color, cfg.jbf)
     return _unbatch(_kde_from_jbf(jbf_depth, color, intr, cfg), batched)
 
@@ -155,12 +155,12 @@ def _kde_from_jbf(
     if tile is not None:
         rays = tile.crop_rays(rays)
     k = cfg.grid.num_clusters
-    with record_function("kde.jbf"):
+    with telemetry.stage("kde.jbf", jbf_depth):
         points = rays * jbf_depth[..., None]  # core.camera.projective_to_real
-    with record_function("kde.normals"):
+    with telemetry.stage("kde.normals", points):
         nmap = (normals.generate_normal_map(points, cfg.normals) if tile is None
                 else tile.normal_map(points, cfg.normals))
-    with record_function("kde.nasp"):
+    with telemetry.stage("kde.nasp", points):
         if tile is None:
             nasp = slic.segment(
                 color, points, nmap, grid=cfg.grid, params=cfg.nasp, variant="nasp"
@@ -181,13 +181,13 @@ def _kde_from_jbf(
                 nasp.labels, nasp.clusters.normal, nasp.clusters.center, cfg.ccl,
                 index=index,
             )
-        # the last part of the kde.ccl_merge span, so a device activity lies
-        # in the innermost span that holds it
-        with record_function("kde.projection"):
+        # the last part of the kde.ccl_merge stage, so a device activity lies
+        # in the innermost stage that holds it
+        with telemetry.stage("kde.projection", points):
             plane_fitted, optimized = _project(points, rays, merged, index, cfg, tile)
         return plane_fitted, optimized, merged.labels, merged.variance, merged.sizes
 
-    with record_function("kde.ccl_merge"):
+    with telemetry.stage("kde.ccl_merge", points):
         # the label index's route: a host branch, or in a jit call with
         # three or more NASP iterations a conditional node
         plane_fitted, optimized, merged_labels, merged_variance, merged_sizes = (
@@ -262,11 +262,11 @@ def _ers_front_end(depth, points, color, cfg):
     """RGBF's, SPDSP's and TOF's front end: colour SLIC and depth SLIC (the
     DASP variant, cfg.color_slic / cfg.depth_slic) -> edge-refined
     superpixels.  Returns (colour SLIC, depth SLIC, ERS result)."""
-    with record_function("rgbf.color_slic"):
+    with telemetry.stage("rgbf.color_slic", points):
         sp = slic.segment(color, points, grid=cfg.grid, params=cfg.color_slic, variant="dasp")
-    with record_function("rgbf.depth_slic"):
+    with telemetry.stage("rgbf.depth_slic", points):
         dasp = slic.segment(color, points, grid=cfg.grid, params=cfg.depth_slic, variant="dasp")
-    with record_function("rgbf.ers"):
+    with telemetry.stage("rgbf.ers", points):
         refined = ers.edge_refined_superpixel(sp.labels, dasp.labels, depth, color, cfg.ers)
     return sp, dasp, refined
 
@@ -354,9 +354,9 @@ def spdsp_pipeline(
         okf = (resid_rel < cfg.max_plane_residual).to(torch.float32)
         return planes, plane_fitted, (index.gather(okf[..., None])[..., 0] > 0.0,)
 
-    with record_function("spdsp.planes"):
+    with telemetry.stage("spdsp.planes", rpoints):
         planes, plane_fitted, gate = _with_local_index(fit_and_project, refined.labels, cfg)
-    with record_function("spdsp.mrf"):
+    with telemetry.stage("spdsp.mrf", rpoints):
         optimized = plane.mrf_optimization(
             rpoints, plane_fitted, rays, cfg.projection, gate_mask=gate[0] if gate else None)
     result = SPDSPResult(
@@ -399,7 +399,7 @@ def tof_pipeline(
             rpoints, rays, planes.nd, refined.labels, strict=True, index=index)
         return planes, merged, plane_fitted
 
-    with record_function("tof.planes"):
+    with telemetry.stage("tof.planes", rpoints):
         _, merged, plane_fitted = _with_local_index(fit_merge_project, refined.labels, cfg)
     result = TOFResult(
         optimized_points=rpoints,

@@ -22,6 +22,12 @@ On the card each chunk's frames are staged in pinned host memory and
 copied on a copy stream with non_blocking=True; the compute stream waits on
 the copy's event before the step copies them into its graph's inputs.  A staging buffer is refilled only after the event of
 its previous copy has completed (two buffers take turns).
+
+With telemetry on (utils/telemetry.py) a chunk's host path is three spans,
+stream.stage (the staging above), stream.call (the compiled step's key,
+input copies, replay and clones) and stream.drain (the blocking read of
+its scalars), each with the chunk's first frame index as its step's id;
+the fold is the device stage stream.fold.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from kinectdepthmapenhancement_tpu_torch.core.camera import Intrinsics, projecti
 from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
 from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
 from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
-from kinectdepthmapenhancement_tpu_torch.utils import checkpoint, metrics
+from kinectdepthmapenhancement_tpu_torch.utils import checkpoint, metrics, telemetry
 
 
 def _chunk_step(buf: buffer2d.DepthBuffer, depths: torch.Tensor, color: torch.Tensor,
@@ -49,13 +55,14 @@ def _chunk_step(buf: buffer2d.DepthBuffer, depths: torch.Tensor, color: torch.Te
     pts = kde_pipeline(depths, color, intr, cfg).optimized_points
     if kde_only:
         return buf, pts, pts.sum() * 1e-30, torch.zeros((), dtype=torch.int64, device=pts.device)
-    err_sum = torch.zeros((), dtype=torch.float32, device=pts.device)
-    n_sum = torch.zeros((), dtype=torch.int64, device=pts.device)
-    for depth, p in zip(depths, pts):
-        buf = buffer2d.update(buf, depth)
-        err, n = metrics.mean_3d_error(p, projective_to_real(buf.depth, intr))
-        err_sum = err_sum + err * n.to(torch.float32)
-        n_sum = n_sum + n
+    with telemetry.stage("stream.fold", pts):
+        err_sum = torch.zeros((), dtype=torch.float32, device=pts.device)
+        n_sum = torch.zeros((), dtype=torch.int64, device=pts.device)
+        for depth, p in zip(depths, pts):
+            buf = buffer2d.update(buf, depth)
+            err, n = metrics.mean_3d_error(p, projective_to_real(buf.depth, intr))
+            err_sum = err_sum + err * n.to(torch.float32)
+            n_sum = n_sum + n
     return buf, pts, err_sum, n_sum
 
 
@@ -148,24 +155,28 @@ def run_stream(
         if not chunk:
             return
         k = len(chunk)
-        depths = stage(chunk)
+        # the chunk's first frame index: the id of its step in telemetry
+        start = state.frame_index + sum(e[2] for e in inflight)
+        with telemetry.span("stream.stage", step=start):
+            depths = stage(chunk)
         if k not in colors:
             colors[k] = c.expand(k, -1, -1, -1).contiguous()
-        start = state.frame_index + sum(e[2] for e in inflight)
-        state.buffer, pts, err_sum, n_sum = _step(
-            state.buffer, depths, colors[k], intr, cfg, kde_only)
+        with telemetry.span("stream.call", step=start):
+            state.buffer, pts, err_sum, n_sum = _step(
+                state.buffer, depths, colors[k], intr, cfg, kde_only)
         if on_outputs is not None:
             on_outputs(start, pts)
-        inflight.append((err_sum, n_sum, k))
+        inflight.append((err_sum, n_sum, k, start))
         chunk.clear()
 
     def drain() -> None:
         """Account the oldest in-flight chunk (blocks until it is done)."""
         if not inflight:
             return
-        err_sum, n_sum, k = inflight.pop(0)
-        state.metric_sums[metric] += float(err_sum)
-        state.metric_counts[metric] += int(n_sum) if not kde_only else k
+        err_sum, n_sum, k, start = inflight.pop(0)
+        with telemetry.span("stream.drain", step=start):
+            state.metric_sums[metric] += float(err_sum)
+            state.metric_counts[metric] += int(n_sum) if not kde_only else k
         state.frame_index += k
 
     pending: List[np.ndarray] = []

@@ -19,6 +19,7 @@ import torch
 from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.ops import stencil
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/jbf.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_bilateral.py:108"
@@ -133,7 +134,6 @@ def jbf(
     )
     if depth.device.type == "cpu":
         return jbf_plain(depth, guide, **kw)
-    global launches
     b, h, w = depth.shape
     _build.check_tensor(depth, "jbf depth", torch.float32, (b, h, w))
     _build.check_tensor(guide, "jbf guide", torch.float32, (b, h, w, 3))
@@ -145,6 +145,5 @@ def jbf(
          2.0 * color_sigma**2, 2.0 * depth_sigma**2,
          int(color_sigma != 0.0), int(depth_sigma != 0.0)),
     )
-    launches += 1
-    launch_forms[f"jbf:w{w}"] = launch_forms.get(f"jbf:w{w}", 0) + 1
+    telemetry.count_launch(globals(), f"jbf:w{w}")
     return out

@@ -19,6 +19,7 @@ import torch
 
 from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.ops import stencil
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/cov.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_cov.py:197"
@@ -112,7 +113,6 @@ def cm_covariances(
     tensors."""
     if vertices_m.device.type == "cpu":
         return cm_covariances_plain(vertices_m, rect)
-    global launches
     b, h, w, _ = vertices_m.shape
     _build.check_tensor(vertices_m, "cov vertices", torch.float32, (b, h, w, 3))
     _build.check_tensor(rect, "cov rect", torch.int32, (b, h, w))
@@ -123,6 +123,5 @@ def cm_covariances(
         "kde_cov", [_build.PTR] * 4 + [_build.INT] * 3, dev,
         (vertices_m.data_ptr(), rect.data_ptr(), cnt.data_ptr(), cov.data_ptr(), b, h, w),
     )
-    launches += 1
-    launch_forms[f"cm_covariance:w{w}"] = launch_forms.get(f"cm_covariance:w{w}", 0) + 1
+    telemetry.count_launch(globals(), f"cm_covariance:w{w}")
     return cnt, cov

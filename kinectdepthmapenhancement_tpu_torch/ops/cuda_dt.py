@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from kinectdepthmapenhancement_tpu_torch import _build
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/dt.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_dt.py:60"
@@ -65,7 +66,6 @@ def distance_transform(dci: torch.Tensor, iterations: int) -> torch.Tensor:
     writes the init."""
     if dci.device.type == "cpu":
         return distance_transform_plain(dci, iterations)
-    global launches
     b, h, w = dci.shape
     _build.check_tensor(dci, "dt dci", torch.int32, (b, h, w))
     max_rounds = _build.load().kde_dt_max_rounds()
@@ -78,8 +78,7 @@ def distance_transform(dci: torch.Tensor, iterations: int) -> torch.Tensor:
             "kde_dt", argtypes, dci.device,
             (src.data_ptr(), from_dci, out.data_ptr(), b, h, w, rounds),
         )
-        launches += 1
-        launch_forms[f"chamfer_dt:w{w}"] = launch_forms.get(f"chamfer_dt:w{w}", 0) + 1
+        telemetry.count_launch(globals(), f"chamfer_dt:w{w}")
         src, from_dci, left = out, 0, left - rounds
         if left == 0:
             return out

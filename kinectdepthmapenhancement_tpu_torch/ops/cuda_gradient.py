@@ -17,6 +17,7 @@ import torch
 
 from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.ops import stencil
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/seed_gradient.cu"
 REPLACES = "kinectdepthmapenhancement_tpu/ops/pallas_gradient.py:89"
@@ -82,7 +83,6 @@ def seed_gradient(
     sub-grid, "halo" for a haloed width tile)."""
     if color_f.device.type == "cpu":
         return seed_gradient_plain(color_f, normals)
-    global launches
     b, h, w, _ = color_f.shape
     _build.check_tensor(color_f, "gradient color", torch.float32, (b, h, w, 3))
     if normals is not None:
@@ -93,8 +93,6 @@ def seed_gradient(
         (color_f.data_ptr(), normals.data_ptr() if normals is not None else None,
          out.data_ptr(), b, h, w, int(normals is not None)),
     )
-    launches += 1
-    key = "seed_gradient:" + ("nasp" if normals is not None else "color") + (
-        f":{form}" if form else "")
-    launch_forms[key] = launch_forms.get(key, 0) + 1
+    telemetry.count_launch(globals(), "seed_gradient:" + (
+        "nasp" if normals is not None else "color") + (f":{form}" if form else ""))
     return out

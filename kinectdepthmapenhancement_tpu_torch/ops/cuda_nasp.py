@@ -43,6 +43,7 @@ from kinectdepthmapenhancement_tpu_torch import _build
 from kinectdepthmapenhancement_tpu_torch.core.camera import VALID_DEPTH_MM
 from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import stencil, tables
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 SOURCE = "kinectdepthmapenhancement_tpu_torch/csrc/nasp.cu"
 _PALLAS_NASP = "kinectdepthmapenhancement_tpu/ops/pallas_nasp.py"
@@ -374,9 +375,7 @@ def _call(name: str, form: str, argtypes: list, device, args) -> None:
     """Launch kde_<name> on the current stream of `device`, raise on a CUDA
     error, count the launch by kernel and by form."""
     _build.launch("kde_" + name, argtypes, device, args)
-    launches[name] += 1
-    key = f"{name}:{form}"
-    launch_forms[key] = launch_forms.get(key, 0) + 1
+    telemetry.count_launch(globals(), f"{name}:{form}", kernel=name)
 
 
 def _check_grid(

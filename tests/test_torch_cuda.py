@@ -1502,7 +1502,11 @@ def _replays_equal_eager(fn, args):
         f = jit.jit(fn)
         a, b = f(*args), f(*args)
         torch.cuda.synchronize()
-        assert jit.stats == {"captures": 1, "replays": 2, "host_steps": 0}
+        (key,) = jit.keys()  # reads the conds' branches taken into kernels_replayed
+        assert jit.stats == {"captures": 1, "replays": 2, "host_steps": 0,
+                             "kernels_replayed": key["kernels_replayed"]}
+        if not key["conds"]:
+            assert key["kernels_replayed"] == 2 * key["kernels"]
         for k in eager._fields:
             want, ga, gb = getattr(eager, k), getattr(a, k), getattr(b, k)
             assert torch.equal(ga, want) and torch.equal(gb, want), k
@@ -1699,7 +1703,8 @@ def test_jit_host_steps_between_graph_pieces(dev):
         (key,) = jit.keys()
         assert (key["pieces"], key["host_steps"], key["conds"], key["host_branches"]) == (3, 2, 0, 0)
         # 3 eager calls, the warm-up's 2 and 3 replays: none in the capture
-        assert jit.stats == {"captures": 1, "replays": 3, "host_steps": 3 * 2 + 2 + 3 * 2}
+        assert jit.stats == {"captures": 1, "replays": 3, "host_steps": 3 * 2 + 2 + 3 * 2,
+                             "kernels_replayed": 3 * key["kernels"]}
     finally:
         jit.clear()
 
@@ -1764,6 +1769,152 @@ def test_jit_cond_without_host_step_stays_a_conditional_node(dev):
         assert (key["conds"], key["host_branches"], key["pieces"]) == (1, 0, 2)
         assert key["taken"] == [[2, 1]]
     finally:
+        jit.clear()
+
+
+# ---- telemetry (utils/telemetry.py): stamps inside the graphs, replays' kernels
+
+def _kernels_profiled(fn):
+    """The kernels fn runs on the card, as the profiler sees them: copies
+    and fills left out, CUDA's own copy kernels among them (a copy
+    node inside a conditional body runs as memcpy32_post)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation()
+               and not ev.name().lower().startswith(("memcpy", "memset")))
+
+
+def _replay_stages(rec):
+    """Each replay's stamped stages, in order, from collected records."""
+    out, cur = [], None
+    for st in rec.stamps:
+        if st.stage == "jit.graph":
+            if not st.exit:
+                cur = []
+            else:
+                out.append(cur)
+                cur = None
+        elif cur is not None and not st.exit:
+            cur.append(st.stage)
+    return out
+
+
+def _b1_kde(inputs):
+    return (inputs["depth"][:1].contiguous(), inputs["color"][:1].contiguous(), inputs["intr"],
+            JIT_CONFIGS["default"])
+
+
+def test_telemetry_off_capture_holds_no_stamp(inputs):
+    """A B=1 kde_pipeline captured with telemetry off holds no kde_stamp
+    node, and its kernel nodes are what a replay of its graph runs."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.utils import telemetry
+
+    args = _b1_kde(inputs)
+    telemetry.disable()
+    telemetry.collect()
+    jit.clear()
+    try:
+        f = jit.jit(kde_pipeline)
+        f(*args)
+        graph = next(iter(f.cache.values()))
+        replay = _kernels_profiled(lambda: [item.run(graph.dev) for item in graph.items])
+        (key,) = jit.keys()
+        assert key["stamps"] == 0 and telemetry.stamps_launched == 0
+        assert key["kernels"] == replay
+        # one call replayed through the jit (the profiled run bypasses it)
+        assert key["kernels_replayed"] == jit.stats["kernels_replayed"] == key["kernels"]
+        assert telemetry.collect().stamps == []
+    finally:
+        jit.clear()
+
+
+def test_telemetry_on_stamps_each_stage_on_the_shared_clock(inputs):
+    """Captured with telemetry on, the same call holds two stamps a stage
+    (the six kde.* stages and jit.graph) and the same kernels otherwise; a
+    replay runs them all; each replay's first stamp lies after its
+    jit.launch span opens, on the host's clock within the fit's error."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.utils import telemetry
+
+    args = _b1_kde(inputs)
+    jit.clear()
+    telemetry.disable()
+    try:
+        f = jit.jit(kde_pipeline)
+        f(*args)
+        (off,) = jit.keys()
+        jit.clear()
+        telemetry.collect()
+        telemetry.enable()
+        f = jit.jit(kde_pipeline)
+        for _ in range(3):
+            f(*args)
+        graph = next(iter(f.cache.values()))
+        replay = _kernels_profiled(lambda: [item.run(graph.dev) for item in graph.items])
+        (key,) = jit.keys()
+        rec = telemetry.collect()
+        stages = ["kde.jbf", "kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge",
+                  "kde.projection"]
+        assert key["stamps"] == 2 * (len(stages) + 1)
+        assert key["kernels"] == off["kernels"] and replay == key["kernels"] + key["stamps"]
+        assert _replay_stages(rec) == [stages] * 4
+        assert rec.stamps_lost == 0 and 0 < rec.clock_error_ns < 20_000
+        launches = [s for s in rec.spans if s.name == "jit.launch"]
+        entries = [s for s in rec.stamps if s.stage == "jit.graph" and not s.exit]
+        assert len(launches) == 3 and len(entries) == 4
+        for span, stamp in zip(launches, entries):
+            assert stamp.t_ns >= span.start_ns - rec.clock_error_ns
+        assert all(a.t_ns <= b.t_ns for a, b in zip(rec.stamps, rec.stamps[1:]))
+    finally:
+        telemetry.disable()
+        telemetry.collect()
+        jit.clear()
+
+
+def test_telemetry_stamp_in_a_cond_body_fires_on_the_branch_taken(dev):
+    """Stamps inside a conditional node's bodies fire only on the branch the
+    device takes; kernels_replayed counts each body by the branch taken, as
+    the profiler sees the replays' kernels."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+    from kinectdepthmapenhancement_tpu_torch.utils import telemetry
+
+    def up(v):
+        with telemetry.stage("test.if", v):
+            return v * 2.0 + 1.0
+
+    def down(v):
+        with telemetry.stage("test.else", v):
+            return v - 1.0
+
+    def fn(x, t):
+        return jit.cond((t > 0).all(), up, down, x)
+
+    x = torch.rand(4, 300, generator=torch.Generator().manual_seed(3)).to(dev)
+    pos, neg = torch.ones(4, device=dev), -torch.ones(4, device=dev)
+    jit.clear()
+    telemetry.collect()
+    telemetry.enable()
+    try:
+        f = jit.jit(fn)
+        assert torch.equal(f(x, pos), fn(x, pos))
+        before = jit.keys()[0]["kernels_replayed"]
+        ran = _kernels_profiled(lambda: [f(x, t) for t in (neg, pos)])
+        (key,) = jit.keys()
+        rec = telemetry.collect()
+        assert key["conds"] == 1 and key["taken"] == [[2, 1]] and key["stamps"] == 6
+        # each replay: the jit.graph pair and its branch's pair
+        assert ran == key["kernels_replayed"] - before + 2 * 4
+        assert [s for s in _replay_stages(rec)] == [["test.if"], ["test.else"], ["test.if"]]
+    finally:
+        telemetry.disable()
+        telemetry.collect()
         jit.clear()
 
 
