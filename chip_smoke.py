@@ -43,7 +43,11 @@ Phases (each prints its results; any failure exits non-zero):
      260], [B, 424, 132]), the DT and the covariance on its haloed tiles
      ([B, 424, 283], [B, 424, 182]), the seed gradient on its 5-column
      haloed tile ([B, 424, 261]), the four cell kernels on x = 8's
-     cell-aligned tile at 640 (cell columns 3-4); time kernel,
+     cell-aligned tile at 640 (cell columns 3-4); and the global label
+     index's label counts on NASP's labels of the 424x512 frame (pairs with
+     the right and the down neighbours, and the single form; bitwise), and
+     a CCL merge's three of them at B=8 against the index_add_ scatter
+     that could replace them (bitwise, device ms a frame); time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -179,8 +183,9 @@ Phases (each prints its results; any failure exits non-zero):
      Phase 12 runs in a process of its own (`python3 chip_smoke.py
      --phase12`, which alone runs phases 1, 2 without the SASS counts,
      and 12);
-  9. print the kernels JSON line (one entry per TPU kernel of the repo,
-     each with its forms and their launches by path, and its launches on
+  9. print the kernels JSON line (one entry per TPU kernel of the repo and
+     one for the label counts, which replace none, each with its forms and
+     their launches by path, and its launches on
      phase 10's and phase 11's paths), then {"ok": true, "device": ...}
      last.
 
@@ -445,6 +450,11 @@ COMPILED_CASE_STEPS = {
     "640 default B=4": (14, 0), "640 default B=1": (14, 0), "data2 x1 default B=4": (0, 0),
     "640 iter3 B=4": (25, 3), "v2 default B=4": (18, 0), "split default B=4": (16, 0),
 }
+# what a capture with host branches launches beyond the eager step, by
+# form: it records both branches of each, and the untaken global branch of
+# the label index (one CCL merge on the global index) runs the label
+# counts; the capped route's untaken global updates launch no kernel
+UNTAKEN_GLOBAL_INDEX_FORMS = {"label_counts:pairs": 2, "label_counts:single": 1}
 
 
 def _phase11_compiled(res, cases, zero, counted) -> None:
@@ -479,12 +489,12 @@ def _phase11_compiled(res, cases, zero, counted) -> None:
         blocks = (m.width_tile(depth[rows]), m.width_tile(color[rows]))
         step = sharding.sharded_kde_step(m, intr, cfg)
         mesh_mod.collectives = 0
-        eager, eager_counts, _ = counted(lambda: step.fn(*blocks))
+        eager, eager_counts, eager_forms = counted(lambda: step.fn(*blocks))
         run = {"collectives": mesh_mod.collectives, "eager_counts": eager_counts,
-               "block": tuple(eager.shape)}
+               "eager_forms": eager_forms, "block": tuple(eager.shape)}
         jit.capture_hooks.append(zero)
         try:
-            first, run["capture_counts"], _ = counted(lambda: step(*blocks))
+            first, run["capture_counts"], run["capture_forms"] = counted(lambda: step(*blocks))
         finally:
             jit.capture_hooks.remove(zero)
         zero()
@@ -529,6 +539,10 @@ TILED_NASP_FORMS = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:t
                     "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
 _CELL_KERNELS = ("nasp_assign_analyze", "nasp_cell_sums", "label_cell_sums",
                  "label_cell_gather")
+# the global label index's kernel (its counts and pair counts): launched
+# only where an index has no locality (a grid that does not divide the
+# frame, labels off the cap, locality="global")
+GLOBAL_INDEX_KERNELS = ("label_counts",)
 # each tiled case of the default config: the kernels it must not launch (by
 # counter; every other must launch), the cell and gradient forms it must
 # launch and its collectives a step (B=4 and B=1 alike).  "640": data tiles
@@ -537,8 +551,8 @@ _CELL_KERNELS = ("nasp_assign_analyze", "nasp_cell_sums", "label_cell_sums",
 # (NASP's global route: no cell kernel, the seed gradient on haloed tiles,
 # four gathers more for the global first iteration and the seed windows)
 TILED_CASE_PATHS = {
-    "640": ((), TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 14),
-    "split": ((), TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 16),
+    "640": (GLOBAL_INDEX_KERNELS, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 14),
+    "split": (GLOBAL_INDEX_KERNELS, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 16),
     "v2": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
     "crop628": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
 }
@@ -692,13 +706,14 @@ _FIRST = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:tile")
 _CELL_R4 = ("label_cell_sums:r4:F2:tile", "label_cell_gather:r4:F6:tile",
             "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
 CONFIG_PATHS = {
-    "bilateral": (("cuda_dt", "cuda_cov"), _FIRST + _CELL_R4),
-    "sdc": (("cuda_cov",), _FIRST + _CELL_R4),
-    "plane_merge_fill": ((), _FIRST + _CELL_R4 + ("label_cell_sums:r4:F4:tile",
-                                                  "label_cell_sums:r4:F6:tile")),
-    "iter3": ((), _FIRST + ("nasp_cell_sums:r5:analyze:tile", "nasp_cell_sums:r5:weighted:tile",
-                            "label_cell_sums:r5:F2:tile", "label_cell_gather:r5:F6:tile",
-                            "label_cell_gather:r5:F1:tile", "label_cell_gather:r5:F3:tile")),
+    "bilateral": (("cuda_dt", "cuda_cov") + GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4),
+    "sdc": (("cuda_cov",) + GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4),
+    "plane_merge_fill": (GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4 + (
+        "label_cell_sums:r4:F4:tile", "label_cell_sums:r4:F6:tile")),
+    "iter3": (GLOBAL_INDEX_KERNELS, _FIRST + (
+        "nasp_cell_sums:r5:analyze:tile", "nasp_cell_sums:r5:weighted:tile",
+        "label_cell_sums:r5:F2:tile", "label_cell_gather:r5:F6:tile",
+        "label_cell_gather:r5:F1:tile", "label_cell_gather:r5:F3:tile")),
     "iter3_global": (("label_cell_sums", "label_cell_gather"), _FIRST),
     "all": (("cuda_cov", "label_cell_sums", "label_cell_gather"), _FIRST),
 }
@@ -796,7 +811,7 @@ KERNEL_COUNTER = {
     "jbf_kernel": "cuda_bilateral", "dt_kernel": "cuda_dt", "cov_kernel": "cuda_cov",
     "grad_kernel": "cuda_gradient", "assign_analyze_kernel": "nasp_assign_analyze",
     "nasp_sums_kernel": "nasp_cell_sums", "label_sums_kernel": "label_cell_sums",
-    "label_gather_kernel": "label_cell_gather",
+    "label_gather_kernel": "label_cell_gather", "label_counts_kernel": "label_counts",
 }
 
 
@@ -1408,6 +1423,24 @@ def main() -> int:
         x["nm_h"] = halo_tile(nmap, 2, slic.GRAD_MARGIN)
         if x["cf_h"].shape[2] != int(V2_GRADIENT_TILE[4:]):
             _fail(f"the {V2_GRADIENT_TILE} form is {x['cf_h'].shape[2]} columns wide")
+        # the global index's label counts as CCL's adjacency runs them on
+        # this frame: NASP's labels (plain route; the grid does not divide
+        # the frame, so the global index) and their right and down
+        # neighbours, -1 past the frame; the library's keys (a * K + c, or a,
+        # offset by frame, a dropped pixel at a spare slot past the tables)
+        lab = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
+            nasp_p, stats_impl="xla")).labels.contiguous()
+        b, k = lab.shape[0], grid.num_clusters
+        right = torch.cat([lab[:, :, 1:], lab.new_full((b, hv, 1), -1)], dim=2).contiguous()
+        down = torch.cat([lab[:, 1:], lab.new_full((b, 1, wv), -1)], dim=1).contiguous()
+        x.update(labels_v2=lab, right_v2=right, down_v2=down,
+                 ones_v2=torch.ones(lab.numel(), dtype=torch.float32, device=dev))
+        frame = torch.arange(b, device=dev)[:, None, None]
+        ina = (lab >= 0) & (lab < k)
+        for tag, nb in (("right", right), ("down", down), ("single", None)):
+            size = k if nb is None else k * k
+            key, ok = (lab, ina) if nb is None else (lab * k + nb, ina & (nb >= 0) & (nb < k))
+            x[f"keys_{tag}_v2"] = torch.where(ok, key + frame * size, b * size).reshape(-1).long()
         return x
 
     def stage_inputs(depth, color):
@@ -2180,6 +2213,80 @@ def main() -> int:
             inputs=lambda x, t=tkey: [x["labels_u"], x[t]],
             ops=lambda x: 0,
             shape=lambda x, nf=nf: tuple(x["labels_u"].shape) + (nf,))
+    # the global index's label counts on the 424x512 frames' NASP labels,
+    # as the path launches them (a CCL merge: pairs with the right and the
+    # down neighbours, then the single form); it replaces no TPU kernel.
+    # The library is one index_add_ of the precomputed keys into a zeroed
+    # table: the scatter that could stand in for the kernel, its keys'
+    # kernels left out (label_counts_b8 times it whole)
+    def scatter_counts(x, tag):
+        b, k = x["labels_v2"].shape[0], grid.num_clusters
+        size = k if tag == "single" else k * k
+        table = torch.zeros(b * size + 1, device=dev).index_add_(
+            0, x[f"keys_{tag}_v2"], x["ones_v2"])
+        return table[:-1].reshape((b, k) if tag == "single" else (b, k, k))
+
+    for tag in ("right", "down", "single"):
+        kernels["label_counts" if tag == "right" else f"label_counts_{tag}"] = dict(
+            module=cuda_nasp, bar="bitwise", row="label_counts", secondary=tag != "right",
+            form="single" if tag == "single" else "pairs", replaces=None,
+            run=(lambda x: cuda_nasp.label_counts(x["labels_v2"], grid.num_clusters))
+            if tag == "single" else (lambda x, t=tag: cuda_nasp.label_pair_counts(
+                x["labels_v2"], x[f"{t}_v2"], grid.num_clusters)),
+            plain=(lambda x: cuda_nasp.label_counts_plain(x["labels_v2"], grid.num_clusters))
+            if tag == "single" else (lambda x, t=tag: cuda_nasp.label_pair_counts_plain(
+                x["labels_v2"], x[f"{t}_v2"], grid.num_clusters)),
+            library=lambda x, t=tag: scatter_counts(x, t),
+            # the label planes read and the table written
+            inputs=(lambda x: [x["labels_v2"]]) if tag == "single"
+            else (lambda x, t=tag: [x["labels_v2"], x[f"{t}_v2"]]),
+            ops=lambda x: npx(x["labels_v2"]),  # one count a pixel
+            shape=lambda x: tuple(x["labels_v2"].shape))
+
+    def label_counts_b8(x):
+        """A CCL merge's three label counts on the global index at the
+        replay's B=8 (the four 424x512 frames twice): the kernel's against
+        the scatter's that could replace it (the keys built, one index_add_
+        a table into a zeroed one), bitwise equal, their device ms a merge
+        and a frame."""
+        k = grid.num_clusters
+        lab, right, down = (torch.cat([x[n]] * 2).contiguous()
+                            for n in ("labels_v2", "right_v2", "down_v2"))
+        b = lab.shape[0]
+        ones = torch.ones(lab.numel(), dtype=torch.float32, device=dev)
+        frame = torch.arange(b, device=dev, dtype=torch.int32)[:, None, None]
+
+        def scatter(c):
+            size = k if c is None else k * k
+            ok = (lab >= 0) & (lab < k)
+            key = lab
+            if c is not None:
+                ok = ok & (c >= 0) & (c < k)
+                key = lab * k + c
+            key = torch.where(ok, key + frame * size, b * size).reshape(-1)
+            table = torch.zeros(b * size + 1, device=dev).index_add_(0, key, ones)
+            return table[:-1].reshape((b, k) if c is None else (b, k, k))
+
+        runs = {
+            "kernel": lambda: (cuda_nasp.label_pair_counts(lab, right, k),
+                               cuda_nasp.label_pair_counts(lab, down, k),
+                               cuda_nasp.label_counts(lab, k)),
+            "scatter": lambda: (scatter(right), scatter(down), scatter(None)),
+        }
+        got = {name: fn() for name, fn in runs.items()}
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got["kernel"], got["scatter"])):
+            _fail("label counts B=8: the scatter's tables differ from the kernel's")
+        out = {}
+        for name, fn in runs.items():
+            d, n = device_time(fn)
+            out[name] = {"call_ms": cuda_ms(fn, warmup=3, iters=20), "device_ms": d,
+                         "device_activities": n,
+                         "device_ms_per_frame": None if d is None else d / b}
+        print(f"label counts B=8 (a CCL merge's three calls, 424x512) on {smi}: "
+              + json.dumps(out))
+        return out
+
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -2265,6 +2372,8 @@ def main() -> int:
             r[f"ms_b{bsz}"], r[f"plain_ms_b{bsz}"], r[f"library_ms_b{bsz}"] = t_k, t_p, t_l
             r[f"device_ms_b{bsz}"], r[f"library_device_ms_b{bsz}"] = d_k, d_l
             r[f"bound_ms_b{bsz}"], r["bound_by"] = t_b, bound_by
+        if bsz == 4:
+            label_counts_at_b8 = label_counts_b8(x)
         del x
 
     # ---- phase 4: the main path at 640x480, single-frame and batched
@@ -2300,8 +2409,10 @@ def main() -> int:
     launches = counts()
     path_forms["main"] = forms_now()
     print(f"main path launches: {launches}")
-    if any(n == 0 for n in launches.values()):
+    if any(n == 0 for k, n in launches.items() if k not in GLOBAL_INDEX_KERNELS):
         _fail(f"a kernel of the main path was never launched: {launches}")
+    if any(launches[k] for k in GLOBAL_INDEX_KERNELS):
+        _fail(f"the main path's cell-local route launched a global-index kernel: {launches}")
     k_count = grid.num_clusters
     for tag, res in (("B=1", res1), ("B=4", res4)):
         for field in ("optimized_points", "plane_fitted", "jbf_depth", "normals", "merged_variance"):
@@ -2491,7 +2602,9 @@ def main() -> int:
                 _fail(f"{tag}: second run gave different {f}")
         print(f"{tag}: every output bitwise identical on a second run")
 
-    all_kernels = tuple(launches)
+    # every kernel of the cell-local route (the global index's are driven
+    # on the 424x512 frame and the global-index iterations)
+    all_kernels = tuple(k for k in launches if k not in GLOBAL_INDEX_KERNELS)
     path_ms = {}
 
     # (a) the far-range gate (tests/test_oracle_pipeline.py:230-287)
@@ -2556,7 +2669,8 @@ def main() -> int:
                            all_kernels, r5_forms)
         res_g = drive(f"iter3.global B={bsz}",
                       lambda: kde_pipeline(d, c, intr, cfg_c["global"]),
-                      stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums"))
+                      stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums")
+                      + GLOBAL_INDEX_KERNELS)
         check_outputs(f"iter3 B={bsz}", res_c[bsz], k_count)
         if any(f.split(":")[1] == "r5" for f in path_forms[f"iter3.global B={bsz}"]):
             _fail("the global route launched an r = 5 cell kernel")
@@ -2626,7 +2740,8 @@ def main() -> int:
     # it, so the NASP and downstream stages take the global route
     vd, vc = vdepth4[0], vcolor4[0]
     res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
-                  stencil_kernels)
+                  stencil_kernels + GLOBAL_INDEX_KERNELS,
+                  ("label_counts:pairs", "label_counts:single"))
     check_outputs("kinect_v2 424x512", res_d, k_count)
     check_again("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg), res_d)
     path_ms["kinect_v2 B=1"] = time_path(
@@ -3076,7 +3191,10 @@ def main() -> int:
             path_counts[f"{tag}.{name}"] = got
             expect = all_kernels if name.startswith("kde") else row_kernels[name]
             missing = [k for k in expect if got[k] == 0]
-            extra = [k for k in got if got[k] and k not in expect]
+            # a DASP pipeline's index may leave its cap: the global index's
+            # kernels then run
+            optional = GLOBAL_INDEX_KERNELS if name in ("rgbf", "spdsp", "tof") else ()
+            extra = [k for k in got if got[k] and k not in expect + optional]
             if missing or extra:
                 _fail(f"{tag} row {name}: kernels never launched {missing}, launched "
                       f"though the method does not run them {extra}")
@@ -3510,7 +3628,9 @@ def main() -> int:
                 jbf_forms = {f for f in r["forms"][tag] if f.startswith("jbf:")}
                 if form and jbf_forms != {form}:
                     _fail(f"phase 11 (b): {key} launched the JBF on {jbf_forms}, not {form}")
-                if "step" in tag and any(v == 0 for v in cnt.values()):
+                # the steps run 640x480 frames: the cell-local route
+                if "step" in tag and any(v == 0 for k, v in cnt.items()
+                                         if k not in GLOBAL_INDEX_KERNELS):
                     _fail(f"phase 11 (b): {key}: a kernel of the path was never launched: {cnt}")
         for tag, (shape, got) in ranks[0]["out"].items():
             want = (res4.optimized_points if "step" in tag
@@ -3637,9 +3757,23 @@ def main() -> int:
                 if run["collectives"] != want_steps or run["host_steps"] != [want_steps] * 2:
                     wrong.append(f"{run['collectives']} collectives eager, host steps a replay "
                                  f"{run['host_steps']}, not {want_steps}")
-                if run["capture_counts"] != run["eager_counts"]:
-                    wrong.append(f"the capture launched {run['capture_counts']}, the eager "
-                                 f"step {run['eager_counts']}")
+                # a capture records both branches of each host branch: the
+                # label index's untaken global branch adds its label counts,
+                # exactly those, and nothing else may differ
+                want_forms = UNTAKEN_GLOBAL_INDEX_FORMS if want_branches else {}
+                extra = {k: v - run["eager_counts"][k]
+                         for k, v in run["capture_counts"].items() if v != run["eager_counts"][k]}
+                extra_forms = {
+                    f: run["capture_forms"].get(f, 0) - run["eager_forms"].get(f, 0)
+                    for f in set(run["capture_forms"]) | set(run["eager_forms"])
+                    if f.startswith(GLOBAL_INDEX_KERNELS)}
+                extra_forms = {f: v for f, v in extra_forms.items() if v}
+                want_extra = {k: sum(v for f, v in want_forms.items() if f.startswith(k + ":"))
+                              for k in GLOBAL_INDEX_KERNELS}
+                if extra != {k: v for k, v in want_extra.items() if v} or extra_forms != want_forms:
+                    wrong.append(f"the capture launched {run['capture_counts']} (label-count "
+                                 f"forms beyond the eager step {extra_forms}, want {want_forms}), "
+                                 f"the eager step {run['eager_counts']}")
                 if any(run["replay_counts"].values()):
                     wrong.append(f"a replay launched from Python: {run['replay_counts']}")
                 taken = run["host_taken"]
@@ -3736,7 +3870,8 @@ def main() -> int:
         key = row if is_nasp else mod.__name__.rsplit(".", 1)[-1]
         out.append({
             "name": row, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES[row] if is_nasp else mod.REPLACES,
+            "replaces": k["replaces"] if "replaces" in k else (
+                mod.REPLACES[row] if is_nasp else mod.REPLACES),
             "launches": launches[key],
             # phase 10's paths: each evaluate row (5 calls: one warm-up, 3
             # timed, one scored) and the native-fed stream
@@ -3752,6 +3887,7 @@ def main() -> int:
             "library_device_ms_b4": r["library_device_ms_b4"],
             "forms": [form_entry(n, kk) for n, kk in kernels.items()
                       if "form" in kk and kk.get("row", n) == row],
+            **({"b8_merge": label_counts_at_b8} if row == "label_counts" else {}),
         })
     print("kde ms per frame: " + "  ".join(
         f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))

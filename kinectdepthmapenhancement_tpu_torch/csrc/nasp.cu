@@ -1,12 +1,16 @@
 // NASP cell kernels: label-cell gather, and three per-(cell, candidate)
 // sums kernels on one reduction: label-cell sums, NASP update sums and the
-// fused first assignment + analyze sums.
+// fused first assignment + analyze sums; and the label counts of the
+// global label index.
 //
 // Replace the TPU kernels of kinectdepthmapenhancement_tpu/ops/pallas_nasp.py:
 //   kde_label_cell_gather    label_cell_gather        (:340, body :301)
 //   kde_label_cell_sums      label_cell_sums          (:224, body :183)
 //   kde_nasp_cell_sums       nasp_cell_sums           (:654, body :63)
 //   kde_nasp_assign_analyze  nasp_assign_and_analyze  (:554, body :400)
+// kde_label_counts (label_counts_kernel) replaces no TPU kernel: the JAX
+// package counts labels and label pairs over the whole [K] id space by
+// one-hot products (slic._GlobalIndex), as the port's plain version does.
 //
 // Single-iteration NASP labels are cell-local: a pixel of grid cell (cy, cx)
 // carries -1 or cluster (cy + dy) * cols + (cx + dx), (dy, dx) in [-r, r)^2.
@@ -62,15 +66,33 @@
 // and the pointer allow; F is a template parameter for 1, 3 and 6.  Bound:
 // the output, 7.4 MB at F = 6, B = 1, ~2.2 us.
 //
-// No atomics of any kind: each sum has one owner and an order fixed by the
-// labels alone, so runs are bitwise repeatable, and a double sum of f32
-// terms is exact for integer-valued features (counts, colours, u, v) and
-// within 1 ulp of the exact sum for the rest.  The gather only copies.
+// No atomics in the cell kernels: each sum has one owner and an order fixed
+// by the labels alone, so runs are bitwise repeatable, and a double sum of
+// f32 terms is exact for integer-valued features (counts, colours, u, v)
+// and within 1 ulp of the exact sum for the rest.  The gather only copies.
 // Dynamic shared memory above 48 KB is allowed once per kernel and device
 // (no kernel here has static shared memory).
 //
-// Width tiles: every kernel takes the tile's first cell column c0 and its
-// cell columns tc (c0 = 0, tc = cols: the whole frame).  The image is the
+// Label counts (label_counts_kernel): the pixels of each label (single
+// form, [B, K]) or of each label pair (pairs, [B, K, K]: labels_a at a and
+// labels_b at c, the 4-neighbour pairs of CCL's adjacency), a pixel with
+// either label outside [0, K) dropped, as the one-hot drops it.  One pass
+// over the labels, PPT consecutive pixels a thread (two 16-byte loads an
+// array where the frame's H * W and the pointers allow).  Labels are
+// spatially coherent, so a thread first folds its runs of equal keys; a
+// key change flushes the warp: lanes group by key (__match_any_sync), the
+// group's count is one __reduce_add_sync, and its first lane adds it to
+// the table in device memory by one f32 atomicAdd.  The caller zeroes the
+// table (a memset node under a graph).  The atomics are exact: every
+// addend and every partial sum is an integer below 2^24 (the wrapper
+// holds H * W < 2^24), which f32 represents exactly, so the sum is the
+// same in any order: deterministic from run to run and bitwise the
+// one-hot product's.  Bound: the bytes, two i32 label planes, 1.7 MB for
+// B = 1 pairs at 424x512, ~0.5 us at 3.35 TB/s; launch and the atomics'
+// latency set the time at these sizes.
+//
+// Width tiles: every cell kernel takes the tile's first cell column c0 and
+// its cell columns tc (c0 = 0, tc = cols: the whole frame).  The image is the
 // tile [B, H, tc * bs_x]; cells, candidates and cluster ids are those of
 // the global grid (cols columns), a pixel's u is its global column, and a
 // sums kernel writes the tile's [B, rows*tc*n, F] partials, which the
@@ -716,6 +738,77 @@ label_gather_kernel(const int* __restrict__ labels, const float* __restrict__ ta
   }
 }
 
+// ------------------------------------------------------------ label counts
+
+constexpr int PPT = 8;  // consecutive pixels a label-counts thread folds
+
+// The key of a pixel: label a (single form) or a * K + b (pairs); -1 when
+// a label lies outside [0, K), as tables.one_hot drops it.
+template <bool PAIRS>
+__device__ __forceinline__ int count_key(int a, int b, int K) {
+  const bool in_a = a >= 0 && a < K;
+  if (!PAIRS) return in_a ? a : -1;
+  return in_a && b >= 0 && b < K ? a * K + b : -1;
+}
+
+// One flush of the warp's runs: lanes with the same key (-1: nothing to
+// add) form a group, whose first lane adds the group's count to the table.
+__device__ __forceinline__ void flush_counts(float* table, int key, unsigned count, int lane) {
+  const unsigned peers = __match_any_sync(ALL, key);
+  const unsigned total = __reduce_add_sync(peers, count);
+  if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(table + key, static_cast<float>(total));
+}
+
+// Histogram of a frame's labels (single form: table [K]) or label pairs
+// (pairs: table [K, K], entry a * K + b): block (x, frame), thread t takes
+// the PPT consecutive pixels from (x * NT + t) * PPT of the frame's N,
+// 16-byte loads when VEC.  Every thread runs every step (no early exit):
+// the warp's collectives take all lanes.
+template <bool PAIRS, bool VEC>
+__global__ void __launch_bounds__(NT)
+label_counts_kernel(const int* __restrict__ labels_a, const int* __restrict__ labels_b,
+                    float* __restrict__ out, int N, int K) {
+  const size_t frame = blockIdx.y;
+  const int* a = labels_a + frame * N;
+  const int* b = PAIRS ? labels_b + frame * N : nullptr;
+  float* table = out + frame * (PAIRS ? static_cast<size_t>(K) * K : static_cast<size_t>(K));
+  const int p0 = (blockIdx.x * NT + threadIdx.x) * PPT;
+  int la[PPT], lb[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; j += (VEC ? 4 : 1)) {
+    if (VEC) {
+      int4 va = make_int4(-1, -1, -1, -1), vb = va;
+      if (p0 + j < N) {  // N % 4 == 0: a quad lies in the frame or past it
+        va = *reinterpret_cast<const int4*>(a + p0 + j);
+        if (PAIRS) vb = *reinterpret_cast<const int4*>(b + p0 + j);
+      }
+      la[j] = va.x, la[j + 1] = va.y, la[j + 2] = va.z, la[j + 3] = va.w;
+      lb[j] = vb.x, lb[j + 1] = vb.y, lb[j + 2] = vb.z, lb[j + 3] = vb.w;
+    } else {
+      const bool in = p0 + j < N;
+      la[j] = in ? a[p0 + j] : -1;
+      lb[j] = in && PAIRS ? b[p0 + j] : -1;
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  // the thread's run of equal keys; a key change flushes the run before it
+  int key = count_key<PAIRS>(la[0], lb[0], K);
+  unsigned run = 1;
+#pragma unroll
+  for (int j = 1; j < PPT; ++j) {
+    const int kj = count_key<PAIRS>(la[j], lb[j], K);
+    const bool change = kj != key;
+    if (__any_sync(ALL, change && key >= 0))
+      flush_counts(table, change ? key : -1, run, lane);
+    if (change) {
+      key = kj;
+      run = 0;
+    }
+    ++run;
+  }
+  flush_counts(table, key, run, lane);
+}
+
 // A tile of tc whole cell columns [c0, c0 + tc) of a rows x cols grid that
 // divides the frame (the tile W = tc cell widths); blocks per (frame, cell)
 // need B and rows within a grid dimension's 65535.
@@ -873,4 +966,28 @@ extern "C" int kde_nasp_assign_analyze(const float* color, const float* points,
   return launch_dyn<assign_analyze_kernel>(dim3(tc, rows, B), assign_smem(c), stream, color,
                                            points, normals, cand, labels, dist, out, c, lo, hi,
                                            w_col, w_spa, w_dep, w_nor, s2scale, apply_invalid);
+}
+
+// labels_a [B, N] i32 (N = H * W of the frame or tile); labels_b [B, N] i32
+// or null; out [B, K, K] f32 (pairs) or [B, K] (labels_b null), zeroed by
+// the caller: each pixel with both labels in [0, K) adds 1 at (a, b) (at a).
+// N < 2^24, so every count is exact in f32 in any order of addition.
+extern "C" int kde_label_counts(const int* labels_a, const int* labels_b, float* out, int B,
+                                int N, int K, void* stream) {
+  const bool pairs = labels_b != nullptr;
+  if (B <= 0 || B > 65535 || N <= 0 || N >= (1 << 24) || K <= 0 ||
+      (pairs && static_cast<long long>(K) * K > INT32_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + NT * PPT - 1) / (NT * PPT), B);
+  const bool vec = N % 4 == 0 && aligned(labels_a, 16) && (!pairs || aligned(labels_b, 16));
+  if (pairs) {
+    return vec ? launch_dyn<label_counts_kernel<true, true>>(grid, 0, stream, labels_a,
+                                                               labels_b, out, N, K)
+               : launch_dyn<label_counts_kernel<true, false>>(grid, 0, stream, labels_a,
+                                                                labels_b, out, N, K);
+  }
+  return vec ? launch_dyn<label_counts_kernel<false, true>>(grid, 0, stream, labels_a,
+                                                              labels_b, out, N, K)
+             : launch_dyn<label_counts_kernel<false, false>>(grid, 0, stream, labels_a,
+                                                               labels_b, out, N, K);
 }

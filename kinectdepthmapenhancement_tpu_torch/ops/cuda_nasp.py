@@ -13,11 +13,24 @@ here works per (frame, cell) in that candidate space:
   nasp_assign_and_analyze  the first NASP assignment fused with the analyze
                            sums of the labels it produces.
 
+One kernel here is keyed by the whole [K] id space instead, for labels with
+no locality (slic._GlobalIndex):
+
+  label_counts             pixels per label ([B, K], label_counts) or per
+                           label pair ([B, K, K], label_pair_counts), a
+                           pixel dropped when a label lies outside [0, K).
+                           f32 atomics, exact: every count is an integer
+                           below 2^24 (H*W < 2^24 is held), so any order of
+                           addition gives the one-hot product's table.
+                           Bound: the bytes of the label planes (~0.5 us a
+                           424x512 frame pair), set in practice by launch
+                           and the atomics.
+
 Candidate order is dy-major (slot j = (dy + r) * 2r + (dx + r)), -9 marks an
 out-of-grid candidate; feature order is the JAX package's feats layout
 (slic.py:1182-1190, :1272-1282).  Sums come back as [B, rows*cols*n, F]
 partials; the caller folds them to clusters with the candidate one-hot
-(_CellIndex.fold) on either route.
+(_CellIndex.fold) on either route.  The label counts come back whole.
 
 Width tiles (parallel/sharding.py's tiled route): every function takes
 the tile's first cell column c0 and its cell columns tile_cols (default 0
@@ -35,6 +48,7 @@ source: csrc/nasp.cu.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -55,8 +69,10 @@ REPLACES = {
 }
 # kernel launches since the last reset, by kernel (chip_smoke.py reads them),
 # and by form: "<kernel>:r<r>" with ":<mode>" or ":F<features>" (the shapes
-# a path runs; chip_smoke.py clears it with launches)
-launches = {name: 0 for name in REPLACES}
+# a path runs; chip_smoke.py clears it with launches), "label_counts:pairs"
+# or ":single".  label_counts replaces no TPU kernel (the JAX package's
+# global index counts by one-hot products).
+launches = {name: 0 for name in (*REPLACES, "label_counts")}
 launch_forms: Dict[str, int] = {}
 
 INIT_DISTANCE = 999999.9  # the out-of-grid candidate cost (JAX slic.INIT_DISTANCE)
@@ -179,6 +195,30 @@ def label_cell_sums_plain(
     fb = to_cells(feats.to(torch.float32), rows, tc).reshape(b * rows * tc, -1, f)
     part = tables.exact_matmul(oh.reshape(b * rows * tc, -1, n).transpose(1, 2), fb)
     return part.reshape(b, -1, f)
+
+
+def label_pair_counts_plain(
+    labels_a: torch.Tensor, labels_b: torch.Tensor, k: int,
+    oh_a: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[B, K, K] f32: pixels whose labels are (a, c) in labels_a and
+    labels_b ([B, ...] i32 of one shape), either outside [0, K) dropped: the
+    one-hot product oh_a^T @ oh_b.  `oh_a`: labels_a's [B, N, K] one-hot,
+    if built."""
+    b = labels_a.shape[0]
+    oh_a = tables.one_hot(labels_a.reshape(b, -1), k) if oh_a is None else oh_a
+    oh_b = tables.one_hot(labels_b.reshape(b, -1), k)
+    return tables.exact_matmul(oh_a.transpose(1, 2), oh_b)
+
+
+def label_counts_plain(
+    labels: torch.Tensor, k: int, oh: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[B, K] f32: pixels per label of labels [B, ...] i32, labels outside
+    [0, K) dropped: the one-hot's sum.  `oh`: its [B, N, K] one-hot, if
+    built."""
+    oh = tables.one_hot(labels.reshape(labels.shape[0], -1), k) if oh is None else oh
+    return oh.sum(dim=1)
 
 
 def nasp_features(
@@ -452,6 +492,46 @@ def label_cell_sums(
          f),
     )
     return out
+
+
+def _label_counts(labels_a: torch.Tensor, labels_b: Optional[torch.Tensor], k: int,
+                  form: str) -> torch.Tensor:
+    """Launch kde_label_counts on labels_a (and labels_b): the table
+    [B, K, K] of pairs, or [B, K] without labels_b, zeroed first."""
+    b = labels_a.shape[0]
+    n = math.prod(labels_a.shape[1:])
+    if n >= 2**24:
+        raise ValueError(f"label counts take frames below 2^24 pixels (exact in f32), got {n}")
+    _build.check_tensor(labels_a, f"label_counts {form} labels", torch.int32, labels_a.shape)
+    shape = (b, k) if labels_b is None else (b, k, k)
+    if labels_b is not None:
+        _build.check_tensor(labels_b, "label_counts pairs labels_b", torch.int32, labels_a.shape)
+    out = torch.zeros(shape, dtype=torch.float32, device=labels_a.device)
+    _call(
+        "label_counts", form, [_build.PTR] * 3 + [_build.INT] * 3, labels_a.device,
+        (labels_a.data_ptr(), 0 if labels_b is None else labels_b.data_ptr(), out.data_ptr(),
+         b, n, k),
+    )
+    return out
+
+
+def label_pair_counts(labels_a: torch.Tensor, labels_b: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, K, K] f32 counts of the pixels whose labels are (a, c) in
+    labels_a and labels_b ([B, H, W] i32, one shape), either outside [0, K)
+    dropped: the CUDA kernel for CUDA tensors (exact, so bitwise the plain
+    version's one-hot product), the plain version for CPU ones."""
+    if labels_a.device.type == "cpu":
+        return label_pair_counts_plain(labels_a, labels_b, k)
+    return _label_counts(labels_a, labels_b, k, "pairs")
+
+
+def label_counts(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, K] f32 pixels per label of labels [B, H, W] i32, labels outside
+    [0, K) dropped: the CUDA kernel for CUDA tensors (exact), the plain
+    version for CPU ones."""
+    if labels.device.type == "cpu":
+        return label_counts_plain(labels, k)
+    return _label_counts(labels, None, k, "single")
 
 
 def _check_planes(what: str, color_f, points, normals, b, h, w) -> None:

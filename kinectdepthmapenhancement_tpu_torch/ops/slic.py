@@ -31,10 +31,12 @@ SLICParams.stats_impl picks the route, with the JAX package's meaning:
 "auto" / "pallas" run the cell-local sums and gathers through
 ops/cuda_nasp.py (the first iteration's fused assignment + analyze kernel,
 the NASP sums kernel at r = 4 and, on the capped route, r = 5, and the
-label-cell kernels; each wrapper takes its plain version for CPU tensors);
-"xla" runs their plain versions on every device.  The global route and the
-later iterations' assignments are plain PyTorch on every route: the JAX
-package has no Pallas kernel there.
+label-cell kernels; each wrapper takes its plain version for CPU tensors,
+and the global index's label and label-pair counts through the
+label-counts kernel); "xla" runs their plain versions on every device.  The
+global route's assignment and float sums and the later iterations'
+assignments are plain PyTorch on every route: the JAX package has no
+Pallas kernel there.
 
 On a width tile (parallel/sharding.py's tiled route, segment_tile and a
 label index with a `tile`), NASP runs on the tile's pixels with the cluster
@@ -331,24 +333,35 @@ class _GlobalIndex:
     space (the JAX package's slic._GlobalIndex), for labels with no
     locality guarantee: grids that do not divide the frame, and later
     iterations whose labels left the cap.  Gathers are exact index ops;
-    segment sums, counts and pair counts are products with the [B, H*W, K]
-    f32 one-hot through tables.exact_matmul (TF32 off, no float atomics:
-    deterministic on every device).  The one-hot is built on first use:
-    0.37 GB a 640x480 frame at K = 300.
+    float segment sums are products with the [B, H*W, K] f32 one-hot
+    through tables.exact_matmul (TF32 off, no float atomics: deterministic
+    on every device).  The integer reductions, counts() and pair_counts(),
+    go through ops/cuda_nasp.py's label_counts / label_pair_counts when
+    kernel_sums (the "auto" / "pallas" stats route: the label-counts kernel
+    on the card, exact f32 atomics, so bitwise the products; their plain
+    one-hot products on the CPU), and are the one-hot products themselves
+    when not ("xla").  The one-hot is built on first use, by whatever asks
+    for it (segment_sum; counts and pair counts on the "xla" route): 0.37 GB
+    a 640x480 frame at K = 300.
 
     tile (a CellTile): labels are the tile's [B, H, ws] at global columns
     [tile.x0, tile.x0 + ws); gathers and pixel lookups stay on the tile,
-    counts and pair counts are the tile's one-hot products summed over the
-    group (integers, exact), and each float segment sum gathers the
-    group's masked features and runs the whole-frame product on every rank
-    (the unsharded product on the unsharded input, so bitwise; the frame's
+    counts and pair counts are the tile's own (its labels and, for CCL's
+    right neighbours, its right_labels column) summed over the group
+    (integers, exact), and each float segment sum gathers the group's
+    masked features and runs the whole-frame product on every rank (the
+    unsharded product on the unsharded input, so bitwise; the frame's
     one-hot is built from the gathered labels on first use)."""
 
-    def __init__(self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None):
+    def __init__(
+        self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None, *,
+        kernel_sums: bool = True,
+    ):
         self.labels = labels.contiguous()
         self.k = k
         self.b = labels.shape[0]
         self.tile = tile
+        self.kernel_sums = kernel_sums
         self.x0 = 0 if tile is None else tile.x0
         self._oh: Optional[torch.Tensor] = None
         self._frame_oh: Optional[torch.Tensor] = None
@@ -394,14 +407,19 @@ class _GlobalIndex:
 
     def counts(self) -> torch.Tensor:
         """Pixels per label [B, K] f32 (labels < 0 dropped)."""
-        return self._summed(self.oh.sum(dim=1))
+        if self.kernel_sums:
+            return self._summed(cuda_nasp.label_counts(self.labels, self.k))
+        return self._summed(cuda_nasp.label_counts_plain(self.labels, self.k, oh=self.oh))
 
     def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
         """[B, K, K] f32: occurrences of (own label, labels_b) pixel pairs;
         pairs with either side < 0 are dropped.  Integer counts < 2^24,
         exact in f32."""
-        ohb = tables.one_hot(labels_b.reshape(self.b, -1), self.k)
-        return self._summed(tables.exact_matmul(self.oh.transpose(1, 2), ohb))
+        labels_b = labels_b.contiguous()
+        if self.kernel_sums:
+            return self._summed(cuda_nasp.label_pair_counts(self.labels, labels_b, self.k))
+        return self._summed(
+            cuda_nasp.label_pair_counts_plain(self.labels, labels_b, self.k, oh_a=self.oh))
 
 
 def grid_divides(grid: GridParams, h: int, w: int) -> bool:
@@ -482,13 +500,14 @@ def cell_index(
     labels [B, H, W]: cell-local, or the global one when the grid does not
     divide the frame (the JAX package's cell_index gives None there and its
     callers take the global route); `stats_impl` picks the route of the
-    cell-local gathers and segment sums (_stats_impl_on).  With a tile the
-    labels are the tile's, the frame tile.width wide."""
+    cell-local gathers and segment sums and of the global index's counts
+    (_stats_impl_on).  With a tile the labels are the tile's, the frame
+    tile.width wide."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
     if not grid_divides(grid, h, w):
-        return _GlobalIndex(labels, grid.num_clusters, tile=tile)
+        return _GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel_sums)
     return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums, tile=tile)
 
 
@@ -517,7 +536,7 @@ def with_capped_index(
         return fn(_CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile))
 
     def whole():
-        return fn(_GlobalIndex(labels, grid.num_clusters, tile=tile))
+        return fn(_GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel_sums))
 
     if not grid_divides(grid, h, w) or locality == "global":
         return whole()
@@ -1205,7 +1224,7 @@ def segment(
             labels, distance, clusters, *frame, grid, params, s_scale, variant)
         # after the first sweep labels come from the cell's candidate set
         idx = (_CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel)
-               if cell_ok else _GlobalIndex(labels, k))
+               if cell_ok else _GlobalIndex(labels, k, kernel_sums=kernel))
         clusters = _update(variant, idx, clusters, *frame, params, window_range, h, w)
 
     for _ in range(1, params.iterations):
@@ -1301,7 +1320,7 @@ def segment_tile(
         distance = torch.full((b, h, ws), INIT_DISTANCE, dtype=torch.float32, device=color.device)
         labels, distance = _assign_global(
             labels, distance, clusters, *frame, grid, params, s_scale, x0=tile.x0)
-        idx = _GlobalIndex(labels, grid.num_clusters, tile=tile)
+        idx = _GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel)
         clusters = _update("nasp", idx, clusters, *frame, params, window_range, h, w)
     for _ in range(1, params.iterations):
         labels, distance, clusters = later_iteration(

@@ -52,8 +52,14 @@ versions and the full frame's cells.  The compiled call (core/jit.py):
 every KDE config, RGBF, SPDSP and TOF (at 96x128 and 640x480) replayed
 twice, bitwise the eager call, no output shared; NASP's and the ERS
 labels' cap checks taken both ways as conditional nodes; a host read and
-a host-data seed override under jit raising.  chip_smoke.py runs the
-same checks at the 640x480 path's shapes.
+a host-data seed override under jit raising.  The global label index's
+label-counts kernel (cuda_nasp.label_counts / label_pair_counts) is
+bitwise the one-hot product at 424x512 (B=1 and 8), 640x480, a 261-column
+tile, a frame whose pixel count 16-byte loads do not divide and a
+misaligned pointer, on coherent and scattered labels with the right and
+down neighbours (-1 borders), identical over 10 graph replays, and
+kde_pipeline at 424x512 is bitwise the same with it and on the "xla" route.
+chip_smoke.py runs the same checks at the 640x480 path's shapes.
 """
 
 import dataclasses
@@ -333,7 +339,10 @@ def test_pipeline_launches_every_kernel(inputs):
     res = kde_pipeline(inputs["depth"], inputs["color"], inputs["intr"], cfg)
     torch.cuda.synchronize()
     assert all(m.launches > b for m, b in zip(mods, before))
-    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items())
+    # the grid divides the frame: every cell kernel, and the global index's
+    # label counts never
+    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items() if k != "label_counts")
+    assert cuda_nasp.launches["label_counts"] == before_nasp["label_counts"]
     assert bool(torch.isfinite(res.optimized_points).all())
 
 
@@ -1390,6 +1399,161 @@ def test_seed_gradient_on_haloed_tiles_at_kinect_v2(dev, x):
     yy, xx = slic._seed_windows(cfg.grid, h, w, 8, dev)
     assert torch.equal(slic._window_argmin(g[:, yy, xx], yy, xx, cfg.grid.num_clusters),
                        slic.sample_seeds(full, cfg.grid, h, w, 8))
+
+
+# ------------------------------------------------------------- label counts
+
+K_V2 = KDEConfig().grid.num_clusters
+
+
+def _count_labels(dev, b, h, w, kind, seed=0):
+    """[B, H, W] i32 labels on the card over K_V2 ids.  "coherent": blocks of
+    a 15x20 grid stretched over the frame with each row shifted by up to 6
+    px (warps see mostly one key), 2% of pixels any id, runs of -1 and ids
+    0 and K - 1 at the corners; "scattered": every pixel drawn from
+    [-1, K] (K itself outside the id space), so keys change at every
+    pixel."""
+    rng = np.random.default_rng(seed)
+    k = K_V2
+    if kind == "scattered":
+        lab = rng.integers(-1, k + 1, (b, h, w))
+    else:
+        base = (np.arange(h)[:, None] * 15 // h) * 20 + np.arange(w)[None, :] * 20 // w
+        shift = rng.integers(-6, 7, (b, h))
+        lab = np.stack([np.stack([np.roll(base[r], shift[i, r]) for r in range(h)])
+                        for i in range(b)])
+        lab[rng.random((b, h, w)) < 0.02] = rng.integers(0, k)
+        for i in range(b):
+            for _ in range(40):
+                r, c = rng.integers(h), rng.integers(w)
+                lab[i, r, c:c + rng.integers(1, 60)] = -1
+        lab[:, 0, 0], lab[:, -1, -1] = 0, k - 1
+    return torch.from_numpy(lab.astype(np.int32)).to(dev)
+
+
+def _neighbours(lab):
+    """(right, down) neighbour labels of [B, H, W] labels, -1 past the
+    frame: the pairs ccl._adjacency counts."""
+    b, h, w = lab.shape
+    right = torch.cat([lab[:, :, 1:], lab.new_full((b, h, 1), -1)], dim=2)
+    down = torch.cat([lab[:, 1:], lab.new_full((b, 1, w), -1)], dim=1)
+    return right, down
+
+
+@pytest.mark.parametrize("shape, kind", [
+    ((1, 424, 512), "coherent"), ((8, 424, 512), "coherent"), ((8, 424, 512), "scattered"),
+    ((1, 480, 640), "coherent"), ((2, 424, 261), "coherent"), ((3, 77, 101), "coherent"),
+    ((3, 77, 101), "scattered"),
+], ids=["v2b1", "v2b8", "v2b8-scattered", "vgab1", "tile261", "odd77x101",
+        "odd77x101-scattered"])
+def test_label_counts_kernel_bitwise_the_onehot_product(dev, shape, kind):
+    """The label-counts kernel, pairs over the right and the down
+    neighbours and the single form, bitwise the one-hot products of the
+    plain version (run on the card), twice identical, each launch counted
+    by form; 77x101 frames take the scalar loads (H*W odd)."""
+    lab = _count_labels(dev, *shape, kind)
+    before = dict(cuda_nasp.launch_forms)
+    for nb in _neighbours(lab):
+        got = cuda_nasp.label_pair_counts(lab, nb, K_V2)
+        again = cuda_nasp.label_pair_counts(lab, nb, K_V2)
+        want = cuda_nasp.label_pair_counts_plain(lab, nb, K_V2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(again, got)
+        assert float(got.sum()) > 0.0
+    got = cuda_nasp.label_counts(lab, K_V2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nasp.label_counts_plain(lab, K_V2))
+    assert torch.equal(got, cuda_nasp.label_counts(lab, K_V2))
+    forms = cuda_nasp.launch_forms
+    assert forms["label_counts:pairs"] - before.get("label_counts:pairs", 0) == 4
+    assert forms["label_counts:single"] - before.get("label_counts:single", 0) == 2
+
+
+def test_label_counts_kernel_on_misaligned_labels(dev):
+    """Labels 4 bytes past a 16-byte boundary (contiguous views into a
+    larger buffer): the scalar loads, bitwise the product."""
+    lab = _count_labels(dev, 2, 424, 512, "coherent")
+    right, down = _neighbours(lab)
+    buf_a = torch.empty(lab.numel() + 1, dtype=torch.int32, device=dev)
+    buf_b = torch.empty_like(buf_a)
+    a = buf_a[1:].view(lab.shape)
+    b = buf_b[1:].view(lab.shape)
+    a.copy_(lab)
+    b.copy_(down)
+    assert a.data_ptr() % 16 != 0 and a.is_contiguous()
+    got = cuda_nasp.label_pair_counts(a, b, K_V2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nasp.label_pair_counts_plain(lab, down, K_V2))
+    assert torch.equal(cuda_nasp.label_counts(a, K_V2), cuda_nasp.label_counts_plain(lab, K_V2))
+
+
+def test_label_counts_kernel_identical_over_graph_replays(dev):
+    """Both forms inside a jit call (the table's zeroing a memset node):
+    replayed 10 times on new labels, each replay's tables identical and
+    bitwise the eager call's and the product's."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    def counts(lab):
+        right, down = _neighbours(lab)
+        return (cuda_nasp.label_pair_counts(lab, right, K_V2),
+                cuda_nasp.label_pair_counts(lab, down, K_V2),
+                cuda_nasp.label_counts(lab, K_V2))
+
+    labs = [_count_labels(dev, 8, 424, 512, "coherent", seed=s) for s in range(2)]
+    jit.clear()
+    try:
+        f = jit.jit(counts)
+        for i in range(10):
+            lab = labs[i % 2]
+            got, want = f(lab), counts(lab)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, e) for g, e in zip(got, want)), i
+            right, down = _neighbours(lab)
+            assert torch.equal(got[0], cuda_nasp.label_pair_counts_plain(lab, right, K_V2))
+        assert jit.stats["captures"] == 1 and jit.stats["replays"] == 10
+    finally:
+        jit.clear()
+
+
+def test_label_counts_kernel_rejects_what_it_does_not_take(dev):
+    lab = _count_labels(dev, 1, 48, 64, "coherent")
+    before = dict(cuda_nasp.launches)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_counts(lab.long(), K_V2)
+    with pytest.raises(ValueError):  # shapes differ
+        cuda_nasp.label_pair_counts(lab, lab[:, :, :-1].contiguous(), K_V2)
+    with pytest.raises(ValueError):  # not contiguous
+        cuda_nasp.label_pair_counts(lab, lab.transpose(1, 2).contiguous().transpose(1, 2),
+                                    K_V2)
+    with pytest.raises(ValueError):  # 2^24 pixels: counts no longer exact in f32
+        cuda_nasp.label_counts(torch.zeros((1, 4096, 4096), dtype=torch.int32, device=dev), 4)
+    assert cuda_nasp.launches == before
+
+
+@pytest.mark.parametrize("residual", ["inf", "default"])
+def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual):
+    """kde_pipeline on two 424x512 frames (grid 15x20 does not divide them:
+    CCL on the global index): every output bitwise the same with the
+    label-counts kernel ("auto": 2 pair launches and 1 single a call) and
+    on the "xla" route's one-hot products (none)."""
+    h, w = 424, 512
+    intr = default_kinect_intrinsics(w, h)
+    scenes = [make_noisy_scene(h, w, intr, seed=s) for s in (0, 1)]
+    c = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    d = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    cfg = KDEConfig() if residual == "default" else KDEConfig(max_plane_residual=float("inf"))
+    out = {}
+    for impl in ("auto", "xla"):
+        run = dataclasses.replace(cfg, nasp=dataclasses.replace(cfg.nasp, stats_impl=impl))
+        before = dict(cuda_nasp.launch_forms)
+        out[impl] = kde_pipeline(d, c, intr, run)
+        torch.cuda.synchronize()
+        forms = {f: n - before.get(f, 0) for f, n in cuda_nasp.launch_forms.items()
+                 if f.startswith("label_counts")}
+        want = {"label_counts:pairs": 2, "label_counts:single": 1} if impl == "auto" else {}
+        assert {f: n for f, n in forms.items() if n} == want, impl
+    for f in out["auto"]._fields:
+        assert torch.equal(getattr(out["auto"], f), getattr(out["xla"], f)), f
 
 
 # cell-aligned tiles (c0, tile cols) of the 640x480 path's 20-column grid at

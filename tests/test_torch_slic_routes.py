@@ -12,10 +12,14 @@ Tolerances:
     the last sweep's distances rtol 1e-5 / atol 1e-2 (to cluster tables
     summed in two orders: the centres' 1e-3 mm through the distance);
   * the global index against the cell index on cell-local labels: gathers
-    and counts EXACT, segment sums rtol 1e-6, pair existence EXACT.
+    and counts EXACT, segment sums rtol 1e-6, pair existence EXACT;
+  * the label counts (cuda_nasp.label_counts / label_pair_counts and the
+    global index's counts and pair counts on both stats routes): EXACT
+    against a histogram of the labels counted in numpy (integers).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -30,7 +34,7 @@ from kinectdepthmapenhancement_tpu_torch.core.camera import (
 )
 from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
 from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
-from kinectdepthmapenhancement_tpu_torch.ops import bilateral, normals
+from kinectdepthmapenhancement_tpu_torch.ops import bilateral, cuda_nasp, normals
 from kinectdepthmapenhancement_tpu_torch.ops import slic as ts
 
 torch.set_num_threads(2)
@@ -169,3 +173,82 @@ def test_global_index_matches_cell_index():
     assert torch.equal(glob.counts(), cell.counts())
     right = torch.cat([lab[:, :, 1:], torch.full((2, h, 1), -1, dtype=torch.int32)], dim=2)
     assert torch.equal(glob.pair_counts(right) > 0, cell.pair_counts(right) > 0)
+
+
+def _run_labels(rng, b, h, w, k, ends):
+    """[B, H, W] i32 labels in runs along each row, as superpixels give
+    them: ids in [0, K), runs of -1 and a few ids at K (outside the id
+    space, dropped as -1 is).  ends: ids 0 and K - 1 at every frame's first
+    and last pixels and in runs of their own."""
+    flat = np.empty((b, h * w), np.int64)
+    for i in range(b):
+        pos = 0
+        while pos < h * w:
+            n = int(rng.integers(1, 40))
+            u = rng.random()
+            flat[i, pos:pos + n] = -1 if u < 0.15 else k if u < 0.18 else rng.integers(0, k)
+            pos += n
+    labels = flat.reshape(b, h, w)
+    if ends:
+        labels[:, 0, :5], labels[:, -1, -5:] = 0, k - 1
+        labels[:, h // 2, 10:20], labels[:, h // 2 + 1, 10:20] = k - 1, 0
+    return torch.from_numpy(labels.astype(np.int32))
+
+
+def _histogram(a, c=None, k=1):
+    """numpy's counts of labels a (and pairs (a, c)) with every label in
+    [0, K) -> [B, K] (or [B, K, K]) f32."""
+    a = a.reshape(a.shape[0], -1).numpy().astype(np.int64)
+    ok = (a >= 0) & (a < k)
+    if c is not None:
+        c = c.reshape(c.shape[0], -1).numpy().astype(np.int64)
+        ok &= (c >= 0) & (c < k)
+    keys, shape = (a, (k,)) if c is None else (a * k + c, (k, k))
+    out = np.stack([np.bincount(kf[m], minlength=math.prod(shape)) for kf, m in zip(keys, ok)])
+    return torch.from_numpy(out.astype(np.float32).reshape((a.shape[0],) + shape))
+
+
+@pytest.mark.parametrize("b, grid, ends", [(1, GRID, False), (3, GRID, False),
+                                           (3, GridParams(rows=15, cols=20), True)])
+def test_label_counts_wrappers_and_global_index_routes(b, grid, ends):
+    """cuda_nasp.label_counts / label_pair_counts and the global index's
+    counts and pair counts with kernel_sums True and False on a 50x70 frame,
+    which neither grid divides: every count bitwise numpy's histogram, over
+    the right and the down neighbours (-1 borders) as CCL pairs them.  The
+    kernel route builds no one-hot of the index's labels for them."""
+    rng = np.random.default_rng(21 + b)
+    h, w = 50, 70
+    k = grid.num_clusters
+    assert not ts.grid_divides(grid, h, w)
+    lab = _run_labels(rng, b, h, w, k, ends)
+    if ends:
+        assert bool((lab == 0).any()) and bool((lab == k - 1).any())
+    right = torch.cat([lab[:, :, 1:], torch.full((b, h, 1), -1, dtype=torch.int32)], dim=2)
+    down = torch.cat([lab[:, 1:], torch.full((b, 1, w), -1, dtype=torch.int32)], dim=1)
+    counts = _histogram(lab, k=k)
+    assert torch.equal(cuda_nasp.label_counts(lab, k), counts)
+    assert torch.equal(cuda_nasp.label_counts_plain(lab, k), counts)
+    for nb in (right, down):
+        pairs = _histogram(lab, nb, k)
+        assert torch.equal(cuda_nasp.label_pair_counts(lab, nb, k), pairs)
+        assert torch.equal(cuda_nasp.label_pair_counts_plain(lab, nb, k), pairs)
+        for kernel_sums in (True, False):
+            index = ts._GlobalIndex(lab, k, kernel_sums=kernel_sums)
+            assert torch.equal(index.pair_counts(nb), pairs)
+            assert torch.equal(index.counts(), counts)
+            assert (index._oh is None) == kernel_sums
+
+
+@pytest.mark.parametrize("stats_impl, kernel_sums", [("auto", True), ("pallas", True),
+                                                     ("xla", False)])
+def test_global_index_takes_the_stats_route(stats_impl, kernel_sums):
+    """cell_index and with_capped_index's global index over labels whose
+    grid does not divide the frame (or with locality="global") carry
+    stats_impl's route as kernel_sums, as the cell-local index does."""
+    lab = ts.init_labels(GRID, 50, 70)[None].contiguous()
+    index = ts.cell_index(lab, GRID, 8, stats_impl)
+    assert isinstance(index, ts._GlobalIndex) and index.kernel_sums == kernel_sums
+    lab96 = ts.init_labels(GRID, H, W)[None].contiguous()
+    index = ts.capped_index(lab96, GRID, 5, stats_impl=stats_impl, locality="global")
+    assert isinstance(index, ts._GlobalIndex) and index.kernel_sums == kernel_sums
+    assert torch.equal(index.counts(), _histogram(lab96, k=GRID.num_clusters))
