@@ -1,12 +1,13 @@
 """The comparison that decides `correct`.
 
 After the window, with the port's state freed, the plain reference
-(kdebench/reference/) recomputes from the same inputs everything the port
-derived: the enhanced points of every draw of the run's frames, in chunks
-of the mix's batch as the port runs them (so that cuBLAS picks the same
-products), and for a stream with state the temporal
-buffer fold and the mean 3-D error against it, chunk by chunk as
-run_stream's step forms them.  The port's outputs are only judged.
+(kdebench/reference/, through the configuration's pipelines/<name>.py)
+recomputes from the same inputs everything the port derived: the
+enhanced points of every draw of the run's frames, in chunks of the mix's
+batch as the port runs them (so that cuBLAS picks the same products), and
+for a stream with state the temporal buffer fold and the mean 3-D error
+against it, chunk by chunk as run_stream's step forms them.  The port's
+outputs are only judged.
 
 The numbers compared, each against its limit in limits/<cell>.json:
   points_max_mm      the widest gap |p - p_ref| (3-D, mm) over the pixels of
@@ -48,26 +49,18 @@ class Verdict:
     least_per_frame: Optional[list]   # per draw: family -> least seconds a frame
 
 
-def reference_config(overrides: dict):
-    from kdebench.harness import _replace
-    from kdebench.reference.core import config as rc
-
-    return _replace(rc.KDEConfig(), overrides)
-
-
 def reference_points(cell, ctx, *, record: bool = False, tf32: bool = False):
     """(points of every draw [D, H, W, 3] on the device, per draw the
     least seconds a frame of each hand kernel's family, or None)."""
     import torch
 
     import kdebench.reference as ref
-    from kdebench import families
+    from kdebench import families, harness
     from kdebench.reference import record as rrec
 
     g = cell.traffic["batch"]
     d = len(ctx.draws)
-    rcfg = reference_config(cell.config["kde"])
-    rintr = ref.Intrinsics(**cell.config["intrinsics"])
+    overrides = harness.overrides(cell)
     color = torch.from_numpy(ctx.color).to(ctx.device)
     fams = families.load() if record else None
     out, least = [], [None] * d
@@ -76,7 +69,8 @@ def reference_points(cell, ctx, *, record: bool = False, tf32: bool = False):
         colors = color.expand(depths.shape[0], -1, -1, -1).contiguous()
         with rrec.recording() if record else contextlib.nullcontext() as calls, \
                 ref.tf32() if tf32 else contextlib.nullcontext():
-            out.append(ref.enhance(depths, colors, rintr, rcfg))
+            out.append(cell.pipeline.reference(depths, colors, cell.config["intrinsics"],
+                                               overrides))
         if record:
             per = {fam: s / depths.shape[0]
                    for fam, s in families.least_by_family(calls, fams).items()}

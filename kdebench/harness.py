@@ -3,7 +3,13 @@
 BENCHMARK.json names each cell's configuration and traffic mix; every
 piece is a file of its own, found by name:
 
-  configs/<config>.json   frame shape, intrinsics, KDEConfig overrides
+  configs/<config>.json   frame shape, intrinsics, the pipeline's name
+                          ("pipeline"; "kde" where it has none) and its
+                          config's overrides (under the pipeline's name)
+  pipelines/<name>.py     port_kwargs(overrides) -> run_stream's keyword
+                          arguments; reference(depths, colors, intrinsics,
+                          overrides) -> the plain reference's points; FILES,
+                          the reference/ copies it adds to reference.FILES
   traffic/<mix>.json      the mix's parameters and the `kind` of driver
   drivers/<kind>.py       warm(ctx), window(ctx, tracer), frame_draws()
   limits/<cell>.json      the limit of each number the check compares
@@ -33,6 +39,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
+PIPELINES = HERE / "pipelines"
 FORBIDDEN = ("jax", "jaxlib", "flax", "kinectdepthmapenhancement_tpu")
 
 
@@ -82,14 +89,14 @@ class Context:
     rng: np.random.Generator
     color: np.ndarray
     draws: List[np.ndarray]
-    port_cfg: Any
+    port_kwargs: Optional[dict]   # the pipeline's keyword arguments to run_stream
     port_intr: Any
     _run_stream: Any
 
     def run_stream(self, frames, *, batch: int, kde_only: bool, on_outputs=None):
-        return self._run_stream(frames, self.color, self.port_intr, cfg=self.port_cfg,
-                                batch=batch, kde_only=kde_only, on_outputs=on_outputs,
-                                device=self.device)
+        return self._run_stream(frames, self.color, self.port_intr, batch=batch,
+                                kde_only=kde_only, on_outputs=on_outputs, device=self.device,
+                                **self.port_kwargs)
 
 
 def load_json(path: Path) -> dict:
@@ -115,6 +122,7 @@ class Cell:
     traffic: dict
     limits: dict
     driver: Any
+    pipeline: Any             # pipelines/<name>.py of the configuration's pipeline
     end_to_end: List[dict]
     per_layer: List[dict]
     readers: Dict[str, Any]
@@ -135,6 +143,11 @@ def resolve(workload: str, manifest: Optional[dict] = None) -> Cell:
     if w["config"] not in configs:
         raise BenchError(f"no config {w['config']!r} in BENCHMARK.json")
     config = load_json(REPO / configs[w["config"]]["file"])
+    name = pipeline_name(config)
+    pipe = pipeline(name)
+    if name not in config:
+        raise BenchError(f"config {w['config']!r} has no {name!r} key (its pipeline's "
+                         "overrides)")
     traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
     limits = load_json(HERE / "limits" / f"{workload}.json")
     driver = load_module(HERE / "drivers" / f"{traffic['kind']}.py",
@@ -142,7 +155,25 @@ def resolve(workload: str, manifest: Optional[dict] = None) -> Cell:
     e2e = [m for m in manifest["end_to_end"] if _for_cell(m, workload)]
     layer = [m for m in manifest["per_layer"] if _for_cell(m, workload)]
     readers = {m["name"]: reader(m["name"]) for m in e2e + layer}
-    return Cell(workload, w["chips"], config, traffic, limits, driver, e2e, layer, readers)
+    return Cell(workload, w["chips"], config, traffic, limits, driver, pipe, e2e, layer,
+                readers)
+
+
+def pipeline_name(config: dict) -> str:
+    """The configuration's pipeline: its "pipeline" key, "kde" where it
+    has none."""
+    return config.get("pipeline", "kde")
+
+
+def pipeline(name: str):
+    """pipelines/<name>.py."""
+    return load_module(PIPELINES / f"{name}.py", f"kdebench.pipelines.{name}")
+
+
+def overrides(cell: Cell) -> dict:
+    """The configuration's overrides of its pipeline's config, which sit
+    under the pipeline's name."""
+    return cell.config[pipeline_name(cell.config)]
 
 
 def reader(metric: str):
@@ -159,14 +190,6 @@ def forbidden_modules() -> List[str]:
     """Loaded modules whose top-level name is JAX's or the JAX package's,
     compared whole (the port's name begins with the JAX package's)."""
     return sorted(m for m in list(sys.modules) if m.split(".")[0] in FORBIDDEN)
-
-
-def port_config(overrides: dict):
-    """The port's KDEConfig with the configuration's overrides (nested
-    parameter groups as dicts)."""
-    from kinectdepthmapenhancement_tpu_torch.core import config as pc
-
-    return _replace(pc.KDEConfig(), overrides)
 
 
 def _replace(obj, overrides: dict):
@@ -194,7 +217,7 @@ def frames_context(cell: Cell, seed: int, seconds: float, device) -> Context:
     color, draws = scene.frames(seed, c["height"], c["width"], intr, cell.traffic["draws"])
     rng = np.random.default_rng(np.random.SeedSequence(seed % 2**64).spawn(2)[1])
     return Context(device=device, config=c, traffic=cell.traffic, seconds=seconds, seed=seed,
-                   rng=rng, color=color, draws=draws, port_cfg=None, port_intr=None,
+                   rng=rng, color=color, draws=draws, port_kwargs=None, port_intr=None,
                    _run_stream=None)
 
 
@@ -204,7 +227,7 @@ def setup(cell: Cell, seed: int, seconds: float, device) -> Context:
     from kinectdepthmapenhancement_tpu_torch.models.streaming import run_stream
 
     ctx = frames_context(cell, seed, seconds, device)
-    return dataclasses.replace(ctx, port_cfg=port_config(cell.config["kde"]),
+    return dataclasses.replace(ctx, port_kwargs=cell.pipeline.port_kwargs(overrides(cell)),
                                port_intr=Intrinsics(**cell.config["intrinsics"]),
                                _run_stream=run_stream)
 

@@ -13,6 +13,12 @@ pipelines keeps kde_pipeline and the baselines; tables.exact_matmul
 follows the control's switch (`tf32()`).  It imports nothing of the port
 and nothing of JAX, and takes nothing the port made: the harness hands it
 the same depth frames, colour image and intrinsics that it hands the port.
+
+FILES are the copies every pipeline shares.  A pipeline's file,
+kdebench/pipelines/<name>.py, lists in its own FILES the copies here that
+it adds (reference file -> (the port's file, the commit it was copied
+at)), so a new pipeline's copies come in as new files; nothing here
+imports the pipeline files.
 """
 
 from __future__ import annotations

@@ -12,13 +12,16 @@ if str(REPO) not in sys.path:
 
 def small(cell, *, rows=3, cols=4, height=96, width=128):
     """The cell at a size the CPU runs in seconds: the frame and the grid
-    cut, the intrinsics scaled with the frame."""
+    cut (the overrides under the pipeline's name), the intrinsics scaled
+    with the frame."""
+    from kdebench import harness
+
     s = width / cell.config["width"]
     intr = cell.config["intrinsics"]
     cell.config = dict(cell.config, height=height, width=width,
-                       kde={"grid": {"rows": rows, "cols": cols}},
                        intrinsics={"fx": intr["fx"] * s, "fy": intr["fy"] * s,
                                    "cx": width / 2.0, "cy": height / 2.0})
+    cell.config[harness.pipeline_name(cell.config)] = {"grid": {"rows": rows, "cols": cols}}
     return cell
 
 

@@ -37,10 +37,20 @@ def test_the_reference_imports_nothing_of_the_port_or_jax():
 
 
 def test_every_copied_file_is_listed():
-    listed = set(ref.FILES)
+    """The copies are reference.FILES and every pipeline file's FILES, each
+    listed once."""
+    from kdebench import harness
+
+    listed = list(ref.FILES)
+    for path in sorted(harness.PIPELINES.glob("*.py")):
+        files = harness.pipeline(path.stem).FILES
+        for copy, (source, commit) in files.items():
+            assert source.endswith(".py") and len(commit) == 40, (path.stem, copy)
+        listed += list(files)
     present = {str(p.relative_to(REFERENCE)) for p in REFERENCE.rglob("*.py")
                if p.name not in ("__init__.py", "record.py")}
-    assert present == listed
+    assert len(listed) == len(set(listed))
+    assert present == set(listed)
     assert len(ref.SOURCE_COMMIT) == 40
 
 
