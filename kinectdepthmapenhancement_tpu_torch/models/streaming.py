@@ -4,11 +4,13 @@ PyTorch counterpart of the JAX package's models/streaming.py.  The
 reference's only multi-frame mode is the 1000-frame ground-truth capture
 loop (main.cpp:86-116); this runner generalises it:
   * pulls depth frames from any iterator, with one fixed colour image;
-  * runs kde_pipeline on chunks of `batch` frames, [B, H, W] a call;
+  * runs the pipeline of its config's type on chunks of `batch` frames,
+    [B, H, W] a call: kde_pipeline for a KDEConfig, spdsp_pipeline (on
+    the raw depth's points) for an SPDSPConfig;
   * folds the temporal DepthBuffer (core/buffer2d.py) and the mean 3-D
     error against it (utils/metrics.py) over the chunk's frames in order,
     on the device: the host reads two scalars a chunk, never a frame;
-  * runs the KDE and the fold as one compiled step (core/jit.py, the JAX
+  * runs the pipeline and the fold as one compiled step (core/jit.py, the JAX
     package's jitted step, streaming.py:49): on the card each chunk shape
     is captured once into a CUDA graph and replayed;
   * reads chunk N's scalars back only after chunk N+1 is enqueued, so the
@@ -32,27 +34,49 @@ the fold is the device stage stream.fold.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
 from kinectdepthmapenhancement_tpu_torch.core import buffer2d, jit
 from kinectdepthmapenhancement_tpu_torch.core.camera import Intrinsics, projective_to_real
-from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig
+from kinectdepthmapenhancement_tpu_torch.core.config import KDEConfig, SPDSPConfig
 from kinectdepthmapenhancement_tpu_torch.core.device import resolve_device
-from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline
+from kinectdepthmapenhancement_tpu_torch.models.pipelines import kde_pipeline, spdsp_pipeline
 from kinectdepthmapenhancement_tpu_torch.utils import checkpoint, metrics, telemetry
 
 
+def _kde_points(depths, color, intr, cfg):
+    return kde_pipeline(depths, color, intr, cfg).optimized_points
+
+
+def _spdsp_points(depths, color, intr, cfg):
+    return spdsp_pipeline(depths, projective_to_real(depths, intr), color, intr,
+                          cfg).optimized_points
+
+
+# a chunk's pipeline by the exact type of its config: TOFConfig, a subclass
+# of SPDSPConfig, runs another pipeline and is not taken for SPDSP's
+_PIPELINES = {KDEConfig: _kde_points, SPDSPConfig: _spdsp_points}
+
+
+def _pipeline(cfg):
+    run = _PIPELINES.get(type(cfg))
+    if run is None:
+        raise ValueError(f"run_stream takes a KDEConfig or an SPDSPConfig as cfg, not a "
+                         f"{type(cfg).__name__}")
+    return run
+
+
 def _chunk_step(buf: buffer2d.DepthBuffer, depths: torch.Tensor, color: torch.Tensor,
-                intr: Intrinsics, cfg: KDEConfig, kde_only: bool):
-    """One chunk: KDE on depths [B, H, W] with color [B, H, W, 3], then the
-    buffer and metric fold frame by frame.  Returns (buffer, points
-    [B, H, W, 3], error sum, count): kde_only skips the fold and returns a
-    checksum of the points (which forces the chunk to complete when read)
-    and a zero count."""
-    pts = kde_pipeline(depths, color, intr, cfg).optimized_points
+                intr: Intrinsics, cfg: Union[KDEConfig, SPDSPConfig], kde_only: bool):
+    """One chunk: the config's pipeline on depths [B, H, W] with color
+    [B, H, W, 3], then the buffer and metric fold frame by frame.  Returns
+    (buffer, points [B, H, W, 3], error sum, count): kde_only skips the fold
+    and returns a checksum of the points (which forces the chunk to complete
+    when read) and a zero count."""
+    pts = _pipeline(cfg)(depths, color, intr, cfg)
     if kde_only:
         return buf, pts, pts.sum() * 1e-30, torch.zeros((), dtype=torch.int64, device=pts.device)
     with telemetry.stage("stream.fold", pts):
@@ -113,7 +137,7 @@ def run_stream(
     color: np.ndarray,
     intr: Intrinsics,
     *,
-    cfg: KDEConfig = KDEConfig(),
+    cfg: Union[KDEConfig, SPDSPConfig] = KDEConfig(),
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 50,
     max_frames: Optional[int] = None,
@@ -126,12 +150,16 @@ def run_stream(
     style).  Returns the final StreamState with the accumulated metrics.
 
     frames: f32 [H, W] mm arrays; color: u8 [H, W, 3].  `batch` frames go
-    through kde_pipeline a call; the stream's tail runs as one smaller
-    chunk.  kde_only=True skips the temporal-buffer fold and the pseudo-GT
-    metric (the serving path) and accumulates a "kde_checksum" metric that
-    counts frames instead.  on_outputs, when given, receives
-    (start_frame_index, points) per chunk, points [B, H, W, 3] still on the
-    device.  device=None runs on "cuda" and raises without a card."""
+    through the pipeline a call: kde_pipeline for a KDEConfig,
+    spdsp_pipeline for an SPDSPConfig (any other type of cfg raises
+    ValueError); the stream's tail runs as one smaller chunk.  The metric
+    keeps its name "kde_error_mm" whatever the pipeline.  kde_only=True
+    skips the temporal-buffer fold and the pseudo-GT metric (the serving
+    path) and accumulates a "kde_checksum" metric that counts frames
+    instead.  on_outputs, when given, receives (start_frame_index, points)
+    per chunk, points [B, H, W, 3] still on the device.  device=None runs
+    on "cuda" and raises without a card."""
+    _pipeline(cfg)  # another type of config raises before the stream starts
     dev = resolve_device(device)
     h, w = color.shape[:2]
     state = checkpoint.load(checkpoint_path, dev) if checkpoint_path else None

@@ -92,6 +92,7 @@ from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, SLICPara
 from kinectdepthmapenhancement_tpu_torch.core import jit
 from kinectdepthmapenhancement_tpu_torch.core.device import constant
 from kinectdepthmapenhancement_tpu_torch.ops import cuda_gradient, cuda_nasp, stencil, tables
+from kinectdepthmapenhancement_tpu_torch.utils import telemetry
 
 INVALID_NORMAL = -1.0
 INIT_DISTANCE = cuda_nasp.INIT_DISTANCE
@@ -527,7 +528,9 @@ def with_capped_index(
     a tile the labels are the tile's, the frame tile.width wide, and the
     verdict the group's, made by a host step that the jit.cond reads on
     the host (a host branch inside a jit call: the branches gather over the
-    group)."""
+    group).  Under jit.cond each branch is a stage of its own (utils/
+    telemetry.py), slic.cell_index and slic.global_index, whose stamps fire
+    only when the device takes it; a direct call is no stage."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
     kernel_sums = _stats_impl_on(stats_impl)
@@ -543,8 +546,19 @@ def with_capped_index(
     if locality == "cell":
         return cell()
     if jit.tracing() or tile is not None:
-        return jit.cond(_cap_verdict(labels, grid, cap, h, w, tile), cell, whole)
+        return jit.cond(_cap_verdict(labels, grid, cap, h, w, tile),
+                        _staged("slic.cell_index", cell, labels),
+                        _staged("slic.global_index", whole, labels))
     return cell() if _within_cap(labels, grid, cap, h, w) else whole()
+
+
+def _staged(name: str, branch: Callable[[], object], on: torch.Tensor):
+    """branch() inside telemetry stage `name`."""
+    def run():
+        with telemetry.stage(name, on):
+            return branch()
+
+    return run
 
 
 def capped_index(
