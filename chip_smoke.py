@@ -267,6 +267,40 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def label_sums_f64(labels, feats, mask, k: int):
+    """[B, K, F] float64 sums of feats [B, H, W, F] per label of labels
+    [B, H, W] in [0, K) over mask (None: every pixel): the label-sums
+    kernel's exact value, to float64 rounding."""
+    import torch
+
+    b, f = labels.shape[0], feats.shape[-1]
+    flat = labels.reshape(b, -1).long()
+    ok = (flat >= 0) & (flat < k)
+    if mask is not None:
+        ok &= mask.reshape(b, -1)
+    key = (torch.arange(b, device=labels.device)[:, None] * k + flat)[ok]
+    out = torch.zeros((b * k, f), dtype=torch.float64, device=labels.device)
+    return out.index_add_(0, key, feats.reshape(b, -1, f)[ok].double()).reshape(b, k, f)
+
+
+def label_sums_within_bound(got, labels, feats, mask, k: int):
+    """(ok, most ulps) of the label-sums kernel's output `got` [B, K, F]
+    against float64 sums E under csrc/nasp.cu's bound, |got - E| <= ulp(E)
+    / 2 + n * 2^-53 * sum|terms| over a label's n terms, its second term
+    doubled for the float64 sum's own error; and the largest gap in f32
+    ulps at E (1 at most unless the terms cancel)."""
+    import torch
+
+    want = label_sums_f64(labels, feats, mask, k)
+    n = label_sums_f64(labels, torch.ones_like(feats[..., :1]), mask, k)
+    absum = label_sums_f64(labels, feats.abs(), mask, k)
+    gap = (got.double() - want).abs()
+    ok = bool((gap <= want.abs() * 2.0**-24 + n * 2.0**-52 * absum).all())
+    w = want.float().abs()
+    ulp = (torch.nextafter(w, torch.full_like(w, float("inf"))) - w).double()
+    return ok, float((gap / ulp).max())
+
+
 KDE_SCOPES = ("kde.jbf", "kde.normals", "kde.nasp", "kde.ccl_merge", "kde.projection")
 
 
@@ -451,10 +485,12 @@ COMPILED_CASE_STEPS = {
     "640 iter3 B=4": (25, 3), "v2 default B=4": (18, 0), "split default B=4": (16, 0),
 }
 # what a capture with host branches launches beyond the eager step, by
-# form: it records both branches of each, and the untaken global branch of
-# the label index (one CCL merge on the global index) runs the label
-# counts; the capped route's untaken global updates launch no kernel
-UNTAKEN_GLOBAL_INDEX_FORMS = {"label_counts:pairs": 2, "label_counts:single": 1}
+# form: it records both branches of each; the untaken global branch of the
+# label index (one CCL merge and the plane residual on the global index)
+# runs the label counts and the F = 2 label sums, the capped route's two
+# untaken global updates the analyze (F = 13) and weighted (F = 14) sums
+UNTAKEN_GLOBAL_INDEX_FORMS = {"label_counts:pairs": 2, "label_counts:single": 1,
+                              "label_sums:F=2": 1, "label_sums:F=13": 2, "label_sums:F=14": 2}
 
 
 def _phase11_compiled(res, cases, zero, counted) -> None:
@@ -539,10 +575,10 @@ TILED_NASP_FORMS = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:t
                     "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
 _CELL_KERNELS = ("nasp_assign_analyze", "nasp_cell_sums", "label_cell_sums",
                  "label_cell_gather")
-# the global label index's kernel (its counts and pair counts): launched
-# only where an index has no locality (a grid that does not divide the
-# frame, labels off the cap, locality="global")
-GLOBAL_INDEX_KERNELS = ("label_counts",)
+# the global label index's kernels (its counts and pair counts, its float
+# segment sums): launched only where an index has no locality (a grid that
+# does not divide the frame, labels off the cap, locality="global")
+GLOBAL_INDEX_KERNELS = ("label_counts", "label_sums")
 # each tiled case of the default config: the kernels it must not launch (by
 # counter; every other must launch), the cell and gradient forms it must
 # launch and its collectives a step (B=4 and B=1 alike).  "640": data tiles
@@ -812,6 +848,7 @@ KERNEL_COUNTER = {
     "grad_kernel": "cuda_gradient", "assign_analyze_kernel": "nasp_assign_analyze",
     "nasp_sums_kernel": "nasp_cell_sums", "label_sums_kernel": "label_cell_sums",
     "label_gather_kernel": "label_cell_gather", "label_counts_kernel": "label_counts",
+    "label_index_sums_kernel": "label_sums",
 }
 
 
@@ -1428,9 +1465,25 @@ def main() -> int:
         # the frame, so the global index) and their right and down
         # neighbours, -1 past the frame; the library's keys (a * K + c, or a,
         # offset by frame, a dropped pixel at a spare slot past the tables)
-        lab = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
-            nasp_p, stats_impl="xla")).labels.contiguous()
+        seg = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
+            nasp_p, stats_impl="xla"))
+        lab = seg.labels.contiguous()
         b, k = lab.shape[0], grid.num_clusters
+        # the global index's float sums as NASP's updates run them on these
+        # labels (analyze F = 13, weighted F = 14): each pixel's features
+        # against its cluster's fields, summed over the labelled pixels; and
+        # each sum's terms by magnitude (sums_close's scale)
+        _, (vlo, vhi) = slic._update_geometry(grid, hv, wv, "nasp")
+        xy, cl = seg.clusters.xy.to(torch.float32), seg.clusters
+        bi = torch.arange(b, device=dev)[:, None, None]
+        x["mask_v2"] = lab >= 0
+        for mode, fields in (("analyze", xy),
+                             ("weighted", torch.cat([xy, cl.rgb, cl.normal], -1))):
+            fe = cuda_nasp.nasp_features(
+                mode, lab, fields[bi, lab.clamp_min(0).long()], color.to(torch.float32),
+                points, nmap, vlo, vhi, nasp_p.color_sigma, nasp_p.spatial_sigma).contiguous()
+            x[f"sums_{mode}_v2"] = fe
+            x[f"sums_scale_{mode}_v2"] = cuda_nasp.label_sums_plain(lab, fe.abs(), x["mask_v2"], k)
         right = torch.cat([lab[:, :, 1:], lab.new_full((b, hv, 1), -1)], dim=2).contiguous()
         down = torch.cat([lab[:, 1:], lab.new_full((b, 1, wv), -1)], dim=1).contiguous()
         x.update(labels_v2=lab, right_v2=right, down_v2=down,
@@ -2287,6 +2340,89 @@ def main() -> int:
               + json.dumps(out))
         return out
 
+    # the global index's float label sums on the 424x512 frames' NASP
+    # labels, as NASP's updates launch them there (weighted F = 14,
+    # analyze F = 13, over the labelled pixels); they replace no TPU
+    # kernel.  Held to the one-hot product (the plain version) by
+    # sums_close, integer columns exact, and to float64 sums within the
+    # kernel's bound; the library is that product, the route it replaces
+    # (label_sums_b8 times both at the replay's B = 8)
+    def sums_v2(x, mode, fn=cuda_nasp.label_sums):
+        return fn(x["labels_v2"], x[f"sums_{mode}_v2"], x["mask_v2"], grid.num_clusters)
+
+    for mode, nf in (("weighted", 14), ("analyze", 13)):
+        kernels["label_sums" if mode == "weighted" else f"label_sums_{mode}"] = dict(
+            module=cuda_nasp, bar="integer exact, rest <= 1e-5 sum|terms|; f64 sums: "
+            "<= ulp/2 + n 2^-53 sum|terms|", row="label_sums", secondary=mode != "weighted",
+            form=f"F={nf}", replaces=None, run=lambda x, m=mode: sums_v2(x, m),
+            plain=lambda x, m=mode: sums_v2(x, m, cuda_nasp.label_sums_plain),
+            library=lambda x, m=mode: sums_v2(x, m, cuda_nasp.label_sums_plain),
+            ok=lambda got, want, x, m=mode: cuda_nasp.sums_close(
+                got[0], want[0], x[f"sums_scale_{m}_v2"], cuda_nasp.INTEGER_FEATURES[m])
+            and label_sums_within_bound(got[0], x["labels_v2"], x[f"sums_{m}_v2"],
+                                        x["mask_v2"], grid.num_clusters)[0],
+            # the labels, the mask and the features read, the sums written
+            inputs=lambda x, m=mode: [x["labels_v2"], x["mask_v2"], x[f"sums_{m}_v2"]],
+            ops=lambda x, nf=nf: npx(x["labels_v2"]) * nf,  # one add a feature and pixel
+            shape=lambda x, m=mode: tuple(x[f"sums_{m}_v2"].shape))
+
+    def label_sums_b8(x):
+        """The global index's float sums at the replay's B=8: NASP's analyze
+        (F = 13) and weighted (F = 14) sums on the 424x512 frames' labels,
+        and DASP's update (F = 10: colour, u, v, 1, points, z > 50) on the
+        640x480 frames' NASP labels, each the four frames twice: the kernel
+        against the one-hot product it replaces (sums_close, integer
+        columns exact) and against float64 sums (its bound), the same on a
+        second call; their device ms a call and a frame, and the bound of
+        the bytes read and written."""
+        k = grid.num_clusters
+
+        def twice(t):
+            return torch.cat([t] * 2).contiguous()
+
+        lab_v2, lab_vga = twice(x["labels_v2"]), twice(x["labels"])
+        b = lab_vga.shape[0]
+        z = x["points"][..., 2]
+        u = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :].expand_as(z)
+        v = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None].expand_as(z)
+        dasp = torch.cat([x["color_f"], torch.stack([u, v, torch.ones_like(z)], -1),
+                          x["points"], (z > 50.0).to(torch.float32)[..., None]], -1)
+        cases = {
+            "424x512 F=13": (lab_v2, twice(x["sums_analyze_v2"]), cuda_nasp.INTEGER_FEATURES[
+                "analyze"]),
+            "424x512 F=14": (lab_v2, twice(x["sums_weighted_v2"]), cuda_nasp.INTEGER_FEATURES[
+                "weighted"]),
+            "640x480 F=10": (lab_vga, twice(dasp), (0, 1, 2, 3, 4, 5, 9)),
+        }
+        out = {}
+        for case, (lab, fe, ints) in cases.items():
+            mask = lab >= 0
+            runs = {"kernel": lambda: cuda_nasp.label_sums(lab, fe, mask, k),
+                    "product": lambda: cuda_nasp.label_sums_plain(lab, fe, mask, k)}
+            got, again, want = runs["kernel"](), runs["kernel"](), runs["product"]()
+            scale = cuda_nasp.label_sums_plain(lab, fe.abs(), mask, k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                _fail(f"label sums B=8 {case}: a second call differs")
+            if not cuda_nasp.sums_close(got, want, scale, ints):
+                _fail(f"label sums B=8 {case}: the one-hot product differs past sums_close")
+            within, ulps = label_sums_within_bound(got, lab, fe, mask, k)
+            if not within:
+                _fail(f"label sums B=8 {case}: off the float64 sums past the kernel's bound")
+            nbytes = sum(t.numel() * t.element_size() for t in (lab, mask, fe, got))
+            row = {"most_ulps_from_f64": ulps,
+                   "bound_ms": bound_ms(nbytes, lab.numel() * fe.shape[-1])[0]}
+            for name, fn in runs.items():
+                d, n = device_time(fn)
+                row[name] = {"call_ms": cuda_ms(fn, warmup=3, iters=20), "device_ms": d,
+                             "device_activities": n,
+                             "device_ms_per_frame": None if d is None else d / b}
+            out[case] = row
+            del got, again, want, scale
+        print(f"label sums B=8 (424x512 NASP F = 13 / 14, 640x480 DASP F = 10) on {smi}: "
+              + json.dumps(out))
+        return out
+
     # the main path's forms, as cuda_nasp.launch_forms names them
     for name, form in (("nasp_assign_analyze", "r4"), ("nasp_cell_sums_weighted", "r4:weighted"),
                        ("nasp_cell_sums_analyze", "r4:analyze"),
@@ -2374,6 +2510,7 @@ def main() -> int:
             r[f"bound_ms_b{bsz}"], r["bound_by"] = t_b, bound_by
         if bsz == 4:
             label_counts_at_b8 = label_counts_b8(x)
+            label_sums_at_b8 = label_sums_b8(x)
         del x
 
     # ---- phase 4: the main path at 640x480, single-frame and batched
@@ -2741,7 +2878,8 @@ def main() -> int:
     vd, vc = vdepth4[0], vcolor4[0]
     res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
                   stencil_kernels + GLOBAL_INDEX_KERNELS,
-                  ("label_counts:pairs", "label_counts:single"))
+                  ("label_counts:pairs", "label_counts:single", "label_sums:F=2",
+                   "label_sums:F=13", "label_sums:F=14"))
     check_outputs("kinect_v2 424x512", res_d, k_count)
     check_again("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg), res_d)
     path_ms["kinect_v2 B=1"] = time_path(
@@ -3758,8 +3896,9 @@ def main() -> int:
                     wrong.append(f"{run['collectives']} collectives eager, host steps a replay "
                                  f"{run['host_steps']}, not {want_steps}")
                 # a capture records both branches of each host branch: the
-                # label index's untaken global branch adds its label counts,
-                # exactly those, and nothing else may differ
+                # label index's untaken global branches add their label
+                # counts and label sums, exactly those, and nothing else may
+                # differ
                 want_forms = UNTAKEN_GLOBAL_INDEX_FORMS if want_branches else {}
                 extra = {k: v - run["eager_counts"][k]
                          for k, v in run["capture_counts"].items() if v != run["eager_counts"][k]}
@@ -3888,6 +4027,7 @@ def main() -> int:
             "forms": [form_entry(n, kk) for n, kk in kernels.items()
                       if "form" in kk and kk.get("row", n) == row],
             **({"b8_merge": label_counts_at_b8} if row == "label_counts" else {}),
+            **({"b8": label_sums_at_b8} if row == "label_sums" else {}),
         })
     print("kde ms per frame: " + "  ".join(
         f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))

@@ -1,16 +1,18 @@
 // NASP cell kernels: label-cell gather, and three per-(cell, candidate)
 // sums kernels on one reduction: label-cell sums, NASP update sums and the
-// fused first assignment + analyze sums; and the label counts of the
-// global label index.
+// fused first assignment + analyze sums; and the label counts and the
+// float label sums of the global label index.
 //
 // Replace the TPU kernels of kinectdepthmapenhancement_tpu/ops/pallas_nasp.py:
 //   kde_label_cell_gather    label_cell_gather        (:340, body :301)
 //   kde_label_cell_sums      label_cell_sums          (:224, body :183)
 //   kde_nasp_cell_sums       nasp_cell_sums           (:654, body :63)
 //   kde_nasp_assign_analyze  nasp_assign_and_analyze  (:554, body :400)
-// kde_label_counts (label_counts_kernel) replaces no TPU kernel: the JAX
-// package counts labels and label pairs over the whole [K] id space by
-// one-hot products (slic._GlobalIndex), as the port's plain version does.
+// kde_label_counts (label_counts_kernel) and kde_label_sums
+// (label_index_sums_kernel + label_index_fold_kernel) replace no TPU
+// kernel: the JAX package counts labels and label pairs and sums features
+// over the whole [K] id space by one-hot products (slic._GlobalIndex), as
+// the port's plain versions do.
 //
 // Single-iteration NASP labels are cell-local: a pixel of grid cell (cy, cx)
 // carries -1 or cluster (cy + dy) * cols + (cx + dx), (dy, dx) in [-r, r)^2.
@@ -69,7 +71,9 @@
 // No atomics in the cell kernels: each sum has one owner and an order fixed
 // by the labels alone, so runs are bitwise repeatable, and a double sum of
 // f32 terms is exact for integer-valued features (counts, colours, u, v)
-// and within 1 ulp of the exact sum for the rest.  The gather only copies.
+// and for the rest the exact sum rounded once to f32 but for the double
+// sum's own error, at most n * 2^-53 * sum|terms| over n terms (the label
+// sums below give the bound in full).  The gather only copies.
 // Dynamic shared memory above 48 KB is allowed once per kernel and device
 // (no kernel here has static shared memory).
 //
@@ -90,6 +94,52 @@
 // one-hot product's.  Bound: the bytes, two i32 label planes, 1.7 MB for
 // B = 1 pairs at 424x512, ~0.5 us at 3.35 TB/s; launch and the atomics'
 // latency set the time at these sizes.
+//
+// Label sums (label_index_sums_kernel, then label_index_fold_kernel): per
+// label in [0, K) the sum of F <= 16 f32 features over its pixels where a
+// mask is on, a pixel with a label outside [0, K) dropped and one whose mask
+// is off adding nothing (its label still counts as the run's, as its zero
+// row counts in the one-hot product).  The float sums of the global index
+// (NASP's analyze and weighted updates, the SP / DASP updates off their
+// caps, CCL's and the plane stage's fits) on a 424x512 or 640x480 frame.
+// Pass 1 cuts each frame into bands of whole 32-pixel rounds, one block a
+// band (and a chunk of the labels whose table rows fit shared memory:
+// all K = 300 at F <= 16), its nwb warps a contiguous run of the band each
+// (index_sums_split: ~two blocks an SM, 1-8 warps a block by the tables'
+// size, at most 64 bands a frame).  A warp keeps its own [K, F] double
+// table in shared memory (33.6 KB at K = 300, F = 14) and walks its pixels
+// in order with lane j holding feature j: the round's 32 labels come in
+// coalesced, one a lane, and two ballots say where runs of one label start
+// and which pixels add; each lane reads its feature of the 32 pixels (F
+// consecutive floats a pixel across the lanes).  Labels are spatially
+// coherent, so a lane adds its run of equal labels in a double register
+// (a step is one predicated double add) and adds the run into the table
+// row when a run starts; the decisions are the warp's, so lanes never
+// diverge and never share an address.  Three rounds are in flight ahead of
+// the one added: their loads are raw (clamped addresses, no select on a
+// loaded value), so nothing waits on them before their round.  The block
+// adds its warps' tables in warp order and writes the band's [K, F]
+// doubles; pass 2 adds the bands of each (frame, label,
+// feature) in band order and rounds to f32 once.  Order: fixed by the
+// pixels' order and the split, a function of (B, H * W, K, F) alone; no
+// atomics, so every run and graph replay is bitwise the same.  Each sum is
+// a double sum of f32 terms rounded once: exact for integer-valued
+// features (counts, u, v, colour; partial sums < 2^53).  Otherwise the
+// double sum S of a label's n terms is off the exact sum E by at most
+// (n - 1) * 2^-53 * sum|terms| (each term passes at most n - 1 double
+// adds: run, table, warp fold, band fold), and rounding S to f32 adds half
+// an ulp: |out - E| <= ulp(E) / 2 + n * 2^-53 * sum|terms|.  That is within
+// 1 ulp of E where sum|terms| / |E| < 2^29 / n (1,747 for n = 307,200, a
+// whole 640x480 frame; ~770,000 for a 700-pixel cluster), and otherwise,
+// where the terms cancel (centred points or normals), ~3.4e-11 of
+// sum|terms| at n = 307,200; the one-hot product's f32 accumulation
+// rounds at every step, ~n * 2^-24 * sum|terms|.  Bound: the bytes, one read of the labels, the
+// mask and the features, 8 x 217088 x (4 + 1 + 14 * 4) B = 106 MB at B = 8
+// on 424x512 (F = 14), ~32 us at 3.35 TB/s; the bands' tables add
+// 2 x 33 x 8 x 33.6 KB = 17.7 MB there.  What sets the time: each warp's
+// serial walk, ~2 us a round on an H100 at six warps an SM (one table each
+// at F = 14, so shared memory caps the warps), one feature a lane (F of
+// 32 lanes busy): 0.14 ms a B = 8 call at F = 14 on an H100 80GB HBM3.
 //
 // Width tiles: every cell kernel takes the tile's first cell column c0 and
 // its cell columns tc (c0 = 0, tc = cols: the whole frame).  The image is the
@@ -113,7 +163,7 @@ constexpr int NT = 256;        // threads per block
 constexpr int NW = NT / 32;    // warps per block
 constexpr int MAXF = 16;       // most features of a label-cell sums call
 constexpr size_t MAX_SMEM = 232448;  // shared memory a block may opt in to (sm_90)
-constexpr int NS = 4;          // rounds a label-sums warp keeps in flight
+constexpr int NS = 4;          // rounds a sums warp holds: one added, NS - 1 in flight
 constexpr int N_ANALYZE = 13;
 constexpr int N_WEIGHTED = 14;
 constexpr float VALID_DEPTH_MM = 50.0f;
@@ -809,6 +859,153 @@ label_counts_kernel(const int* __restrict__ labels_a, const int* __restrict__ la
   flush_counts(table, key, run, lane);
 }
 
+// -------------------------------------------------------------- label sums
+
+constexpr int ROUND = 32;             // pixels a label-sums warp takes a round
+constexpr int SUMS_BLOCKS = 264;      // blocks a label-sums call aims at: two an SM of 132
+constexpr int SUMS_MOST_BANDS = 64;   // bands a frame at most: the fold's terms an output
+constexpr int SUMS_LEAST_ROUNDS = 4;  // rounds a warp is given at least
+// a block's tables: two blocks an SM (228 KB, 1 KB a block reserved)
+constexpr size_t SUMS_TABLES = 115712;
+
+// The split of a label-sums call over the card: each frame's N pixels in
+// `bands` bands of `per` pixels (the last shorter), one block a band and
+// chunk of kc labels; a band's nwb warps take `wper` pixels each (rounds
+// of 32, the last warps' shorter or empty).  A function of (B, N, K, F)
+// alone, so the order of every sum is too.
+struct IndexSums {
+  int N, K, F, kc, chunks, nwb, bands, per, wper;
+};
+
+bool index_sums_split(int B, int N, int K, int F, IndexSums* g) {
+  if (B <= 0 || B > 65535 || N <= 0 || N > INT32_MAX - 8 * ROUND || K <= 0 ||
+      F <= 0 || F > MAXF || static_cast<long long>(B) * K * F > INT32_MAX)
+    return false;
+  const size_t row = sizeof(double) * F;
+  const int kc = static_cast<int>(std::min<size_t>(K, MAX_SMEM / row));
+  const int chunks = (K + kc - 1) / kc;
+  if (chunks > 65535) return false;
+  const int nwb = static_cast<int>(std::clamp<size_t>(SUMS_TABLES / (row * kc), 1, NW));
+  const long long cover = static_cast<long long>(B) * chunks;
+  const long long most = std::clamp<long long>(
+      N / (static_cast<long long>(ROUND) * SUMS_LEAST_ROUNDS * nwb), 1, SUMS_MOST_BANDS);
+  const long long want = std::clamp<long long>((SUMS_BLOCKS + cover - 1) / cover, 1, most);
+  const long long per = ((N + want - 1) / want + ROUND - 1) / ROUND * ROUND;
+  const long long wper = ((per + nwb - 1) / nwb + ROUND - 1) / ROUND * ROUND;
+  *g = IndexSums{N, K, F, kc, chunks, nwb, static_cast<int>((N + per - 1) / per),
+                 static_cast<int>(per), static_cast<int>(wper)};
+  return true;
+}
+
+// Pass 1: block (band, chunk, frame) sums the F features of the band's
+// pixels per label of its chunk [k0, k0 + kn), writing the band's rows of
+// part [B, bands, K, F] (doubles) whole.  Lane j of a warp holds feature j
+// (lanes >= F only follow); the warp walks its pixels in order, 32 a
+// round, each lane reading its round pixel's label and mask byte.  The
+// lane's run sum of
+// one label grows while the label stays the same and is added into the
+// warp's own table row when it changes; where runs start and which pixels
+// add are the warp's ballots, so every decision is uniform, no lane
+// diverges, no two lanes write one address, and a step of the walk is a
+// predicated double add.  Three rounds are in flight ahead of the one
+// added.  After a barrier the block adds its warps' tables in warp order.
+__global__ void __launch_bounds__(NT)
+label_index_sums_kernel(const int* __restrict__ labels, const unsigned char* __restrict__ mask,
+                        const float* __restrict__ feats, double* __restrict__ part, IndexSums g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int band = blockIdx.x, k0 = blockIdx.y * g.kc, b = blockIdx.z, F = g.F;
+  const int kn = min(g.kc, g.K - k0), nF = kn * F;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double* tabs = reinterpret_cast<double*>(smem);  // [nwb][kn * F]
+  for (int i = threadIdx.x; i < g.nwb * nF; i += blockDim.x) tabs[i] = 0.0;
+  __syncthreads();
+  const size_t frame = static_cast<size_t>(b) * g.N;
+  const int* lab = labels + frame;
+  const unsigned char* msk = mask == nullptr ? nullptr : mask + frame;
+  const float* fe = feats + frame * F;
+  const int b1 = min(band * g.per + g.per, g.N);
+  const int p0 = band * g.per + w * g.wper, p1 = min(p0 + g.wper, b1);  // p0 >= p1: none
+  double* tab = tabs + w * nF;
+  const bool mine = lane < F;  // the lane holds a feature
+  int cur = -1;                // the open run's label (-1: none) and the lane's sum of it
+  double acc = 0.0;
+
+  // the round at p, loaded raw: the lane's pixel's label and mask byte,
+  // and feature `lane` of the round's 32 pixels.  Nothing here reads a
+  // loaded value (addresses past the warp's pixels or the features read
+  // the frame's pixel 0), so the loads stay in flight until the round is
+  // added
+  const int fl = min(lane, F - 1);
+  const auto fetch = [&](int p, int& rl, int& rm, float (&f)[ROUND]) {
+    const int q = p + lane < p1 ? p + lane : 0;
+    rl = lab[q];
+    rm = msk == nullptr ? 1 : msk[q];
+#pragma unroll
+    for (int i = 0; i < ROUND; ++i) {
+      f[i] = fe[static_cast<size_t>(p + i < p1 ? p + i : 0) * F + fl];
+    }
+  };
+  // add the round at p: the lane's pixel's label (-1: dropped), a run
+  // starting at each pixel whose label differs from the pixel's before
+  // (the open run of the round before carrying on); the warp's ballots
+  // make each step's decision uniform
+  const auto fold = [&](int p, int rl, int rm, const float (&f)[ROUND]) {
+    int l = -1;
+    const unsigned u = static_cast<unsigned>(rl) - static_cast<unsigned>(k0);
+    if (p + lane < p1 && u < static_cast<unsigned>(kn)) l = static_cast<int>(u);
+    const int before = __shfl_up_sync(ALL, l, 1);
+    const unsigned starts = __ballot_sync(ALL, l != (lane == 0 ? cur : before));
+    const unsigned adds = __ballot_sync(ALL, l >= 0 && rm != 0);
+#pragma unroll
+    for (int i = 0; i < ROUND; ++i) {
+      if (starts & (1u << i)) {
+        if (cur >= 0 && mine) tab[cur * F + lane] += acc;
+        cur = __shfl_sync(ALL, l, i);
+        acc = 0.0;
+      }
+      if (adds & (1u << i)) acc += static_cast<double>(f[i]);
+    }
+  };
+  // round r in buffer r % NS, fetched NS - 1 rounds ahead of its fold
+  int rl[NS], rm[NS];
+  float f[NS][ROUND];
+#pragma unroll
+  for (int s = 0; s + 1 < NS; ++s) fetch(p0 + s * ROUND, rl[s], rm[s], f[s]);
+  for (int p = p0; p < p1; p += NS * ROUND) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int ahead = (s + NS - 1) % NS;
+      fetch(p + (s + NS - 1) * ROUND, rl[ahead], rm[ahead], f[ahead]);
+      fold(p + s * ROUND, rl[s], rm[s], f[s]);
+      if (p + (s + 1) * ROUND >= p1) goto walked;
+    }
+  }
+walked:
+  if (cur >= 0 && mine) tab[cur * F + lane] += acc;
+  __syncthreads();
+  double* out = part + ((static_cast<size_t>(b) * g.bands + band) * g.K + k0) * F;
+  for (int o = threadIdx.x; o < nF; o += blockDim.x) {
+    double a = 0.0;
+    for (int k = 0; k < g.nwb; ++k) a += tabs[k * nF + o];
+    out[o] = a;
+  }
+}
+
+// Pass 2: out [B, K*F] f32 = the bands of part [B, bands, K*F] added in
+// band order, rounded once.
+__global__ void __launch_bounds__(NT)
+label_index_fold_kernel(const double* __restrict__ part, float* __restrict__ out, int B,
+                        int bands, int KF) {
+  const long long i = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= static_cast<long long>(B) * KF) return;
+  const long long b = i / KF;
+  const double* src = part + b * bands * KF + (i - b * KF);
+  double a = 0.0;
+#pragma unroll 16
+  for (int j = 0; j < bands; ++j) a += src[static_cast<long long>(j) * KF];
+  out[i] = static_cast<float>(a);
+}
+
 // A tile of tc whole cell columns [c0, c0 + tc) of a rows x cols grid that
 // divides the frame (the tile W = tc cell widths); blocks per (frame, cell)
 // need B and rows within a grid dimension's 65535.
@@ -842,17 +1039,22 @@ cudaError_t allow_smem() {
   return e;
 }
 
-// Launch Kernel with `smem` bytes of dynamic shared memory (refused above
-// what a block may have).
+// Launch Kernel in blocks of `threads` with `smem` bytes of dynamic shared
+// memory (refused above what a block may have).
 template <auto Kernel, class... Args>
-int launch_dyn(dim3 grid, size_t smem, void* stream, Args... args) {
+int launch_block(dim3 grid, int threads, size_t smem, void* stream, Args... args) {
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = allow_smem<Kernel>();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  Kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return launched();
+}
+
+template <auto Kernel, class... Args>
+int launch_dyn(dim3 grid, size_t smem, void* stream, Args... args) {
+  return launch_block<Kernel>(grid, NT, smem, stream, args...);
 }
 
 template <int FT>
@@ -990,4 +1192,32 @@ extern "C" int kde_label_counts(const int* labels_a, const int* labels_b, float*
                                                               labels_b, out, N, K)
              : launch_dyn<label_counts_kernel<false, false>>(grid, 0, stream, labels_a,
                                                                labels_b, out, N, K);
+}
+
+// The bands of a kde_label_sums call (its scratch is [B, bands, K, F]
+// doubles), or -1 for arguments it refuses: the split's one source, which
+// the wrapper asks once per shape and kde_label_sums holds its scratch to.
+extern "C" int kde_label_sums_bands(int B, int N, int K, int F) {
+  IndexSums g;
+  return index_sums_split(B, N, K, F, &g) ? g.bands : -1;
+}
+
+// labels [B, N] i32 (N = H * W of the frame); mask [B, N] bytes 0 / 1 or
+// null (every pixel); feats [B, N, F] f32, F <= 16; part [B, bands, K, F]
+// f64 scratch, bands from kde_label_sums_bands; out [B, K, F] f32, written
+// whole: per label in [0, K) the sum of its pixels' features where the
+// mask is on (a pixel whose label lies outside [0, K) is dropped).
+extern "C" int kde_label_sums(const int* labels, const unsigned char* mask, const float* feats,
+                              double* part, float* out, int B, int N, int K, int F, int bands,
+                              void* stream) {
+  IndexSums g;
+  if (!index_sums_split(B, N, K, F, &g) || g.bands != bands)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = launch_block<label_index_sums_kernel>(
+      dim3(g.bands, g.chunks, B), 32 * g.nwb, sizeof(double) * g.nwb * g.kc * F, stream, labels,
+      mask, feats, part, g);
+  if (e != 0) return e;
+  const long long total = static_cast<long long>(B) * K * F;
+  return launch_block<label_index_fold_kernel>(dim3(static_cast<unsigned>((total + NT - 1) / NT)),
+                                               NT, 0, stream, part, out, B, bands, K * F);
 }

@@ -13,8 +13,8 @@ here works per (frame, cell) in that candidate space:
   nasp_assign_and_analyze  the first NASP assignment fused with the analyze
                            sums of the labels it produces.
 
-One kernel here is keyed by the whole [K] id space instead, for labels with
-no locality (slic._GlobalIndex):
+Two kernels here are keyed by the whole [K] id space instead, for labels
+with no locality (slic._GlobalIndex):
 
   label_counts             pixels per label ([B, K], label_counts) or per
                            label pair ([B, K, K], label_pair_counts), a
@@ -25,6 +25,20 @@ no locality (slic._GlobalIndex):
                            Bound: the bytes of the label planes (~0.5 us a
                            424x512 frame pair), set in practice by launch
                            and the atomics.
+  label_sums               per-label sums [B, K, F] of F <= 16 f32
+                           features over a mask, a pixel dropped when its
+                           label lies outside [0, K).  No atomics: double
+                           sums in an order fixed by the pixels and the
+                           shape, rounded to f32 once, so bitwise the same
+                           from run to run, exact for integer-valued
+                           features, otherwise within half an ulp of the
+                           exact sum plus n * 2^-53 * sum|terms| over a
+                           label's n terms (1 ulp unless the terms cancel;
+                           the one-hot product's f32 GEMM rounds as it
+                           accumulates: the two agree to its rounding, not
+                           bitwise).  Bound: the bytes of labels, mask and
+                           features (~32 us at B = 8 on 424x512 frames,
+                           F = 14).
 
 Candidate order is dy-major (slot j = (dy + r) * 2r + (dx + r)), -9 marks an
 out-of-grid candidate; feature order is the JAX package's feats layout
@@ -48,6 +62,7 @@ source: csrc/nasp.cu.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -70,9 +85,10 @@ REPLACES = {
 # kernel launches since the last reset, by kernel (chip_smoke.py reads them),
 # and by form: "<kernel>:r<r>" with ":<mode>" or ":F<features>" (the shapes
 # a path runs; chip_smoke.py clears it with launches), "label_counts:pairs"
-# or ":single".  label_counts replaces no TPU kernel (the JAX package's
-# global index counts by one-hot products).
-launches = {name: 0 for name in (*REPLACES, "label_counts")}
+# or ":single", "label_sums:F=<features>".  label_counts and label_sums
+# replace no TPU kernel (the JAX package's global index counts and sums by
+# one-hot products).
+launches = {name: 0 for name in (*REPLACES, "label_counts", "label_sums")}
 launch_forms: Dict[str, int] = {}
 
 INIT_DISTANCE = 999999.9  # the out-of-grid candidate cost (JAX slic.INIT_DISTANCE)
@@ -219,6 +235,22 @@ def label_counts_plain(
     built."""
     oh = tables.one_hot(labels.reshape(labels.shape[0], -1), k) if oh is None else oh
     return oh.sum(dim=1)
+
+
+def label_sums_plain(
+    labels: torch.Tensor, feats: torch.Tensor, mask: Optional[torch.Tensor], k: int,
+    oh: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[B, K, F] f32: per label of labels [B, ...] i32 the sum of feats
+    [B, ..., F] over mask [B, ...] bool (None: every pixel), labels outside
+    [0, K) dropped: the one-hot product oh^T @ where(mask, feats, 0).
+    `oh`: labels' [B, N, K] one-hot, if built."""
+    b, f = labels.shape[0], feats.shape[-1]
+    fm = feats.to(torch.float32)
+    if mask is not None:
+        fm = torch.where(mask[..., None], fm, 0.0)
+    oh = tables.one_hot(labels.reshape(b, -1), k) if oh is None else oh
+    return tables.exact_matmul(oh.transpose(1, 2), fm.reshape(b, -1, f))
 
 
 def nasp_features(
@@ -532,6 +564,48 @@ def label_counts(labels: torch.Tensor, k: int) -> torch.Tensor:
     if labels.device.type == "cpu":
         return label_counts_plain(labels, k)
     return _label_counts(labels, None, k, "single")
+
+
+@functools.lru_cache(maxsize=None)
+def _label_sums_bands(b: int, n: int, k: int, f: int) -> int:
+    """The bands of a label-sums call's split (csrc/nasp.cu's
+    index_sums_split, its one source), asked once per shape: the call's
+    [B, bands, K, F] double scratch."""
+    bands = _build.function("kde_label_sums_bands", [_build.INT] * 4)(b, n, k, f)
+    if bands <= 0:
+        raise ValueError(f"label_sums does not take B={b}, {n} pixels, K={k}, F={f}")
+    return bands
+
+
+def label_sums(
+    labels: torch.Tensor, feats: torch.Tensor, mask: Optional[torch.Tensor], k: int,
+) -> torch.Tensor:
+    """[B, K, F] f32 per-label sums of feats [B, H, W, F] f32 (F <= 16)
+    over mask [B, H, W] bool (None: every pixel), labels [B, H, W] i32
+    outside [0, K) dropped: the CUDA kernel for CUDA tensors (double sums
+    in a fixed order, rounded once), the plain version for CPU ones.  A
+    masked-off pixel adds nothing, and the kernel reads none of its
+    features."""
+    if labels.device.type == "cpu":
+        return label_sums_plain(labels, feats, mask, k)
+    b, f = labels.shape[0], feats.shape[-1]
+    n = math.prod(labels.shape[1:])
+    if not 1 <= f <= MAX_SUM_FEATURES:
+        raise ValueError(f"label_sums takes 1 to {MAX_SUM_FEATURES} features, got {f}")
+    _build.check_tensor(labels, "label_sums labels", torch.int32, labels.shape)
+    _build.check_tensor(feats, "label_sums feats", torch.float32, (*labels.shape, f))
+    if mask is not None:
+        _build.check_tensor(mask, "label_sums mask", torch.bool, labels.shape)
+    bands = _label_sums_bands(b, n, k, f)
+    dev = labels.device
+    part = torch.empty((b, bands, k, f), dtype=torch.float64, device=dev)
+    out = torch.empty((b, k, f), dtype=torch.float32, device=dev)
+    _call(
+        "label_sums", f"F={f}", [_build.PTR] * 5 + [_build.INT] * 5, dev,
+        (labels.data_ptr(), 0 if mask is None else mask.data_ptr(), feats.data_ptr(),
+         part.data_ptr(), out.data_ptr(), b, n, k, f, bands),
+    )
+    return out
 
 
 def _check_planes(what: str, color_f, points, normals, b, h, w) -> None:

@@ -333,26 +333,29 @@ class _GlobalIndex:
     """Per-pixel gathers and segment sums keyed by the whole [K] cluster id
     space (the JAX package's slic._GlobalIndex), for labels with no
     locality guarantee: grids that do not divide the frame, and later
-    iterations whose labels left the cap.  Gathers are exact index ops;
-    float segment sums are products with the [B, H*W, K] f32 one-hot
-    through tables.exact_matmul (TF32 off, no float atomics: deterministic
-    on every device).  The integer reductions, counts() and pair_counts(),
-    go through ops/cuda_nasp.py's label_counts / label_pair_counts when
-    kernel_sums (the "auto" / "pallas" stats route: the label-counts kernel
-    on the card, exact f32 atomics, so bitwise the products; their plain
-    one-hot products on the CPU), and are the one-hot products themselves
-    when not ("xla").  The one-hot is built on first use, by whatever asks
-    for it (segment_sum; counts and pair counts on the "xla" route): 0.37 GB
-    a 640x480 frame at K = 300.
+    iterations whose labels left the cap.  Gathers are exact index ops.
+    With kernel_sums (the "auto" / "pallas" stats route) the reductions go
+    through ops/cuda_nasp.py: segment_sum through label_sums (on the card
+    csrc/nasp.cu's label-sums kernel: double sums in a fixed order rounded
+    once, no float atomics, so bitwise the same from run to run and within
+    1 ulp of the exact sums unless the terms cancel (the bound in the
+    kernel's header), not bitwise the one-hot product), counts() and
+    pair_counts() through label_counts / label_pair_counts (the label-counts
+    kernel: exact f32 atomics, so bitwise the products); on the CPU each
+    takes its plain version, the one-hot product.  Without kernel_sums
+    ("xla") every reduction is a product with the [B, H*W, K] f32 one-hot
+    through tables.exact_matmul (TF32 off, deterministic on every device),
+    the one-hot built on first use (0.37 GB a 640x480 frame at K = 300) and
+    kept for the index's later reductions; the kernel route builds none.
 
     tile (a CellTile): labels are the tile's [B, H, ws] at global columns
     [tile.x0, tile.x0 + ws); gathers and pixel lookups stay on the tile,
     counts and pair counts are the tile's own (its labels and, for CCL's
     right neighbours, its right_labels column) summed over the group
     (integers, exact), and each float segment sum gathers the group's
-    masked features and runs the whole-frame product on every rank (the
-    unsharded product on the unsharded input, so bitwise; the frame's
-    one-hot is built from the gathered labels on first use)."""
+    masked features and sums the whole frame on every rank, on either
+    route (the unsharded call on the unsharded input, so bitwise; the
+    frame's labels are gathered once, on first use)."""
 
     def __init__(
         self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None, *,
@@ -365,6 +368,7 @@ class _GlobalIndex:
         self.kernel_sums = kernel_sums
         self.x0 = 0 if tile is None else tile.x0
         self._oh: Optional[torch.Tensor] = None
+        self._frame: Optional[torch.Tensor] = None
         self._frame_oh: Optional[torch.Tensor] = None
 
     @property
@@ -374,13 +378,20 @@ class _GlobalIndex:
             self._oh = tables.one_hot(self.labels.reshape(self.b, -1), self.k)
         return self._oh
 
+    def _frame_labels(self) -> torch.Tensor:
+        """The whole frames' labels (gathered on a tile)."""
+        if self.tile is None:
+            return self.labels
+        if self._frame is None:
+            self._frame = self.tile.gather_width(self.labels).contiguous()
+        return self._frame
+
     def _frame_onehot(self) -> torch.Tensor:
         """The one-hot of the whole frames' labels (gathered on a tile)."""
         if self.tile is None:
             return self.oh
         if self._frame_oh is None:
-            frame = self.tile.gather_width(self.labels)
-            self._frame_oh = tables.one_hot(frame.reshape(self.b, -1), self.k)
+            self._frame_oh = tables.one_hot(self._frame_labels().reshape(self.b, -1), self.k)
         return self._frame_oh
 
     def gather(self, table: torch.Tensor) -> torch.Tensor:
@@ -396,12 +407,16 @@ class _GlobalIndex:
 
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
-        f = feats.shape[-1]
-        fm = torch.where(mask[..., None], feats.to(torch.float32), 0.0)
+        feats = feats.to(torch.float32)
         if self.tile is not None:
-            fm = self.tile.gather_width(fm)
-        return tables.exact_matmul(self._frame_onehot().transpose(1, 2),
-                                   fm.reshape(self.b, -1, f))
+            feats = self.tile.gather_width(torch.where(mask[..., None], feats, 0.0))
+            mask = None
+        else:
+            mask = mask.contiguous()
+        if self.kernel_sums:
+            return cuda_nasp.label_sums(self._frame_labels(), feats.contiguous(), mask, self.k)
+        return cuda_nasp.label_sums_plain(
+            self._frame_labels(), feats, mask, self.k, oh=self._frame_onehot())
 
     def _summed(self, counts: torch.Tensor) -> torch.Tensor:
         return counts if self.tile is None else self.tile.sum_counts(counts)

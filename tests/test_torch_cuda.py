@@ -57,8 +57,15 @@ label-counts kernel (cuda_nasp.label_counts / label_pair_counts) is
 bitwise the one-hot product at 424x512 (B=1 and 8), 640x480, a 261-column
 tile, a frame whose pixel count 16-byte loads do not divide and a
 misaligned pointer, on coherent and scattered labels with the right and
-down neighbours (-1 borders), identical over 10 graph replays, and
-kde_pipeline at 424x512 is bitwise the same with it and on the "xla" route.
+down neighbours (-1 borders), identical over 10 graph replays.  Its
+label-sums kernel (cuda_nasp.label_sums) at the same shapes and at F = 2,
+4, 6, 10, 13, 14 and 16, over a mask and labels at -1 and past K: within 1
+f32 ulp of float64 sums, bitwise them on integer-valued features, to
+sums_close against the one-hot product (cuBLAS sums in f32), identical
+over repeats, 10 graph replays and replays of a conditional node's
+branch; the index builds no one-hot on that route.  kde_pipeline at
+424x512 with both kernels against the "xla" route: bitwise up to NASP's
+labels (and CCL's labels and sizes), the points within 0.01 mm.
 chip_smoke.py runs the same checks at the 640x480 path's shapes.
 """
 
@@ -340,9 +347,11 @@ def test_pipeline_launches_every_kernel(inputs):
     torch.cuda.synchronize()
     assert all(m.launches > b for m, b in zip(mods, before))
     # the grid divides the frame: every cell kernel, and the global index's
-    # label counts never
-    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items() if k != "label_counts")
-    assert cuda_nasp.launches["label_counts"] == before_nasp["label_counts"]
+    # label counts and label sums never
+    index_kernels = ("label_counts", "label_sums")
+    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items()
+               if k not in index_kernels)
+    assert all(cuda_nasp.launches[k] == before_nasp[k] for k in index_kernels)
     assert bool(torch.isfinite(res.optimized_points).all())
 
 
@@ -1530,12 +1539,238 @@ def test_label_counts_kernel_rejects_what_it_does_not_take(dev):
     assert cuda_nasp.launches == before
 
 
+# -------------------------------------------------------------- label sums
+
+SUMS_WIDTHS = (2, 4, 6, 10, 13, 14)  # the global index's callers' feature widths
+
+
+def _sum_labels(dev, b, h, w, kind, seed=0):
+    """_count_labels' maps with ids at K + 7 (outside the id space) in
+    runs of the coherent ones too."""
+    lab = _count_labels(dev, b, h, w, kind, seed)
+    if kind == "coherent":
+        lab[:, h // 3, w // 4:w // 4 + 9] = K_V2 + 7
+    return lab
+
+
+def _sum_feats(dev, shape, f, seed=0):
+    """[*shape, F] f32: column 0 the pixel's u and 1 ones (integer-valued),
+    the rest N(0, 1) times 10^(j % 4): both signs, four magnitudes."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((*shape, f), generator=g) * 10.0 ** (torch.arange(f) % 4).float()
+    x[..., 0] = torch.arange(shape[-1], dtype=torch.float32)
+    x[..., 1] = 1.0
+    return x.to(dev)
+
+
+def _sums_f64(lab, x, mask, k):
+    """[B, K, F] float64 sums of x per label in [0, K) over mask: the
+    kernel's exact value to f64 rounding."""
+    b, f = lab.shape[0], x.shape[-1]
+    flat = lab.reshape(b, -1).long()
+    ok = (flat >= 0) & (flat < k)
+    if mask is not None:
+        ok &= mask.reshape(b, -1)
+    key = (torch.arange(b, device=lab.device)[:, None] * k + flat)[ok]
+    out = torch.zeros((b * k, f), dtype=torch.float64, device=lab.device)
+    return out.index_add_(0, key, x.reshape(b, -1, f)[ok].double()).reshape(b, k, f)
+
+
+def _ulps(got, want):
+    """Largest |got - want| in f32 ulps at |want| (want float64)."""
+    w = want.float().abs()
+    ulp = (torch.nextafter(w, torch.full_like(w, float("inf"))) - w).double()
+    return float(((got.double() - want).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("shape, kind", [
+    ((1, 424, 512), "coherent"), ((8, 424, 512), "coherent"), ((8, 424, 512), "scattered"),
+    ((8, 480, 640), "coherent"), ((2, 424, 261), "coherent"), ((3, 77, 101), "coherent"),
+    ((3, 77, 101), "scattered"),
+], ids=["v2b1", "v2b8", "v2b8-scattered", "vgab8", "tile261", "odd77x101",
+        "odd77x101-scattered"])
+def test_label_sums_kernel_against_f64_and_the_product(dev, shape, kind):
+    """The label-sums kernel at every caller's width, F = 16 too, over an
+    80% mask: within 1 f32 ulp of the float64 sums and bitwise them on the
+    integer-valued columns; twice identical; against the plain version's
+    one-hot product to cuda_nasp.sums_close (integer columns exact, the
+    rest within 1e-5 of the sum of |terms|: cuBLAS accumulates in f32, the
+    kernel in double); each launch counted by form."""
+    lab = _sum_labels(dev, *shape, kind)
+    mask = torch.from_numpy(np.random.default_rng(1).random(shape) < 0.8).to(dev)
+    before = dict(cuda_nasp.launch_forms)
+    for f in SUMS_WIDTHS + (16,):
+        x = _sum_feats(dev, shape, f, seed=f)
+        got = cuda_nasp.label_sums(lab, x, mask, K_V2)
+        again = cuda_nasp.label_sums(lab, x, mask, K_V2)
+        want = _sums_f64(lab, x, mask, K_V2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f
+        assert _ulps(got, want) <= 1.0, f
+        assert torch.equal(got[..., :2], want[..., :2].float()), f
+        plain = cuda_nasp.label_sums_plain(lab, x, mask, K_V2)
+        scale = cuda_nasp.label_sums_plain(lab, x.abs(), mask, K_V2)
+        assert cuda_nasp.sums_close(got, plain, scale, (0, 1)), f
+        assert cuda_nasp.launch_forms[f"label_sums:F={f}"] - before.get(f"label_sums:F={f}", 0) == 2
+
+
+def test_label_sums_kernel_on_misaligned_pointers_and_no_mask(dev):
+    """Labels, features and mask 4, 4 and 1 bytes past their buffers'
+    starts: bitwise the aligned call; without a mask, every pixel of an id
+    in [0, K) counts."""
+    lab = _sum_labels(dev, 2, 424, 512, "coherent")
+    mask = torch.rand((2, 424, 512), device=dev) < 0.8
+    x = _sum_feats(dev, (2, 424, 512), 13)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+        return v
+
+    got = cuda_nasp.label_sums(shifted(lab), shifted(x), shifted(mask), K_V2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nasp.label_sums(lab, x, mask, K_V2))
+    whole = cuda_nasp.label_sums(lab, x, None, K_V2)
+    assert _ulps(whole, _sums_f64(lab, x, None, K_V2)) <= 1.0
+
+
+def test_label_sums_kernel_on_cancelling_features(dev):
+    """Features centred per label (a label's terms sum to ~0, as centred
+    points or normals do), on coherent labels and on one label over the
+    whole 424x512 frame (n = 217,088 terms): the kernel's header bound,
+    |out - E| <= ulp(E) / 2 + n * 2^-53 * sum|terms|, doubled in its second
+    term for the float64 reference's own error of that size.  The features
+    cancel past 1 ulp's reach (sum|terms| / |E| above 2^29 / n somewhere)."""
+    lab = _sum_labels(dev, 2, 424, 512, "coherent")
+    lab[1] = 5
+    g = torch.Generator().manual_seed(7)
+    y = (100.0 + 10.0 * torch.randn((2, 424, 512, 14), generator=g, dtype=torch.float64)
+         * torch.arange(1, 15, dtype=torch.float64)).to(dev)
+    ok = ((lab >= 0) & (lab < K_V2)).reshape(2, -1)
+    flat = torch.where(ok, lab.reshape(2, -1), 0)
+    n = _sums_f64(lab, torch.ones_like(y[..., :1]), None, K_V2)
+    mean = _sums_f64(lab, y, None, K_V2) / n.clamp_min(1.0)
+    x = (y - torch.gather(mean, 1, flat[..., None].long().expand(-1, -1, 14)).reshape(
+        y.shape)).float()
+    got = cuda_nasp.label_sums(lab, x, None, K_V2)
+    want = _sums_f64(lab, x, None, K_V2)
+    absum = _sums_f64(lab, x.abs(), None, K_V2)
+    torch.cuda.synchronize()
+    assert bool((absum * n > 2.0**29 * want.abs()).any())
+    bound = want.abs() * 2.0**-24 + n * 2.0**-52 * absum
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+def test_label_sums_kernel_identical_over_graph_replays_and_in_a_cond(dev):
+    """Inside a jit call, 10 replays on alternating inputs: each bitwise the
+    eager call; and as the global branch of with_capped_index's jit.cond
+    (a conditional node) on labels that break the cap, 10 replays bitwise
+    the eager call, the ELSE branch taken on the device."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    shape = (8, 424, 512)
+    labs = [_sum_labels(dev, *shape, "coherent", seed=s) for s in range(2)]
+    xs = [_sum_feats(dev, shape, 14, seed=s) for s in range(2)]
+    mask = torch.rand(shape, device=dev) < 0.8
+
+    def sums(lab, x, m):
+        return cuda_nasp.label_sums(lab, x, m, K_V2)
+
+    grid = GridParams(15, 20)  # divides 480x640: the cond picks the index
+    h, w = 480, 640
+    cell = slic.init_labels(grid, h, w, dev).expand(2, h, w).contiguous()
+    broken = cell.clone()
+    broken[:, : h // 2] = torch.roll(cell[:, : h // 2], shifts=w // 2, dims=-1)
+    y = _sum_feats(dev, (2, h, w), 10)
+    ym = torch.rand((2, h, w), device=dev) < 0.8
+
+    def capped(lab, x, m):
+        return slic.with_capped_index(lambda idx: idx.segment_sum(x, m), lab, grid, 3)
+
+    jit.clear()
+    try:
+        f = jit.jit(sums)
+        for i in range(10):
+            got, want = f(labs[i % 2], xs[i % 2], mask), sums(labs[i % 2], xs[i % 2], mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), i
+        g = jit.jit(capped)
+        want = capped(broken, y, ym)
+        for i in range(10):
+            assert torch.equal(g(broken, y, ym), want), i
+        assert [k["taken"] for k in jit.keys() if k["taken"]] == [[[0, 10]]]
+    finally:
+        jit.clear()
+
+
+def test_label_sums_kernel_rejects_what_it_does_not_take(dev):
+    lab = _sum_labels(dev, 1, 48, 64, "coherent")
+    x = _sum_feats(dev, (1, 48, 64), 6)
+    mask = torch.ones((1, 48, 64), dtype=torch.bool, device=dev)
+    before = dict(cuda_nasp.launches)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_sums(lab.long(), x, mask, K_V2)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_sums(lab, x.double(), mask, K_V2)
+    with pytest.raises(TypeError):
+        cuda_nasp.label_sums(lab, x, mask.to(torch.uint8), K_V2)
+    with pytest.raises(ValueError):  # shapes differ
+        cuda_nasp.label_sums(lab, x[:, :, :-1].contiguous(), mask, K_V2)
+    with pytest.raises(ValueError):
+        cuda_nasp.label_sums(lab, x, mask[:, :-1].contiguous(), K_V2)
+    with pytest.raises(ValueError):  # not contiguous
+        cuda_nasp.label_sums(lab, x.transpose(1, 2).contiguous().transpose(1, 2), mask, K_V2)
+    with pytest.raises(ValueError):  # 17 features: more than the kernel stages
+        cuda_nasp.label_sums(lab, _sum_feats(dev, (1, 48, 64), 17), mask, K_V2)
+    with pytest.raises(ValueError):  # no label
+        cuda_nasp.label_sums(lab, x, mask, 0)
+    assert cuda_nasp.launches == before
+
+
+def test_global_index_sums_build_no_onehot_on_the_kernel_route(dev):
+    """A global index over B=8 424x512 labels: its segment sums (F = 13 and
+    14) and counts on the kernel route leave the [B, H*W, K] one-hot unbuilt
+    and allocate a small share of its 2.08 GB; the "xla" route builds it.
+    The routes' sums agree to sums_close."""
+    shape = (8, 424, 512)
+    lab = _sum_labels(dev, *shape, "coherent")
+    mask = lab >= 0
+    xs = [_sum_feats(dev, shape, f, seed=f) for f in (13, 14)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    index = slic._GlobalIndex(lab, K_V2, kernel_sums=True)
+    got = [index.segment_sum(x, mask) for x in xs]
+    index.counts()
+    torch.cuda.synchronize()
+    assert index._oh is None and index._frame_oh is None
+    assert torch.cuda.max_memory_allocated() - base < 100e6
+    plain = slic._GlobalIndex(lab, K_V2, kernel_sums=False)
+    for x, g in zip(xs, got):
+        want = plain.segment_sum(x, mask)
+        scale = plain.segment_sum(x.abs(), mask)
+        assert cuda_nasp.sums_close(g, want, scale, (0, 1))
+    assert plain._oh is not None
+
+
 @pytest.mark.parametrize("residual", ["inf", "default"])
 def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual):
     """kde_pipeline on two 424x512 frames (grid 15x20 does not divide them:
-    CCL on the global index): every output bitwise the same with the
-    label-counts kernel ("auto": 2 pair launches and 1 single a call) and
-    on the "xla" route's one-hot products (none)."""
+    NASP's updates and CCL on the global index) with the global index's
+    kernels ("auto": a call launches the label counts twice in pairs and
+    once single, the label sums at F = 13 and 14 and, with the residual
+    gate, F = 2) and on the "xla" route's one-hot products (none).  Bitwise
+    alike: the JBF, the normals and NASP's labels (made before any sum),
+    and on these frames CCL's merged labels and sizes (integer counts; no
+    merge gate lies within the sums' rounding of its boundary).  The rest
+    follows the float sums, which the kernel rounds once from double and
+    the products' f32 GEMM as it accumulates (~2e-7 of the terms'
+    magnitudes apart, test_label_sums_kernel_against_f64_and_the_product):
+    points within 0.01 mm (mean 1e-4 mm), the benchmark's own limit on the
+    mean gap for this sensor (kdebench/limits/kinect_v2_tof.*), the merged
+    clusters' variances within 1e-6."""
     h, w = 424, 512
     intr = default_kinect_intrinsics(w, h)
     scenes = [make_noisy_scene(h, w, intr, seed=s) for s in (0, 1)]
@@ -1549,11 +1784,19 @@ def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual)
         out[impl] = kde_pipeline(d, c, intr, run)
         torch.cuda.synchronize()
         forms = {f: n - before.get(f, 0) for f, n in cuda_nasp.launch_forms.items()
-                 if f.startswith("label_counts")}
-        want = {"label_counts:pairs": 2, "label_counts:single": 1} if impl == "auto" else {}
-        assert {f: n for f, n in forms.items() if n} == want, impl
-    for f in out["auto"]._fields:
-        assert torch.equal(getattr(out["auto"], f), getattr(out["xla"], f)), f
+                 if f.startswith(("label_counts", "label_sums"))}
+        want = {"label_counts:pairs": 2, "label_counts:single": 1, "label_sums:F=13": 1,
+                "label_sums:F=14": 1}
+        if residual == "default":
+            want["label_sums:F=2"] = 1
+        assert {f: n for f, n in forms.items() if n} == (want if impl == "auto" else {}), impl
+    got, ref = out["auto"], out["xla"]
+    for f in ("jbf_depth", "normals", "nasp_labels", "merged_labels", "merged_sizes"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    for f in ("optimized_points", "plane_fitted"):
+        gap = (getattr(got, f) - getattr(ref, f)).abs()
+        assert float(gap.max()) <= 0.01 and float(gap.mean()) <= 1e-4, f
+    assert torch.allclose(got.merged_variance, ref.merged_variance, rtol=0.0, atol=1e-6)
 
 
 # cell-aligned tiles (c0, tile cols) of the 640x480 path's 20-column grid at

@@ -15,7 +15,10 @@ Tolerances:
     and counts EXACT, segment sums rtol 1e-6, pair existence EXACT;
   * the label counts (cuda_nasp.label_counts / label_pair_counts and the
     global index's counts and pair counts on both stats routes): EXACT
-    against a histogram of the labels counted in numpy (integers).
+    against a histogram of the labels counted in numpy (integers);
+  * the label sums (cuda_nasp.label_sums on CPU tensors and the global
+    index's segment sums on both stats routes): EXACT against the one-hot
+    product (the plain version is that product).
 """
 
 import dataclasses
@@ -34,7 +37,7 @@ from kinectdepthmapenhancement_tpu_torch.core.camera import (
 )
 from kinectdepthmapenhancement_tpu_torch.core.config import GridParams, KDEConfig
 from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
-from kinectdepthmapenhancement_tpu_torch.ops import bilateral, cuda_nasp, normals
+from kinectdepthmapenhancement_tpu_torch.ops import bilateral, cuda_nasp, normals, tables
 from kinectdepthmapenhancement_tpu_torch.ops import slic as ts
 
 torch.set_num_threads(2)
@@ -237,6 +240,39 @@ def test_label_counts_wrappers_and_global_index_routes(b, grid, ends):
             assert torch.equal(index.pair_counts(nb), pairs)
             assert torch.equal(index.counts(), counts)
             assert (index._oh is None) == kernel_sums
+
+
+@pytest.mark.parametrize("b, grid, f", [(1, GRID, 2), (3, GRID, 13),
+                                         (3, GridParams(rows=15, cols=20), 14)])
+def test_label_sums_wrapper_and_global_index_segment_sum(b, grid, f, monkeypatch):
+    """cuda_nasp.label_sums on CPU tensors is bitwise the one-hot product of
+    the masked features (the global index's product before the label-sums
+    kernel); the global index's segment_sum on a 50x70 frame takes
+    label_sums with kernel_sums, building no one-hot of its own, and
+    label_sums_plain over its one-hot without, bitwise alike."""
+    rng = np.random.default_rng(31 + b)
+    h, w = 50, 70
+    k = grid.num_clusters
+    lab = _run_labels(rng, b, h, w, k, ends=True)
+    feats = torch.from_numpy(rng.standard_normal((b, h, w, f)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((b, h, w)) < 0.7)
+    oh = tables.one_hot(lab.reshape(b, -1), k).transpose(1, 2)
+    want = tables.exact_matmul(oh, torch.where(mask[..., None], feats, 0.0).reshape(b, -1, f))
+    assert torch.equal(cuda_nasp.label_sums(lab, feats, mask, k), want)
+    assert torch.equal(cuda_nasp.label_sums_plain(lab, feats, mask, k), want)
+    assert torch.equal(cuda_nasp.label_sums(lab, feats, None, k),
+                       tables.exact_matmul(oh, feats.reshape(b, -1, f)))
+    calls = []
+    for name in ("label_sums", "label_sums_plain"):
+        fn = getattr(cuda_nasp, name)
+        monkeypatch.setattr(cuda_nasp, name,
+                            lambda *a, _n=name, _fn=fn, **kw: calls.append(_n) or _fn(*a, **kw))
+    for kernel_sums, route in ((True, "label_sums"), (False, "label_sums_plain")):
+        calls.clear()
+        index = ts._GlobalIndex(lab, k, kernel_sums=kernel_sums)
+        assert torch.equal(index.segment_sum(feats, mask), want)
+        assert calls[0] == route and calls.count("label_sums") == kernel_sums
+        assert (index._oh is None) == kernel_sums
 
 
 @pytest.mark.parametrize("stats_impl, kernel_sums", [("auto", True), ("pallas", True),
