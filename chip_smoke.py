@@ -65,10 +65,10 @@ Phases (each prints its results; any failure exits non-zero):
      (tests/golden/kde_jax_640x480_seed0.npz, golden.kde_gates; the seed
      and partition agreements printed) and against ground truth (> 200000
      valid points, mean 3-D error below the input's, depth RMSE < 10 mm);
-     hold the kernel route (stats_impl="auto") against the plain route
-     ("xla") at B=4; print the median ms per frame of both routes and the
-     profile of the kernel route by stage, with the device ms and
-     launches of each of the port's own kernels in that call;
+     hold the NASP kernels against their plain twins (golden.plain_nasp)
+     at B=4; print the median ms per frame and the profile by stage, with
+     the device ms and launches of each of the port's own kernels in that
+     call;
   5. run kde_pipeline at 96x128 (grid 3x4) and hold it against the golden
      oracle fixtures tests/golden/kde_oracle_96x128_seed0{,_refexact}.npz
      with the thresholds of tests/test_oracle_pipeline.py;
@@ -575,10 +575,14 @@ TILED_NASP_FORMS = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:t
                     "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
 _CELL_KERNELS = ("nasp_assign_analyze", "nasp_cell_sums", "label_cell_sums",
                  "label_cell_gather")
-# the global label index's kernels (its counts and pair counts, its float
-# segment sums): launched only where an index has no locality (a grid that
-# does not divide the frame, labels off the cap, locality="global")
-GLOBAL_INDEX_KERNELS = ("label_counts", "label_sums")
+# the label index's kernels keyed by the whole [K] id space: the counts and
+# pair counts of both indices (CCL's merges), and the global index's float
+# segment sums
+INDEX_KERNELS = ("label_counts", "label_sums")
+# the global label index's own kernel: launched only where an index has no
+# locality (a grid that does not divide the frame, labels off the cap,
+# locality="global")
+GLOBAL_INDEX_KERNELS = ("label_sums",)
 # each tiled case of the default config: the kernels it must not launch (by
 # counter; every other must launch), the cell and gradient forms it must
 # launch and its collectives a step (B=4 and B=1 alike).  "640": data tiles
@@ -1461,12 +1465,11 @@ def main() -> int:
         if x["cf_h"].shape[2] != int(V2_GRADIENT_TILE[4:]):
             _fail(f"the {V2_GRADIENT_TILE} form is {x['cf_h'].shape[2]} columns wide")
         # the global index's label counts as CCL's adjacency runs them on
-        # this frame: NASP's labels (plain route; the grid does not divide
-        # the frame, so the global index) and their right and down
+        # this frame: NASP's labels (the grid does not divide the frame, so
+        # the global index) and their right and down
         # neighbours, -1 past the frame; the library's keys (a * K + c, or a,
         # offset by frame, a dropped pixel at a spare slot past the tables)
-        seg = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
-            nasp_p, stats_impl="xla"))
+        seg = slic.segment(color, points, nmap, grid=grid, params=nasp_p)
         lab = seg.labels.contiguous()
         b, k = lab.shape[0], grid.num_clusters
         # the global index's float sums as NASP's updates run them on these
@@ -1520,15 +1523,15 @@ def main() -> int:
         # past the frame) and cut to the tile's columns [-rj, ws + rj)
         for tag, (nx, width) in JBF_TILES.items():
             x[f"guide_{tag}"], x[f"depth_{tag}"] = jbf_tile(depth, color, nx, width)
-        # the first NASP iteration's inputs on the plain route: seeds,
-        # candidate fields, labels, the analyze-updated cluster table
+        # the first NASP iteration's inputs: seeds, candidate fields,
+        # labels, the analyze-updated cluster table
         b = depth.shape[0]
         seeds = slic._compute_seeds(color_f, nmap, grid, h, w, 8)
         cl = slic.init_clusters(seeds, color, points, nmap)
         cand, akw = slic._assign_args(cl, grid, nasp_p, s_scale)
         labels, _, part = cuda_nasp.nasp_assign_and_analyze_plain(
             color_f, points, nmap, cand, lo=lo, hi=hi, **akw)
-        idx = slic._CellIndex(labels, grid, 4, h, w, kernel_sums=False)
+        idx = slic._CellIndex(labels, grid, 4, h, w)
         cl = slic._nasp_analyze_post(idx.fold(part), cl, points, h, w)
         xy = cl.xy.to(torch.float32)
         x.update(cand=cand, akw=akw, labels=labels,
@@ -1550,10 +1553,10 @@ def main() -> int:
                 labels, *tri, x[f"f_{mode}"], lo=lo, hi=hi, mode=mode, abs_terms=True,
                 color_sigma=nasp_p.color_sigma, spatial_sigma=nasp_p.spatial_sigma, **cell)
         x["scale_label"] = cuda_nasp.label_cell_sums_plain(labels, x["feats2"].abs(), **cell)
-        # the capped iterations' state: three NASP iterations on the plain
-        # route, every label within the cap of 5 (the r = 5 sums and gathers)
+        # the capped iterations' state: three NASP iterations, every label
+        # within the cap of 5 (the r = 5 sums and gathers)
         three = slic.segment(color, points, nmap, grid=grid, params=dataclasses.replace(
-            nasp_p, iterations=3, stats_impl="xla"))
+            nasp_p, iterations=3))
         if not bool(slic.labels_within_cap(three.labels, grid, 5, h, w).all()):
             _fail("three-iteration labels left the cap of 5")
         labels5, cl5 = three.labels, three.clusters
@@ -1583,7 +1586,7 @@ def main() -> int:
         x["scale_feats6"] = cuda_nasp.label_cell_sums_plain(labels, x["feats6"].abs(), **cell)
         x["scale_feats2_r5"] = cuda_nasp.label_cell_sums_plain(
             labels5, x["feats2_r5"].abs(), **cell5)
-        # the DASP / ERS paths' inputs (SPDSPConfig() on the plain route): the
+        # the DASP / ERS paths' inputs (SPDSPConfig()): the
         # raw frame's points, the depth SLIC's labels after one iteration
         # (r = 2) and after five (r = 3, within the cap of 3), the ERS labels
         # (r = 4, within the cap of 4); the DASP update's 10 features, the
@@ -1591,13 +1594,10 @@ def main() -> int:
         # width (F = 7)
         sp_cfg = SPDSPConfig()
         raw = projective_to_real(depth, intr).contiguous()
-        xla = dict(stats_impl="xla")
         d1 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
-            sp_cfg.depth_slic, iterations=1, **xla))
-        d5 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
-            sp_cfg.depth_slic, **xla))
-        c5 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
-            sp_cfg.color_slic, **xla))
+            sp_cfg.depth_slic, iterations=1))
+        d5 = slic.segment(color, raw, grid=grid, variant="dasp", params=sp_cfg.depth_slic)
+        c5 = slic.segment(color, raw, grid=grid, variant="dasp", params=sp_cfg.color_slic)
         ers_labels = ers.edge_refine(c5.labels, d5.labels, depth, sp_cfg.ers).labels
         for lab, cap in ((d5.labels, 3), (ers_labels, 4)):
             if not bool(slic.labels_within_cap(lab, grid, cap, h, w).all()):
@@ -1615,7 +1615,7 @@ def main() -> int:
             x[f"flat_dlabel{r_}"] = (torch.arange(b, device=dev)[:, None, None]
                                      * grid.num_clusters + lab.clamp_min(0).long()).reshape(-1)
         x["elabels"] = ers_labels
-        eidx = slic._CellIndex(ers_labels, grid, 4, h, w, kernel_sums=False)
+        eidx = slic._CellIndex(ers_labels, grid, 4, h, w)
         planes = plane.pca_planes(raw, ers_labels, grid.num_clusters, index=eidx)
         x["etable4"] = planes.nd.contiguous()
         x["etable7"] = torch.cat([planes.nd, planes.centers], -1).contiguous()
@@ -2453,8 +2453,9 @@ def main() -> int:
 
     report = {name: {"max_abs_err": 0.0} for name in kernels}
     for bsz in (1, 4):
-        x = stage_inputs(depth4[:bsz], color4[:bsz])
-        x.update(v2_inputs(vdepth4[:bsz], vcolor4[:bsz]))
+        with golden.plain_nasp():  # the inputs on the NASP kernels' plain twins
+            x = stage_inputs(depth4[:bsz], color4[:bsz])
+            x.update(v2_inputs(vdepth4[:bsz], vcolor4[:bsz]))
         torch.cuda.synchronize()
         for key in ("labels", "labels_scattered"):  # what a sums lane sees a round on
             lab = x[key]
@@ -2601,21 +2602,20 @@ def main() -> int:
     if not (int(n_valid) > 200000 and float(err_out) < float(err_in) and rmse < 10.0):
         _fail("the 640x480 quality gate")
 
-    # the stats routes: the kernels ("auto") against the plain route ("xla")
-    cfg_xla = dataclasses.replace(cfg, nasp=dataclasses.replace(nasp_p, stats_impl="xla"))
-    res_x = kde_pipeline(depth4, color4, intr, cfg_xla)
+    # the NASP kernels against their plain twins (golden.plain_nasp)
     pts4 = projective_to_real(res4.jbf_depth, intr)
-    seg = {impl: slic.segment(color4, pts4, res4.normals, grid=grid,
-                              params=dataclasses.replace(nasp_p, stats_impl=impl))
-           for impl in ("auto", "xla")}
+    seg = {"auto": slic.segment(color4, pts4, res4.normals, grid=grid, params=nasp_p)}
+    with golden.plain_nasp():
+        res_x = kde_pipeline(depth4, color4, intr, cfg)
+        seg["plain"] = slic.segment(color4, pts4, res4.normals, grid=grid, params=nasp_p)
     torch.cuda.synchronize()
     if not torch.equal(res4.nasp_labels, res_x.nasp_labels):
-        _fail("nasp_labels differ between the kernel and the xla route")
-    if not torch.equal(seg["auto"].labels, seg["xla"].labels):
-        _fail("segment labels differ between the kernel and the xla route")
+        _fail("nasp_labels differ between the kernels and their plain twins")
+    if not torch.equal(seg["auto"].labels, seg["plain"].labels):
+        _fail("segment labels differ between the kernels and their plain twins")
     for f in ("size", "xy", "rgb"):
         d = (getattr(seg["auto"].clusters, f).double()
-             - getattr(seg["xla"].clusters, f).double()).abs()
+             - getattr(seg["plain"].clusters, f).double()).abs()
         d = d.reshape(d.shape[0], d.shape[1], -1).amax(-1)
         same = float((d == 0).double().mean())
         print(f"routes: cluster {f} equal on {same:.4f} of clusters, max |d| {float(d.max()):.3g}")
@@ -2628,16 +2628,15 @@ def main() -> int:
     print(f"routes: merged-partition agreement {part:.6f} (bar > 0.995); optimized points "
           f"within 1 mm on {within:.6f} of pixels (bar > 0.99)")
     if not part > 0.995 or not within > 0.99:
-        _fail("the kernel route's outputs differ from the xla route's beyond the bar")
+        _fail("the kernels' outputs differ from their plain twins' beyond the bar")
 
     frame_ms = {}
-    for label, c_run in (("auto", cfg), ("xla", cfg_xla)):
-        for bsz in (1, 4):
-            d, c = depth4[:bsz], color4[:bsz]
-            t = cuda_ms(lambda: kde_pipeline(d, c, intr, c_run), warmup=1, iters=5)
-            frame_ms[(label, bsz)] = t / bsz
-            print(f"kde_pipeline 640x480 stats_impl={label} B={bsz}: {t:.3f} ms per call, "
-                  f"{t / bsz:.3f} ms per frame (median of 5)")
+    for bsz in (1, 4):
+        d, c = depth4[:bsz], color4[:bsz]
+        t = cuda_ms(lambda: kde_pipeline(d, c, intr, cfg), warmup=1, iters=5)
+        frame_ms[bsz] = t / bsz
+        print(f"kde_pipeline 640x480 B={bsz}: {t:.3f} ms per call, "
+              f"{t / bsz:.3f} ms per frame (median of 5)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"peak device memory: {peak:.2f} GiB")
 
@@ -2673,7 +2672,7 @@ def main() -> int:
     for bsz in (1, 4):
         d, c = depth4[:bsz], color4[:bsz]
         stage_profile(f"B={bsz}", lambda: kde_pipeline(d, c, intr, cfg),
-                      frame_ms[("auto", bsz)] * bsz)
+                      frame_ms[bsz] * bsz)
 
     # ---- phase 5: the golden oracle fixtures at 96x128
     intr_s, color_s, noisy_s = golden.scene_96x128()
@@ -2807,7 +2806,7 @@ def main() -> int:
         res_g = drive(f"iter3.global B={bsz}",
                       lambda: kde_pipeline(d, c, intr, cfg_c["global"]),
                       stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums")
-                      + GLOBAL_INDEX_KERNELS)
+                      + INDEX_KERNELS)
         check_outputs(f"iter3 B={bsz}", res_c[bsz], k_count)
         if any(f.split(":")[1] == "r5" for f in path_forms[f"iter3.global B={bsz}"]):
             _fail("the global route launched an r = 5 cell kernel")
@@ -2877,7 +2876,7 @@ def main() -> int:
     # it, so the NASP and downstream stages take the global route
     vd, vc = vdepth4[0], vcolor4[0]
     res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
-                  stencil_kernels + GLOBAL_INDEX_KERNELS,
+                  stencil_kernels + INDEX_KERNELS,
                   ("label_counts:pairs", "label_counts:single", "label_sums:F=2",
                    "label_sums:F=13", "label_sums:F=14"))
     check_outputs("kinect_v2 424x512", res_d, k_count)
@@ -3302,7 +3301,7 @@ def main() -> int:
     # kernels each evaluate row's method runs (every kde row runs all eight)
     dasp_kernels = ("cuda_gradient", "label_cell_sums", "label_cell_gather")
     row_kernels = {"input": (), "jbf": ("cuda_bilateral",), "mrf": (), "rgbf": dasp_kernels,
-                   "spdsp": dasp_kernels, "tof": dasp_kernels}
+                   "spdsp": dasp_kernels, "tof": dasp_kernels + ("label_counts",)}
 
     def drive_rows(tag, fn):
         """fn() (an evaluate call, or the command that makes one) from counts
@@ -3905,10 +3904,10 @@ def main() -> int:
                 extra_forms = {
                     f: run["capture_forms"].get(f, 0) - run["eager_forms"].get(f, 0)
                     for f in set(run["capture_forms"]) | set(run["eager_forms"])
-                    if f.startswith(GLOBAL_INDEX_KERNELS)}
+                    if f.startswith(INDEX_KERNELS)}
                 extra_forms = {f: v for f, v in extra_forms.items() if v}
                 want_extra = {k: sum(v for f, v in want_forms.items() if f.startswith(k + ":"))
-                              for k in GLOBAL_INDEX_KERNELS}
+                              for k in INDEX_KERNELS}
                 if extra != {k: v for k, v in want_extra.items() if v} or extra_forms != want_forms:
                     wrong.append(f"the capture launched {run['capture_counts']} (label-count "
                                  f"forms beyond the eager step {extra_forms}, want {want_forms}), "
@@ -4030,7 +4029,7 @@ def main() -> int:
             **({"b8": label_sums_at_b8} if row == "label_sums" else {}),
         })
     print("kde ms per frame: " + "  ".join(
-        f"{label} B={bsz} {ms:.3f}" for (label, bsz), ms in frame_ms.items()))
+        f"B={bsz} {ms:.3f}" for bsz, ms in frame_ms.items()))
     print(json.dumps({"kernels": out}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

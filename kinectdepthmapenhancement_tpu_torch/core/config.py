@@ -10,13 +10,11 @@ All dataclasses are hashable/frozen so they can be static jit arguments.
 
 PyTorch port: a field-for-field copy of kinectdepthmapenhancement_tpu's
 core/config.py (same names, same defaults; convert.config_from_jax carries
-an instance across).  `stats_impl` is read, with the JAX package's
-meaning: "auto" and "pallas" route NASP's statistics and the cell index
-through the kernel wrappers of ops/cuda_nasp.py, "xla" through their plain
-versions on every device (ops/slic.py).  `grad_impl`, `cov_impl` and
-`dt_impl` are kept for the correspondence but not read: those wrappers
-always take the kernel on the card.  Every wrapper takes its plain PyTorch
-version for a CPU tensor.
+an instance across).  `grad_impl`, `cov_impl`, `dt_impl` and
+`stats_impl` are kept for the correspondence but not read (ops/slic.py
+checks that `stats_impl` is one of the JAX package's values): every kernel
+wrapper takes the kernel for a CUDA tensor and its plain PyTorch version
+for a CPU tensor.
 """
 
 from __future__ import annotations

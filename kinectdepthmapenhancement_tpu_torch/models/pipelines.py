@@ -17,8 +17,8 @@ PyTorch counterpart of the JAX package's models/pipelines.py:
 
 On a CUDA device the stencil stages run in the port's hand-written kernels
 (JBF, chamfer DT, covariance sweep, seed gradient in its NASP and colour
-forms) and, on the default stats_impl="auto" route, so do NASP's
-statistics and every cell-local gather and segment sum (ops/cuda_nasp.py);
+forms) and so do NASP's statistics and every label index's gather, sum
+and count (ops/cuda_nasp.py; the global index's gather is an index op);
 everything else is plain PyTorch (ERS, the MRF baseline and sweeps, the
 SDC and bilateral normals and the assignment sweeps of SP / DASP have no
 TPU kernel).  On the CPU every stage is plain
@@ -304,8 +304,8 @@ def _with_local_index(fn, labels: torch.Tensor, cfg):
     otherwise.  The JAX lax.cond is slic.with_capped_index's: a device check
     read on the host (one sync) when eager, a conditional node with fn on
     each index as its branches in a jit call, so fn returns tensors only.
-    Follows cfg.depth_slic's stats_impl and locality ("cell" skips the
-    check, "global" takes the global index)."""
+    Checks cfg.depth_slic's stats_impl and follows its locality ("cell"
+    skips the check, "global" takes the global index)."""
     p = cfg.depth_slic
     return slic.with_capped_index(fn, labels, cfg.grid, _LOCAL_CAP, stats_impl=p.stats_impl,
                                   locality=p.locality)

@@ -13,8 +13,9 @@ here works per (frame, cell) in that candidate space:
   nasp_assign_and_analyze  the first NASP assignment fused with the analyze
                            sums of the labels it produces.
 
-Two kernels here are keyed by the whole [K] id space instead, for labels
-with no locality (slic._GlobalIndex):
+Two kernels here are keyed by the whole [K] id space instead: the label
+counts of both label indices (slic._IndexBase) and the float sums of the
+one for labels with no locality (slic._GlobalIndex):
 
   label_counts             pixels per label ([B, K], label_counts) or per
                            label pair ([B, K, K], label_pair_counts), a
@@ -44,7 +45,7 @@ Candidate order is dy-major (slot j = (dy + r) * 2r + (dx + r)), -9 marks an
 out-of-grid candidate; feature order is the JAX package's feats layout
 (slic.py:1182-1190, :1272-1282).  Sums come back as [B, rows*cols*n, F]
 partials; the caller folds them to clusters with the candidate one-hot
-(_CellIndex.fold) on either route.  The label counts come back whole.
+(_CellIndex.fold).  The label counts come back whole.
 
 Width tiles (parallel/sharding.py's tiled route): every function takes
 the tile's first cell column c0 and its cell columns tile_cols (default 0
@@ -55,9 +56,10 @@ tile's [B, rows*tile_cols*n, F] partials, which the caller gathers over
 the tiles in cell order before the fold.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  The plain versions are the port's one-hot-product route cut at the
-kernel's output (every product through tables.exact_matmul).  Kernel
-source: csrc/nasp.cu.
+raises.  The plain versions are one-hot products cut at the kernel's output
+(every product through tables.exact_matmul); the card's tests hold the
+kernels against them, swapped in for the wrappers by
+utils/golden.plain_nasp.  Kernel source: csrc/nasp.cu.
 """
 
 from __future__ import annotations
@@ -178,16 +180,16 @@ def _check_cells(h: int, w: int, rows: int, cols: int) -> None:
 
 def label_cell_gather_plain(
     labels: torch.Tensor, table: torch.Tensor, *, rows: int, cols: int, r: int,
-    oh: Optional[torch.Tensor] = None, c0: int = 0, tile_cols: Optional[int] = None,
+    c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """labels [B, H, W] i32, table [B, K, F] -> [B, H, W, F]: each pixel's
     label row, 0 for labels outside the candidate set (-1 included).  A
-    one-hot product, exact (one 1 per row).  `oh`: cell_onehot, if built."""
+    one-hot product, exact (one 1 per row)."""
     b, h, w = labels.shape
     c0, tc = tile_cells(cols, c0, tile_cols)
     _check_cells(h, w, rows, tc)
     f = table.shape[-1]
-    oh = cell_onehot(labels, rows, cols, r, c0, tc) if oh is None else oh
+    oh = cell_onehot(labels, rows, cols, r, c0, tc)
     n = oh.shape[-1]
     cand = tile_cand_grid(rows, cols, candidate_offsets(r), labels.device, c0, tc)
     ct = tables.gather(table.to(torch.float32), cand.reshape(1, -1).expand(b, -1))
@@ -198,7 +200,7 @@ def label_cell_gather_plain(
 
 def label_cell_sums_plain(
     labels: torch.Tensor, feats: torch.Tensor, *, rows: int, cols: int, r: int,
-    oh: Optional[torch.Tensor] = None, c0: int = 0, tile_cols: Optional[int] = None,
+    c0: int = 0, tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """labels [B, H, W] i32, feats [B, H, W, F] (already masked) ->
     [B, rows*tc*n, F] per-(cell, candidate) sums: oh^T @ feats per cell."""
@@ -206,50 +208,40 @@ def label_cell_sums_plain(
     c0, tc = tile_cells(cols, c0, tile_cols)
     _check_cells(h, w, rows, tc)
     f = feats.shape[-1]
-    oh = cell_onehot(labels, rows, cols, r, c0, tc) if oh is None else oh
+    oh = cell_onehot(labels, rows, cols, r, c0, tc)
     n = oh.shape[-1]
     fb = to_cells(feats.to(torch.float32), rows, tc).reshape(b * rows * tc, -1, f)
     part = tables.exact_matmul(oh.reshape(b * rows * tc, -1, n).transpose(1, 2), fb)
     return part.reshape(b, -1, f)
 
 
-def label_pair_counts_plain(
-    labels_a: torch.Tensor, labels_b: torch.Tensor, k: int,
-    oh_a: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+def label_pair_counts_plain(labels_a: torch.Tensor, labels_b: torch.Tensor, k: int) -> torch.Tensor:
     """[B, K, K] f32: pixels whose labels are (a, c) in labels_a and
     labels_b ([B, ...] i32 of one shape), either outside [0, K) dropped: the
-    one-hot product oh_a^T @ oh_b.  `oh_a`: labels_a's [B, N, K] one-hot,
-    if built."""
+    one-hot product oh_a^T @ oh_b."""
     b = labels_a.shape[0]
-    oh_a = tables.one_hot(labels_a.reshape(b, -1), k) if oh_a is None else oh_a
+    oh_a = tables.one_hot(labels_a.reshape(b, -1), k)
     oh_b = tables.one_hot(labels_b.reshape(b, -1), k)
     return tables.exact_matmul(oh_a.transpose(1, 2), oh_b)
 
 
-def label_counts_plain(
-    labels: torch.Tensor, k: int, oh: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+def label_counts_plain(labels: torch.Tensor, k: int) -> torch.Tensor:
     """[B, K] f32: pixels per label of labels [B, ...] i32, labels outside
-    [0, K) dropped: the one-hot's sum.  `oh`: its [B, N, K] one-hot, if
-    built."""
-    oh = tables.one_hot(labels.reshape(labels.shape[0], -1), k) if oh is None else oh
-    return oh.sum(dim=1)
+    [0, K) dropped: the one-hot's sum."""
+    return tables.one_hot(labels.reshape(labels.shape[0], -1), k).sum(dim=1)
 
 
 def label_sums_plain(
     labels: torch.Tensor, feats: torch.Tensor, mask: Optional[torch.Tensor], k: int,
-    oh: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[B, K, F] f32: per label of labels [B, ...] i32 the sum of feats
     [B, ..., F] over mask [B, ...] bool (None: every pixel), labels outside
-    [0, K) dropped: the one-hot product oh^T @ where(mask, feats, 0).
-    `oh`: labels' [B, N, K] one-hot, if built."""
+    [0, K) dropped: the one-hot product oh^T @ where(mask, feats, 0)."""
     b, f = labels.shape[0], feats.shape[-1]
     fm = feats.to(torch.float32)
     if mask is not None:
         fm = torch.where(mask[..., None], fm, 0.0)
-    oh = tables.one_hot(labels.reshape(b, -1), k) if oh is None else oh
+    oh = tables.one_hot(labels.reshape(b, -1), k)
     return tables.exact_matmul(oh.transpose(1, 2), fm.reshape(b, -1, f))
 
 
@@ -306,15 +298,15 @@ def nasp_features(
 
 def nasp_cell_sums_plain(
     labels, color_f, points, normals, cand_fields, *, rows, cols, r, lo, hi, mode,
-    color_sigma=1.0, spatial_sigma=1.0, oh: Optional[torch.Tensor] = None,
-    abs_terms: bool = False, c0: int = 0, tile_cols: Optional[int] = None,
+    color_sigma=1.0, spatial_sigma=1.0, abs_terms: bool = False, c0: int = 0,
+    tile_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of nasp_cell_sums: gather the cluster fields, form the
     features, sum them per (cell, candidate).  abs_terms: sum |feature|
     instead, the scale of each sum for sums_close."""
     b, _, w = labels.shape
     c0, tc = tile_cells(cols, c0, tile_cols)
-    kw = dict(rows=rows, cols=cols, r=r, oh=oh, c0=c0, tile_cols=tc)
+    kw = dict(rows=rows, cols=cols, r=r, c0=c0, tile_cols=tc)
     table = cand_fields.reshape(b, rows * cols, cand_fields.shape[-1])
     sel = label_cell_gather_plain(labels, table, **kw)
     feats = nasp_features(

@@ -23,20 +23,20 @@ NormalAdaptiveSuperpixel in the reference).  NASP:
     offsets) gives the global sweep's labels; on an H100 it took 1.8x
     the global sweep's time, so the port sweeps the global way;
   * cluster update: per-(cell, candidate) sums over cell-local labels
-    (_CellIndex) or one-hot products over the whole [K] id space
+    (_CellIndex) or per-label sums over the whole [K] id space
     (_GlobalIndex), then the analyze and weighted post-processing.  No
     float atomics, so every sum is deterministic.
 
-SLICParams.stats_impl picks the route, with the JAX package's meaning:
-"auto" / "pallas" run the cell-local sums and gathers through
-ops/cuda_nasp.py (the first iteration's fused assignment + analyze kernel,
-the NASP sums kernel at r = 4 and, on the capped route, r = 5, and the
-label-cell kernels; each wrapper takes its plain version for CPU tensors,
-and the global index's label and label-pair counts through the
-label-counts kernel); "xla" runs their plain versions on every device.  The
-global route's assignment and float sums and the later iterations'
-assignments are plain PyTorch on every route: the JAX package has no
-Pallas kernel there.
+Every gather, sum and count of a label index, and the first NASP
+iteration's fused assignment, goes through the wrappers of
+ops/cuda_nasp.py, which alone pick the device's version: the CUDA kernel
+for a CUDA tensor (the fused assignment + analyze kernel, the NASP sums
+kernel at r = 4 and, on the capped route, r = 5, the label-cell kernels,
+and the global index's label-sums and label-counts kernels), the plain
+version for a CPU one.  SLICParams.stats_impl is checked ("auto", "pallas"
+or "xla", as in the JAX package) and not read.  The global route's
+assignment and the later iterations' assignments are plain PyTorch on
+every device.
 
 On a width tile (parallel/sharding.py's tiled route, segment_tile and a
 label index with a `tile`), NASP runs on the tile's pixels with the cluster
@@ -185,21 +185,51 @@ class CellTile(Protocol):
     haloed: Callable[[torch.Tensor, int], tuple]
 
 
-class _CellIndex:
+class _IndexBase:
+    """What both label indices do alike over their labels (the tile's, on
+    a tile): pixel lookups at global pixels, and the pixel and pixel-pair
+    counts keyed by the whole [K] id space through cuda_nasp.label_counts /
+    label_pair_counts.  The counts are integers below 2^24, exact in f32 in
+    any order, so on a tile each tile counts its own pixels and the group
+    sums the tables (CellTile.sum_counts): bitwise the unsharded counts."""
+
+    labels: torch.Tensor
+    k: int
+    tile: Optional[CellTile]
+
+    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """img[b, y[b, k], x[b, k]] -> [B, K, ...] at global pixels (from the
+        tile that holds each, on a tile)."""
+        if self.tile is None:
+            return _at_pixels(img, x, y)
+        return self.tile.pixels_at(img, x, y)
+
+    def _summed(self, counts: torch.Tensor) -> torch.Tensor:
+        return counts if self.tile is None else self.tile.sum_counts(counts)
+
+    def counts(self) -> torch.Tensor:
+        """Pixels per label [B, K] f32 (labels < 0 dropped)."""
+        return self._summed(cuda_nasp.label_counts(self.labels, self.k))
+
+    def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
+        """[B, K, K] f32: occurrences of (own label, labels_b) pixel pairs;
+        pairs with either side < 0 are dropped."""
+        return self._summed(
+            cuda_nasp.label_pair_counts(self.labels, labels_b.contiguous(), self.k))
+
+
+class _CellIndex(_IndexBase):
     """Cell-local label index.  Valid ONLY when every label is either -1 or
     drawn from its pixel's cell-grid (2r)^2 neighbourhood — which holds after
     the first assignment sweep (whose candidate set is exactly that).
 
-    gather:      out = table[label] over the pixel's cell candidates;
-    segment sum: per-(cell, candidate) partials [B, rows*cols*n, F], then a
-                 tiny [r*c*n, K] one-hot product folds candidates back to
-                 clusters (fold).
-    kernel_sums (the "auto" / "pallas" stats route) sends gathers and
-    partials through ops/cuda_nasp.py's wrappers (the CUDA kernels on the
-    card, their plain versions on the CPU); False (the "xla" route) runs the
-    plain one-hot products on every device.  Every product is an f32 matmul
-    with TF32 off (tables.exact_matmul): gathers are exact and sums
-    deterministic on both routes.
+    gather:      out = table[label] over the pixel's cell candidates
+                 (cuda_nasp.label_cell_gather);
+    segment sum: per-(cell, candidate) partials [B, rows*cols*n, F]
+                 (cuda_nasp.label_cell_sums), then a tiny [r*c*n, K]
+                 one-hot product folds candidates back to clusters (fold).
+    Every product is an f32 matmul with TF32 off (tables.exact_matmul):
+    gathers are exact and sums deterministic.
 
     tile (a CellTile): labels are the tile's [B, H, ws]; gathers stay on
     the tile, and the per-cell partials of every sum are gathered over the
@@ -208,7 +238,7 @@ class _CellIndex:
 
     def __init__(
         self, labels: torch.Tensor, grid: GridParams, r: int, h: int, w: int,
-        *, kernel_sums: bool = True, tile: Optional[CellTile] = None,
+        *, tile: Optional[CellTile] = None,
     ):
         self.rows, self.cols = grid.rows, grid.cols
         self.k = grid.num_clusters
@@ -216,7 +246,6 @@ class _CellIndex:
         self.r = r
         self.labels = labels.contiguous()
         self.b = labels.shape[0]
-        self.kernel_sums = kernel_sums
         self.tile = tile
         # the cell columns this index's labels cover
         self.c0, self.tc = (0, self.cols) if tile is None else (tile.c0, tile.cols)
@@ -224,22 +253,8 @@ class _CellIndex:
             self.rows, self.cols, cuda_nasp.candidate_offsets(r), labels.device
         )  # [rows, cols, n]
         self.n = self.cand.shape[-1]
-        self._oh: Optional[torch.Tensor] = None
         self.cand_flat = self.cand.reshape(-1)
         self.oh_k = tables.one_hot(self.cand_flat, self.k)  # [rows*cols*n, K]
-
-    @property
-    def oh(self) -> torch.Tensor:
-        """[B, rows, tc, P, n] f32 cell one-hot, built on first use: the
-        kernel route reads it only for counts() and pair_counts()."""
-        if self._oh is None:
-            self._oh = cuda_nasp.cell_onehot(
-                self.labels, self.rows, self.cols, self.r, self.c0, self.tc)
-        return self._oh
-
-    def _cells_flat(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, rows, tc, ...] -> [B*rows*tc, ...]."""
-        return x.reshape((self.b * self.rows * self.tc,) + tuple(x.shape[3:]))
 
     def _geometry(self) -> dict:
         return dict(rows=self.rows, cols=self.cols, r=self.r, c0=self.c0, tile_cols=self.tc)
@@ -254,22 +269,11 @@ class _CellIndex:
         cells = self.tile.gather_cells(part.reshape(self.b, self.rows, self.tc, self.n, f))
         return cells.reshape(self.b, -1, f)
 
-    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """img[b, y[b, k], x[b, k]] -> [B, K, ...] at global pixels (from the
-        tile that holds each, on a tile)."""
-        if self.tile is None:
-            return _at_pixels(img, x, y)
-        return self.tile.pixels_at(img, x, y)
-
     def gather(self, table: torch.Tensor) -> torch.Tensor:
         """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for labels
         outside the candidate set (-1 included)."""
         table = table.to(torch.float32).contiguous()
-        if self.kernel_sums:
-            return cuda_nasp.label_cell_gather(self.labels, table, **self._geometry())
-        return cuda_nasp.label_cell_gather_plain(
-            self.labels, table, oh=self.oh, **self._geometry()
-        )
+        return cuda_nasp.label_cell_gather(self.labels, table, **self._geometry())
 
     def fold(self, part: torch.Tensor) -> torch.Tensor:
         """Per-(cell, candidate) partials [B, rows*tc*n, F] of the labels'
@@ -279,104 +283,37 @@ class _CellIndex:
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
         fm = (feats * mask[..., None]).to(torch.float32).contiguous()
-        if self.kernel_sums:
-            part = cuda_nasp.label_cell_sums(self.labels, fm, **self._geometry())
-        else:
-            part = cuda_nasp.label_cell_sums_plain(
-                self.labels, fm, oh=self.oh, **self._geometry()
-            )
-        return self.fold(part)
-
-    def counts(self) -> torch.Tensor:
-        """Pixels per label [B, K] f32: per-cell candidate histograms folded
-        to clusters by the tiny K one-hot (no kernel on either route, as in
-        the JAX package)."""
-        per = self.oh.sum(dim=3)  # [B, rows, cols, n]
-        return self.fold(per.reshape(self.b, -1, 1))[..., 0]
-
-    def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
-        """[B, K, K] f32: POSITIVE where an (own label, labels_b) pixel pair
-        exists, 0 elsewhere (existence indicators: intermediates are
-        thresholded to 0/1; the CCL consumer only tests > 0).
-
-        labels_b must be a <=1-pixel shift of cell-local labels, so its
-        values lie in the enlarged (2r+1)^2 candidate set of each pixel's
-        cell.  Pairs accumulate per cell in candidate coordinates, then fold
-        to [K, K] through the candidate one-hots.  On a tile each tile folds
-        its own cells and the group sums the [B, K, K] counts: integers
-        below 2^24, exact in any order, so bitwise the fold over every cell
-        (a [B, K, K] payload where the per-cell indicators would be
-        rows*tc*n x K)."""
-        r, k = self.r, self.k
-        rc = self.rows * self.tc  # the labels' cells
-        offs_b = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
-        nb = len(offs_b)
-        cand_b = cuda_nasp.tile_cand_grid(
-            self.rows, self.cols, offs_b, labels_b.device, self.c0, self.tc)
-        lb_b = cuda_nasp.to_cells(labels_b[..., None], self.rows, self.tc)[..., 0]
-        oh_b = (lb_b[..., None] == cand_b[:, :, None, :]).to(torch.float32)
-        m = tables.exact_matmul(
-            self._cells_flat(self.oh).transpose(1, 2), self._cells_flat(oh_b)
-        )  # [B*rc, n, nb]
-        m = (m > 0.0).to(torch.float32).reshape(self.b, rc, self.n, nb)
-        oh_bk = tables.one_hot(cand_b, k).reshape(rc, nb, k)
-        cand_a = self.cand[:, self.c0:self.c0 + self.tc]
-        oh_ak = tables.one_hot(cand_a, k).reshape(rc * self.n, k)
-        t = tables.exact_matmul(m, oh_bk)  # [B, rc, n, K]; counts <= nb, exact
-        t = (t > 0.0).to(torch.float32).reshape(self.b, rc * self.n, k)
-        # integer counts < 2^24, exact in f32
-        counts = tables.exact_matmul(oh_ak.transpose(0, 1), t)
-        return counts if self.tile is None else self.tile.sum_counts(counts)
+        return self.fold(cuda_nasp.label_cell_sums(self.labels, fm, **self._geometry()))
 
 
-class _GlobalIndex:
+class _GlobalIndex(_IndexBase):
     """Per-pixel gathers and segment sums keyed by the whole [K] cluster id
     space (the JAX package's slic._GlobalIndex), for labels with no
     locality guarantee: grids that do not divide the frame, and later
     iterations whose labels left the cap.  Gathers are exact index ops.
-    With kernel_sums (the "auto" / "pallas" stats route) the reductions go
-    through ops/cuda_nasp.py: segment_sum through label_sums (on the card
-    csrc/nasp.cu's label-sums kernel: double sums in a fixed order rounded
-    once, no float atomics, so bitwise the same from run to run and within
-    1 ulp of the exact sums unless the terms cancel (the bound in the
-    kernel's header), not bitwise the one-hot product), counts() and
-    pair_counts() through label_counts / label_pair_counts (the label-counts
-    kernel: exact f32 atomics, so bitwise the products); on the CPU each
-    takes its plain version, the one-hot product.  Without kernel_sums
-    ("xla") every reduction is a product with the [B, H*W, K] f32 one-hot
-    through tables.exact_matmul (TF32 off, deterministic on every device),
-    the one-hot built on first use (0.37 GB a 640x480 frame at K = 300) and
-    kept for the index's later reductions; the kernel route builds none.
+    segment_sum goes through cuda_nasp.label_sums: on the card csrc/nasp.cu's
+    label-sums kernel (double sums in a fixed order rounded once, no float
+    atomics, so bitwise the same from run to run and within 1 ulp of the
+    exact sums unless the terms cancel (the bound in the kernel's header),
+    not bitwise the one-hot product); on the CPU its plain version, the
+    product with the [B, H*W, K] f32 one-hot through tables.exact_matmul.
 
     tile (a CellTile): labels are the tile's [B, H, ws] at global columns
     [tile.x0, tile.x0 + ws); gathers and pixel lookups stay on the tile,
     counts and pair counts are the tile's own (its labels and, for CCL's
     right neighbours, its right_labels column) summed over the group
-    (integers, exact), and each float segment sum gathers the group's
-    masked features and sums the whole frame on every rank, on either
-    route (the unsharded call on the unsharded input, so bitwise; the
-    frame's labels are gathered once, on first use)."""
+    (_IndexBase), and each float segment sum gathers the group's masked
+    features and sums the whole frame on every rank (the unsharded call on
+    the unsharded input, so bitwise; the frame's labels are gathered once,
+    on first use)."""
 
-    def __init__(
-        self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None, *,
-        kernel_sums: bool = True,
-    ):
+    def __init__(self, labels: torch.Tensor, k: int, tile: Optional[CellTile] = None):
         self.labels = labels.contiguous()
         self.k = k
         self.b = labels.shape[0]
         self.tile = tile
-        self.kernel_sums = kernel_sums
         self.x0 = 0 if tile is None else tile.x0
-        self._oh: Optional[torch.Tensor] = None
         self._frame: Optional[torch.Tensor] = None
-        self._frame_oh: Optional[torch.Tensor] = None
-
-    @property
-    def oh(self) -> torch.Tensor:
-        """[B, H*W, K] f32 one-hot of this index's labels (the tile's)."""
-        if self._oh is None:
-            self._oh = tables.one_hot(self.labels.reshape(self.b, -1), self.k)
-        return self._oh
 
     def _frame_labels(self) -> torch.Tensor:
         """The whole frames' labels (gathered on a tile)."""
@@ -386,24 +323,9 @@ class _GlobalIndex:
             self._frame = self.tile.gather_width(self.labels).contiguous()
         return self._frame
 
-    def _frame_onehot(self) -> torch.Tensor:
-        """The one-hot of the whole frames' labels (gathered on a tile)."""
-        if self.tile is None:
-            return self.oh
-        if self._frame_oh is None:
-            self._frame_oh = tables.one_hot(self._frame_labels().reshape(self.b, -1), self.k)
-        return self._frame_oh
-
     def gather(self, table: torch.Tensor) -> torch.Tensor:
         """[B, K, F] -> [B, H, W, F]: each pixel's label row, 0 for -1."""
         return tables.gather(table.to(torch.float32), self.labels)
-
-    def pixels_at(self, img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """img[b, y[b, k], x[b, k]] -> [B, K, ...] at global pixels (from the
-        tile that holds each, on a tile)."""
-        if self.tile is None:
-            return _at_pixels(img, x, y)
-        return self.tile.pixels_at(img, x, y)
 
     def segment_sum(self, feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """[B, H, W, F] features summed per label over `mask` -> [B, K, F]."""
@@ -413,29 +335,7 @@ class _GlobalIndex:
             mask = None
         else:
             mask = mask.contiguous()
-        if self.kernel_sums:
-            return cuda_nasp.label_sums(self._frame_labels(), feats.contiguous(), mask, self.k)
-        return cuda_nasp.label_sums_plain(
-            self._frame_labels(), feats, mask, self.k, oh=self._frame_onehot())
-
-    def _summed(self, counts: torch.Tensor) -> torch.Tensor:
-        return counts if self.tile is None else self.tile.sum_counts(counts)
-
-    def counts(self) -> torch.Tensor:
-        """Pixels per label [B, K] f32 (labels < 0 dropped)."""
-        if self.kernel_sums:
-            return self._summed(cuda_nasp.label_counts(self.labels, self.k))
-        return self._summed(cuda_nasp.label_counts_plain(self.labels, self.k, oh=self.oh))
-
-    def pair_counts(self, labels_b: torch.Tensor) -> torch.Tensor:
-        """[B, K, K] f32: occurrences of (own label, labels_b) pixel pairs;
-        pairs with either side < 0 are dropped.  Integer counts < 2^24,
-        exact in f32."""
-        labels_b = labels_b.contiguous()
-        if self.kernel_sums:
-            return self._summed(cuda_nasp.label_pair_counts(self.labels, labels_b, self.k))
-        return self._summed(
-            cuda_nasp.label_pair_counts_plain(self.labels, labels_b, self.k, oh_a=self.oh))
+        return cuda_nasp.label_sums(self._frame_labels(), feats.contiguous(), mask, self.k)
 
 
 def grid_divides(grid: GridParams, h: int, w: int) -> bool:
@@ -493,16 +393,12 @@ def _within_cap(labels: torch.Tensor, grid: GridParams, cap: int, h: int, w: int
     return bool(_cap_verdict(labels, grid, cap, h, w))
 
 
-def _stats_impl_on(stats_impl: str) -> bool:
-    """SLICParams.stats_impl as a route: "auto" and "pallas" take the NASP
-    kernel wrappers of ops/cuda_nasp.py (the CUDA kernels for CUDA tensors,
-    their plain versions for CPU ones), "xla" the plain one-hot-product
-    route on every device.  Anything else raises."""
-    if stats_impl in ("auto", "pallas"):
-        return True
-    if stats_impl == "xla":
-        return False
-    raise ValueError(f"stats_impl must be 'auto', 'pallas' or 'xla', got {stats_impl!r}")
+def _check_stats_impl(stats_impl: str) -> None:
+    """SLICParams.stats_impl, checked and not read: "auto", "pallas" and
+    "xla" (the JAX package's values) all take the cuda_nasp wrappers, which
+    pick the device's version themselves.  Anything else raises."""
+    if stats_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"stats_impl must be 'auto', 'pallas' or 'xla', got {stats_impl!r}")
 
 
 LabelIndex = Union[_CellIndex, _GlobalIndex]
@@ -515,16 +411,15 @@ def cell_index(
     """Index for downstream ops (CCL, plane) over single-iteration SLIC
     labels [B, H, W]: cell-local, or the global one when the grid does not
     divide the frame (the JAX package's cell_index gives None there and its
-    callers take the global route); `stats_impl` picks the route of the
-    cell-local gathers and segment sums and of the global index's counts
-    (_stats_impl_on).  With a tile the labels are the tile's, the frame
+    callers take the global route); `stats_impl` is checked
+    (_check_stats_impl).  With a tile the labels are the tile's, the frame
     tile.width wide."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
-    kernel_sums = _stats_impl_on(stats_impl)
+    _check_stats_impl(stats_impl)
     if not grid_divides(grid, h, w):
-        return _GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel_sums)
-    return _CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums, tile=tile)
+        return _GlobalIndex(labels, grid.num_clusters, tile=tile)
+    return _CellIndex(labels, grid, neighborhood // 2, h, w, tile=tile)
 
 
 def with_capped_index(
@@ -548,13 +443,13 @@ def with_capped_index(
     only when the device takes it; a direct call is no stage."""
     h, w = labels.shape[-2:]
     w = w if tile is None else tile.width
-    kernel_sums = _stats_impl_on(stats_impl)
+    _check_stats_impl(stats_impl)
 
     def cell():
-        return fn(_CellIndex(labels, grid, cap, h, w, kernel_sums=kernel_sums, tile=tile))
+        return fn(_CellIndex(labels, grid, cap, h, w, tile=tile))
 
     def whole():
-        return fn(_GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel_sums))
+        return fn(_GlobalIndex(labels, grid.num_clusters, tile=tile))
 
     if not grid_divides(grid, h, w) or locality == "global":
         return whole()
@@ -955,11 +850,9 @@ def _assign_global(
 def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mode):
     """[B, K, 13|14] cluster sums of the NASP update `mode` over idx.labels.
     On a _CellIndex: per-(cell, candidate) partials from
-    cuda_nasp.nasp_cell_sums (when idx.kernel_sums, the "auto"/"pallas"
-    route) or its plain version (the "xla" route), folded to clusters by the
-    candidate one-hot.  On a _GlobalIndex: the same features
-    (cuda_nasp.nasp_features) from a per-pixel gather of the cluster
-    fields, summed by the [K] one-hot."""
+    cuda_nasp.nasp_cell_sums, folded to clusters by the candidate one-hot.
+    On a _GlobalIndex: the same features (cuda_nasp.nasp_features) from a
+    per-pixel gather of the cluster fields, summed by its segment_sum."""
     lo, hi = window_range
     xy = clusters.xy.to(torch.float32)
     fields = xy if mode == "analyze" else torch.cat([xy, clusters.rgb, clusters.normal], dim=-1)
@@ -975,38 +868,29 @@ def _nasp_sums(idx, clusters, color_f, points, normals, window_range, params, mo
         color_sigma=params.color_sigma, spatial_sigma=params.spatial_sigma, c0=idx.c0,
         tile_cols=idx.tc,
     )
-    args = (idx.labels, color_f, points, normals, fields)
-    if idx.kernel_sums:
-        part = cuda_nasp.nasp_cell_sums(*args, **kw)
-    else:
-        part = cuda_nasp.nasp_cell_sums_plain(*args, oh=idx.oh, **kw)
-    return idx.fold(part)
+    return idx.fold(cuda_nasp.nasp_cell_sums(idx.labels, color_f, points, normals, fields, **kw))
 
 
 def _nasp_fused_first_iteration(
-    clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w, *, kernel,
+    clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w, *,
     tile: Optional[CellTile] = None,
 ):
     """First NASP iteration's assignment (calculateLD_NASP) and analyze
     update (analyzeClusters_NASP, NormalAdaptiveSuperpixel.cu:356-685): a
     pixel's 3-D point / normal count when z > 50 and the normal is valid
-    (OR-validity).  `kernel` (the "auto"/"pallas" route) runs both in one
-    call of cuda_nasp.nasp_assign_and_analyze (JAX slic.py:1010-1064);
-    otherwise ("xla") its plain version runs on every device.  On a tile
-    the frame is the tile's and h, w the whole frame's.  Returns (labels,
-    distance, analyze-updated clusters, idx)."""
+    (OR-validity), both in one call of cuda_nasp.nasp_assign_and_analyze
+    (JAX slic.py:1010-1064).  On a tile the frame is the tile's and h, w
+    the whole frame's.  Returns (labels, distance, analyze-updated
+    clusters, idx)."""
     lo, hi = window_range
     cand_fields, kw = _assign_args(clusters, grid, params, s_scale)
     if tile is not None:
         kw.update(c0=tile.c0, tile_cols=tile.cols)
-    fused = (
-        cuda_nasp.nasp_assign_and_analyze if kernel
-        else cuda_nasp.nasp_assign_and_analyze_plain
-    )
-    labels, distance, part = fused(color_f, points, normals, cand_fields, lo=lo, hi=hi, **kw)
+    labels, distance, part = cuda_nasp.nasp_assign_and_analyze(
+        color_f, points, normals, cand_fields, lo=lo, hi=hi, **kw)
     # after the first sweep labels come from the cell's candidate set, so
     # one cell-local index serves every gather / segment sum of the update
-    idx = _CellIndex(labels, grid, kw["r"], h, w, kernel_sums=kernel, tile=tile)
+    idx = _CellIndex(labels, grid, kw["r"], h, w, tile=tile)
     clusters = _nasp_analyze_post(idx.fold(part), clusters, points, h, w, idx.pixels_at)
     return labels, distance, clusters, idx
 
@@ -1217,7 +1101,7 @@ def segment(
     seed_window, neighborhood, _ = _variant(variant)
     if params.locality not in ("auto", "cell", "global"):
         raise ValueError(f"locality must be 'auto', 'cell' or 'global', got {params.locality!r}")
-    kernel = _stats_impl_on(params.stats_impl)
+    _check_stats_impl(params.stats_impl)
     b, h, w = color.shape[:3]
     k = grid.num_clusters
     s_scale, window_range = _update_geometry(grid, h, w, variant)
@@ -1242,9 +1126,7 @@ def segment(
     if variant == "nasp" and cell_ok:
         # assignment + analyze sums in one call, weighted sums in a second
         labels, distance, clusters, idx = _nasp_fused_first_iteration(
-            clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w,
-            kernel=kernel,
-        )
+            clusters, color_f, points, normals, grid, params, window_range, s_scale, h, w)
         clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
     else:
         labels = init_labels(grid, h, w, color.device).expand(b, h, w)
@@ -1252,8 +1134,8 @@ def segment(
         labels, distance = _assign_global(
             labels, distance, clusters, *frame, grid, params, s_scale, variant)
         # after the first sweep labels come from the cell's candidate set
-        idx = (_CellIndex(labels, grid, neighborhood // 2, h, w, kernel_sums=kernel)
-               if cell_ok else _GlobalIndex(labels, k, kernel_sums=kernel))
+        idx = (_CellIndex(labels, grid, neighborhood // 2, h, w) if cell_ok
+               else _GlobalIndex(labels, k))
         clusters = _update(variant, idx, clusters, *frame, params, window_range, h, w)
 
     for _ in range(1, params.iterations):
@@ -1334,22 +1216,21 @@ def segment_tile(
     if ws != tile.ws or (cell_ok and (tile.c0 is None or ws != tile.cols * (w // grid.cols))):
         raise ValueError(f"a {ws}-px tile is not the tile {tile.ws} wide at {tile.x0} "
                          f"(of whole cells of grid {grid.rows}x{grid.cols} on {h}x{w})")
-    kernel = _stats_impl_on(params.stats_impl)
+    _check_stats_impl(params.stats_impl)
     s_scale, window_range = _update_geometry(grid, h, w, "nasp")
     color_f = color.to(torch.float32).contiguous()
     frame = (color_f, points.contiguous(), normals.contiguous())
     clusters = _tile_clusters(*frame, grid, h, w, tile)
     if cell_ok:
         labels, distance, clusters, idx = _nasp_fused_first_iteration(
-            clusters, *frame, grid, params, window_range, s_scale, h, w, kernel=kernel,
-            tile=tile)
+            clusters, *frame, grid, params, window_range, s_scale, h, w, tile=tile)
         clusters = _update_nasp_weighted(idx, clusters, *frame, params, window_range, h, w)
     else:
         labels = init_labels(grid, h, w, color.device)[:, tile.x0:tile.x0 + ws].expand(b, h, ws)
         distance = torch.full((b, h, ws), INIT_DISTANCE, dtype=torch.float32, device=color.device)
         labels, distance = _assign_global(
             labels, distance, clusters, *frame, grid, params, s_scale, x0=tile.x0)
-        idx = _GlobalIndex(labels, grid.num_clusters, tile=tile, kernel_sums=kernel)
+        idx = _GlobalIndex(labels, grid.num_clusters, tile=tile)
         clusters = _update("nasp", idx, clusters, *frame, params, window_range, h, w)
     for _ in range(1, params.iterations):
         labels, distance, clusters = later_iteration(

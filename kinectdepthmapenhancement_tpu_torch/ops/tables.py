@@ -13,14 +13,13 @@ reductions (segment sums).
     boundaries.  The product is deterministic on every device, and exact
     for integer-valued sums below 2^24.
 
-Which route sums how: the small K-side folds and every "xla" route take
-these products.  The label indexes' pixel sums on the "auto" / "pallas"
-route take hand kernels on the card (ops/cuda_nasp.py): the cell-local
-index its per-(cell, candidate) sums, the global index (slic._GlobalIndex)
-label_sums and label_counts.  None of them uses float atomics: the label
-sums add in double in a fixed order and round once (within 1 ulp of the
-exact sum unless the terms cancel, so not bitwise this product), the
-counts add integers in f32
+Which code sums how: the small K-side folds take these products.  The
+label indexes' pixel sums and counts take hand kernels on the card
+(ops/cuda_nasp.py): the cell-local index its per-(cell, candidate) sums,
+the global index (slic._GlobalIndex) label_sums, and both label_counts.
+None of them uses float atomics: the label sums add in double in a fixed
+order and round once (within 1 ulp of the exact sum unless the terms
+cancel, so not bitwise this product), the counts add integers in f32
 (exact in any order).  On the CPU every one is this product.
 
 Every product here runs through exact_matmul, which turns TF32 off: a

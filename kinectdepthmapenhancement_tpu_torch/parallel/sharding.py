@@ -90,7 +90,8 @@ def disable_pallas(cfg: KDEConfig) -> KDEConfig:
     """cfg with every kernel route set to its plain ("xla") twin, as the JAX
     package's disable_pallas: GSPMD cannot partition a pallas_call, so its
     spatially sharded step must never reach one.  The port's spatial step
-    does not call it: no partitioner ever meets its kernels.  On its tiled
+    does not call it, and reads none of the four fields it sets: no
+    partitioner ever meets its kernels.  On its tiled
     route every kernel of the path runs on the rank's own tile (the JBF,
     DT and covariance on haloed tiles, the seed gradient on the tile's
     sub-grid or on a haloed tile, the NASP cell kernels at the tile's first

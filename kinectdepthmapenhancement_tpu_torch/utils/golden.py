@@ -23,13 +23,15 @@ the JBF on width tiles and the sharded KDE step at 96x128
 tests/golden.py rewrites a fixture whose key differs, so nothing here goes
 through it.
 
-Each gate returns {name: (value, limit, passed)}.
+Each gate returns {name: (value, limit, passed)}.  plain_nasp swaps the
+NASP kernel wrappers for their plain versions, the card's reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 
@@ -39,6 +41,7 @@ from kinectdepthmapenhancement_tpu_torch.core.camera import (
     normalized_rays,
 )
 from kinectdepthmapenhancement_tpu_torch.core.testdata import make_noisy_scene
+from kinectdepthmapenhancement_tpu_torch.ops import cuda_nasp
 
 FIXTURES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -456,6 +459,32 @@ def registration_gates(got: np.ndarray, want: Mapping[str, np.ndarray]) -> Gate:
 
 def failures(gates: Gate) -> Dict[str, Tuple[float, float, bool]]:
     return {k: v for k, v in gates.items() if not v[2]}
+
+
+# ------------------------------------------- the NASP kernels' plain twins
+
+# the ops/cuda_nasp.py wrappers that ops/slic.py calls, each with a
+# <name>_plain twin of the same signature
+PLAIN_NASP = ("label_cell_gather", "label_cell_sums", "label_counts", "label_pair_counts",
+              "label_sums", "nasp_cell_sums", "nasp_assign_and_analyze")
+
+
+@contextlib.contextmanager
+def plain_nasp() -> Iterator[None]:
+    """Inside the block each wrapper of PLAIN_NASP is its plain twin on
+    every device: the one-hot products on CUDA tensors, the reference that
+    the card's tests and chip_smoke.py hold the kernels against.  A
+    compiled call (core/jit.py) keys its graph by shapes and config, not by
+    this swap, so run the plain side eagerly or through a jit.jit made
+    inside the block."""
+    saved = {name: getattr(cuda_nasp, name) for name in PLAIN_NASP}
+    try:
+        for name in PLAIN_NASP:
+            setattr(cuda_nasp, name, getattr(cuda_nasp, name + "_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cuda_nasp, name, fn)
 
 
 # ------------------------------------------------ RGBF, SPDSP and TOF

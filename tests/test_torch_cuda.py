@@ -64,11 +64,14 @@ f32 ulp of float64 sums, bitwise them on integer-valued features, to
 sums_close against the one-hot product (cuBLAS sums in f32), identical
 over repeats, 10 graph replays and replays of a conditional node's
 branch; the index builds no one-hot on that route.  kde_pipeline at
-424x512 with both kernels against the "xla" route: bitwise up to NASP's
-labels (and CCL's labels and sizes), the points within 0.01 mm.
+424x512 with both kernels against their plain twins (golden.plain_nasp):
+bitwise up to NASP's labels (and CCL's labels and sizes), the points
+within 0.01 mm.  stats_impl is checked, not read: "xla" launches the same
+NASP kernels as "auto", form by form, with the same outputs.
 chip_smoke.py runs the same checks at the 640x480 path's shapes.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -93,6 +96,7 @@ from kinectdepthmapenhancement_tpu_torch.ops import (
     normals,
     slic,
 )
+from kinectdepthmapenhancement_tpu_torch.utils import golden
 
 pytestmark = pytest.mark.cuda
 H, W = 96, 128
@@ -346,12 +350,11 @@ def test_pipeline_launches_every_kernel(inputs):
     res = kde_pipeline(inputs["depth"], inputs["color"], inputs["intr"], cfg)
     torch.cuda.synchronize()
     assert all(m.launches > b for m, b in zip(mods, before))
-    # the grid divides the frame: every cell kernel, and the global index's
-    # label counts and label sums never
-    index_kernels = ("label_counts", "label_sums")
-    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items()
-               if k not in index_kernels)
-    assert all(cuda_nasp.launches[k] == before_nasp[k] for k in index_kernels)
+    # the grid divides the frame: every cell kernel and the label counts
+    # (CCL's, on the cell-local index), and the global index's label sums
+    # never
+    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items() if k != "label_sums")
+    assert cuda_nasp.launches["label_sums"] == before_nasp["label_sums"]
     assert bool(torch.isfinite(res.optimized_points).all())
 
 
@@ -381,7 +384,7 @@ def nasp(request, inputs):
     labels, dist, part = cuda_nasp.nasp_assign_and_analyze_plain(
         cf, points, nmap, cand, lo=lo, hi=hi, **akw
     )
-    idx = slic._CellIndex(labels, grid, 4, H, W, kernel_sums=False)
+    idx = slic._CellIndex(labels, grid, 4, H, W)
     cl = slic._nasp_analyze_post(idx.fold(part), cl, points, H, W)
     return dict(grid=grid, params=params, cf=cf, points=points, nmap=nmap, cand=cand,
                 akw=akw, lo=lo, hi=hi, labels=labels, dist=dist, clusters=cl,
@@ -780,7 +783,8 @@ FULL = dict(h=480, w=640)
 def frame640(dev):
     """make_noisy_scene(480, 640, seed=0) on the card: the frame, its JBF
     points and normals, and the NASP labels after one iteration (r = 4
-    cell-local) and after three (within the cap of 5), on the plain route."""
+    cell-local) and after three (within the cap of 5), on the plain twins
+    of the NASP kernels (golden.plain_nasp)."""
     from kinectdepthmapenhancement_tpu_torch.ops import slic as ts
 
     h, w = FULL["h"], FULL["w"]
@@ -791,10 +795,10 @@ def frame640(dev):
     d = torch.from_numpy(noisy).to(dev)[None]
     points = projective_to_real(bilateral.joint_bilateral_filter(d, c, cfg.jbf), intr)
     nmap = normals.generate_normal_map(points, cfg.normals)
-    plain = dataclasses.replace(cfg.nasp, stats_impl="xla")
-    one = ts.segment(c, points, nmap, grid=cfg.grid, params=plain)
-    three = ts.segment(c, points, nmap, grid=cfg.grid,
-                       params=dataclasses.replace(plain, iterations=3))
+    with golden.plain_nasp():
+        one = ts.segment(c, points, nmap, grid=cfg.grid, params=cfg.nasp)
+        three = ts.segment(c, points, nmap, grid=cfg.grid,
+                           params=dataclasses.replace(cfg.nasp, iterations=3))
     assert bool(ts.labels_within_cap(three.labels, cfg.grid, 5, h, w).all())
     return dict(intr=intr, color=c, depth=d, gt=gt, noisy=noisy, points=points.contiguous(),
                 nmap=nmap.contiguous(), cf=c.float().contiguous(), cfg=cfg,
@@ -918,7 +922,8 @@ def test_far_range_gate(dev):
 @pytest.fixture(scope="module")
 def dasp640(dev):
     """make_noisy_scene(480, 640, seed=0) on the card with its raw points,
-    and on the plain route (SPDSPConfig()): the depth SLIC's labels after
+    and on the plain twins of the NASP kernels (golden.plain_nasp;
+    SPDSPConfig()): the depth SLIC's labels after
     one iteration (r = 2) and after five (within the cap of 3) with their
     clusters, and the ERS labels (within the cap of 4)."""
     from kinectdepthmapenhancement_tpu_torch.core.config import SPDSPConfig
@@ -932,11 +937,11 @@ def dasp640(dev):
     d = torch.from_numpy(noisy).to(dev)[None]
     raw = projective_to_real(d, intr).contiguous()
     seg = {}
-    for it in (1, 5):
-        p = dataclasses.replace(cfg.depth_slic, iterations=it, stats_impl="xla")
-        seg[it] = slic.segment(c, raw, grid=cfg.grid, params=p, variant="dasp")
-    colour = slic.segment(c, raw, grid=cfg.grid, variant="dasp",
-                          params=dataclasses.replace(cfg.color_slic, stats_impl="xla"))
+    with golden.plain_nasp():
+        for it in (1, 5):
+            p = dataclasses.replace(cfg.depth_slic, iterations=it)
+            seg[it] = slic.segment(c, raw, grid=cfg.grid, params=p, variant="dasp")
+        colour = slic.segment(c, raw, grid=cfg.grid, variant="dasp", params=cfg.color_slic)
     refined = ers.edge_refine(colour.labels, seg[5].labels, d, cfg.ers).labels
     assert bool(slic.labels_within_cap(seg[5].labels, cfg.grid, 3, h, w).all())
     assert bool(slic.labels_within_cap(refined, cfg.grid, 4, h, w).all())
@@ -1731,9 +1736,9 @@ def test_label_sums_kernel_rejects_what_it_does_not_take(dev):
 
 def test_global_index_sums_build_no_onehot_on_the_kernel_route(dev):
     """A global index over B=8 424x512 labels: its segment sums (F = 13 and
-    14) and counts on the kernel route leave the [B, H*W, K] one-hot unbuilt
-    and allocate a small share of its 2.08 GB; the "xla" route builds it.
-    The routes' sums agree to sums_close."""
+    14) and counts through the kernels leave the [B, H*W, K] one-hot unbuilt
+    and allocate a small share of its 2.08 GB; the plain twins
+    (golden.plain_nasp) build it.  The two agree to sums_close."""
     shape = (8, 424, 512)
     lab = _sum_labels(dev, *shape, "coherent")
     mask = lab >= 0
@@ -1741,27 +1746,28 @@ def test_global_index_sums_build_no_onehot_on_the_kernel_route(dev):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    index = slic._GlobalIndex(lab, K_V2, kernel_sums=True)
+    index = slic._GlobalIndex(lab, K_V2)
     got = [index.segment_sum(x, mask) for x in xs]
     index.counts()
     torch.cuda.synchronize()
-    assert index._oh is None and index._frame_oh is None
     assert torch.cuda.max_memory_allocated() - base < 100e6
-    plain = slic._GlobalIndex(lab, K_V2, kernel_sums=False)
-    for x, g in zip(xs, got):
-        want = plain.segment_sum(x, mask)
-        scale = plain.segment_sum(x.abs(), mask)
-        assert cuda_nasp.sums_close(g, want, scale, (0, 1))
-    assert plain._oh is not None
+    with golden.plain_nasp():
+        for x, g in zip(xs, got):
+            want = index.segment_sum(x, mask)
+            scale = index.segment_sum(x.abs(), mask)
+            assert cuda_nasp.sums_close(g, want, scale, (0, 1))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base > 2e9
 
 
 @pytest.mark.parametrize("residual", ["inf", "default"])
 def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual):
     """kde_pipeline on two 424x512 frames (grid 15x20 does not divide them:
     NASP's updates and CCL on the global index) with the global index's
-    kernels ("auto": a call launches the label counts twice in pairs and
-    once single, the label sums at F = 13 and 14 and, with the residual
-    gate, F = 2) and on the "xla" route's one-hot products (none).  Bitwise
+    kernels (a call launches the label counts twice in pairs and once
+    single, the label sums at F = 13 and 14 and, with the residual gate,
+    F = 2) and on their plain twins' one-hot products (golden.plain_nasp:
+    none).  Bitwise
     alike: the JBF, the normals and NASP's labels (made before any sum),
     and on these frames CCL's merged labels and sizes (integer counts; no
     merge gate lies within the sums' rounding of its boundary).  The rest
@@ -1778,10 +1784,10 @@ def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual)
     d = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
     cfg = KDEConfig() if residual == "default" else KDEConfig(max_plane_residual=float("inf"))
     out = {}
-    for impl in ("auto", "xla"):
-        run = dataclasses.replace(cfg, nasp=dataclasses.replace(cfg.nasp, stats_impl=impl))
+    for impl in ("auto", "plain"):
         before = dict(cuda_nasp.launch_forms)
-        out[impl] = kde_pipeline(d, c, intr, run)
+        with golden.plain_nasp() if impl == "plain" else contextlib.nullcontext():
+            out[impl] = kde_pipeline(d, c, intr, cfg)
         torch.cuda.synchronize()
         forms = {f: n - before.get(f, 0) for f, n in cuda_nasp.launch_forms.items()
                  if f.startswith(("label_counts", "label_sums"))}
@@ -1790,13 +1796,36 @@ def test_kde_pipeline_at_kinect_v2_label_counts_route_bitwise_xla(dev, residual)
         if residual == "default":
             want["label_sums:F=2"] = 1
         assert {f: n for f, n in forms.items() if n} == (want if impl == "auto" else {}), impl
-    got, ref = out["auto"], out["xla"]
+    got, ref = out["auto"], out["plain"]
     for f in ("jbf_depth", "normals", "nasp_labels", "merged_labels", "merged_sizes"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     for f in ("optimized_points", "plane_fitted"):
         gap = (getattr(got, f) - getattr(ref, f)).abs()
         assert float(gap.max()) <= 0.01 and float(gap.mean()) <= 1e-4, f
     assert torch.allclose(got.merged_variance, ref.merged_variance, rtol=0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("grid", [GRID, GridParams(rows=5, cols=6)], ids=["cells", "global"])
+def test_stats_impl_xla_launches_the_kernels_of_auto(inputs, grid):
+    """stats_impl is checked, not read: kde_pipeline at 96x128 (B=2) with
+    stats_impl="xla" launches the same NASP kernels, form by form
+    (cuda_nasp's launch counters), as with "auto", and gives the same
+    outputs bitwise, over a grid that divides the frame (the cell-local
+    index, whose counts take the label-counts kernel) and one that does not
+    (the global index)."""
+    cfg = dataclasses.replace(KDEConfig(), grid=grid)
+    out, forms = {}, {}
+    for impl in ("auto", "xla"):
+        run = dataclasses.replace(cfg, nasp=dataclasses.replace(cfg.nasp, stats_impl=impl))
+        before = dict(cuda_nasp.launch_forms)
+        out[impl] = kde_pipeline(inputs["depth"], inputs["color"], inputs["intr"], run)
+        torch.cuda.synchronize()
+        forms[impl] = {f: n - before.get(f, 0) for f, n in cuda_nasp.launch_forms.items()
+                       if n != before.get(f, 0)}
+    assert "label_counts:pairs" in forms["auto"] and "label_counts:single" in forms["auto"]
+    assert forms["xla"] == forms["auto"]
+    for a, b in zip(out["auto"], out["xla"]):
+        assert torch.equal(a, b)
 
 
 # cell-aligned tiles (c0, tile cols) of the 640x480 path's 20-column grid at

@@ -1,6 +1,6 @@
 """PyTorch port: the NASP cell kernels' plain versions (ops/cuda_nasp.py)
 against the JAX package's ops/pallas_nasp.py in interpret mode, as
-tests/test_pallas.py runs it, and the port's stats_impl routes.
+tests/test_pallas.py runs it, and the port's stats_impl values.
 
 Inputs come from numpy seeds: make_noisy_scene(96, 128, seed=5) and the
 adversarial cell-local labels of test_pallas.py::_nasp_state (invalid
@@ -23,8 +23,8 @@ Tolerances, and why:
     test_pallas.py:246-252); label-cell sums rtol 2e-5; gathers EXACT;
   * segment() on the kernel route against JAX segment(stats_impl="pallas"):
     labels exact, cluster tables at test_pallas.py:306-313's tolerances;
-  * the port's "xla" and "auto" routes: bitwise equal on the CPU (both
-    take the plain versions there).
+  * stats_impl "xla" and "auto": bitwise equal (checked, not read: both
+    take the same wrappers, the plain versions on the CPU).
 The subnormal case: XLA flushes subnormal weights to 0, so a cluster whose
 window weights are all subnormal keeps its old row; the port must too.
 """
@@ -282,7 +282,7 @@ def test_subnormal_window_weights_keep_the_old_row(refs):
     """One cluster whose pixels all sit |drgb| = 140 from its colour: every
     window weight is exp(-98) ~ 3e-43, subnormal.  XLA flushes them, the
     weight sum is 0 and the JAX package keeps the old row; so must the port
-    (without flush-denormal mode), on both stats routes."""
+    (without flush-denormal mode), under either stats_impl."""
     labels, color_f, points, normals, cl = subnormal_inputs()
     k0 = 5
     cdiff = 140.0**2

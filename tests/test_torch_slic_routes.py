@@ -11,13 +11,13 @@ Tolerances:
     route test (tests/test_slic.py:179-212), sums differing in order only;
     the last sweep's distances rtol 1e-5 / atol 1e-2 (to cluster tables
     summed in two orders: the centres' 1e-3 mm through the distance);
-  * the global index against the cell index on cell-local labels: gathers
-    and counts EXACT, segment sums rtol 1e-6, pair existence EXACT;
+  * the global index against the cell index on cell-local labels: gathers,
+    counts and pair counts EXACT, segment sums rtol 1e-6;
   * the label counts (cuda_nasp.label_counts / label_pair_counts and the
-    global index's counts and pair counts on both stats routes): EXACT
+    global index's counts and pair counts, through those wrappers): EXACT
     against a histogram of the labels counted in numpy (integers);
   * the label sums (cuda_nasp.label_sums on CPU tensors and the global
-    index's segment sums on both stats routes): EXACT against the one-hot
+    index's segment sums, through that wrapper): EXACT against the one-hot
     product (the plain version is that product).
 """
 
@@ -72,7 +72,7 @@ def _clusters_close(got, want):
 
 @pytest.fixture(scope="module")
 def global_3(frame):
-    """Three iterations on the global route, by stats route."""
+    """Three iterations on the global route, by stats_impl."""
     return {impl: _segment(frame, iterations=3, locality="global", stats_impl=impl)
             for impl in ("auto", "xla")}
 
@@ -118,9 +118,13 @@ def test_capped_fallback_on_drifted_labels(frame):
     args = (seg.clusters, frame[0].float(), *frame[1:], grid, NASP, 8.0)
     lab_g, _ = ts._assign_global(far, seg.distance, *args)
     assert not ts._within_cap(lab_g, grid, 5, H, W)
-    # off the cap the r = 5 cell index drops labels outside its candidates
+    # off the cap the r = 5 cell index's sums drop labels outside its
+    # candidates (its counts, keyed by the whole id space, do not)
     cell = ts._CellIndex(lab_g, grid, 5, H, W)
-    assert not torch.equal(cell.counts(), ts._GlobalIndex(lab_g, grid.num_clusters).counts())
+    glob = ts._GlobalIndex(lab_g, grid.num_clusters)
+    ones, member = torch.ones(lab_g.shape + (1,)), lab_g >= 0
+    assert not torch.equal(cell.segment_sum(ones, member), glob.segment_sum(ones, member))
+    assert torch.equal(cell.counts(), glob.counts())
     assert isinstance(ts.label_index(lab_g, grid, dataclasses.replace(NASP, iterations=2)),
                       ts._GlobalIndex)
     state = (far, seg.distance, seg.clusters, frame[0].float(), *frame[1:])
@@ -146,7 +150,7 @@ def test_non_dividing_grid_global_route(frame):
     assert int(seg.labels.min()) >= -1 and int(seg.labels.max()) < grid.num_clusters
     assert isinstance(ts.cell_index(seg.labels, grid, 8), ts._GlobalIndex)
     assert isinstance(ts.label_index(seg.labels, grid, NASP), ts._GlobalIndex)
-    # the kernel and plain stats routes agree: both are plain off the cell route
+    # stats_impl is checked, not read: "xla" segments alike
     other = _segment(frame, grid=grid, stats_impl="xla")
     assert torch.equal(seg.labels, other.labels)
     _clusters_close(seg.clusters, other.clusters)
@@ -175,7 +179,7 @@ def test_global_index_matches_cell_index():
                                cell.segment_sum(feats, mask).numpy(), rtol=1e-6, atol=1e-4)
     assert torch.equal(glob.counts(), cell.counts())
     right = torch.cat([lab[:, :, 1:], torch.full((2, h, 1), -1, dtype=torch.int32)], dim=2)
-    assert torch.equal(glob.pair_counts(right) > 0, cell.pair_counts(right) > 0)
+    assert torch.equal(glob.pair_counts(right), cell.pair_counts(right))
 
 
 def _run_labels(rng, b, h, w, k, ends):
@@ -211,14 +215,25 @@ def _histogram(a, c=None, k=1):
     return torch.from_numpy(out.astype(np.float32).reshape((a.shape[0],) + shape))
 
 
+def _recorded(monkeypatch, *names):
+    """The list that each call of the named cuda_nasp functions appends
+    its name to, from now on."""
+    calls = []
+    for name in names:
+        fn = getattr(cuda_nasp, name)
+        monkeypatch.setattr(cuda_nasp, name,
+                            lambda *a, _n=name, _fn=fn, **kw: calls.append(_n) or _fn(*a, **kw))
+    return calls
+
+
 @pytest.mark.parametrize("b, grid, ends", [(1, GRID, False), (3, GRID, False),
                                            (3, GridParams(rows=15, cols=20), True)])
-def test_label_counts_wrappers_and_global_index_routes(b, grid, ends):
+def test_label_counts_wrappers_and_global_index_routes(b, grid, ends, monkeypatch):
     """cuda_nasp.label_counts / label_pair_counts and the global index's
-    counts and pair counts with kernel_sums True and False on a 50x70 frame,
-    which neither grid divides: every count bitwise numpy's histogram, over
-    the right and the down neighbours (-1 borders) as CCL pairs them.  The
-    kernel route builds no one-hot of the index's labels for them."""
+    counts and pair counts on a 50x70 frame, which neither grid divides:
+    every count bitwise numpy's histogram, over the right and the down
+    neighbours (-1 borders) as CCL pairs them.  The index counts through
+    the wrappers, which take their plain versions for CPU tensors."""
     rng = np.random.default_rng(21 + b)
     h, w = 50, 70
     k = grid.num_clusters
@@ -231,15 +246,18 @@ def test_label_counts_wrappers_and_global_index_routes(b, grid, ends):
     counts = _histogram(lab, k=k)
     assert torch.equal(cuda_nasp.label_counts(lab, k), counts)
     assert torch.equal(cuda_nasp.label_counts_plain(lab, k), counts)
-    for nb in (right, down):
-        pairs = _histogram(lab, nb, k)
-        assert torch.equal(cuda_nasp.label_pair_counts(lab, nb, k), pairs)
-        assert torch.equal(cuda_nasp.label_pair_counts_plain(lab, nb, k), pairs)
-        for kernel_sums in (True, False):
-            index = ts._GlobalIndex(lab, k, kernel_sums=kernel_sums)
-            assert torch.equal(index.pair_counts(nb), pairs)
-            assert torch.equal(index.counts(), counts)
-            assert (index._oh is None) == kernel_sums
+    pairs = [_histogram(lab, nb, k) for nb in (right, down)]
+    for nb, want in zip((right, down), pairs):
+        assert torch.equal(cuda_nasp.label_pair_counts(lab, nb, k), want)
+        assert torch.equal(cuda_nasp.label_pair_counts_plain(lab, nb, k), want)
+    calls = _recorded(monkeypatch, "label_counts", "label_pair_counts", "label_counts_plain",
+                      "label_pair_counts_plain")
+    index = ts._GlobalIndex(lab, k)
+    for nb, want in zip((right, down), pairs):
+        assert torch.equal(index.pair_counts(nb), want)
+    assert torch.equal(index.counts(), counts)
+    assert calls == ["label_pair_counts", "label_pair_counts_plain"] * 2 + [
+        "label_counts", "label_counts_plain"]
 
 
 @pytest.mark.parametrize("b, grid, f", [(1, GRID, 2), (3, GRID, 13),
@@ -248,8 +266,8 @@ def test_label_sums_wrapper_and_global_index_segment_sum(b, grid, f, monkeypatch
     """cuda_nasp.label_sums on CPU tensors is bitwise the one-hot product of
     the masked features (the global index's product before the label-sums
     kernel); the global index's segment_sum on a 50x70 frame takes
-    label_sums with kernel_sums, building no one-hot of its own, and
-    label_sums_plain over its one-hot without, bitwise alike."""
+    label_sums, which takes its plain version for CPU tensors, bitwise
+    alike."""
     rng = np.random.default_rng(31 + b)
     h, w = 50, 70
     k = grid.num_clusters
@@ -262,29 +280,21 @@ def test_label_sums_wrapper_and_global_index_segment_sum(b, grid, f, monkeypatch
     assert torch.equal(cuda_nasp.label_sums_plain(lab, feats, mask, k), want)
     assert torch.equal(cuda_nasp.label_sums(lab, feats, None, k),
                        tables.exact_matmul(oh, feats.reshape(b, -1, f)))
-    calls = []
-    for name in ("label_sums", "label_sums_plain"):
-        fn = getattr(cuda_nasp, name)
-        monkeypatch.setattr(cuda_nasp, name,
-                            lambda *a, _n=name, _fn=fn, **kw: calls.append(_n) or _fn(*a, **kw))
-    for kernel_sums, route in ((True, "label_sums"), (False, "label_sums_plain")):
-        calls.clear()
-        index = ts._GlobalIndex(lab, k, kernel_sums=kernel_sums)
-        assert torch.equal(index.segment_sum(feats, mask), want)
-        assert calls[0] == route and calls.count("label_sums") == kernel_sums
-        assert (index._oh is None) == kernel_sums
+    calls = _recorded(monkeypatch, "label_sums", "label_sums_plain")
+    assert torch.equal(ts._GlobalIndex(lab, k).segment_sum(feats, mask), want)
+    assert calls == ["label_sums", "label_sums_plain"]
 
 
-@pytest.mark.parametrize("stats_impl, kernel_sums", [("auto", True), ("pallas", True),
-                                                     ("xla", False)])
-def test_global_index_takes_the_stats_route(stats_impl, kernel_sums):
+@pytest.mark.parametrize("stats_impl", ["auto", "pallas", "xla"])
+def test_global_index_takes_the_stats_route(stats_impl):
     """cell_index and with_capped_index's global index over labels whose
-    grid does not divide the frame (or with locality="global") carry
-    stats_impl's route as kernel_sums, as the cell-local index does."""
+    grid does not divide the frame (or with locality="global"): every
+    accepted stats_impl gives the same global index, and the same counts."""
     lab = ts.init_labels(GRID, 50, 70)[None].contiguous()
     index = ts.cell_index(lab, GRID, 8, stats_impl)
-    assert isinstance(index, ts._GlobalIndex) and index.kernel_sums == kernel_sums
+    assert isinstance(index, ts._GlobalIndex) and torch.equal(index.labels, lab)
+    assert torch.equal(index.counts(), _histogram(lab, k=GRID.num_clusters))
     lab96 = ts.init_labels(GRID, H, W)[None].contiguous()
     index = ts.capped_index(lab96, GRID, 5, stats_impl=stats_impl, locality="global")
-    assert isinstance(index, ts._GlobalIndex) and index.kernel_sums == kernel_sums
+    assert isinstance(index, ts._GlobalIndex) and torch.equal(index.labels, lab96)
     assert torch.equal(index.counts(), _histogram(lab96, k=GRID.num_clusters))
