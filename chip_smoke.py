@@ -47,7 +47,10 @@ Phases (each prints its results; any failure exits non-zero):
      index's label counts on NASP's labels of the 424x512 frame (pairs with
      the right and the down neighbours, and the single form; bitwise), and
      a CCL merge's three of them at B=8 against the index_add_ scatter
-     that could replace them (bitwise, device ms a frame); time kernel,
+     that could replace them (bitwise, device ms a frame); the global
+     route's assignment sweep (assign_global_kernel) of a later NASP
+     iteration on the 424x512 frames and of a DASP one at 640x480, B=1,
+     B=4 and B=8, bitwise its plain version; time kernel,
      plain version and, where one PyTorch call computes (nearly) the same
      function, that call: "call ms" with CUDA events around one Python
      call (host dispatch included), and for kernel and library call
@@ -184,7 +187,8 @@ Phases (each prints its results; any failure exits non-zero):
      --phase12`, which alone runs phases 1, 2 without the SASS counts,
      and 12);
   9. print the kernels JSON line (one entry per TPU kernel of the repo and
-     one for the label counts, which replace none, each with its forms and
+     one each for the label counts, the label sums and the global sweep,
+     which replace none, each with its forms and
      their launches by path, and its launches on
      phase 10's and phase 11's paths), then {"ok": true, "device": ...}
      last.
@@ -223,6 +227,14 @@ SCHEDULERS = 528
 # slow-path call not taken); bitwise equality to the plain version fixes
 # its operations and their order
 ASSIGN_LOOP_INSTRUCTIONS = 62
+# the global sweep (csrc/nasp.cu's assign_global_kernel): f32 operations
+# per pixel and in-grid candidate, by variant (NASP: colour 8, pixel 7,
+# depth 2, weighting 7, normal dot 5, normal term 3, the compare 1, as the
+# fused assignment counts them; DASP and SP stop after their terms), and
+# issued instructions of its staged candidate loop per pixel and in-grid
+# candidate (cuobjdump -sass of the build)
+SWEEP_OPS = {"nasp": 33, "dasp": 23, "sp": 19}
+SWEEP_LOOP_INSTRUCTIONS = {"nasp": 62, "dasp": 47, "sp": 39}
 
 # the JBF's width tiles on phase 11's paths, named as cuda_bilateral's
 # launch_forms name them, by the haloed tile's width (w<ws + 2 * rj>): x = 2 and 4 at 640 columns, x = 4 at 628 (157-px
@@ -583,6 +595,11 @@ INDEX_KERNELS = ("label_counts", "label_sums")
 # locality (a grid that does not divide the frame, labels off the cap,
 # locality="global")
 GLOBAL_INDEX_KERNELS = ("label_sums",)
+# the global route's assignment sweep (slic._assign_global): every SP / DASP
+# iteration, every later NASP iteration and NASP on a frame the grid does
+# not divide; so idle, with the global index's kernels, where one NASP
+# iteration runs on the cell route
+CELL_ROUTE_IDLE = GLOBAL_INDEX_KERNELS + ("assign_global",)
 # each tiled case of the default config: the kernels it must not launch (by
 # counter; every other must launch), the cell and gradient forms it must
 # launch and its collectives a step (B=4 and B=1 alike).  "640": data tiles
@@ -591,10 +608,10 @@ GLOBAL_INDEX_KERNELS = ("label_sums",)
 # (NASP's global route: no cell kernel, the seed gradient on haloed tiles,
 # four gathers more for the global first iteration and the seed windows)
 TILED_CASE_PATHS = {
-    "640": (GLOBAL_INDEX_KERNELS, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 14),
-    "split": (GLOBAL_INDEX_KERNELS, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 16),
-    "v2": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
-    "crop628": (_CELL_KERNELS, ("seed_gradient:nasp:halo",), 18),
+    "640": (CELL_ROUTE_IDLE, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 14),
+    "split": (CELL_ROUTE_IDLE, TILED_NASP_FORMS + ("seed_gradient:nasp:tile",), 16),
+    "v2": (_CELL_KERNELS, ("seed_gradient:nasp:halo", "assign_global:nasp:r4"), 18),
+    "crop628": (_CELL_KERNELS, ("seed_gradient:nasp:halo", "assign_global:nasp:r4"), 18),
 }
 
 
@@ -746,16 +763,17 @@ _FIRST = ("nasp_assign_analyze:r4:tile", "nasp_cell_sums:r4:weighted:tile")
 _CELL_R4 = ("label_cell_sums:r4:F2:tile", "label_cell_gather:r4:F6:tile",
             "label_cell_gather:r4:F1:tile", "label_cell_gather:r4:F3:tile")
 CONFIG_PATHS = {
-    "bilateral": (("cuda_dt", "cuda_cov") + GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4),
-    "sdc": (("cuda_cov",) + GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4),
-    "plane_merge_fill": (GLOBAL_INDEX_KERNELS, _FIRST + _CELL_R4 + (
+    "bilateral": (("cuda_dt", "cuda_cov") + CELL_ROUTE_IDLE, _FIRST + _CELL_R4),
+    "sdc": (("cuda_cov",) + CELL_ROUTE_IDLE, _FIRST + _CELL_R4),
+    "plane_merge_fill": (CELL_ROUTE_IDLE, _FIRST + _CELL_R4 + (
         "label_cell_sums:r4:F4:tile", "label_cell_sums:r4:F6:tile")),
-    "iter3": (GLOBAL_INDEX_KERNELS, _FIRST + (
+    "iter3": (GLOBAL_INDEX_KERNELS, _FIRST + ("assign_global:nasp:r4",
         "nasp_cell_sums:r5:analyze:tile", "nasp_cell_sums:r5:weighted:tile",
         "label_cell_sums:r5:F2:tile", "label_cell_gather:r5:F6:tile",
         "label_cell_gather:r5:F1:tile", "label_cell_gather:r5:F3:tile")),
-    "iter3_global": (("label_cell_sums", "label_cell_gather"), _FIRST),
-    "all": (("cuda_cov", "label_cell_sums", "label_cell_gather"), _FIRST),
+    "iter3_global": (("label_cell_sums", "label_cell_gather"), _FIRST + ("assign_global:nasp:r4",)),
+    "all": (("cuda_cov", "label_cell_sums", "label_cell_gather"),
+            _FIRST + ("assign_global:nasp:r4",)),
 }
 
 
@@ -852,7 +870,7 @@ KERNEL_COUNTER = {
     "grad_kernel": "cuda_gradient", "assign_analyze_kernel": "nasp_assign_analyze",
     "nasp_sums_kernel": "nasp_cell_sums", "label_sums_kernel": "label_cell_sums",
     "label_gather_kernel": "label_cell_gather", "label_counts_kernel": "label_counts",
-    "label_index_sums_kernel": "label_sums",
+    "label_index_sums_kernel": "label_sums", "assign_global_kernel": "assign_global",
 }
 
 
@@ -1471,6 +1489,10 @@ def main() -> int:
         # offset by frame, a dropped pixel at a spare slot past the tables)
         seg = slic.segment(color, points, nmap, grid=grid, params=nasp_p)
         lab = seg.labels.contiguous()
+        # the global sweep of a later NASP iteration from that state (r = 4)
+        x["sweep_v2"] = (lab, seg.distance.contiguous(),
+                         slic._cluster_fields(seg.clusters, "nasp").contiguous(),
+                         color.to(torch.float32).contiguous(), points, nmap.contiguous())
         b, k = lab.shape[0], grid.num_clusters
         # the global index's float sums as NASP's updates run them on these
         # labels (analyze F = 13, weighted F = 14): each pixel's features
@@ -1596,6 +1618,10 @@ def main() -> int:
         raw = projective_to_real(depth, intr).contiguous()
         d1 = slic.segment(color, raw, grid=grid, variant="dasp", params=dataclasses.replace(
             sp_cfg.depth_slic, iterations=1))
+        # the DASP sweep of a later iteration from that state (r = 2)
+        x["sweep_dasp"] = (d1.labels, d1.distance,
+                           slic._cluster_fields(d1.clusters, "dasp").contiguous(), color_f, raw,
+                           None)
         d5 = slic.segment(color, raw, grid=grid, variant="dasp", params=sp_cfg.depth_slic)
         c5 = slic.segment(color, raw, grid=grid, variant="dasp", params=sp_cfg.color_slic)
         ers_labels = ers.edge_refine(c5.labels, d5.labels, depth, sp_cfg.ers).labels
@@ -2366,6 +2392,93 @@ def main() -> int:
             ops=lambda x, nf=nf: npx(x["labels_v2"]) * nf,  # one add a feature and pixel
             shape=lambda x, m=mode: tuple(x[f"sums_{m}_v2"].shape))
 
+    # the global route's assignment sweep (slic._assign_global), which
+    # replaces no TPU kernel: a later NASP iteration's sweep on the 424x512
+    # frames (r = 4, from the first iteration's state; the v2 path sweeps
+    # once from the grid init, over the same 64 candidates a pixel) and
+    # the DASP sweep on the 640x480 frames (r = 2, from the depth SLIC's
+    # state after one iteration, as SPDSP's later iterations run it).
+    # Bitwise the plain sweep, which is also the library (the chunked
+    # PyTorch route it replaces); operations per in-grid candidate
+    # (SWEEP_OPS) and per out-of-grid one (1), per pixel 5; the issue floor
+    # from the loop's SASS (SWEEP_LOOP_INSTRUCTIONS)
+    def sweep_kw(variant, params, hh, ww):
+        wc, wsp, wd, wn = slic._weights(params, variant)
+        return dict(rows=grid.rows, cols=grid.cols, r=slic._variant(variant)[1] // 2,
+                    variant=variant, w_col=wc, w_spa=wsp, w_dep=wd, w_nor=wn,
+                    s_scale=slic._update_geometry(grid, hh, ww, variant)[0],
+                    apply_invalid=slic._overrides(params, variant))
+
+    sweeps = {"nasp": ("sweep_v2", sweep_kw("nasp", nasp_p, *V2_SHAPE)),
+              "dasp": ("sweep_dasp", sweep_kw("dasp", SPDSPConfig().depth_slic, h, w))}
+
+    def sweep_in_grid(lab, r):
+        """In-grid candidates of each pixel's label's cell (-1 as cell 0)."""
+        n_in = (cuda_nasp.cand_grid(grid.rows, grid.cols, cuda_nasp.candidate_offsets(r), dev)
+                >= 0).sum(-1).reshape(-1).to(torch.float64)
+        return n_in[lab.clamp(0, grid.num_clusters - 1).long()]
+
+    def sweep_ops(args, kw):
+        n_in = sweep_in_grid(args[0], kw["r"])
+        n = (2 * kw["r"]) ** 2
+        return float((SWEEP_OPS[kw["variant"]] * n_in + (n - n_in)).sum()) + 5 * npx(args[0])
+
+    def sweep_issue(args, kw):
+        warp_instructions = (float(sweep_in_grid(args[0], kw["r"]).sum())
+                             * SWEEP_LOOP_INSTRUCTIONS[kw["variant"]] / 32)
+        return warp_instructions / (SCHEDULERS * sm_mhz * 1e3), warp_instructions
+
+    def same_sweep(got, want):
+        return torch.equal(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32))
+
+    for variant, (key, skw) in sweeps.items():
+        kernels["assign_global" if variant == "nasp" else f"assign_global_{variant}"] = dict(
+            module=cuda_nasp, bar="labels, distance bitwise", row="assign_global",
+            secondary=variant != "nasp", form=f"{variant}:r{skw['r']}", replaces=None,
+            run=lambda x, k=key, kw=skw: cuda_nasp.assign_global(*x[k], **kw),
+            plain=lambda x, k=key, kw=skw: cuda_nasp.assign_global_plain(*x[k], **kw),
+            library=lambda x, k=key, kw=skw: cuda_nasp.assign_global_plain(*x[k], **kw),
+            ok=lambda got, want, x: same_sweep(got, want),
+            # labels, distance, fields and the pixel planes read, labels and
+            # distance written
+            inputs=lambda x, k=key: [t for t in x[k] if t is not None],
+            ops=lambda x, k=key, kw=skw: sweep_ops(x[k], kw),
+            issue=lambda x, k=key, kw=skw: sweep_issue(x[k], kw),
+            shape=lambda x, k=key: tuple(x[k][0].shape))
+
+    def assign_global_b8(x):
+        """The global sweep at the replay's B=8 (the four frames twice):
+        NASP r = 4 on the 424x512 frames, DASP r = 2 on the 640x480 ones,
+        bitwise the plain sweep and on a second call; device ms a call and
+        a frame of kernel and plain sweep, the bound of the bytes and the
+        operations and the issue floor."""
+        out = {}
+        for variant, (key, skw) in sweeps.items():
+            args = tuple(None if t is None else torch.cat([t] * 2).contiguous() for t in x[key])
+            b = args[0].shape[0]
+            runs = {"kernel": lambda: cuda_nasp.assign_global(*args, **skw),
+                    "plain": lambda: cuda_nasp.assign_global_plain(*args, **skw)}
+            got, again, want = runs["kernel"](), runs["kernel"](), runs["plain"]()
+            torch.cuda.synchronize()
+            if not (same_sweep(got, want) and same_sweep(again, got)):
+                _fail(f"assign_global B=8 {variant}: the kernel differs from the plain sweep "
+                      "or from its first call")
+            nbytes = sum(t.numel() * t.element_size() for t in args + got if t is not None)
+            t_b, by = bound_ms(nbytes, sweep_ops(args, skw))
+            row = {"shape": list(args[0].shape), "bound_ms": t_b, "bound_by": by,
+                   "mb": nbytes / 1e6, "issue_ms": sweep_issue(args, skw)[0]}
+            for name, fn in runs.items():
+                d, n = device_time(fn)
+                row[name] = {"call_ms": cuda_ms(fn, warmup=3, iters=20 if name == "kernel" else 5),
+                             "device_ms": d, "device_activities": n,
+                             "device_ms_per_frame": None if d is None else d / b}
+            out[f"{variant} r{skw['r']}"] = row
+            del got, again, want, args
+        print(f"assign_global B=8 (424x512 NASP r = 4, 640x480 DASP r = 2) on {smi}: "
+              + json.dumps(out))
+        return out
+
     def label_sums_b8(x):
         """The global index's float sums at the replay's B=8: NASP's analyze
         (F = 13) and weighted (F = 14) sums on the 424x512 frames' labels,
@@ -2512,6 +2625,7 @@ def main() -> int:
         if bsz == 4:
             label_counts_at_b8 = label_counts_b8(x)
             label_sums_at_b8 = label_sums_b8(x)
+            assign_global_at_b8 = assign_global_b8(x)
         del x
 
     # ---- phase 4: the main path at 640x480, single-frame and batched
@@ -2547,10 +2661,10 @@ def main() -> int:
     launches = counts()
     path_forms["main"] = forms_now()
     print(f"main path launches: {launches}")
-    if any(n == 0 for k, n in launches.items() if k not in GLOBAL_INDEX_KERNELS):
+    if any(n == 0 for k, n in launches.items() if k not in CELL_ROUTE_IDLE):
         _fail(f"a kernel of the main path was never launched: {launches}")
-    if any(launches[k] for k in GLOBAL_INDEX_KERNELS):
-        _fail(f"the main path's cell-local route launched a global-index kernel: {launches}")
+    if any(launches[k] for k in CELL_ROUTE_IDLE):
+        _fail(f"the main path's cell-local route launched a global-route kernel: {launches}")
     k_count = grid.num_clusters
     for tag, res in (("B=1", res1), ("B=4", res4)):
         for field in ("optimized_points", "plane_fitted", "jbf_depth", "normals", "merged_variance"):
@@ -2738,9 +2852,9 @@ def main() -> int:
                 _fail(f"{tag}: second run gave different {f}")
         print(f"{tag}: every output bitwise identical on a second run")
 
-    # every kernel of the cell-local route (the global index's are driven
-    # on the 424x512 frame and the global-index iterations)
-    all_kernels = tuple(k for k in launches if k not in GLOBAL_INDEX_KERNELS)
+    # every kernel of the cell-local route (the global route's are driven
+    # on the 424x512 frame and the later iterations)
+    all_kernels = tuple(k for k in launches if k not in CELL_ROUTE_IDLE)
     path_ms = {}
 
     # (a) the far-range gate (tests/test_oracle_pipeline.py:230-287)
@@ -2795,17 +2909,17 @@ def main() -> int:
     # r = 5 cell-local updates) against "global" (one-hot updates); both
     # assign by the global sweep
     r5_forms = ("nasp_cell_sums:r5:analyze", "nasp_cell_sums:r5:weighted",
-                "label_cell_sums:r5:F2", "label_cell_gather:r5:F6")
+                "label_cell_sums:r5:F2", "label_cell_gather:r5:F6", "assign_global:nasp:r4")
     cfg_c = {loc: dataclasses.replace(cfg, nasp=dataclasses.replace(
         nasp_p, iterations=3, locality=loc)) for loc in ("auto", "global")}
     res_c = {}
     for bsz in (1, 4):
         d, c = depth4[:bsz], color4[:bsz]
         res_c[bsz] = drive(f"iter3 B={bsz}", lambda: kde_pipeline(d, c, intr, cfg_c["auto"]),
-                           all_kernels, r5_forms)
+                           all_kernels + ("assign_global",), r5_forms)
         res_g = drive(f"iter3.global B={bsz}",
                       lambda: kde_pipeline(d, c, intr, cfg_c["global"]),
-                      stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums")
+                      stencil_kernels + ("nasp_assign_analyze", "nasp_cell_sums", "assign_global")
                       + INDEX_KERNELS)
         check_outputs(f"iter3 B={bsz}", res_c[bsz], k_count)
         if any(f.split(":")[1] == "r5" for f in path_forms[f"iter3.global B={bsz}"]):
@@ -2859,7 +2973,7 @@ def main() -> int:
         moved = float((res_c[bsz].nasp_labels != res1.nasp_labels if bsz == 1 else
                        res_c[bsz].nasp_labels != res4.nasp_labels).double().mean())
         print(f"iter3 B={bsz}: iterations 2-3 moved {moved:.4f} of the labels")
-        # the later iterations' assignment alone (plain PyTorch, 64 offsets)
+        # the later iterations' assignment alone (the sweep kernel, 64 candidates)
         args = state + (grid, nasp_p, (w // grid.cols + h // grid.rows) / 2.0)
         t_glob = cuda_ms(lambda: slic._assign_global(*args), warmup=1, iters=5)
         path_ms[f"assign_global B={bsz}"] = t_glob
@@ -2876,9 +2990,9 @@ def main() -> int:
     # it, so the NASP and downstream stages take the global route
     vd, vc = vdepth4[0], vcolor4[0]
     res_d = drive("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg),
-                  stencil_kernels + INDEX_KERNELS,
+                  stencil_kernels + INDEX_KERNELS + ("assign_global",),
                   ("label_counts:pairs", "label_counts:single", "label_sums:F=2",
-                   "label_sums:F=13", "label_sums:F=14"))
+                   "label_sums:F=13", "label_sums:F=14", "assign_global:nasp:r4"))
     check_outputs("kinect_v2 424x512", res_d, k_count)
     check_again("kinect_v2 424x512", lambda: kde_pipeline(vd, vc, intr_v2, cfg), res_d)
     path_ms["kinect_v2 B=1"] = time_path(
@@ -2895,7 +3009,8 @@ def main() -> int:
     dasp_want = golden.load_dasp("640x480")
     raw4 = projective_to_real(depth4, intr)
     front = ("rgbf.color_slic", "rgbf.depth_slic", "rgbf.ers")
-    r2 = ("seed_gradient:color", "label_cell_sums:r2:F10", "label_cell_gather:r2:F2")
+    r2 = ("seed_gradient:color", "label_cell_sums:r2:F10", "label_cell_gather:r2:F2",
+          "assign_global:dasp:r2")
     capped = ("label_cell_sums:r3:F10", "label_cell_gather:r3:F2")
     pca = ("label_cell_sums:r4:F4", "label_cell_sums:r4:F6", "label_cell_gather:r4:F3",
            "label_cell_gather:r4:F4")
@@ -2924,7 +3039,8 @@ def main() -> int:
                 d, p_, c = d[0], p_[0], c[0]
             cap_reads.clear()
             res[bsz] = drive(f"{name} B={bsz}", lambda: run(d, p_, c),
-                             ("cuda_gradient", "label_cell_sums", "label_cell_gather"), forms)
+                             ("cuda_gradient", "label_cell_sums", "label_cell_gather",
+                              "assign_global"), forms)
             print(f"{name} B={bsz}: {len(cap_reads)} host cap reads a call (caps {cap_reads})")
             for f in res[bsz]._fields:
                 t = getattr(res[bsz], f)
@@ -2969,7 +3085,7 @@ def main() -> int:
             path_ms[f"{name} B={bsz}"] = time_path(
                 f"{name} B={bsz}", lambda: run(d, p_, c), bsz, scopes=stage_scopes)
     slic._within_cap = within_cap
-    # the DASP sweep alone (plain PyTorch, 16 candidates), from the depth
+    # the DASP sweep alone (the sweep kernel, 16 candidates), from the depth
     # SLIC's state after one iteration: SPDSP and TOF run ten a call
     sp_cfg = SPDSPConfig()
     s_scale_d, _ = slic._update_geometry(grid, h, w, "dasp")
@@ -3299,7 +3415,7 @@ def main() -> int:
     os.makedirs(eval_dir)
     eval_out: dict = {}
     # kernels each evaluate row's method runs (every kde row runs all eight)
-    dasp_kernels = ("cuda_gradient", "label_cell_sums", "label_cell_gather")
+    dasp_kernels = ("cuda_gradient", "label_cell_sums", "label_cell_gather", "assign_global")
     row_kernels = {"input": (), "jbf": ("cuda_bilateral",), "mrf": (), "rgbf": dasp_kernels,
                    "spdsp": dasp_kernels, "tof": dasp_kernels + ("label_counts",)}
 
@@ -3767,7 +3883,7 @@ def main() -> int:
                     _fail(f"phase 11 (b): {key} launched the JBF on {jbf_forms}, not {form}")
                 # the steps run 640x480 frames: the cell-local route
                 if "step" in tag and any(v == 0 for k, v in cnt.items()
-                                         if k not in GLOBAL_INDEX_KERNELS):
+                                         if k not in CELL_ROUTE_IDLE):
                     _fail(f"phase 11 (b): {key}: a kernel of the path was never launched: {cnt}")
         for tag, (shape, got) in ranks[0]["out"].items():
             want = (res4.optimized_points if "step" in tag
@@ -4027,6 +4143,7 @@ def main() -> int:
                       if "form" in kk and kk.get("row", n) == row],
             **({"b8_merge": label_counts_at_b8} if row == "label_counts" else {}),
             **({"b8": label_sums_at_b8} if row == "label_sums" else {}),
+            **({"b8": assign_global_at_b8} if row == "assign_global" else {}),
         })
     print("kde ms per frame: " + "  ".join(
         f"B={bsz} {ms:.3f}" for bsz, ms in frame_ms.items()))

@@ -1,7 +1,8 @@
 // NASP cell kernels: label-cell gather, and three per-(cell, candidate)
 // sums kernels on one reduction: label-cell sums, NASP update sums and the
-// fused first assignment + analyze sums; and the label counts and the
-// float label sums of the global label index.
+// fused first assignment + analyze sums; the label counts and the float
+// label sums of the global label index; and the global route's SLIC
+// assignment sweep.
 //
 // Replace the TPU kernels of kinectdepthmapenhancement_tpu/ops/pallas_nasp.py:
 //   kde_label_cell_gather    label_cell_gather        (:340, body :301)
@@ -12,7 +13,9 @@
 // (label_index_sums_kernel + label_index_fold_kernel) replace no TPU
 // kernel: the JAX package counts labels and label pairs and sums features
 // over the whole [K] id space by one-hot products (slic._GlobalIndex), as
-// the port's plain versions do.
+// the port's plain versions do.  Nor does kde_assign_global
+// (assign_global_kernel): the JAX package's global sweep (slic.py _assign
+// with cell_fast=False) is XLA, as the port's plain version is PyTorch.
 //
 // Single-iteration NASP labels are cell-local: a pixel of grid cell (cy, cx)
 // carries -1 or cluster (cy + dy) * cols + (cx + dx), (dy, dx) in [-r, r)^2.
@@ -140,6 +143,39 @@
 // serial walk, ~2 us a round on an H100 at six warps an SM (one table each
 // at F = 14, so shared memory caps the warps), one feature a lane (F of
 // 32 lanes busy): 0.14 ms a B = 8 call at F = 14 on an H100 80GB HBM3.
+//
+// Global sweep (assign_global_kernel): one SLIC assignment of the SP, DASP
+// or NASP distance (the variant a template parameter) over labels with no
+// locality, the global route's (slic._assign_global): a pixel's candidates
+// are the (2r)^2 cells around its CURRENT label's cell, dy-major, label -1
+// taken as cluster 0's cell; an out-of-grid candidate costs the pixel's
+// current distance and names its current label (the fused first
+// assignment's cost INIT_DISTANCE instead); the best starts at (+inf, -1)
+// and a candidate replaces it on a strict < (the plain version's first
+// minimum); then the variant's invalid-depth override (label -1, distance
+// 0 where z < 50, when the caller asks).  One thread a pixel, a block a
+// 32 x 8 pixel tile of one frame (blockIdx.z).  The block first stages the
+// frame's whole cluster table in shared memory as 16-byte rows: (r, g, b,
+// x), (y, centre z, n0, n1), and for NASP (n2, the flag "centre z and
+// centre normal valid"): 14,400 B at K = 300 for NASP, 9,600 for SP /
+// DASP.  A table beyond 48 KB (K > 1,024 for NASP) is not staged: each
+// candidate reads its fields through the read-only cache; the choice
+// follows from K alone.  Each distance runs in the plain version's
+// operation order, with the fused assignment's arithmetic (-fmad=false,
+// IEEE sqrtf, the weights and s_scale^2 rounded to f32 as PyTorch rounds a
+// Python scalar, 255^2 = 65025.0f), so labels and distances are bitwise
+// the plain version's; SP stops after the spatial term, DASP after the
+// depth term.  Only the first out-of-grid candidate can win (they all cost
+// the same), so it is compared once, at its place in the order.  A width
+// tile's first global column x0 shifts u.  Bound: the issue of the sweep,
+// 62 instructions a NASP candidate in the staged loop (as many as the
+// fused assignment's; 47 DASP, 39 SP: cuobjdump -sass) x 64 (16)
+// candidates a pixel: ~0.21 ms a B = 8 424x512 NASP sweep, ~0.055 ms a
+// B = 8 640x480 DASP one, at one warp instruction a clock on every
+// scheduler; the bytes (label, distance, colour and the points and
+// normal planes read, label and distance written: 52 B a NASP pixel, 40 a
+// DASP one) ~27 and ~29 us.  The staging adds K rows of L2 reads a block
+// (~14 KB for the ~13 KB of its 256 pixels' own bytes).
 //
 // Width tiles: every cell kernel takes the tile's first cell column c0 and
 // its cell columns tc (c0 = 0, tc = cols: the whole frame).  The image is the
@@ -1006,6 +1042,168 @@ label_index_fold_kernel(const double* __restrict__ part, float* __restrict__ out
   out[i] = static_cast<float>(a);
 }
 
+constexpr int SWEEP_TX = 32;                   // a sweep block's tile: 32 x 8 pixels
+constexpr int SWEEP_TY = NT / SWEEP_TX;
+constexpr size_t SWEEP_STAGE_MAX = 48 * 1024;  // cluster-table bytes a block stages
+constexpr int SWEEP_SP = 0, SWEEP_DASP = 1, SWEEP_NASP = 2;
+
+// A variant's cluster fields (rgb, x, y; centre z; normal: slic.
+// _cluster_fields) and its 16-byte rows a cluster.
+template <int V>
+struct Sweep {
+  static constexpr int F = V == SWEEP_SP ? 5 : V == SWEEP_DASP ? 6 : 9;
+  static constexpr int NR = V == SWEEP_NASP ? 3 : 2;
+};
+
+struct SweepArgs {
+  const int* labels;    // [B, H, W], the current labels
+  const float* dist;    // [B, H, W], the current distances
+  const float* fields;  // [B, K, F]
+  const float *color, *points, *normals;  // [B, H, W, 3]: points unread by SP, normals but by NASP
+  int* labels_out;      // [B, H, W]
+  float* dist_out;      // [B, H, W]
+  int H, W, K, rows, cols, r, x0, apply_invalid;
+  float w_col, w_spa, w_dep, w_nor, s2scale;
+};
+
+// Cluster `id`'s rows from the frame's fields [K, F], read through the
+// read-only cache: (r, g, b, x), (y, centre z, n0, n1), (n2, 1 where the
+// centre z and the centre normal are valid, else 0).
+template <int V>
+__device__ __forceinline__ void sweep_rows(const float* __restrict__ fields, int id, float4* row) {
+  constexpr int F = Sweep<V>::F;
+  const float* f = fields + static_cast<size_t>(id) * F;
+  float e[9] = {};
+#pragma unroll
+  for (int k = 0; k < F; ++k) e[k] = __ldg(f + k);
+  row[0] = make_float4(e[0], e[1], e[2], e[3]);
+  row[1] = make_float4(e[4], e[5], e[6], e[7]);
+  if constexpr (V == SWEEP_NASP) {
+    const bool valid = e[5] > VALID_DEPTH_MM && normal_valid(e + 6);
+    row[2] = make_float4(e[8], valid ? 1.0f : 0.0f, 0.0f, 0.0f);
+  }
+}
+
+struct SweepPixel {
+  float col[3], nm[3], u, v, z;
+  bool z_valid, zn_valid;  // z > 50; and the normal valid
+};
+
+// A variant's distance of the pixel to a candidate's rows, in the plain
+// version's operation order (slic._distance; Assigner::pixel's arithmetic).
+template <int V>
+__device__ __forceinline__ float sweep_distance(const float4* c, const SweepPixel& p,
+                                                const SweepArgs& s) {
+  const float d0 = p.col[0] - c[0].x, d1 = p.col[1] - c[0].y, d2 = p.col[2] - c[0].z;
+  const float cd = (d0 * d0 + d1 * d1) + d2 * d2;
+  const float ex = p.u - c[0].w, ey = p.v - c[1].x;
+  const float pd = sqrtf(ex * ex + ey * ey) * s.s2scale;
+  float d = cd * s.w_col + pd * s.w_spa;
+  if constexpr (V != SWEEP_SP) {
+    const bool zpair = p.z_valid && c[1].y > VALID_DEPTH_MM;
+    const float dd = zpair ? fabsf(p.z - c[1].y) : 0.0f;
+    d = d + dd * s.w_dep;
+  }
+  if constexpr (V == SWEEP_NASP) {
+    const bool npair = p.zn_valid && c[2].y != 0.0f;  // zpair, both normals valid
+    const float dot = (p.nm[0] * c[1].z + p.nm[1] * c[1].w) + p.nm[2] * c[2].x;
+    const float nd = npair ? 65025.0f * (1.0f - fmaxf(dot, 0.0f)) : 0.0f;
+    d = d + nd * s.w_nor;
+  }
+  return d;
+}
+
+// One sweep of a block's 32 x 8 pixels of frame blockIdx.z; STAGED: the
+// frame's cluster table in shared memory, [K][NR] 16-byte rows.
+template <int V, bool STAGED>
+__global__ void __launch_bounds__(NT)
+assign_global_kernel(SweepArgs s) {
+  constexpr int NR = Sweep<V>::NR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* tab = reinterpret_cast<float4*>(smem);
+  const int b = blockIdx.z;
+  const float* fields = s.fields + static_cast<size_t>(b) * s.K * Sweep<V>::F;
+  if constexpr (STAGED) {
+    for (int i = threadIdx.x; i < s.K; i += NT) {
+      float4 row[3];
+      sweep_rows<V>(fields, i, row);
+#pragma unroll
+      for (int k = 0; k < NR; ++k) tab[NR * i + k] = row[k];
+    }
+    __syncthreads();
+  }
+  const int x = blockIdx.x * SWEEP_TX + threadIdx.x % SWEEP_TX;
+  const int y = blockIdx.y * SWEEP_TY + threadIdx.x / SWEEP_TX;
+  if (x >= s.W || y >= s.H) return;
+  const size_t pix = (static_cast<size_t>(b) * s.H + y) * s.W + x;
+  SweepPixel p;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p.col[k] = s.color[3 * pix + k];
+  p.u = static_cast<float>(s.x0 + x);
+  p.v = static_cast<float>(y);
+  p.z = 0.0f;
+  p.z_valid = p.zn_valid = false;
+  if constexpr (V != SWEEP_SP) {
+    p.z = s.points[3 * pix + 2];
+    p.z_valid = p.z > VALID_DEPTH_MM;
+  }
+  if constexpr (V == SWEEP_NASP) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p.nm[k] = s.normals[3 * pix + k];
+    p.zn_valid = p.z_valid && normal_valid(p.nm);
+  }
+  const int lab = s.labels[pix];
+  const float cur = s.dist[pix];
+  const int lab0 = max(lab, 0), cy = lab0 / s.cols, cx = lab0 - cy * s.cols;
+  const int r = s.r;
+  // the in-grid offsets [dy0, dy1) x [dx0, dx1) of the label's cell
+  const int dy0 = max(-r, -cy), dy1 = min(r, s.rows - cy);
+  const int dx0 = max(-r, -cx), dx1 = min(r, s.cols - cx);
+  // the in-grid row after which the first out-of-grid candidate comes,
+  // dy0 - 1 where it comes first, none (dy0 - 2) where every one is in grid
+  int oog_after = dy0 - 2;
+  if (dy1 <= dy0 || dx1 <= dx0 || dy0 > -r || dx0 > -r) {
+    oog_after = dy0 - 1;
+  } else if (dx1 < r) {
+    oog_after = dy0;
+  } else if (dy1 < r) {
+    oog_after = dy1 - 1;
+  }
+  float bd = INFINITY;
+  int bl = -1;
+  if (oog_after == dy0 - 1 && cur < bd) {
+    bd = cur;
+    bl = lab;
+  }
+  for (int dy = dy0; dy < dy1; ++dy) {
+    const int row0 = (cy + dy) * s.cols + cx;
+    for (int dx = dx0; dx < dx1; ++dx) {
+      float4 c[3];
+      if constexpr (STAGED) {
+#pragma unroll
+        for (int k = 0; k < NR; ++k) c[k] = tab[NR * (row0 + dx) + k];
+      } else {
+        sweep_rows<V>(fields, row0 + dx, c);
+      }
+      const float d = sweep_distance<V>(c, p, s);
+      if (d < bd) {
+        bd = d;
+        bl = row0 + dx;
+      }
+    }
+    if (dy == oog_after && cur < bd) {
+      bd = cur;
+      bl = lab;
+    }
+  }
+  if (V != SWEEP_SP && s.apply_invalid && p.z < VALID_DEPTH_MM) {
+    bl = -1;
+    bd = 0.0f;
+  }
+  s.labels_out[pix] = bl;
+  s.dist_out[pix] = bd;
+}
+
 // A tile of tc whole cell columns [c0, c0 + tc) of a rows x cols grid that
 // divides the frame (the tile W = tc cell widths); blocks per (frame, cell)
 // need B and rows within a grid dimension's 65535.
@@ -1084,6 +1282,16 @@ int launch_label_sums(int vec, dim3 grid, size_t smem, void* stream, const int* 
 
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// A variant's sweep, its cluster table staged where it fits SWEEP_STAGE_MAX.
+template <int V>
+int launch_sweep(const SweepArgs& s, int B, void* stream) {
+  const dim3 grid((s.W + SWEEP_TX - 1) / SWEEP_TX, (s.H + SWEEP_TY - 1) / SWEEP_TY, B);
+  const size_t smem = sizeof(float4) * Sweep<V>::NR * s.K;
+  return smem <= SWEEP_STAGE_MAX
+             ? launch_dyn<assign_global_kernel<V, true>>(grid, smem, stream, s)
+             : launch_dyn<assign_global_kernel<V, false>>(grid, 0, stream, s);
 }
 
 }  // namespace
@@ -1220,4 +1428,33 @@ extern "C" int kde_label_sums(const int* labels, const unsigned char* mask, cons
   const long long total = static_cast<long long>(B) * K * F;
   return launch_block<label_index_fold_kernel>(dim3(static_cast<unsigned>((total + NT - 1) / NT)),
                                                NT, 0, stream, part, out, B, bands, K * F);
+}
+
+// labels [B, H, W] i32 and dist [B, H, W] f32: the current state; fields
+// [B, rows*cols, 5 | 6 | 9] f32 (rgb, x, y; centre z; normal: variant 0 SP,
+// 1 DASP, 2 NASP); color, points, normals [B, H, W, 3] f32 (points null
+// for SP, normals null but for NASP), columns [x0, x0 + W) of the frame;
+// labels_out, dist_out [B, H, W] written: the sweep over each pixel's
+// (2r)^2 cells around its label's, then the invalid-depth override where
+// apply_invalid (DASP and NASP).  w_* the distance weights and s2scale =
+// s_scale^2, each as the plain version rounds them.
+extern "C" int kde_assign_global(const int* labels, const float* dist, const float* fields,
+                                 const float* color, const float* points, const float* normals,
+                                 int* labels_out, float* dist_out, int B, int H, int W,
+                                 int rows, int cols, int r, int variant, int x0, float w_col,
+                                 float w_spa, float w_dep, float w_nor, float s2scale,
+                                 int apply_invalid, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || (H + SWEEP_TY - 1) / SWEEP_TY > 65535 ||
+      rows <= 0 || cols <= 0 || static_cast<long long>(rows) * cols > INT32_MAX / 2 || r < 1 ||
+      x0 < 0 || variant < SWEEP_SP || variant > SWEEP_NASP ||
+      (variant != SWEEP_SP && points == nullptr) || (variant == SWEEP_NASP && normals == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SweepArgs s{labels, dist, fields, color, points, normals, labels_out, dist_out, H, W,
+                    rows * cols, rows, cols, r, x0, apply_invalid, w_col, w_spa, w_dep, w_nor,
+                    s2scale};
+  switch (variant) {
+    case SWEEP_SP: return launch_sweep<SWEEP_SP>(s, B, stream);
+    case SWEEP_DASP: return launch_sweep<SWEEP_DASP>(s, B, stream);
+    default: return launch_sweep<SWEEP_NASP>(s, B, stream);
+  }
 }

@@ -41,6 +41,20 @@ one for labels with no locality (slic._GlobalIndex):
                            features (~32 us at B = 8 on 424x512 frames,
                            F = 14).
 
+One kernel is the global route's SLIC assignment (slic._assign_global):
+
+  assign_global            one sweep of the SP, DASP or NASP distance over
+                           labels with no locality: each pixel's (2r)^2
+                           candidates around its current label's cell
+                           (-1 as cell 0), an out-of-grid one keeping the
+                           pixel's (label, distance), the strict-< first
+                           minimum, then the variant's invalid-depth
+                           override.  Labels and distances bitwise the
+                           plain version's.  Bound: the sweep's issue, ~0.21
+                           ms a B = 8 424x512 NASP sweep (its bytes ~27 us).
+                           It replaces no TPU kernel either (the JAX
+                           package's global sweep is XLA).
+
 Candidate order is dy-major (slot j = (dy + r) * 2r + (dx + r)), -9 marks an
 out-of-grid candidate; feature order is the JAX package's feats layout
 (slic.py:1182-1190, :1272-1282).  Sums come back as [B, rows*cols*n, F]
@@ -57,7 +71,8 @@ the tiles in cell order before the fold.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  The plain versions are one-hot products cut at the kernel's output
-(every product through tables.exact_matmul); the card's tests hold the
+(every product through tables.exact_matmul), the sweep's the chunked
+PyTorch sweep of the JAX package's operation order; the card's tests hold the
 kernels against them, swapped in for the wrappers by
 utils/golden.plain_nasp.  Kernel source: csrc/nasp.cu.
 """
@@ -87,10 +102,11 @@ REPLACES = {
 # kernel launches since the last reset, by kernel (chip_smoke.py reads them),
 # and by form: "<kernel>:r<r>" with ":<mode>" or ":F<features>" (the shapes
 # a path runs; chip_smoke.py clears it with launches), "label_counts:pairs"
-# or ":single", "label_sums:F=<features>".  label_counts and label_sums
-# replace no TPU kernel (the JAX package's global index counts and sums by
-# one-hot products).
-launches = {name: 0 for name in (*REPLACES, "label_counts", "label_sums")}
+# or ":single", "label_sums:F=<features>", "assign_global:<variant>:r<r>".
+# label_counts and label_sums replace no TPU kernel (the JAX package's
+# global index counts and sums by one-hot products), nor does assign_global
+# (its global sweep is XLA).
+launches = {name: 0 for name in (*REPLACES, "label_counts", "label_sums", "assign_global")}
 launch_forms: Dict[str, int] = {}
 
 INIT_DISTANCE = 999999.9  # the out-of-grid candidate cost (JAX slic.INIT_DISTANCE)
@@ -101,6 +117,10 @@ N_WEIGHTED = 14  # color*w 3, u*w, v*w, w, p*acc 3, n*acc 3, dclamp*acc, acc
 INTEGER_FEATURES = {"analyze": (0, 1, 2, 3, 4, 5, 12), "weighted": (13,)}
 MAX_SUM_FEATURES = 16  # features a sums kernel stages per pixel
 _MODES = {"analyze": 0, "weighted": 1}
+# the global sweep's variants: (kernel code, cluster fields a row)
+_SWEEP_VARIANTS = {"sp": (0, 5), "dasp": (1, 6), "nasp": (2, 9)}
+# elements of one [B, offsets, H, W] map a plain sweep's chunk may hold
+_CHUNK_ELEMENTS = 2**23
 
 
 # ------------------------------------------------------------ cell layout
@@ -432,6 +452,115 @@ def nasp_assign_and_analyze_plain(
     return labels, dist, part
 
 
+def _distance(pix, cand: torch.Tensor, weights, s_scale: float, variant: str) -> torch.Tensor:
+    """A variant's distance of pixels to candidates
+    (SuperpixelSegmentation.cu:197-206, DepthAdaptiveSuperpixel.cu:206-219,
+    NormalAdaptiveSuperpixel.cu:223-258), in the operation order of the JAX
+    package and of assign_plain.  pix: the pixel planes (colour 3, u, v, z,
+    normal 3, normal validity; z and the normals None where the variant has
+    no such term), each broadcastable against cand [..., 5|6|9]
+    (slic._cluster_fields)."""
+    cf, u, v, z, nm, nv_pix = pix
+    w_col, w_spa, w_dep, w_nor = weights
+    d = [cf[i] - cand[..., i] for i in range(3)]
+    cd = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    ex, ey = u - cand[..., 3], v - cand[..., 4]
+    pd = torch.sqrt(ex * ex + ey * ey) * (s_scale**2)
+    dist = cd * w_col + pd * w_spa
+    if variant == "sp":
+        return dist
+    c_cz = cand[..., 5]
+    zpair = (z > VALID_DEPTH_MM) & (c_cz > VALID_DEPTH_MM)
+    dd = torch.where(zpair, (z - c_cz).abs(), 0.0)
+    dist = dist + dd * w_dep
+    if variant == "dasp":
+        return dist
+    c_n = [cand[..., 6 + i] for i in range(3)]
+    nv_cand = (c_n[0] != INVALID_NORMAL) | (c_n[1] != INVALID_NORMAL) | (c_n[2] != INVALID_NORMAL)
+    npair = zpair & nv_pix & nv_cand
+    dot = (nm[0] * c_n[0] + nm[1] * c_n[1]) + nm[2] * c_n[2]
+    nd = torch.where(npair, 255.0**2 * (1.0 - torch.clamp_min(dot, 0.0)), 0.0)
+    return dist + nd * w_nor
+
+
+def _pixel_planes(color_f, points, normals, shape, variant: str = "nasp"):
+    """The per-pixel operands of _distance, each reshaped to `shape` (an
+    offsets axis of 1 where the caller broadcasts candidates)."""
+    cf = [color_f[..., i].reshape(shape) for i in range(3)]
+    z = None if variant == "sp" else points[..., 2].reshape(shape)
+    if variant != "nasp":
+        return cf, z, None, None
+    nm = [normals[..., i].reshape(shape) for i in range(3)]
+    nv_pix = (nm[0] != INVALID_NORMAL) | (nm[1] != INVALID_NORMAL) | (nm[2] != INVALID_NORMAL)
+    return cf, z, nm, nv_pix
+
+
+def _chunks(offs, per_offset: int):
+    """Offsets in dy-major order, cut into chunks of at most
+    _CHUNK_ELEMENTS / per_offset."""
+    n = max(1, _CHUNK_ELEMENTS // per_offset)
+    return [offs[i : i + n] for i in range(0, len(offs), n)]
+
+
+def _take_first_min(cand_d, cand_l, bd, bl):
+    """Fold a chunk [B, C, ...] of candidates (in sweep order along dim 1)
+    into the running best (bd, bl): the first minimum of the chunk (torch's
+    min returns the first index of a tie) replaces the best where strictly
+    smaller — the strict-< running argmin over the whole sweep."""
+    m, i = cand_d.min(dim=1)
+    take = m < bd
+    return torch.where(take, m, bd), torch.where(take, cand_l.gather(1, i[:, None])[:, 0], bl)
+
+
+def _invalid_override(labels, dist, points, apply_invalid: bool):
+    """Invalid-depth override (DepthAdaptiveSuperpixel.cu:306-312,
+    NormalAdaptiveSuperpixel.cu:346-352): label -1, distance 0 where z < 50."""
+    if apply_invalid:
+        invalid = points[..., 2] < VALID_DEPTH_MM
+        labels = torch.where(invalid, -1, labels)
+        dist = torch.where(invalid, 0.0, dist)
+    return labels, dist
+
+
+def assign_global_plain(
+    labels, distance, fields, color_f, points, normals, *, rows, cols, r, variant,
+    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid, x0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of assign_global (JAX slic.py:_assign with
+    cell_fast=False, cell_capped=0): a pixel's candidates are the (2r)^2
+    cells around its CURRENT label's cell, dy-major; an out-of-grid one
+    keeps the pixel's (label, distance).  Label -1 (invalid depth) is taken
+    as cluster 0's cell, and the override marks it -1 again.  Offsets run
+    in chunks, each one gather of the cluster fields and the distance over
+    [B, C, H, W].  The pixels may be columns [x0, x0 + W) of a wider frame
+    (a width tile): each pixel's candidates and distances are its own, at
+    its global u."""
+    b, h, w = labels.shape
+    dev = labels.device
+    lab0 = labels.clamp_min(0)
+    cur_cx = (lab0 % cols)[:, None]
+    cur_cy = (lab0 // cols)[:, None]
+    u = torch.arange(x0, x0 + w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
+    v = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, 1, h, 1)
+    cf, z, nm, nv_pix = _pixel_planes(color_f, points, normals, (b, 1, h, w), variant)
+    pix = (cf, u, v, z, nm, nv_pix)
+    weights = (w_col, w_spa, w_dep, w_nor)
+    bi = torch.arange(b, device=dev).reshape(b, 1, 1, 1)
+    bd = torch.full((b, h, w), float("inf"), dtype=torch.float32, device=dev)
+    bl = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
+    for chunk in _chunks(candidate_offsets(r), b * h * w):
+        dy = constant(tuple(o[0] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
+        dx = constant(tuple(o[1] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
+        rcx, rcy = cur_cx + dx, cur_cy + dy
+        in_grid = (rcx >= 0) & (rcx < cols) & (rcy >= 0) & (rcy < rows)
+        rid = torch.where(in_grid, rcy * cols + rcx, 0)
+        dist = _distance(pix, fields[bi, rid.long()], weights, s_scale, variant)
+        cand_d = torch.where(in_grid, dist, distance[:, None])
+        cand_l = torch.where(in_grid, rid, labels[:, None])
+        bd, bl = _take_first_min(cand_d, cand_l, bd, bl)
+    return _invalid_override(bl, bd, points, apply_invalid)
+
+
 # ----------------------------------------------------------------- kernels
 
 
@@ -681,3 +810,51 @@ def nasp_assign_and_analyze(
          float(lo), float(hi), w_col, w_spa, w_dep, w_nor, s_scale**2, int(apply_invalid)),
     )
     return labels, dist, part
+
+
+def assign_global(
+    labels, distance, fields, color_f, points, normals, *, rows, cols, r, variant,
+    w_col, w_spa, w_dep, w_nor, s_scale, apply_invalid, x0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SLIC assignment sweep of the global route: labels [B, H, W] i32
+    and distance [B, H, W] f32, the current state; fields [B, rows*cols,
+    5|6|9] f32, the cluster fields of `variant` ("sp", "dasp", "nasp":
+    slic._cluster_fields); color_f, points, normals [B, H, W, 3] f32 (points
+    None for SP, normals None but for NASP), columns [x0, x0 + W) of the
+    frame.  Returns the new (labels, distance), bitwise
+    assign_global_plain's (whose docstring states the rules).  The CUDA
+    kernel for CUDA tensors (one launch, no host sync), the plain version
+    for CPU ones."""
+    kw = dict(rows=rows, cols=cols, r=r, variant=variant, w_col=w_col, w_spa=w_spa,
+              w_dep=w_dep, w_nor=w_nor, s_scale=s_scale, apply_invalid=apply_invalid, x0=x0)
+    if labels.device.type == "cpu":
+        return assign_global_plain(labels, distance, fields, color_f, points, normals, **kw)
+    if variant not in _SWEEP_VARIANTS:
+        raise ValueError(f"SLIC variant must be 'sp', 'dasp' or 'nasp', got {variant!r}")
+    if r < 1:
+        raise ValueError(f"candidate radius r={r} must be >= 1")
+    code, f = _SWEEP_VARIANTS[variant]
+    b, h, w = labels.shape
+    labels = labels.contiguous()  # the first sweep's grid-init labels come expanded
+    _build.check_tensor(labels, "assign_global labels", torch.int32, (b, h, w))
+    _build.check_tensor(distance, "assign_global distance", torch.float32, (b, h, w))
+    _build.check_tensor(fields, "assign_global fields", torch.float32, (b, rows * cols, f))
+    # the planes the variant reads: colour, then z (DASP, NASP), then normals (NASP)
+    planes = {"color_f": color_f, "points": points if code > 0 else None,
+              "normals": normals if code > 1 else None}
+    for name, t in list(planes.items())[:code + 1]:
+        if t is None:
+            raise ValueError(f"assign_global: the {variant} sweep reads {name}, got None")
+        _build.check_tensor(t, f"assign_global {name}", torch.float32, (b, h, w, 3))
+    dev = labels.device
+    out_l = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    _call(
+        "assign_global", f"{variant}:r{r}",
+        [_build.PTR] * 8 + [_build.INT] * 8 + [_build.FLOAT] * 5 + [_build.INT], dev,
+        (labels.data_ptr(), distance.data_ptr(), fields.data_ptr(),
+         *(None if t is None else t.data_ptr() for t in planes.values()), out_l.data_ptr(),
+         out_d.data_ptr(), b, h, w, rows, cols, r, code, x0, w_col, w_spa, w_dep, w_nor,
+         s_scale**2, int(apply_invalid)),
+    )
+    return out_l, out_d

@@ -27,16 +27,15 @@ NormalAdaptiveSuperpixel in the reference).  NASP:
     (_GlobalIndex), then the analyze and weighted post-processing.  No
     float atomics, so every sum is deterministic.
 
-Every gather, sum and count of a label index, and the first NASP
-iteration's fused assignment, goes through the wrappers of
-ops/cuda_nasp.py, which alone pick the device's version: the CUDA kernel
-for a CUDA tensor (the fused assignment + analyze kernel, the NASP sums
-kernel at r = 4 and, on the capped route, r = 5, the label-cell kernels,
-and the global index's label-sums and label-counts kernels), the plain
-version for a CPU one.  SLICParams.stats_impl is checked ("auto", "pallas"
-or "xla", as in the JAX package) and not read.  The global route's
-assignment and the later iterations' assignments are plain PyTorch on
-every device.
+Every gather, sum and count of a label index, the first NASP iteration's
+fused assignment and every sweep of the global route (the later
+iterations' assignments too) go through the wrappers of ops/cuda_nasp.py,
+which alone pick the device's version: the CUDA kernel for a CUDA tensor
+(the fused assignment + analyze kernel, the NASP sums kernel at r = 4
+and, on the capped route, r = 5, the label-cell kernels, the global
+index's label-sums and label-counts kernels and the global sweep's
+kernel), the plain version for a CPU one.  SLICParams.stats_impl is
+checked ("auto", "pallas" or "xla", as in the JAX package) and not read.
 
 On a width tile (parallel/sharding.py's tiled route, segment_tile and a
 label index with a `tile`), NASP runs on the tile's pixels with the cluster
@@ -103,8 +102,6 @@ GRAD_MARGIN = 5  # the seed gradient's 11x11 window half-width
 # slic.py:1349-1358); later iterations' locality cap is r + 1 (:1430)
 _VARIANTS = {"sp": (16, 4, 4), "dasp": (4, 4, 2), "nasp": (8, 8, 2)}
 _NEIGHBORHOOD = _VARIANTS["nasp"][1]
-# elements of one [B, offsets, H, W] map an assignment chunk may hold
-_CHUNK_ELEMENTS = 2**23
 
 
 class Clusters(NamedTuple):
@@ -711,6 +708,16 @@ def _cluster_fields(clusters: Clusters, variant: str = "nasp") -> torch.Tensor:
     return torch.cat(cols, dim=-1)
 
 
+def _overrides(params: SLICParams, variant: str) -> bool:
+    """Whether a variant's sweep applies the invalid-depth override
+    (DepthAdaptiveSuperpixel.cu:306-312 when depth_sigma != 0,
+    NormalAdaptiveSuperpixel.cu:346-352 when depth_sigma or normal_sigma !=
+    0; SP has none)."""
+    if variant == "sp":
+        return False
+    return params.depth_sigma != 0.0 or (variant == "nasp" and params.normal_sigma != 0.0)
+
+
 def _assign_args(clusters: Clusters, grid: GridParams, params: SLICParams, s_scale: float):
     """The candidate fields [B, rows, cols, 9] (rgb, x, y, center z,
     normal) and the distance constants of the first NASP assignment."""
@@ -721,85 +728,9 @@ def _assign_args(clusters: Clusters, grid: GridParams, params: SLICParams, s_sca
         rows=grid.rows, cols=grid.cols, r=_NEIGHBORHOOD // 2,
         w_col=w_col, w_spa=w_spa, w_dep=w_dep, w_nor=w_nor,
         s_scale=s_scale,
-        apply_invalid=params.depth_sigma != 0.0 or params.normal_sigma != 0.0,
+        apply_invalid=_overrides(params, "nasp"),
     )
     return cand_fields.contiguous(), kw
-
-
-def _distance(pix, cand: torch.Tensor, weights, s_scale: float, variant: str) -> torch.Tensor:
-    """A variant's distance of pixels to candidates
-    (SuperpixelSegmentation.cu:197-206, DepthAdaptiveSuperpixel.cu:206-219,
-    NormalAdaptiveSuperpixel.cu:223-258), in the operation order of the JAX
-    package and of cuda_nasp.assign_plain.  pix: the pixel planes (colour
-    3, u, v, z, normal 3, normal validity; z and the normals None where the
-    variant has no such term), each broadcastable against cand
-    [..., 5|6|9] (_cluster_fields)."""
-    cf, u, v, z, nm, nv_pix = pix
-    w_col, w_spa, w_dep, w_nor = weights
-    d = [cf[i] - cand[..., i] for i in range(3)]
-    cd = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-    ex, ey = u - cand[..., 3], v - cand[..., 4]
-    pd = torch.sqrt(ex * ex + ey * ey) * (s_scale**2)
-    dist = cd * w_col + pd * w_spa
-    if variant == "sp":
-        return dist
-    c_cz = cand[..., 5]
-    zpair = (z > VALID_DEPTH_MM) & (c_cz > VALID_DEPTH_MM)
-    dd = torch.where(zpair, (z - c_cz).abs(), 0.0)
-    dist = dist + dd * w_dep
-    if variant == "dasp":
-        return dist
-    c_n = [cand[..., 6 + i] for i in range(3)]
-    nv_cand = (c_n[0] != INVALID_NORMAL) | (c_n[1] != INVALID_NORMAL) | (c_n[2] != INVALID_NORMAL)
-    npair = zpair & nv_pix & nv_cand
-    dot = (nm[0] * c_n[0] + nm[1] * c_n[1]) + nm[2] * c_n[2]
-    nd = torch.where(npair, 255.0**2 * (1.0 - torch.clamp_min(dot, 0.0)), 0.0)
-    return dist + nd * w_nor
-
-
-def _pixel_planes(color_f, points, normals, shape, variant: str = "nasp"):
-    """The per-pixel operands of _distance, each reshaped to `shape` (an
-    offsets axis of 1 where the caller broadcasts candidates)."""
-    cf = [color_f[..., i].reshape(shape) for i in range(3)]
-    z = None if variant == "sp" else points[..., 2].reshape(shape)
-    if variant != "nasp":
-        return cf, z, None, None
-    nm = [normals[..., i].reshape(shape) for i in range(3)]
-    nv_pix = (nm[0] != INVALID_NORMAL) | (nm[1] != INVALID_NORMAL) | (nm[2] != INVALID_NORMAL)
-    return cf, z, nm, nv_pix
-
-
-def _chunks(offs, per_offset: int):
-    """Offsets in dy-major order, cut into chunks of at most
-    _CHUNK_ELEMENTS / per_offset."""
-    n = max(1, _CHUNK_ELEMENTS // per_offset)
-    return [offs[i : i + n] for i in range(0, len(offs), n)]
-
-
-def _take_first_min(cand_d, cand_l, bd, bl):
-    """Fold a chunk [B, C, ...] of candidates (in sweep order along dim 1)
-    into the running best (bd, bl): the first minimum of the chunk (torch's
-    min returns the first index of a tie) replaces the best where strictly
-    smaller — the strict-< running argmin over the whole sweep."""
-    m, i = cand_d.min(dim=1)
-    take = m < bd
-    return torch.where(take, m, bd), torch.where(take, cand_l.gather(1, i[:, None])[:, 0], bl)
-
-
-def _invalid_override(labels, dist, points, params, variant: str = "nasp"):
-    """Invalid-depth override (DepthAdaptiveSuperpixel.cu:306-312 when
-    depth_sigma != 0, NormalAdaptiveSuperpixel.cu:346-352 when depth_sigma
-    or normal_sigma != 0; SP has none)."""
-    override = {
-        "sp": False,
-        "dasp": params.depth_sigma != 0.0,
-        "nasp": params.depth_sigma != 0.0 or params.normal_sigma != 0.0,
-    }[variant]
-    if override:
-        invalid = points[..., 2] < VALID_DEPTH_MM
-        labels = torch.where(invalid, -1, labels)
-        dist = torch.where(invalid, 0.0, dist)
-    return labels, dist
 
 
 def _assign_global(
@@ -807,41 +738,20 @@ def _assign_global(
     variant: str = "nasp", x0: int = 0,
 ):
     """A variant's assignment sweep on the global route (JAX slic.py:_assign
-    with cell_fast=False, cell_capped=0): a pixel's candidates are the
-    (2r)^2 cells around its CURRENT label's cell, dy-major; an out-of-grid
-    one keeps the pixel's (label, distance).  From the grid-init labels
-    these are the JAX cell_fast candidates, so the first SP / DASP sweep
-    runs here too.  Label -1 (invalid depth) is taken as cluster 0's cell,
-    and the override marks it -1 again.  Offsets run in chunks, each one
-    gather of the cluster fields and the distance over [B, C, H, W].  The
-    pixels may be columns [x0, x0 + W) of a wider frame (a width tile):
-    each pixel's candidates and distances are its own, at its global u."""
-    b, h, w = labels.shape
-    dev = labels.device
-    r = _variant(variant)[1] // 2
-    lab0 = labels.clamp_min(0)
-    cur_cx = (lab0 % grid.cols)[:, None]
-    cur_cy = (lab0 // grid.cols)[:, None]
-    u = torch.arange(x0, x0 + w, dtype=torch.float32, device=dev).reshape(1, 1, 1, w)
-    v = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, 1, h, 1)
-    cf, z, nm, nv_pix = _pixel_planes(color_f, points, normals, (b, 1, h, w), variant)
-    pix = (cf, u, v, z, nm, nv_pix)
-    weights = _weights(params, variant)
-    fields = _cluster_fields(clusters, variant)
-    bi = torch.arange(b, device=dev).reshape(b, 1, 1, 1)
-    bd = torch.full((b, h, w), float("inf"), dtype=torch.float32, device=dev)
-    bl = torch.full((b, h, w), -1, dtype=torch.int32, device=dev)
-    for chunk in _chunks(cuda_nasp.candidate_offsets(r), b * h * w):
-        dy = constant(tuple(o[0] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
-        dx = constant(tuple(o[1] for o in chunk), torch.int32, dev).reshape(1, -1, 1, 1)
-        rcx, rcy = cur_cx + dx, cur_cy + dy
-        in_grid = (rcx >= 0) & (rcx < grid.cols) & (rcy >= 0) & (rcy < grid.rows)
-        rid = torch.where(in_grid, rcy * grid.cols + rcx, 0)
-        dist = _distance(pix, fields[bi, rid.long()], weights, s_scale, variant)
-        cand_d = torch.where(in_grid, dist, distance[:, None])
-        cand_l = torch.where(in_grid, rid, labels[:, None])
-        bd, bl = _take_first_min(cand_d, cand_l, bd, bl)
-    return _invalid_override(bl, bd, points, params, variant)
+    with cell_fast=False, cell_capped=0) through cuda_nasp.assign_global:
+    the sweep kernel on CUDA tensors, on CPU ones assign_global_plain,
+    whose docstring states the rules.  From the grid-init labels a pixel's
+    candidates are the JAX cell_fast ones, so the first SP / DASP sweep
+    runs here too.  The pixels may be columns [x0, x0 + W) of a wider
+    frame (a width tile).  Telemetry stage slic.assign."""
+    w_col, w_spa, w_dep, w_nor = _weights(params, variant)
+    with telemetry.stage("slic.assign", labels):
+        return cuda_nasp.assign_global(
+            labels, distance, _cluster_fields(clusters, variant), color_f, points, normals,
+            rows=grid.rows, cols=grid.cols, r=_variant(variant)[1] // 2, variant=variant,
+            w_col=w_col, w_spa=w_spa, w_dep=w_dep, w_nor=w_nor, s_scale=s_scale,
+            apply_invalid=_overrides(params, variant), x0=x0,
+        )
 
 
 # ----------------------------------------------------------- cluster stats

@@ -466,13 +466,14 @@ def failures(gates: Gate) -> Dict[str, Tuple[float, float, bool]]:
 # the ops/cuda_nasp.py wrappers that ops/slic.py calls, each with a
 # <name>_plain twin of the same signature
 PLAIN_NASP = ("label_cell_gather", "label_cell_sums", "label_counts", "label_pair_counts",
-              "label_sums", "nasp_cell_sums", "nasp_assign_and_analyze")
+              "label_sums", "nasp_cell_sums", "nasp_assign_and_analyze", "assign_global")
 
 
 @contextlib.contextmanager
 def plain_nasp() -> Iterator[None]:
     """Inside the block each wrapper of PLAIN_NASP is its plain twin on
-    every device: the one-hot products on CUDA tensors, the reference that
+    every device: the one-hot products (and the chunked PyTorch sweep) on
+    CUDA tensors, the reference that
     the card's tests and chip_smoke.py hold the kernels against.  A
     compiled call (core/jit.py) keys its graph by shapes and config, not by
     this swap, so run the plain side eagerly or through a jit.jit made

@@ -352,9 +352,10 @@ def test_pipeline_launches_every_kernel(inputs):
     assert all(m.launches > b for m, b in zip(mods, before))
     # the grid divides the frame: every cell kernel and the label counts
     # (CCL's, on the cell-local index), and the global index's label sums
-    # never
-    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items() if k != "label_sums")
-    assert cuda_nasp.launches["label_sums"] == before_nasp["label_sums"]
+    # and the global sweep (one NASP iteration, on the cell route) never
+    idle = ("label_sums", "assign_global")
+    assert all(cuda_nasp.launches[k] > v for k, v in before_nasp.items() if k not in idle)
+    assert all(cuda_nasp.launches[k] == before_nasp[k] for k in idle)
     assert bool(torch.isfinite(res.optimized_points).all())
 
 
@@ -1826,6 +1827,213 @@ def test_stats_impl_xla_launches_the_kernels_of_auto(inputs, grid):
     assert forms["xla"] == forms["auto"]
     for a, b in zip(out["auto"], out["xla"]):
         assert torch.equal(a, b)
+
+
+# the global sweep's shapes: (B, H, W) of the Kinect v2 sensor, its replay
+# and the 640x480 replay
+SWEEP_SHAPES = [(1, 424, 512), (8, 424, 512), (8, 480, 640)]
+SWEEP_SHAPE_IDS = ["v2b1", "v2b8", "vgab8"]
+SWEEP_FIELDS = {"sp": 5, "dasp": 6, "nasp": 9}
+
+
+def _sweep_inputs(dev, b, h, w, variant, seed=0):
+    """The global sweep's inputs on the card, grid 15x20 (K = 300): colour
+    (integers), points (z at or below 50 on 13% of pixels), unit normals
+    (invalid on every channel on 10%, on one on 5%), and the cluster
+    fields [B, K, 5|6|9] (rgb integers; x, y within a cell of the cell's
+    centre; centre z at 40 on 15%; normals invalid as the pixels'), a third
+    of the clusters their neighbour's duplicate (ties between candidates);
+    points None for SP, normals None but for NASP."""
+    grid = KDEConfig().grid
+    k = grid.num_clusters
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def unit_normals(shape):
+        n = rng.standard_normal(shape + (3,))
+        n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(f32)
+        u = rng.random(shape)
+        n[u < 0.1] = -1.0
+        n[(u >= 0.1) & (u < 0.15), 2] = -1.0
+        return n
+
+    color = rng.integers(0, 256, (b, h, w, 3)).astype(f32)
+    points = rng.uniform(-1000.0, 4000.0, (b, h, w, 3)).astype(f32)
+    u = rng.random((b, h, w))
+    points[..., 2][u < 0.1], points[..., 2][(u >= 0.1) & (u < 0.13)] = 0.0, 50.0
+    cw, ch = w / grid.cols, h / grid.rows
+    cy, cx = np.divmod(np.arange(k), grid.cols)
+    xy = np.stack([(cx + 0.5) * cw + rng.uniform(-cw, cw, (b, k)),
+                   (cy + 0.5) * ch + rng.uniform(-ch, ch, (b, k))], axis=-1).astype(np.int32)
+    z = rng.uniform(300.0, 4000.0, (b, k, 1)).astype(f32)
+    z[rng.random((b, k)) < 0.15] = 40.0
+    fields = np.concatenate([rng.integers(0, 256, (b, k, 3)).astype(f32), xy.astype(f32), z,
+                             unit_normals((b, k))], axis=-1)[..., :SWEEP_FIELDS[variant]]
+    dup = np.arange(1, k, 3)
+    fields[:, dup] = fields[:, dup - 1]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    frame = (t(color), None if variant == "sp" else t(points),
+             t(unit_normals((b, h, w))) if variant == "nasp" else None)
+    return grid, t(fields), frame
+
+
+def _sweep_later_state(dev, b, h, w, grid, seed=1):
+    """A later sweep's state on the card: labels of the grid init moved by
+    up to one cell, -1 on 15% of pixels (distance 0), the grid's edge cells
+    on 20% (their out-of-grid candidates come first in dy-major order, or
+    last), any id on 10% (a cell far from the pixel), distances 0..3000."""
+    k = grid.num_clusters
+    rng = np.random.default_rng(seed)
+    lab = slic.init_labels(grid, h, w).clamp_max(k - 1).expand(b, h, w).numpy().copy()
+    cy, cx = np.divmod(lab, grid.cols)
+    cy = np.clip(cy + rng.integers(-1, 2, lab.shape), 0, grid.rows - 1)
+    cx = np.clip(cx + rng.integers(-1, 2, lab.shape), 0, grid.cols - 1)
+    lab = (cy * grid.cols + cx).astype(np.int32)
+    u = rng.random(lab.shape)
+    edge = np.concatenate([np.arange(grid.cols), np.arange(k - grid.cols, k),
+                           np.arange(0, k, grid.cols), np.arange(grid.cols - 1, k, grid.cols)])
+    lab[u < 0.15] = -1
+    pick = (u >= 0.15) & (u < 0.35)
+    lab[pick] = rng.choice(edge, int(pick.sum()))
+    pick = (u >= 0.35) & (u < 0.45)
+    lab[pick] = rng.integers(0, k, int(pick.sum()))
+    dist = rng.uniform(0.0, 3000.0, lab.shape).astype(np.float32)
+    dist[lab == -1] = 0.0
+    return torch.from_numpy(lab).to(dev), torch.from_numpy(dist).to(dev)
+
+
+def _same_sweep(got, want):
+    return torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                        want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES, ids=SWEEP_SHAPE_IDS)
+@pytest.mark.parametrize("variant", ["nasp", "dasp", "sp"])
+def test_assign_global_kernel_bitwise_plain(dev, variant, shape):
+    """cuda_nasp.assign_global (assign_global_kernel) against its plain
+    version assign_global_plain (the chunked PyTorch sweep) on the card,
+    labels and distances bitwise (sign of zero included): from the
+    grid-init labels (expanded over the batch; ids past the grid in the
+    last rows and columns) at INIT_DISTANCE; from a later state with -1
+    labels, edge cells and far labels, with the invalid-depth override
+    (DASP, NASP) and without it (depth_sigma = 0); on the width tile of
+    columns [261, W) at x0 = 261, bitwise the whole frame's kernel there
+    too; one launch a sweep in form assign_global:<variant>:r<r>, and two
+    launches identical."""
+    b, h, w = shape
+    grid, fields, frame = _sweep_inputs(dev, b, h, w, variant)
+    params = KDEConfig().nasp
+    r = slic._variant(variant)[1] // 2
+    w_col, w_spa, w_dep, w_nor = slic._weights(params, variant)
+    kw = dict(rows=grid.rows, cols=grid.cols, r=r, variant=variant, w_col=w_col,
+              w_spa=w_spa, w_dep=w_dep, w_nor=w_nor,
+              s_scale=slic._update_geometry(grid, h, w, variant)[0])
+    apply = variant != "sp"
+    init = (slic.init_labels(grid, h, w, dev).expand(b, h, w),
+            torch.full((b, h, w), slic.INIT_DISTANCE, dtype=torch.float32, device=dev))
+    later = _sweep_later_state(dev, b, h, w, grid)
+    form = f"assign_global:{variant}:r{r}"
+    for state, override in ((init, apply), (later, apply), (later, False)):
+        before = (cuda_nasp.launches["assign_global"], cuda_nasp.launch_forms.get(form, 0))
+        got = cuda_nasp.assign_global(*state, fields, *frame, apply_invalid=override, **kw)
+        again = cuda_nasp.assign_global(*state, fields, *frame, apply_invalid=override, **kw)
+        torch.cuda.synchronize()
+        assert cuda_nasp.launches["assign_global"] == before[0] + 2
+        assert cuda_nasp.launch_forms[form] == before[1] + 2
+        want = cuda_nasp.assign_global_plain(*state, fields, *frame, apply_invalid=override,
+                                             **kw)
+        assert _same_sweep(got, want) and _same_sweep(again, got)
+        # the rules show: labels kept and moved, out-of-grid winners
+        assert bool((got[0] == state[0]).any()) and bool((got[0] != state[0]).any())
+        if override:
+            assert bool((got[0] == -1).any())
+    x0 = 261
+    cols = slice(x0, w)
+    tile_frame = [None if p is None else p[:, :, cols].contiguous() for p in frame]
+    tile_state = [t[:, :, cols].contiguous() for t in later]
+    got = cuda_nasp.assign_global(*tile_state, fields, *tile_frame, apply_invalid=apply,
+                                  x0=x0, **kw)
+    want = cuda_nasp.assign_global_plain(*tile_state, fields, *tile_frame, apply_invalid=apply,
+                                         x0=x0, **kw)
+    full = cuda_nasp.assign_global(*later, fields, *frame, apply_invalid=apply, **kw)
+    assert _same_sweep(got, want)
+    assert _same_sweep(got, tuple(t[:, :, cols] for t in full))
+
+
+def test_assign_global_rejects_what_it_does_not_take(dev):
+    """The sweep's wrapper raises, and launches nothing, on an unknown
+    variant, r < 1, fields of another variant's width, another dtype, and
+    missing points (DASP)."""
+    b, h, w = 1, 48, 64
+    grid, fields, frame = _sweep_inputs(dev, b, h, w, "dasp")
+    lab = slic.init_labels(grid, h, w, dev)[None].contiguous()
+    dist = torch.zeros((b, h, w), device=dev)
+    kw = dict(rows=grid.rows, cols=grid.cols, r=2, variant="dasp", w_col=0.1, w_spa=0.1,
+              w_dep=0.1, w_nor=0.0, s_scale=2.0, apply_invalid=True)
+    before = dict(cuda_nasp.launches)
+    with pytest.raises(ValueError):
+        cuda_nasp.assign_global(lab, dist, fields, *frame, **dict(kw, variant="slic"))
+    with pytest.raises(ValueError):
+        cuda_nasp.assign_global(lab, dist, fields, *frame, **dict(kw, r=0))
+    with pytest.raises(ValueError):  # NASP's 9 fields a row
+        cuda_nasp.assign_global(lab, dist, fields, *frame, **dict(kw, variant="nasp"))
+    with pytest.raises(TypeError):
+        cuda_nasp.assign_global(lab.long(), dist, fields, *frame, **kw)
+    with pytest.raises(ValueError):  # DASP reads z
+        cuda_nasp.assign_global(lab, dist, fields, frame[0], None, None, **kw)
+    assert cuda_nasp.launches == before
+
+
+def _sweep_pipeline_case(name, dev):
+    """(fn, args, sweeps a call) of one compiled step: kde_pipeline on two
+    424x512 Kinect v2 frames (grid 15x20 does not divide them: NASP's one
+    iteration sweeps on the global route) and spdsp_pipeline on one 640x480
+    frame (two DASP SLICs of 5 iterations: 10 sweeps)."""
+    if name == "spdsp":
+        return (*_dasp_case("spdsp", FULL["h"], FULL["w"], dev), 10)
+    h, w = 424, 512
+    intr = default_kinect_intrinsics(w, h)
+    scenes = [make_noisy_scene(h, w, intr, seed=s) for s in (0, 1)]
+    c = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    d = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    return kde_pipeline, (d, c, intr, KDEConfig(max_plane_residual=float("inf"))), 1
+
+
+@pytest.mark.parametrize("name", ["kde_v2", "spdsp"])
+def test_compiled_pipelines_sweep_through_the_kernel_bitwise_plain(dev, name, monkeypatch):
+    """One compiled step (core/jit.py) of kde_pipeline on 424x512 and of
+    spdsp_pipeline on 640x480: its capture launches assign_global once
+    (KDE) and ten times (SPDSP), a replay launches nothing from Python, and
+    both replays' outputs are bitwise the eager call's with the sweep alone
+    on its plain twin (cuda_nasp.assign_global_plain; golden.plain_nasp
+    swaps the sums' twins too, which sum in another order: there only the
+    stages before the first float sum are bitwise)."""
+    from kinectdepthmapenhancement_tpu_torch.core import jit
+
+    fn, args, sweeps = _sweep_pipeline_case(name, dev)
+    at = {}
+
+    def at_capture():
+        at["launches"] = cuda_nasp.launches["assign_global"]
+
+    jit.clear()
+    jit.capture_hooks.append(at_capture)
+    try:
+        f = jit.jit(fn)
+        got = f(*args)
+        torch.cuda.synchronize()
+        assert cuda_nasp.launches["assign_global"] - at["launches"] == sweeps
+        again = f(*args)
+        torch.cuda.synchronize()
+        assert cuda_nasp.launches["assign_global"] - at["launches"] == sweeps
+    finally:
+        jit.capture_hooks.remove(at_capture)
+        jit.clear()
+    monkeypatch.setattr(cuda_nasp, "assign_global", cuda_nasp.assign_global_plain)
+    want = fn(*args)
+    for k in want._fields:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+        assert torch.equal(getattr(again, k), getattr(want, k)), k
 
 
 # cell-aligned tiles (c0, tile cols) of the 640x480 path's 20-column grid at

@@ -298,3 +298,173 @@ def test_global_index_takes_the_stats_route(stats_impl):
     index = ts.capped_index(lab96, GRID, 5, stats_impl=stats_impl, locality="global")
     assert isinstance(index, ts._GlobalIndex) and torch.equal(index.labels, lab96)
     assert torch.equal(index.counts(), _histogram(lab96, k=GRID.num_clusters))
+
+
+def _sweep_frame(rng, b, h, w, grid, variant):
+    """Random pixel planes and a cluster table for one sweep: integer
+    colours and cluster positions (exact distance ties), a third of the
+    clusters duplicating their neighbour's fields (ties between
+    candidates), depths at and below 50 mm, normals invalid on every or on
+    one channel, pixels and centres alike."""
+    k = grid.num_clusters
+    f32 = np.float32
+    color = rng.integers(0, 256, (b, h, w, 3)).astype(f32)
+    z = rng.uniform(300.0, 4000.0, (b, h, w)).astype(f32)
+    u = rng.random((b, h, w))
+    z[u < 0.1], z[(u >= 0.1) & (u < 0.13)] = 0.0, 50.0
+    points = np.stack([rng.uniform(-900, 900, (b, h, w)), rng.uniform(-700, 700, (b, h, w)),
+                       z], axis=-1).astype(f32)
+
+    def unit_normals(shape):
+        n = rng.standard_normal(shape + (3,))
+        n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(f32)
+        u = rng.random(shape)
+        n[u < 0.1] = -1.0
+        n[(u >= 0.1) & (u < 0.15), 1] = -1.0
+        return n
+
+    rgb = rng.integers(0, 256, (b, k, 3)).astype(f32)
+    xy = np.stack([rng.integers(0, w + 24, (b, k)), rng.integers(0, h, (b, k))], axis=-1)
+    center = np.stack([np.zeros((b, k)), np.zeros((b, k)),
+                       rng.uniform(300.0, 4000.0, (b, k))], axis=-1).astype(f32)
+    center[rng.random((b, k)) < 0.15, 2] = 40.0
+    normal = unit_normals((b, k))
+    dup = np.arange(1, k, 3)
+    for t in (rgb, xy, center, normal):
+        t[:, dup] = t[:, dup - 1]
+    t = torch.from_numpy
+    clusters = ts.Clusters(rgb=t(rgb), xy=t(xy.astype(np.int32)),
+                           size=torch.zeros((b, k), dtype=torch.int32), center=t(center),
+                           normal=t(normal), variance=torch.zeros((b, k)))
+    frame = [t(color), None if variant == "sp" else t(points),
+             t(unit_normals((b, h, w))) if variant == "nasp" else None]
+    return clusters, frame
+
+
+def _sweep_states(rng, b, h, w, x0, grid):
+    """Two states to sweep from: the grid-init labels of columns [x0, x0 +
+    W) of a frame x0 + W wide at INIT_DISTANCE (ids past the grid in its
+    last rows and columns); a later one with labels -1 at distance 0,
+    labels in the grid's edge cells (out-of-grid candidates first in
+    dy-major order) and labels whose cell lies far from the pixel."""
+    k = grid.num_clusters
+    init = ts.init_labels(grid, h, x0 + w)[:, x0:].expand(b, h, w)
+    yield init, torch.full((b, h, w), ts.INIT_DISTANCE, dtype=torch.float32)
+    lab = init.clone().numpy()
+    u = rng.random((b, h, w))
+    edge = np.concatenate([np.arange(grid.cols), np.arange(k - grid.cols, k),
+                           np.arange(0, k, grid.cols), np.arange(grid.cols - 1, k, grid.cols)])
+    lab[u < 0.15] = -1
+    pick = (u >= 0.15) & (u < 0.4)
+    lab[pick] = rng.choice(edge, int(pick.sum()))
+    pick = (u >= 0.4) & (u < 0.55)
+    lab[pick] = rng.integers(0, k, int(pick.sum()))
+    dist = rng.uniform(0.0, 3000.0, (b, h, w)).astype(np.float32)
+    dist[lab == -1] = 0.0
+    yield torch.from_numpy(lab), torch.from_numpy(dist)
+
+
+def _torch_sqrt(a: np.ndarray) -> np.ndarray:
+    """torch's f32 square root: on the CPU it is not always the correctly
+    rounded one that numpy (and the card's IEEE sqrtf and torch's CUDA sqrt)
+    give (~0.5% of integers below 20,000 round the other way), and the
+    plain sweep runs torch's."""
+    return torch.sqrt(torch.from_numpy(a)).numpy()
+
+
+def _sweep_numpy(labels, distance, fields, frame, grid, r, variant, weights, s_scale,
+                 apply_invalid, x0):
+    """The sweep's rules in f32 numpy: each pixel's candidates are the
+    (2r)^2 cells (dy, dx) in [-r, r)^2, dy-major, around the cell of its
+    label (-1 taken as cluster 0); an in-grid one costs the variant's
+    distance (colour, then pixel distance times s_scale^2, then depth where
+    both z > 50, then normal where the normals are valid too; torch's
+    square root, _torch_sqrt), an out-of-grid one the pixel's current
+    distance under its current label; then, pixel by pixel, the best
+    starts at (+inf, -1) and a candidate replaces it only when strictly
+    smaller; then, where asked, label -1 and distance 0 where z < 50."""
+    f32 = np.float32
+    rows, cols = grid.rows, grid.cols
+    w_col, w_spa, w_dep, w_nor = (f32(x) for x in weights)
+    s2 = f32(s_scale**2)
+    lab, dist = labels.numpy().reshape(-1), distance.numpy().reshape(-1)
+    fields = fields.numpy()
+    color, points, normals = (None if p is None else p.numpy() for p in frame)
+    bi, y, x = (i.reshape(-1) for i in np.indices(labels.shape))
+    offs = np.array([(dy, dx) for dy in range(-r, r) for dx in range(-r, r)])
+    cy, cx = np.divmod(np.maximum(lab, 0), cols)
+    ny, nx = cy[:, None] + offs[:, 0], cx[:, None] + offs[:, 1]
+    in_grid = (ny >= 0) & (ny < rows) & (nx >= 0) & (nx < cols)
+    ids = np.where(in_grid, ny * cols + nx, 0)
+    c = fields[bi[:, None], ids]
+    col = color[bi, y, x][:, None]
+    d = [col[..., i] - c[..., i] for i in range(3)]
+    cost = ((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]) * w_col
+    ex, ey = (x0 + x).astype(f32)[:, None] - c[..., 3], y.astype(f32)[:, None] - c[..., 4]
+    cost = cost + _torch_sqrt(ex * ex + ey * ey) * s2 * w_spa
+    if variant != "sp":
+        z = points[bi, y, x, 2][:, None]
+        zpair = (z > 50.0) & (c[..., 5] > 50.0)
+        cost = cost + np.where(zpair, np.abs(z - c[..., 5]), f32(0.0)) * w_dep
+    if variant == "nasp":
+        nm = normals[bi, y, x][:, None]
+        npair = zpair & (nm != -1.0).any(-1) & (c[..., 6:9] != -1.0).any(-1)
+        dot = (nm[..., 0] * c[..., 6] + nm[..., 1] * c[..., 7]) + nm[..., 2] * c[..., 8]
+        nd = f32(65025.0) * (f32(1.0) - np.maximum(dot, f32(0.0)))
+        cost = cost + np.where(npair, nd, f32(0.0)) * w_nor
+    cand_d = np.where(in_grid, cost, dist[:, None]).tolist()
+    cand_l = np.where(in_grid, ids, lab[:, None]).tolist()
+    out_l, out_d = np.empty_like(lab), np.empty_like(dist)
+    for p in range(lab.size):
+        best_d, best_l = float("inf"), -1
+        for cd, cl in zip(cand_d[p], cand_l[p]):
+            if cd < best_d:
+                best_d, best_l = cd, cl
+        if apply_invalid and points[bi[p], y[p], x[p], 2] < 50.0:
+            best_d, best_l = 0.0, -1
+        out_l[p], out_d[p] = best_l, best_d
+    return (torch.from_numpy(out_l.reshape(labels.shape)),
+            torch.from_numpy(out_d.reshape(labels.shape)))
+
+
+@pytest.mark.parametrize("x0", [0, 24])
+@pytest.mark.parametrize("variant", ["nasp", "dasp", "sp"])
+def test_global_sweep_plain_against_the_rules(variant, x0, monkeypatch):
+    """The global route's assignment sweep (slic._assign_global) calls
+    cuda_nasp.assign_global, which takes assign_global_plain on CPU tensors;
+    that gives bitwise the labels and distances of a per-pixel numpy loop
+    that states the sweep's rules (_sweep_numpy), from the grid-init state
+    and from a later one with -1 labels, edge cells and far labels, on a
+    50x70 frame that grid 15x20 does not divide, as columns [x0, x0 + 70)
+    of a wider frame, with the offsets in one chunk and in chunks of three.
+    At x0 = 0 the invalid-depth override applies (DASP, NASP), at x0 = 24
+    its sigmas are 0 and it does not (SP never has it)."""
+    rng = np.random.default_rng(41 + x0 + len(variant))
+    b, h, w = 2, 50, 70
+    grid = GridParams(rows=15, cols=20)
+    assert not ts.grid_divides(grid, h, w)
+    sigmas = dict(depth_sigma=0.0, normal_sigma=0.0) if x0 else {}
+    params = dataclasses.replace(NASP, **sigmas)
+    apply_invalid = ts._overrides(params, variant)
+    assert apply_invalid == (variant != "sp" and x0 == 0)
+    r = ts._variant(variant)[1] // 2
+    clusters, frame = _sweep_frame(rng, b, h, w, grid, variant)
+    fields = ts._cluster_fields(clusters, variant)
+    s_scale = 3.25
+    calls = _recorded(monkeypatch, "assign_global", "assign_global_plain")
+    for labels, distance in _sweep_states(rng, b, h, w, x0, grid):
+        got = ts._assign_global(labels, distance, clusters, *frame, grid, params, s_scale,
+                                variant, x0=x0)
+        want = _sweep_numpy(labels, distance, fields, frame, grid, r, variant,
+                            ts._weights(params, variant), s_scale, apply_invalid, x0)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        # the sweep meets every rule: ties, out-of-grid winners, overrides
+        assert bool((got[0] == labels).any()) and bool((got[0] != labels).any())
+        # offsets in chunks of three: the first minimum across chunks too
+        with monkeypatch.context() as m:
+            m.setattr(cuda_nasp, "_CHUNK_ELEMENTS", 3 * b * h * w)
+            small = ts._assign_global(labels, distance, clusters, *frame, grid, params,
+                                      s_scale, variant, x0=x0)
+        assert torch.equal(small[0], want[0]) and torch.equal(small[1], want[1])
+    assert calls == ["assign_global", "assign_global_plain"] * 4

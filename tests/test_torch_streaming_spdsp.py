@@ -145,7 +145,7 @@ def staged(monkeypatch):
 
 
 def _index_stages(names):
-    return [n for n in names if n.startswith("slic.")]
+    return [n for n in names if n.startswith("slic.") and n.endswith("_index")]
 
 
 def test_only_a_conds_branches_are_stages(monkeypatch, staged):
@@ -172,9 +172,10 @@ def test_only_a_conds_branches_are_stages(monkeypatch, staged):
 
 @pytest.mark.parametrize("name,conds", [("kde", 0), ("spdsp", 9)])
 def test_the_steps_index_stages(monkeypatch, staged, name, conds):
-    """Warming up, the KDE step (one NASP iteration) opens no slic.* stage;
-    the SPDSP step opens both of each of its nine conds' (four later
-    iterations of each SLIC, the ERS labels' index)."""
+    """Warming up, the KDE step (one NASP iteration, on a grid that divides
+    the frame) opens no slic.* stage; the SPDSP step opens both of each of
+    its nine conds' (four later iterations of each SLIC, the ERS labels'
+    index) and slic.assign for each of its two SLICs' ten global sweeps."""
     torch.set_num_threads(2)
     color, noisy, _ = make_noisy_scene(H, W, INTR, seed=1)
     d = torch.from_numpy(noisy)[None]
@@ -182,6 +183,7 @@ def test_the_steps_index_stages(monkeypatch, staged, name, conds):
     monkeypatch.setattr(jit, "_mode", "warmup")
     streaming._chunk_step(buffer2d.init(H, W), d, c, INTR, CONFIGS[name], False)
     assert _index_stages(staged) == ["slic.cell_index", "slic.global_index"] * conds
+    assert staged.count("slic.assign") == {"kde": 0, "spdsp": 10}[name]
     assert "stream.fold" in staged
 
 
@@ -215,7 +217,8 @@ def test_spdsp_step_replays_its_eager_call_and_stamps_the_branches_taken(dev):
     """640x480, B=8, the benchmark's SPDSP config: two calls of the compiled
     step (a capture and its replay, then a replay) bitwise the eager step,
     nine conds, and the replays' slic.cell_index / slic.global_index
-    stamps as many as the conds' IF / ELSE branches taken."""
+    stamps as many as the conds' IF / ELSE branches taken, and ten
+    slic.assign stamps a replay (the two SLICs' global sweeps)."""
     h, w = 480, 640
     intr = default_kinect_intrinsics(w, h)
     color, _, gt = make_noisy_scene(h, w, intr, seed=0)
@@ -244,6 +247,7 @@ def test_spdsp_step_replays_its_eager_call_and_stamps_the_branches_taken(dev):
         assert seen["slic.cell_index"] == sum(t[0] for t in key["taken"])
         assert seen["slic.global_index"] == sum(t[1] for t in key["taken"])
         assert seen["slic.cell_index"] + seen["slic.global_index"] == 2 * 9
+        assert seen["slic.assign"] == 2 * 10
         for stage in ("rgbf.color_slic", "rgbf.depth_slic", "rgbf.ers", "spdsp.planes",
                       "spdsp.mrf", "stream.fold"):
             assert seen[stage] == 2, stage
